@@ -1,0 +1,88 @@
+"""Classification wrapper + head.
+
+Counterpart of ``adaptpoint_tpu/models/classification/cls_base.py``
+(reference openpoints cls_base.py BaseCls, ClsHead). Head layout follows the
+reference: ``head.{2k}`` = Linear (no bias) + BatchNorm1d + act,
+``head.{2k+1}`` = Dropout, last slot = Linear with bias. Dropout is inactive
+in eval.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..build import MODELS
+from ..layers.blocks import ConvBlock
+
+__all__ = ["ClsHead", "BaseCls"]
+
+
+@MODELS.register_module()
+class ClsHead(nn.Module):
+    """MLP classification head (parity: cls_base.py ClsHead)."""
+
+    def __init__(self, num_classes: int, in_channels: Optional[int] = None,
+                 mlps: Optional[Sequence[int]] = (256,),
+                 norm_args: Optional[dict] = None,
+                 act_args: Optional[dict] = None, dropout: float = 0.5,
+                 global_feat: Optional[str] = None, point_dim: int = 1):
+        super().__init__()
+        if in_channels is None:
+            raise ValueError("ClsHead needs in_channels")
+        self.global_feat = global_feat.split(",") if global_feat else None
+        self.point_dim = point_dim
+        c_in = in_channels * (len(self.global_feat) if self.global_feat else 1)
+        act_args = act_args or {"act": "relu"}
+        layers = []
+        for c in (mlps or []):
+            layers.append(ConvBlock(c_in, c, norm_args=norm_args,
+                                    act_args=act_args, kind="linear"))
+            if dropout > 0:
+                layers.append(nn.Dropout(dropout))
+            c_in = c
+        layers.append(ConvBlock(c_in, num_classes, kind="linear"))
+        self.head = nn.Sequential(*layers)
+
+    @property
+    def num_classes(self) -> int:
+        return self.head[-1].conv.out_features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.global_feat is not None:
+            feats = []
+            for pre in self.global_feat:
+                if "max" in pre:
+                    feats.append(x.amax(dim=self.point_dim))
+                elif pre in ("avg", "mean"):
+                    feats.append(x.mean(dim=self.point_dim))
+            x = torch.cat(feats, dim=-1)
+        return self.head(x)
+
+
+@MODELS.register_module()
+class BaseCls(nn.Module):
+    """Encoder + ClsHead composition (parity: cls_base.py BaseCls)."""
+
+    def __init__(self, encoder_args: dict, cls_args: Optional[dict] = None,
+                 criterion_args: Optional[dict] = None):
+        super().__init__()
+        self.encoder = MODELS.build(encoder_args)
+        self.prediction = None
+        if cls_args is not None:
+            cls_args = dict(cls_args)
+            if cls_args.get("in_channels") is None:
+                cls_args["in_channels"] = self.encoder.out_channels
+            self.prediction = MODELS.build(cls_args)
+
+    @property
+    def num_classes(self) -> int:
+        return self.prediction.num_classes
+
+    def forward(self, pos: torch.Tensor, x: Optional[torch.Tensor] = None,
+                fused_eval: bool = False) -> torch.Tensor:
+        feat = self.encoder.forward_cls_feat(pos, x, fused_eval)
+        if self.prediction is None:
+            return feat
+        return self.prediction(feat)
