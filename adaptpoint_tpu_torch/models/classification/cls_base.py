@@ -4,7 +4,9 @@ Counterpart of ``adaptpoint_tpu/models/classification/cls_base.py``
 (reference openpoints cls_base.py BaseCls, ClsHead). Head layout follows the
 reference: ``head.{2k}`` = Linear (no bias) + BatchNorm1d + act,
 ``head.{2k+1}`` = Dropout, last slot = Linear with bias. Dropout is inactive
-in eval.
+in eval; in training its keep-masks come from the caller, as tensors or as
+the ``torch.Generator`` to draw them from (the two packages' random streams
+cannot match, so parity tests inject the masks).
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch
 from torch import nn
 
 from ..build import MODELS
-from ..layers.blocks import ConvBlock
+from ..layers.blocks import ConvBlock, Dropout
 
 __all__ = ["ClsHead", "BaseCls"]
 
@@ -40,7 +42,7 @@ class ClsHead(nn.Module):
             layers.append(ConvBlock(c_in, c, norm_args=norm_args,
                                     act_args=act_args, kind="linear"))
             if dropout > 0:
-                layers.append(nn.Dropout(dropout))
+                layers.append(Dropout(dropout))
             c_in = c
         layers.append(ConvBlock(c_in, num_classes, kind="linear"))
         self.head = nn.Sequential(*layers)
@@ -49,7 +51,10 @@ class ClsHead(nn.Module):
     def num_classes(self) -> int:
         return self.head[-1].conv.out_features
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout_mask=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``dropout_mask``: one keep-mask tensor, or a sequence with one per
+        dropout layer in order; ``None`` draws them from ``generator``."""
         if self.global_feat is not None:
             feats = []
             for pre in self.global_feat:
@@ -58,7 +63,15 @@ class ClsHead(nn.Module):
                 elif pre in ("avg", "mean"):
                     feats.append(x.mean(dim=self.point_dim))
             x = torch.cat(feats, dim=-1)
-        return self.head(x)
+        if isinstance(dropout_mask, torch.Tensor):
+            dropout_mask = [dropout_mask]
+        masks = iter(dropout_mask or ())
+        for layer in self.head:
+            if isinstance(layer, Dropout):
+                x = layer(x, next(masks, None), generator)
+            else:
+                x = layer(x)
+        return x
 
 
 @MODELS.register_module()
@@ -81,8 +94,9 @@ class BaseCls(nn.Module):
         return self.prediction.num_classes
 
     def forward(self, pos: torch.Tensor, x: Optional[torch.Tensor] = None,
-                fused_eval: bool = False) -> torch.Tensor:
+                fused_eval: bool = False, dropout_mask=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         feat = self.encoder.forward_cls_feat(pos, x, fused_eval)
         if self.prediction is None:
             return feat
-        return self.prediction(feat)
+        return self.prediction(feat, dropout_mask, generator)

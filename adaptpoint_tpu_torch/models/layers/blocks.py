@@ -7,7 +7,9 @@ loads with ``load_state_dict`` as it is; the forward applies them as a
 pointwise matmul over the last axis, which is the same arithmetic.
 
 BatchNorm: eps 1e-5, momentum 0.1 (flax's momentum 0.9 is torch's 0.1; eval
-uses only the running statistics).
+uses only the running statistics). In training :class:`BatchNorm` follows
+flax's ``nn.BatchNorm`` and keeps the *biased* batch variance in
+``running_var`` (``nn.BatchNorm1d`` would keep the unbiased one).
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["create_act", "ConvBlock", "CHANNEL_MAP", "norm_kind"]
+__all__ = ["create_act", "ConvBlock", "BatchNorm", "Dropout", "CHANNEL_MAP",
+           "norm_kind"]
 
 # channel-size mapper per aggregation feature type
 # (parity: openpoints/models/layers/local_aggregation.py CHANNEL_MAP)
@@ -68,6 +71,53 @@ def norm_kind(norm_args: Optional[dict]) -> Optional[str]:
     return "bn"
 
 
+class BatchNorm(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` over (rows, C) whose training statistics equal the
+    JAX package's (flax ``nn.BatchNorm``, momentum 0.9).
+
+    Both normalise a training batch with its biased variance. They differ in
+    what they remember: flax blends the *biased* variance into its running
+    ``var``, ``nn.BatchNorm1d`` the unbiased one (n/(n-1) larger: 32/31 in the
+    head at a batch of 32). This module follows flax, so that after any
+    number of train steps ``running_mean``/``running_var`` equal flax's
+    ``batch_stats``. Parameter and buffer names, ``num_batches_tracked``
+    and the eval forward are ``nn.BatchNorm1d``'s.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or not self.track_running_stats:
+            return super().forward(x)
+        if self.momentum is None:
+            raise NotImplementedError("cumulative-average BatchNorm "
+                                      "(momentum=None) is not ported")
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=0, correction=0)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype),
+                                   self.momentum)
+            self.num_batches_tracked += 1
+        return torch.nn.functional.batch_norm(
+            x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class Dropout(nn.Dropout):
+    """Dropout whose randomness is explicit: the caller hands in the keep-mask
+    (1 keeps, 0 drops) or the ``torch.Generator`` it is drawn from. Kept
+    units are scaled by ``1 / (1 - p)`` as flax's ``nn.Dropout`` does; eval is
+    the identity."""
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if mask is None:
+            dev = x.device if generator is None else generator.device
+            mask = (torch.rand(x.shape, generator=generator, device=dev)
+                    >= self.p).to(x.device)
+        return x * mask.to(x.dtype) / (1.0 - self.p)
+
+
 class ConvBlock(nn.Sequential):
     """Pointwise conv [+ BatchNorm] [+ act] over the last axis.
 
@@ -94,7 +144,7 @@ class ConvBlock(nn.Sequential):
                                             bias=bias)}[kind]()
         mods = [conv]
         if norm is not None:
-            mods.append(nn.BatchNorm1d(out_channels, eps=1e-5, momentum=0.1))
+            mods.append(BatchNorm(out_channels, eps=1e-5, momentum=0.1))
         act = create_act(act_args)
         if act is not None:
             mods.append(act)

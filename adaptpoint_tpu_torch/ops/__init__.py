@@ -9,18 +9,26 @@ from __future__ import annotations
 
 import torch
 
-from . import ballgroup, fps, saeval
+from . import ballgroup, fpsample, gather, saeval
 from .ballgroup import ball_group_plain
-from .geometry import (ball_query, fps_prefix_idx, index_points,
+from .gather import gather_rows_plain
+from .geometry import (ball_query, fps_prefix_idx, index_points, knn_point,
+                       square_distance, three_interpolation, three_nn,
                        furthest_point_sample as furthest_point_sample_plain)
 from .saeval import sa_eval_plain
 
-__all__ = ["furthest_point_sample", "ball_group", "sa_eval", "ball_query",
-           "index_points", "fps_prefix_idx", "launch_counts",
-           "reset_launch_counts", "KERNEL_MODULES"]
+__all__ = ["furthest_point_sample", "ball_group", "sa_eval", "gather_rows",
+           "fps", "ball_query", "index_points", "fps_prefix_idx",
+           "square_distance", "knn_point", "three_nn", "three_interpolation",
+           "launch_counts", "reset_launch_counts", "KERNEL_MODULES"]
 
-# name -> module holding the wrapper and its LAUNCHES counter
-KERNEL_MODULES = {"fps": fps, "ball_group": ballgroup, "sa_eval": saeval}
+# kernel name -> (module holding its wrapper, name of its launch counter)
+KERNEL_MODULES = {"fps": (fpsample, "LAUNCHES"),
+                  "ball_group": (ballgroup, "LAUNCHES"),
+                  "ball_group_bwd": (ballgroup, "LAUNCHES_BWD"),
+                  "sa_eval": (saeval, "LAUNCHES"),
+                  "gather_rows": (gather, "LAUNCHES"),
+                  "gather_rows_bwd": (gather, "LAUNCHES_BWD")}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -32,19 +40,24 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """xyz (B, N, 3) -> idx (B, npoint) int32 (semantics: ``geometry``)."""
+    """xyz (B, N, 3) -> idx (B, npoint) int32 (semantics: ``geometry``).
+    Indices carry no gradient: the input is detached first."""
+    xyz = xyz.detach()
     if _on_cuda(xyz):
-        return fps.furthest_point_sample_cuda(xyz.contiguous(), npoint)
+        return fpsample.furthest_point_sample_cuda(xyz.contiguous(), npoint)
     return furthest_point_sample_plain(xyz, npoint)
 
 
 def ball_group(radius: float, nsample: int, xyz, query_idx, feats,
                relative: bool = True, normalize_dp: bool = False):
-    """(new_xyz (B,M,3), fi (B,M,C), dpfj (B,K,M,3+C), idx (B,M,K))."""
+    """(new_xyz (B,M,3), fi (B,M,C), dpfj (B,K,M,3+C), idx (B,M,K)).
+    Differentiable in ``xyz`` and ``feats`` on both devices: the backward
+    kernel on CUDA, PyTorch's autograd of the plain version on the CPU."""
     if _on_cuda(xyz):
-        return ballgroup.ball_group_cuda(
-            radius, nsample, xyz.contiguous(), query_idx.int().contiguous(),
-            feats.contiguous(), relative, normalize_dp)
+        return ballgroup.BallGroup.apply(
+            xyz.contiguous(), query_idx.int().contiguous(),
+            feats.contiguous(), float(radius), int(nsample), bool(relative),
+            bool(normalize_dp))
     return ball_group_plain(radius, nsample, xyz, query_idx, feats, relative,
                             normalize_dp)
 
@@ -64,11 +77,27 @@ def sa_eval(radius: float, nsample: int, xyz, query_idx, feats, w1, b1, w2,
                          b2, relative, normalize_dp)
 
 
+def gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Exact row gather: points (B, N, C) f32 or bf16, idx (B, M) int ->
+    (B, M, C); its gradient is the scatter-add onto the gathered rows."""
+    if _on_cuda(points):
+        return gather.GatherRows.apply(points.contiguous(),
+                                       idx.int().contiguous())
+    return gather_rows_plain(points, idx)
+
+
+def fps(data: torch.Tensor, number: int) -> torch.Tensor:
+    """FPS on ``data[..., :3]`` then the row gather: (B, N, C) -> (B, number, C)."""
+    idx = furthest_point_sample(data[..., :3], number)
+    return gather_rows(data, idx)
+
+
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel name."""
-    return {name: mod.LAUNCHES for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in KERNEL_MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.LAUNCHES = 0
+    for mod, attr in KERNEL_MODULES.values():
+        setattr(mod, attr, 0)

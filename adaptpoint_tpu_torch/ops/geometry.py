@@ -16,7 +16,9 @@ import numpy as np
 import torch
 
 __all__ = ["index_points", "furthest_point_sample", "ball_query",
-           "fps_prefix_idx", "radius_sq", "inv_radius"]
+           "fps_prefix_idx", "radius_sq", "inv_radius", "square_distance",
+           "knn_point", "three_nn", "three_interpolate",
+           "three_interpolation"]
 
 
 def radius_sq(radius: float) -> float:
@@ -76,7 +78,9 @@ def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
     xyz (B, N, 3), new_xyz (B, M, 3) -> idx (B, M, nsample) int32.
     """
     N = xyz.shape[1]
-    d2 = _sq_dist(new_xyz[:, :, None, :], xyz[:, None, :, :])  # (B, M, N)
+    # the ball test is an f32 test whatever the inputs' type
+    d2 = _sq_dist(new_xyz.float()[:, :, None, :],
+                  xyz.float()[:, None, :, :])  # (B, M, N)
     inball = d2 < radius_sq(radius)
     ar = torch.arange(N, device=xyz.device).expand_as(d2)
     key = torch.where(inball, ar, ar + N)
@@ -99,3 +103,63 @@ def fps_prefix_idx(batch: int, npoint: int, device) -> torch.Tensor:
     """
     return torch.arange(npoint, dtype=torch.int32,
                         device=device).expand(batch, npoint)
+
+
+def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared distance in the expanded form
+    ``|a|^2 + |b|^2 - 2ab``: src (B, N, C), dst (B, M, C) -> (B, N, M), f32."""
+    src, dst = src.float(), dst.float()
+    cross = torch.einsum("bnc,bmc->bnm", src, dst)
+    s2 = (src ** 2).sum(dim=-1)[:, :, None]
+    d2 = (dst ** 2).sum(dim=-1)[:, None, :]
+    return s2 + d2 - 2.0 * cross
+
+
+def knn_point(nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
+    """The ``nsample`` nearest of xyz (B, N, C) to each of new_xyz (B, M, C).
+
+    Returns ``(d2, idx)``, both (B, M, nsample), nearest first, ties to the
+    lowest index (k passes of min / first argmin / mask, as the JAX package
+    extracts them). A cloud smaller than ``nsample`` repeats its nearest."""
+    N = xyz.shape[1]
+    k_eff = min(nsample, N)
+    cur = square_distance(new_xyz, xyz)
+    lane = torch.arange(N, device=xyz.device)
+    ds, idxs = [], []
+    for _ in range(k_eff):
+        d, i = torch.min(cur, dim=-1)
+        # torch.min's index on ties is not specified: take the first
+        i = torch.argmax((cur == d[..., None]).int(), dim=-1)
+        ds.append(d)
+        idxs.append(i)
+        cur = torch.where(lane == i[..., None], torch.inf, cur)
+    d2k = torch.stack(ds, dim=-1)
+    idx = torch.stack(idxs, dim=-1).to(torch.int32)
+    if k_eff < nsample:
+        reps = nsample - k_eff
+        idx = torch.cat([idx, idx[..., :1].expand(-1, -1, reps)], dim=-1)
+        d2k = torch.cat([d2k, d2k[..., :1].expand(-1, -1, reps)], dim=-1)
+    return d2k, idx
+
+
+def three_nn(unknown: torch.Tensor, known: torch.Tensor):
+    """3 nearest known (B, M, 3) points of each unknown (B, N, 3) point:
+    euclidean distances (B, N, 3) and int32 indices (B, N, 3)."""
+    d2, idx = knn_point(3, known, unknown)
+    return torch.sqrt(torch.clamp(d2, min=0.0)), idx
+
+
+def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """features (B, M, C), idx (B, N, 3), weight (B, N, 3) -> (B, N, C)."""
+    return (index_points(features, idx) * weight[..., None]).sum(dim=2)
+
+
+def three_interpolation(unknown_xyz: torch.Tensor, known_xyz: torch.Tensor,
+                        known_feat: torch.Tensor) -> torch.Tensor:
+    """Feature-propagation upsampling: 3-NN, weights from reciprocal
+    distances (eps 1e-8) normalised to sum 1."""
+    dist, idx = three_nn(unknown_xyz, known_xyz)
+    recip = 1.0 / (dist + 1e-8)
+    weight = recip / recip.sum(dim=2, keepdim=True)
+    return three_interpolate(known_feat, idx, weight)

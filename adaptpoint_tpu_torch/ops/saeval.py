@@ -134,6 +134,10 @@ def sa_eval_cuda(radius: float, nsample: int, xyz, query_idx, feats,
     """The kernel on CUDA tensors; same outputs as :func:`sa_eval_plain`.
     ``packed`` (from :func:`pack_weights`) replaces ``w1, b1, w2, b2``."""
     global LAUNCHES
+    if torch.is_grad_enabled() and (xyz.requires_grad or feats.requires_grad):
+        raise NotImplementedError(
+            "the fused eval SA kernel has no backward: run it under "
+            "torch.no_grad() or inference_mode()")
     _check_inputs(xyz, query_idx, feats)
     if packed is None:
         packed = pack_weights(w1, b1, w2, b2)

@@ -81,7 +81,10 @@ def _translate(key: str, keys) -> Tuple[str, str, bool]:
     if m:
         i, sub, leaf = int(m.group(1)), m.group(2), m.group(3)
         if f"prediction.head.{i}.1.weight" in keys:
-            base = f"prediction/LinearBlock_{i // 2}"
+            # the k-th head slot with a BatchNorm is LinearBlock_k (slots
+            # alternate with Dropout only when the head has dropout)
+            k = sum(f"prediction.head.{j}.1.weight" in keys for j in range(i))
+            base = f"prediction/LinearBlock_{k}"
             return _pair(sub, leaf, f"{base}/Dense_0",
                          f"{base}/NormAct_0/BatchNorm_0")
         return _pair(sub, leaf, "prediction/Dense_0", "")

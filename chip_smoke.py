@@ -6,18 +6,26 @@
 Phases, one JSON object a line:
 
 1. ``env``: the card (nvidia-smi name and power limit), torch and CUDA versions.
-2. ``build``: the three CUDA sources of ``adaptpoint_tpu_torch/ops/csrc``
+2. ``build``: the CUDA sources of ``adaptpoint_tpu_torch/ops/csrc``
    compiled in parallel (one nvcc each), with the time it took.
 3. ``kernel``: each kernel against its plain PyTorch version on the card at
-   the shapes a B=32 PointNeXt-S forward gives it (FPS 1024 -> 512; the four
-   SA stages for ball-group and fused SA), with errors, tolerances and
-   CUDA-event times.
+   the shapes the B=32 PointNeXt-S forward and train step give it (FPS
+   1024 -> 512 and 2048 -> 1200; the four SA stages for ball-group forward,
+   backward and fused SA; the row gather and its scatter-add at the
+   resampling shape and a feature shape), with errors, tolerances, bounds
+   and CUDA-event times.
 4. ``serve``: full-width ``cfgs/scanobjectnn/pointnext-s.yaml`` with seeded
    weights, exported unfused and fused at buckets 1,8,32 and served by the
    port's HTTP server; /predict with n = 1, 8, 32, 40 must match the same
    model's forward on a CPU copy, and the launch counters must show 1 FPS +
    4 ball-group (unfused) or 1 FPS + 4 fused-SA (fused) launches a forward.
 5. ``throughput``: clouds/s and ms per B=32 forward on both routes.
+6. ``train``: full-width PointNeXt-S classifier training through
+   ``build_train_tools`` / ``make_train_step`` / ``train_one_epoch`` /
+   ``validate`` on seeded (32, 2048, 4) batches: the first step against the
+   same step on a CPU copy, the launches a step makes, a fixed batch's loss
+   over 30 steps, the gradient through ``ops.fps``, and ms per step with
+   the profiler's device-busy time.
 
 Then the card's name and power limit as nvidia-smi prints them, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` as the
@@ -26,6 +34,7 @@ CUDA device the script exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -48,6 +57,25 @@ STAGES = [(1024, 512, 32, 32, 64, 0.15), (512, 256, 64, 64, 128, 0.225),
           (256, 128, 128, 128, 256, 0.3375), (128, 64, 256, 256, 512, 0.50625)]
 TOL_SA = 2e-2  # fused SA: |kernel - plain| <= TOL_SA * (1 + |plain|)
 TOL_UNFUSED = (1e-3, 1e-4)  # (rtol, atol) serve logits, f32 route vs CPU
+EPS32 = 2.0 ** -23  # f32 machine epsilon
+# train phase: batches of (B, N_TRAIN, 4) resampled FPS N_TRAIN -> N_FPS, then
+# a random N0 of those; labels in [0, CLASSES)
+N_TRAIN, N_FPS, CLASSES, TRAIN_BATCHES, FIT_STEPS = 2048, 1200, 15, 8, 30
+# first train step, card against the CPU copy: (rtol, atol)
+# The first train step on the card (kernels) against two references; see
+# compare() in phase_train. loss: relative; logits, buffers: (rtol, atol);
+# grad_l2: each gradient tensor's relative 2-norm error; share: of each
+# parameter tensor's entries within TOL_STEP_PARAMS + adam_slack.
+# Against the plain versions on the card only the kernels differ: the
+# scatter-adds' order. Against the float64 CPU copy the card's whole f32
+# arithmetic differs: this network's backward loses digits in f32 (max-pool
+# ties, batch statistics over 32 head rows), and the card's worst gradient
+# tensor sits a relative 4.5e-3 from the float64 one.
+TOL_STEP_PLAIN = {"loss": 1e-6, "logits": (1e-5, 1e-5), "grad_l2": 1e-4,
+                  "buffers": (1e-5, 1e-6), "share": 0.98}
+TOL_STEP_CPU = {"loss": 1e-5, "logits": (1e-4, 1e-4), "grad_l2": 2e-2,
+                "buffers": (1e-4, 1e-6), "share": 0.9}
+TOL_STEP_PARAMS = (1e-4, 1e-6)
 # serve requests keep pool clouds whose CPU logits' top-2 gap is >= MARGIN
 POOL, MARGIN = 256, 0.05
 DEV = "cuda"
@@ -95,7 +123,7 @@ def stage_inputs(gen):
     out = []
     for i, (n, m, c, _, _, _) in enumerate(STAGES):
         if i == 0:
-            qidx = ops.fps.furthest_point_sample_cuda(xyz, m)
+            qidx = ops.fpsample.furthest_point_sample_cuda(xyz, m)
         else:
             qidx = ops.fps_prefix_idx(B, m, DEV).contiguous()
         feats = torch.randn((B, n, c), generator=gen, device=DEV)
@@ -122,7 +150,8 @@ def scanned_points(xyz, qidx, radius):
 def phase_kernels(gen):
     import torch
     from adaptpoint_tpu_torch import ops
-    from adaptpoint_tpu_torch.ops import ballgroup, fps, saeval
+    from adaptpoint_tpu_torch.ops import ballgroup, saeval
+    from adaptpoint_tpu_torch.ops import fpsample as fps
 
     inputs = stage_inputs(gen)
     rows = {}
@@ -223,9 +252,211 @@ def phase_kernels(gen):
         acc["bound_by"] = "bytes" if acc.pop("t_b") > acc.pop("t_o") \
             else "operations"
         rows[name] = acc
-    emit("kernel_times", note="ms per B=32 forward; ball_group and sa_eval "
-         "summed over the four SA stages", rows=rows)
+    phase_train_kernels(gen, inputs, rows)
+    emit("kernel_times", note="ms per B=32 forward or backward; ball_group, "
+         "ball_group_bwd and sa_eval summed over the four SA stages; "
+         "gather_rows and gather_rows_bwd at the resampling shape", rows=rows)
     return rows
+
+
+def bound_row(t_bytes: float, t_ops: float) -> dict:
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+
+
+def scatter_bound(counts, abs_sum):
+    """Most that two f32 sums of the same ``n`` addends, taken in different
+    orders, can differ: each is within ``(n - 1) * 2^-24 * sum|addend|`` of
+    the true sum, so ``n * 2^-23 * sum|addend|`` bounds their difference."""
+    return counts * EPS32 * abs_sum + 1e-30
+
+
+def ball_group_bwd_bound(radius, idx, qidx, g_new, g_fi, g_dpfj, n):
+    """Per-element bound on |kernel - plain| for the ball-group backward:
+    both add the same f32 addends in another order (``scatter_bound``). The
+    center's row also carries the inner sum over its K slots."""
+    import torch
+    from adaptpoint_tpu_torch.ops.ballgroup import ball_group_bwd_plain
+    from adaptpoint_tpu_torch.ops.geometry import inv_radius
+    Bq, K, M, _ = g_dpfj.shape
+    one = torch.ones((Bq, K, M, 4), device=idx.device)
+    counts = ball_group_bwd_plain(radius, idx, qidx, None, one[:, 0, :, :1],
+                                  one, n, False, False)[1] + K
+    s = inv_radius(radius)
+    a_dp = g_dpfj[..., :3].abs() * s
+    a_xyz, a_feats = ball_group_bwd_plain(
+        radius, idx, qidx, g_new.abs() + a_dp.sum(dim=1), g_fi.abs(),
+        torch.cat([a_dp, g_dpfj[..., 3:].abs()], -1), n, False, False)
+    return scatter_bound(counts, a_xyz), scatter_bound(counts, a_feats)
+
+
+def phase_train_kernels(gen, inputs, rows) -> None:
+    """The kernels the train step adds, each against its plain version: FPS
+    at the resampling shape, the ball-group backward at the four stage
+    shapes (directly and through autograd), the row gather and its
+    scatter-add. Adds their rows to ``rows``."""
+    import torch
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.ops import ballgroup, gather
+    from adaptpoint_tpu_torch.ops import fpsample as fps
+
+    # FPS at the resampling shape (32, 2048) -> 1200
+    cloud = torch.randn((B, N_TRAIN, 3), generator=gen, device=DEV)
+    cloud = cloud / cloud.norm(dim=-1).amax(dim=1, keepdim=True)[..., None]
+    got = fps.furthest_point_sample_cuda(cloud, N_FPS)
+    ref = fps.furthest_point_sample_plain(cloud, N_FPS)
+    torch.cuda.synchronize()
+    mism = int((got != ref).sum())
+    emit("kernel", name="fps", shape=[B, N_TRAIN, N_FPS], mismatches=mism,
+         tolerance="exact")
+    if mism:
+        raise AssertionError(f"FPS kernel disagrees at {mism} indices "
+                             f"(2048 -> 1200)")
+    ops_f = (N_FPS - 1) * B * N_TRAIN * 10
+    bytes_f = B * N_TRAIN * 12 + B * N_FPS * 4
+    rows["fps"]["resample_shape"] = dict(
+        shape=[B, N_TRAIN, N_FPS],
+        ms=cuda_ms(lambda: fps.furthest_point_sample_cuda(cloud, N_FPS)),
+        plain_ms=cuda_ms(
+            lambda: fps.furthest_point_sample_plain(cloud, N_FPS), 50.0),
+        **bound_row(bytes_f / PEAK_BYTES, ops_f / PEAK_F32))
+
+    # ball-group backward at the four stage shapes
+    bwd = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, t_b=0.0, t_o=0.0)
+    for i, ((n, m, c, _, _, r), (xyz, qidx, feats)) in enumerate(
+            zip(STAGES, inputs)):
+        idx = ballgroup.ball_group_cuda(r, K, xyz, qidx, feats, True, True)[3]
+        g_new = torch.randn((B, m, 3), generator=gen, device=DEV)
+        g_fi = torch.randn((B, m, c), generator=gen, device=DEV)
+        g_dpfj = torch.randn((B, K, m, 3 + c), generator=gen, device=DEV)
+        args = (r, idx, qidx, g_new, g_fi, g_dpfj, n, True, True)
+        got = ballgroup.ball_group_bwd_cuda(*args)
+        ref = ballgroup.ball_group_bwd_plain(*args)
+        bounds = ball_group_bwd_bound(r, idx, qidx, g_new, g_fi, g_dpfj, n)
+        # through autograd, with a strided g_dpfj and new_xyz left unused
+        x_req = xyz.clone().requires_grad_()
+        f_req = feats.clone().requires_grad_()
+        out = ops.ball_group(r, K, x_req, qidx, f_req, True, True)
+        strided = g_dpfj.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+        auto = torch.autograd.grad(out[:3], (x_req, f_req),
+                                   (g_new, g_fi, strided))
+        f_only = torch.autograd.grad(
+            ops.ball_group(r, K, xyz, qidx, f_req, True, True)[1:3], f_req,
+            (g_fi, g_dpfj))[0]
+        torch.cuda.synchronize()
+        errs, ok = {}, True
+        for name, a, b_, bound in (("g_xyz", got[0], ref[0], bounds[0]),
+                                   ("g_feats", got[1], ref[1], bounds[1]),
+                                   ("autograd_g_xyz", auto[0], ref[0],
+                                    bounds[0]),
+                                   ("autograd_g_feats", auto[1], ref[1],
+                                    bounds[1]),
+                                   ("autograd_feats_only", f_only, ref[1],
+                                    bounds[1])):
+            d = (a - b_).abs()
+            errs[name] = float(d.max())
+            ok = ok and bool((d <= bound).all()) and bool(
+                torch.isfinite(a).all())
+        emit("kernel", name="ball_group_bwd", stage=[B, n, m, c, K],
+             max_abs_err=errs, out_absmax=float(ref[1].abs().max()),
+             bound_max=[float(b_.max()) for b_ in bounds],
+             tolerance="|kernel - plain| <= n * 2^-23 * sum|addend| per "
+                       "element (n addends meet there; atomic adds land in "
+                       "no fixed order)")
+        if not ok:
+            raise AssertionError(f"ball-group backward disagrees: {errs}")
+        b_bytes = (B * m * K * 4 + B * m * 4 + B * m * 12 + B * m * c * 4
+                   + B * K * m * (3 + c) * 4 + B * n * (3 + c) * 4)
+        b_ops = B * K * m * (3 + c) + B * K * m * 6 + B * m * (3 + c)
+        row = dict(ms=cuda_ms(lambda: ballgroup.ball_group_bwd_cuda(*args)),
+                   plain_ms=cuda_ms(
+                       lambda: ballgroup.ball_group_bwd_plain(*args)),
+                   bound_ms=1e3 * max(b_bytes / PEAK_BYTES, b_ops / PEAK_F32))
+        bwd["ms"] += row["ms"]
+        bwd["plain_ms"] += row["plain_ms"]
+        bwd["t_b"] += b_bytes / PEAK_BYTES
+        bwd["t_o"] += b_ops / PEAK_F32
+        bwd["max_abs_err"] = max(bwd["max_abs_err"], errs["g_feats"],
+                                 errs["g_xyz"])
+        emit("stage_times", stage=i + 1, shape=[B, n, m, c, K],
+             ball_group_bwd=row)
+    bwd.update(bound_row(bwd.pop("t_b"), bwd.pop("t_o")))
+    rows["ball_group_bwd"] = bwd
+
+    # row gather and its scatter-add: the resampling shape (distinct rows)
+    # and a feature shape whose indices repeat
+    shapes = {"resample": (N_TRAIN, 4, N0, False), "feature": (512, 64, 256,
+                                                                True)}
+    for tag, (n, c, m, repeats) in shapes.items():
+        pts = torch.randn((B, n, c), generator=gen, device=DEV)
+        if repeats:
+            idx = torch.randint(0, n // 4, (B, m), generator=gen, device=DEV,
+                                dtype=torch.int32)
+        else:
+            idx = torch.argsort(torch.rand((B, n), generator=gen, device=DEV),
+                                dim=1)[:, :m].int().contiguous()
+        g = torch.randn((B, m, c), generator=gen, device=DEV)
+        for dtype in (torch.float32, torch.bfloat16):
+            p_t, g_t = pts.to(dtype), g.to(dtype)
+            fwd = gather.gather_rows_cuda(p_t, idx)
+            fwd_ref = gather.gather_rows_plain(p_t, idx)
+            back = gather.gather_rows_bwd_cuda(g_t, idx, n)
+            back_ref = gather.gather_rows_bwd_plain(g_t, idx, n)
+            p_req = p_t.clone().requires_grad_()
+            auto = torch.autograd.grad(ops.gather_rows(p_req, idx), p_req,
+                                       g_t)[0]
+            torch.cuda.synchronize()
+            e_fwd = float((fwd.float() - fwd_ref.float()).abs().max())
+            counts = gather.gather_rows_bwd_plain(torch.ones_like(g), idx, n)
+            bound = scatter_bound(counts, gather.gather_rows_bwd_plain(
+                g_t.float().abs(), idx, n))
+            if dtype == torch.bfloat16:  # one bf16 rounding may flip
+                bound = bound + back_ref.float().abs() * 2.0 ** -8
+            if not repeats:
+                bound = torch.zeros_like(bound)
+            d_back = (back.float() - back_ref.float()).abs()
+            d_auto = (auto.float() - back_ref.float()).abs()
+            emit("kernel", name="gather_rows", shape=[B, n, c, m],
+                 dtype=str(dtype), repeated_indices=repeats,
+                 max_repeat=int(counts.max()),
+                 max_abs_err={"forward": e_fwd, "backward":
+                              float(d_back.max()),
+                              "autograd": float(d_auto.max())},
+                 tolerance="forward exact; backward exact for distinct "
+                           "rows, else <= n * 2^-23 * sum|addend| per element "
+                           "(+ one bf16 ulp for bf16)")
+            if (e_fwd or not bool((d_back <= bound).all())
+                    or not bool((d_auto <= bound).all())
+                    or back.dtype != dtype or fwd.dtype != dtype):
+                raise AssertionError(
+                    f"row gather disagrees ({tag}, {dtype}): forward {e_fwd} "
+                    f"backward {float(d_back.max())}")
+            if dtype != torch.float32:
+                continue
+            flat = (idx.long() + torch.arange(B, device=DEV)[:, None] * n
+                    ).reshape(-1)
+            long_idx = idx.long()[..., None].expand(-1, -1, c)
+            f_row = dict(
+                shape=[B, n, c, m], max_abs_err=e_fwd,
+                ms=cuda_ms(lambda: gather.gather_rows_cuda(pts, idx)),
+                plain_ms=cuda_ms(lambda: gather.gather_rows_plain(pts, idx)),
+                library_ms=cuda_ms(lambda: torch.gather(pts, 1, long_idx)),
+                **bound_row((2 * B * m * c * 4 + B * m * 4) / PEAK_BYTES, 0.0))
+            b_row = dict(
+                shape=[B, n, c, m], max_abs_err=float(d_back.max()),
+                ms=cuda_ms(lambda: gather.gather_rows_bwd_cuda(g, idx, n)),
+                plain_ms=cuda_ms(
+                    lambda: gather.gather_rows_bwd_plain(g, idx, n)),
+                library_ms=cuda_ms(
+                    lambda: torch.zeros((B * n, c), device=DEV).index_add_(
+                        0, flat, g.reshape(-1, c))),
+                **bound_row((B * m * c * 4 + B * m * 4 + B * n * c * 4)
+                            / PEAK_BYTES, B * m * c / PEAK_F32))
+            if tag == "resample":
+                rows["gather_rows"], rows["gather_rows_bwd"] = f_row, b_row
+            else:
+                rows["gather_rows"]["feature_shape"] = f_row
+                rows["gather_rows_bwd"]["feature_shape"] = b_row
 
 
 def calibrate_bn(model, x):
@@ -337,7 +568,7 @@ def phase_serve(gen, out_dir):
                 after = ops.launch_counts()
                 forwards = -(-n // 32)
                 delta = {k: after[k] - before[k] for k in after}
-                want = {k: v * forwards for k, v in expect[fused].items()}
+                want = {k: expect[fused].get(k, 0) * forwards for k in after}
                 logits = np.asarray(reply["logits"], np.float32)
                 ref = refs[fused][sel]
                 err = float(np.abs(logits - ref).max())
@@ -374,16 +605,26 @@ def phase_serve(gen, out_dir):
             thread.join()
     launches = ops.launch_counts()  # the main path's run ends here
     emit("serve_done", params=n_params, launches=launches)
-    if min(launches.values()) < 1:
+    if min(launches[k] for k in ("fps", "ball_group", "sa_eval")) < 1:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     return {fused: sm for fused, (sm, _, _) in servers.items()}, launches
+
+
+def device_kernels(prof):
+    """The profile's device-side entries that are work on the card: kernels,
+    copies and memsets, without the annotations (an optimizer's ``step``)
+    that span them and would count their time twice."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("Optimizer.")]
 
 
 def phase_throughput(models, gen):
     """ms per forward by CUDA events, the host's enqueue time, and from
     torch.profiler the device's busy time (kernels only) and idle share."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     out = {}
     for b in (1, 8, 32):
@@ -407,8 +648,7 @@ def phase_throughput(models, gen):
                     sm.infer(x)
                 torch.cuda.synchronize()
                 wall_ms = 1e3 * (time.perf_counter() - t0) / reps
-            kernels = [e for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA]
+            kernels = device_kernels(prof)
             busy_ms = sum(e.self_device_time_total for e in kernels) \
                 / 1e3 / reps
             top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
@@ -424,8 +664,321 @@ def phase_throughput(models, gen):
     return out
 
 
-def main() -> int:
+@contextlib.contextmanager
+def plain_ops():
+    """Inside, every dispatching op of ``adaptpoint_tpu_torch.ops`` takes its
+    plain PyTorch version whatever the tensor's device: the comparison's
+    reference on the card. Nothing of the port does this."""
+    from adaptpoint_tpu_torch import ops
+    on_cuda = ops._on_cuda
+    ops._on_cuda = lambda t: False
+    try:
+        yield
+    finally:
+        ops._on_cuda = on_cuda
+
+
+def adam_slack(grad, lr: float, rtol: float, atol, eps: float = 1e-8):
+    """How far the first Adam update ``lr * g / (|g| + eps)`` can move when
+    ``g`` is only known to ``atol + rtol * |g|``: first order in that error,
+    capped at ``2 lr``. Adam divides a gradient by its own size, so an entry
+    whose gradient is as small as its tolerance moves by up to lr either way;
+    for ordinary gradients this allowance is nothing."""
+    g = grad.abs().double()
+    delta = atol + rtol * g
+    return lr * (eps * delta / (g + eps) ** 2).clamp(max=2.0)
+
+
+def phase_train(gen):
+    """Classifier training at full width through the entry points a user
+    calls. Returns the launch counts of this path's run."""
+    import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.engine import (TrainState, build_train_tools,
+                                             make_eval_step, make_train_step,
+                                             train_one_epoch, validate)
+    from adaptpoint_tpu_torch.models import build_model_from_cfg
+    from adaptpoint_tpu_torch.ops.gather import gather_rows_bwd_plain
+    from adaptpoint_tpu_torch.serving import preprocess_clouds
+    from adaptpoint_tpu_torch.utils import EasyConfig
+
+    cfg = EasyConfig()
+    cfg.load(os.path.join(ROOT, "cfgs/scanobjectnn/pointnext-s.yaml"),
+             recursive=True)
+    lr = float(cfg.lr)
+    rng = np.random.default_rng(1)
+
+    # each class is a gaussian blob with its own axis lengths, each cloud a
+    # jittered copy: the labels can be learnt, and the clouds of a batch
+    # differ enough that the head's BatchNorm (statistics over B rows) does
+    # not divide by a near-zero spread
+    axes = rng.uniform(0.15, 1.0, (CLASSES, 3)).astype(np.float32)
+
+    def batch(n=B, points=N_TRAIN):
+        y = rng.integers(0, CLASSES, (n,)).astype(np.int64)
+        scale = axes[y] * rng.uniform(0.8, 1.25, (n, 3)).astype(np.float32)
+        x = preprocess_clouds(
+            rng.standard_normal((n, points, 3)).astype(np.float32)
+            * scale[:, None, :])
+        return {"x": x, "y": y}
+
+    batches = [batch() for _ in range(TRAIN_BATCHES)]
+    model = build_model_from_cfg(cfg.model, seed=1)
+    n_params = sum(p.numel() for p in model.parameters())
+
+    def copy_of(device, dtype=torch.float32):
+        twin = build_model_from_cfg(cfg.model, device=device).to(dtype)
+        twin.load_state_dict({k: v.to(device) for k, v in
+                              model.state_dict().items()})
+        return twin
+
+    # (a) the first step, taken three times from the same weights with the
+    # same columns and dropout masks: on the card through the kernels (the
+    # main path), on the card through the plain versions, and on a float64
+    # CPU copy through the plain versions
+    host_gen = torch.Generator().manual_seed(2)
+    cols = torch.randperm(N_FPS, generator=host_gen)[:N0]
+    masks = [torch.rand((B, w), generator=host_gen) >= 0.5
+             for w in cfg.model.cls_args.mlps]
+    first = {k: torch.from_numpy(v) for k, v in batches[0].items()}
+
+    def first_step(net, device, dtype=torch.float32, step=None, st=None):
+        if step is None:
+            crit, opt, _ = build_train_tools(cfg, net)
+            step, st = make_train_step(net, opt, crit, cfg), TrainState(net,
+                                                                         opt)
+        seen = {}
+        hook = net.register_forward_hook(
+            lambda _m, _i, out: seen.__setitem__("logits", out.detach()))
+        _, loss_, preds_ = step(
+            st,
+            {"x": first["x"].to(device, dtype), "y": first["y"].to(device)},
+            cols.to(device), lr, dropout_mask=[m.to(device) for m in masks])
+        hook.remove()
+        return {"loss": float(loss_), "preds": preds_.cpu(),
+                "logits": seen["logits"].double().cpu(),
+                "grads": {n: p.grad.double().cpu()
+                          for n, p in net.named_parameters()},
+                "params": {n: p.detach().double().cpu()
+                           for n, p in net.named_parameters()},
+                "buffers": {n: b_.double().cpu()
+                            for n, b_ in net.named_buffers()}}
+
+    plain_twin, cpu_twin = copy_of(DEV), copy_of("cpu", torch.float64)
+    ops.reset_launch_counts()  # this path's run starts here
+    criterion, optimizer, lr_fn = build_train_tools(cfg, model)
+    train_step = make_train_step(model, optimizer, criterion, cfg)
+    state = TrainState(model, optimizer)
+    got = first_step(model, DEV, step=train_step, st=state)
+    torch.cuda.synchronize()
+    per_step = ops.launch_counts()
+    with plain_ops():
+        ref_plain = first_step(plain_twin, DEV)
+    ref_cpu = first_step(cpu_twin, "cpu", torch.float64)
+    if ops.launch_counts() != per_step:
+        raise AssertionError("a plain-version step launched a kernel")
+    del plain_twin, cpu_twin
+    want = {"fps": 2, "gather_rows": 1, "gather_rows_bwd": 0,
+            "ball_group": 4, "ball_group_bwd": 4, "sa_eval": 0}
+
+    def compare(ref, tol):
+        """Worst disagreements of ``got`` with ``ref`` and whether all are
+        within ``tol``. A gradient tensor is held to a relative 2-norm: a
+        max-pool hands its gradient to the row with the maximum, and where two
+        rows tie to within f32 noise another row may win, so single entries
+        can differ outright. After Adam every entry is within one step's
+        reach (2 lr) of its counterpart, and ``share`` of each tensor's
+        entries within the tight bound plus ``adam_slack``."""
+        w = {"loss": abs(got["loss"] - ref["loss"]),
+             "logits": float((got["logits"] - ref["logits"]).abs().max()),
+             "grad_rel_l2": ("", 0.0), "param_share_outside": ("", 0.0),
+             "param_abs": ("", 0.0), "buffer_abs": ("", 0.0)}
+        good = (w["loss"] <= tol["loss"] * abs(ref["loss"])
+                and bool(torch.allclose(got["logits"], ref["logits"],
+                                        rtol=tol["logits"][0],
+                                        atol=tol["logits"][1])))
+
+        def note(key, name, value):
+            if value > w[key][1]:
+                w[key] = (name, value)
+
+        # a gradient that cancels to nothing (a bias the next BatchNorm
+        # removes) has no scale of its own: floor each tensor's scale at a
+        # thousandth of the whole gradient's
+        total = float(torch.cat([g_.flatten() for g_ in ref["grads"].values()]
+                                ).norm())
+        count = sum(g_.numel() for g_ in ref["grads"].values())
+        for name, ref_g in ref["grads"].items():
+            d = got["grads"][name] - ref_g
+            l2 = float(d.norm() / max(float(ref_g.norm()), 1e-3 * total))
+            note("grad_rel_l2", name, l2)
+            ref_p = ref["params"][name]
+            tight = TOL_STEP_PARAMS[1] + TOL_STEP_PARAMS[0] * ref_p.abs()
+            dp = (got["params"][name] - ref_p).abs()
+            slack = adam_slack(
+                ref_g, lr, tol["grad_l2"], tol["grad_l2"] * max(
+                    float(ref_g.abs().max()), total / count ** 0.5))
+            outside = float((dp > tight + slack).double().mean())
+            note("param_share_outside", name, outside)
+            note("param_abs", name, float(dp.max()))
+            good = (good and l2 <= tol["grad_l2"]
+                    and outside <= 1 - tol["share"]
+                    and bool((dp <= tight + 2.02 * lr).all()))
+        for name, ref_b in ref["buffers"].items():
+            if name.endswith("num_batches_tracked"):
+                good = good and int(got["buffers"][name]) == int(ref_b) == 1
+                continue
+            note("buffer_abs", name,
+                 float((got["buffers"][name] - ref_b).abs().max()))
+            good = good and bool(torch.allclose(
+                got["buffers"][name], ref_b, rtol=tol["buffers"][0],
+                atol=tol["buffers"][1]))
+        return w, good
+
+    w_plain, ok_plain = compare(ref_plain, TOL_STEP_PLAIN)
+    w_cpu, ok_cpu = compare(ref_cpu, TOL_STEP_CPU)
+    emit("train_first_step", params=n_params, loss=got["loss"],
+         plain_loss=ref_plain["loss"], cpu_f64_loss=ref_cpu["loss"],
+         logits_absmax=float(ref_cpu["logits"].abs().max()),
+         preds_equal=bool((got["preds"] == ref_cpu["preds"]).all()),
+         against_plain_versions_on_the_card=w_plain,
+         against_float64_cpu_copy=w_cpu,
+         launches=per_step, expected=want,
+         tolerance={"against_plain_versions_on_the_card": TOL_STEP_PLAIN,
+                    "against_float64_cpu_copy": TOL_STEP_CPU,
+                    "params": f"all within rtol {TOL_STEP_PARAMS[0]} atol "
+                              f"{TOL_STEP_PARAMS[1]} + 2 lr; `share` of each "
+                              f"tensor within rtol/atol + adam_slack"})
+    if per_step != want:
+        raise AssertionError(f"launches in one train step {per_step} != "
+                             f"{want}")
+    if not (ok_plain and ok_cpu and np.isfinite(got["loss"])):
+        raise AssertionError(f"the first train step disagrees: with the "
+                             f"plain versions {w_plain}, with the CPU copy "
+                             f"{w_cpu}")
+
+    # the epoch loop and both eval routes
+    dev_gen = torch.Generator(device=DEV).manual_seed(3)
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    state, mean_loss, macc, oa, _, cm = train_one_epoch(
+        train_step, state, batches, dev_gen, lr_fn(0), cfg)
+    epoch_s = time.perf_counter() - t0
+    got = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    want_epoch = {k: v * TRAIN_BATCHES for k, v in want.items()}
+    emit("train_epoch", steps=TRAIN_BATCHES, mean_loss=mean_loss, oa=oa,
+         macc=macc, counted=int(cm.value.sum()), seconds=epoch_s,
+         launches=got, expected=want_epoch)
+    if got != want_epoch or int(cm.value.sum()) != TRAIN_BATCHES * B \
+            or not np.isfinite(mean_loss):
+        raise AssertionError(f"train_one_epoch: launches {got}, counted "
+                             f"{int(cm.value.sum())}, loss {mean_loss}")
+    val = [batch(64, N0), dict(batch(64, N0), n_valid=40)]
+    for fused in (False, True):
+        before = ops.launch_counts()
+        macc, oa, _, cm = validate(make_eval_step(model, cfg, fused), state,
+                                   val, cfg)
+        got = {k: v - before[k] for k, v in ops.launch_counts().items()
+               if v - before[k]}
+        want_val = {"fps": 2, "sa_eval" if fused else "ball_group": 8}
+        emit("validate", route="fused" if fused else "unfused", oa=oa,
+             macc=macc, counted=int(cm.value.sum()), launches=got,
+             expected=want_val)
+        if got != want_val or int(cm.value.sum()) != 64 + 40:
+            raise AssertionError(f"validate: launches {got}, counted "
+                                 f"{int(cm.value.sum())}")
+
+    # (b) one fixed batch for FIT_STEPS steps. SmoothCrossEntropy cannot go
+    # below the entropy of its smoothed target, so the loss that must halve is
+    # the loss above that floor.
+    eps_ls = float(cfg.criterion_args.label_smoothing)
+    floor = -((1 - eps_ls) * np.log(1 - eps_ls)
+              + eps_ls * np.log(eps_ls / (CLASSES - 1)))
+    fixed = {k: torch.from_numpy(v).to(DEV) for k, v in batches[1].items()}
+    losses = []
+    for _ in range(FIT_STEPS):
+        state, loss, _ = train_step(state, fixed, dev_gen, lr)
+        losses.append(loss)
+    losses = torch.stack(losses).cpu().tolist()
+    emit("train_fit", steps=FIT_STEPS, first_loss=losses[0],
+         last_loss=losses[-1], loss_floor=floor,
+         excess_ratio=(losses[-1] - floor) / (losses[0] - floor),
+         losses=[round(v, 4) for v in losses])
+    if not (np.isfinite(losses).all()
+            and losses[-1] - floor < 0.5 * (losses[0] - floor)):
+        raise AssertionError(f"the loss on a fixed batch did not halve its "
+                             f"excess over the floor {floor}: {losses}")
+
+    # (d) the gather's backward kernel: the classifier step never asks for
+    # it (a batch carries no gradient), ops.fps on a tensor that does
+    pts = fixed["x"].clone().requires_grad_()
+    g = torch.randn((B, N_FPS, 4), generator=gen, device=DEV)
+    before = ops.launch_counts()
+    out = ops.fps(pts, N_FPS)
+    (g_pts,) = torch.autograd.grad(out, pts, g)
+    got = {k: v - before[k] for k, v in ops.launch_counts().items()
+           if v - before[k]}
+    with torch.no_grad():
+        idx = ops.furthest_point_sample(pts[..., :3], N_FPS)
+    ref = gather_rows_bwd_plain(g, idx, N_TRAIN)
+    err = float((g_pts - ref).abs().max())
+    emit("train_fps_grad", shape=[B, N_TRAIN, 4, N_FPS], launches=got,
+         max_abs_err=err, tolerance="exact (FPS rows are distinct)")
+    if got != {"fps": 1, "gather_rows": 1, "gather_rows_bwd": 1} or err:
+        raise AssertionError(f"gradient through ops.fps: launches {got}, "
+                             f"max err {err}")
+    launches = ops.launch_counts()  # this path's run ends here
+    emit("train_done", launches=launches)
+
+    # ms per train step (CUDA events after a warm-up), then the profiler
+    dev_batches = [{k: torch.from_numpy(v).to(DEV) for k, v in b.items()}
+                   for b in batches]
+    it = [0]
+
+    def one_step():
+        train_step(state, dev_batches[it[0] % TRAIN_BATCHES], dev_gen, lr)
+        it[0] += 1
+
+    ms = cuda_ms(one_step, 1000.0)
+    reps = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        one_step()
+    enqueue_ms = 1e3 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            one_step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+    kernels = device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    emit("train_throughput", batch=B, points=N_TRAIN, ms_per_step=ms,
+         clouds_per_s=B * 1e3 / ms, host_enqueue_ms=enqueue_ms,
+         profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+         device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+         kernels_per_step=sum(e.count for e in kernels) / reps,
+         top_kernels_ms=[[e.key[:48], e.self_device_time_total / 1e3 / reps]
+                         for e in top])
+    return launches
+
+
+def main(argv=None) -> int:
+    import argparse
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="kernels,serve,train",
+                    help="comma-separated subset of kernels,serve,train for "
+                         "a partial run, which prints no final result "
+                         "(default: all)")
+    phases = set(ap.parse_args(argv).phases.split(","))
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -448,26 +1001,48 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
     gen = torch.Generator(device=DEV).manual_seed(0)
-    rows = phase_kernels(gen)
-    out_dir = os.path.join(ROOT, "build", "chip_smoke")
-    models, launches = phase_serve(gen, out_dir)
-    phase_throughput(models, gen)
+    rows = phase_kernels(gen) if "kernels" in phases else None
+    serve_launches = train_launches = None
+    if "serve" in phases:
+        out_dir = os.path.join(ROOT, "build", "chip_smoke")
+        models, serve_launches = phase_serve(gen, out_dir)
+        phase_throughput(models, gen)
+        del models
+    if "train" in phases:
+        train_launches = phase_train(gen)
+    emit("done", seconds=time.perf_counter() - t_start)
+    if None in (rows, serve_launches, train_launches):
+        print(f"partial run ({sorted(phases)}): no final result",
+              file=sys.stderr)
+        return 0
 
-    sources = {"fps": ("fps.cu", "adaptpoint_tpu/ops/pallas/fps.py:85"),
-               "ball_group": ("ballgroup.cu",
-                              "adaptpoint_tpu/ops/pallas/ballgroup.py:491"),
-               "sa_eval": ("saeval.cu",
-                           "adaptpoint_tpu/ops/pallas/saeval.py:252")}
+    pallas = "adaptpoint_tpu/ops/pallas/"
+    sources = {"fps": ("fps.cu", pallas + "fps.py:85"),
+               "ball_group": ("ballgroup.cu", pallas + "ballgroup.py:491"),
+               "sa_eval": ("saeval.cu", pallas + "saeval.py:252"),
+               "ball_group_bwd": ("ballgroup_bwd.cu",
+                                  pallas + "ballgroup.py:547"),
+               "gather_rows": ("gather.cu", pallas + "gather.py:110"),
+               "gather_rows_bwd": ("gather.cu", pallas + "gather.py:144")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = rows[name]
+        by_path = {"serve": serve_launches[name],
+                   "train": train_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"adaptpoint_tpu_torch/ops/csrc/{src}",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms")})
+        for extra in ("resample_shape", "feature_shape"):
+            if extra in r:
+                kernels[-1][extra] = r[extra]
+        if train_launches[name] < 1:
+            raise AssertionError(f"{name} never launched on the train path")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

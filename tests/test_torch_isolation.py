@@ -14,7 +14,7 @@ import torch
 
 from adaptpoint_tpu_torch import ops, resolve_device
 from adaptpoint_tpu_torch.models import build_model_from_cfg
-from adaptpoint_tpu_torch.ops import ballgroup, fps, saeval
+from adaptpoint_tpu_torch.ops import ballgroup, fpsample, gather, saeval
 from adaptpoint_tpu_torch.serving import ServingModel, export_serving_artifact
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -90,32 +90,54 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
     f = torch.zeros(1, 16, 5)
     w1, b1 = torch.zeros(8, 6), torch.zeros(6)
     w2, b2 = torch.zeros(6, 7), torch.zeros(7)
+    idx = torch.zeros(1, 4, 4, dtype=torch.int32)
     before = ops.launch_counts()
     with pytest.raises(ValueError):
-        fps.furthest_point_sample_cuda(xyz, 4)
+        fpsample.furthest_point_sample_cuda(xyz, 4)
     with pytest.raises(ValueError):
         ballgroup.ball_group_cuda(0.3, 4, xyz, q, f)
     with pytest.raises(ValueError):
+        ballgroup.ball_group_bwd_cuda(0.3, idx, q, torch.zeros(1, 4, 3),
+                                      torch.zeros(1, 4, 5),
+                                      torch.zeros(1, 4, 4, 8), 16)
+    with pytest.raises(ValueError):
+        gather.gather_rows_cuda(f, q)
+    with pytest.raises(ValueError):
+        gather.gather_rows_bwd_cuda(torch.zeros(1, 4, 5), q, 16)
+    with pytest.raises(ValueError):
         saeval.sa_eval_cuda(0.3, 4, xyz, q, f, w1, b1, w2, b2)
     # the dispatching ops take the plain versions on CPU tensors and never
-    # count a launch
+    # count a launch, forward or backward
     ops.furthest_point_sample(xyz, 4)
-    ops.ball_group(0.3, 4, xyz, q, f)
     ops.sa_eval(0.3, 4, xyz, q, f, w1, b1, w2, b2)
+    fg = f.clone().requires_grad_()
+    out = ops.ball_group(0.3, 4, xyz, q, fg)
+    (out[1].sum() + out[2].sum() + ops.gather_rows(fg, q).sum()
+     + ops.fps(fg, 4).sum()).backward()
+    assert fg.grad is not None
     assert ops.launch_counts() == before
-    assert set(before) == {"fps", "ball_group", "sa_eval"}
+    assert set(before) == {"fps", "ball_group", "ball_group_bwd", "sa_eval",
+                           "gather_rows", "gather_rows_bwd"}
+    assert not any(before.values())
 
 
 def test_cuda_wrappers_refuse_to_drop_gradients():
-    """The kernels have no backward yet: a call that needs one raises rather
-    than returning outputs detached from the features."""
+    """The fused eval SA kernel has no backward: a call that needs one raises
+    rather than returning outputs detached from the features. The ball group
+    has one now (``BallGroup``), so its forward wrapper no longer refuses a
+    tensor that requires grad; on CPU tensors it still raises, inside and
+    outside ``no_grad``."""
     xyz = torch.zeros(1, 16, 3)
     q = torch.zeros(1, 4, dtype=torch.int32)
     f = torch.zeros(1, 16, 5, requires_grad=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # not CUDA; no longer NotImplementedError
         ballgroup.ball_group_cuda(0.3, 4, xyz, q, f)
     with pytest.raises(NotImplementedError):
         saeval.sa_eval_cuda(0.3, 4, xyz, q, f, torch.zeros(8, 6),
                             torch.zeros(6), torch.zeros(6, 7), torch.zeros(7))
     with torch.no_grad(), pytest.raises(ValueError):  # then: not CUDA
         ballgroup.ball_group_cuda(0.3, 4, xyz, q, f)
+    with pytest.raises(ValueError):
+        ballgroup.BallGroup.apply(xyz, q, f, 0.3, 4, True, False)
+    with pytest.raises(ValueError):
+        gather.GatherRows.apply(f, q)
