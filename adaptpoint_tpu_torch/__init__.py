@@ -5,11 +5,13 @@ easy to find, but it imports only ``torch`` (plus numpy and yaml): the JAX
 package is its reference and is never imported here.
 
 Ported so far: the serving path (PointNeXt-S eval forwards behind the
-batching HTTP server) and classifier training (``engine.cls_trainer`` with
-the loss, optimizer, scheduler and metrics modules). The hand-written CUDA
-kernels are in ``ops/csrc``: furthest point sampling, ball grouping forward
-and backward, the fused eval SetAbstraction stage, and the row gather with
-its scatter-add backward. Every entry point runs on ``cuda`` unless the
+batching HTTP server), classifier training (``engine.cls_trainer`` with
+the loss, optimizer, scheduler and metrics modules) and phase A of the
+AdaptPoint protocol, the adversarial step (``adapt`` and
+``engine.adapt_trainer``) in f32. The hand-written CUDA kernels are in
+``ops/csrc``: furthest point sampling, ball grouping forward and backward,
+the fused eval SetAbstraction stage, the row gather with its scatter-add
+backward, flash self-attention forward and backward, and exact kNN. Every entry point runs on ``cuda`` unless the
 caller passes ``device="cpu"`` (see :mod:`adaptpoint_tpu_torch.device`).
 """
 from .device import resolve_device

@@ -1,0 +1,16 @@
+"""AdaptPoint models: the learned augmentor, the discriminator, PointWOLF,
+the feedback loss and the fake-cloud dataset."""
+from . import augmentor, discriminator  # noqa: F401  (register the models)
+from .augmentor import gumbel_softmax
+from .build import ADAPTMODELS, build_adaptpointmodels_from_cfg
+from .common import (WolfDraws, draw_wolf, kernel_regression, normalize_cloud,
+                     pointwolf_transform, random_axis)
+from .feedback import feedback_loss, update_hardratio
+from .form_dataset import FormDatasetCls, Form_dataset_cls
+from .pointwolf import PointWOLF, pointwolf
+
+__all__ = ["ADAPTMODELS", "build_adaptpointmodels_from_cfg", "gumbel_softmax",
+           "WolfDraws", "draw_wolf", "pointwolf_transform",
+           "kernel_regression", "normalize_cloud", "random_axis",
+           "feedback_loss", "update_hardratio", "FormDatasetCls",
+           "Form_dataset_cls", "PointWOLF", "pointwolf"]

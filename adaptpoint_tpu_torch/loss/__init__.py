@@ -1,11 +1,12 @@
-"""Loss registry and the classification criteria.
+"""Loss registry, the classification criteria and the GAN criterion.
 
 Counterpart of ``adaptpoint_tpu/loss/__init__.py`` for what classifier
-training uses: the ``LOSS`` registry, ``SmoothCrossEntropy`` and
-``CrossEntropy``. A criterion is a plain callable of ``(logits, labels)``
-that returns a scalar tensor; logits are channels-last ``(..., C)``. The other
-criteria of the JAX package (BCE, focal, poly-1, distillation) wait for the
-slices that use them.
+training and the adversarial step use: the ``LOSS`` registry,
+``SmoothCrossEntropy``, ``CrossEntropy`` and ``BCELoss``. A criterion is a
+plain callable of ``(logits, labels)`` (``BCELoss``: of probabilities and
+targets) that returns a scalar tensor; logits are channels-last ``(..., C)``.
+The other criteria of the JAX package (focal, poly-1, distillation) wait for
+the slices that use them.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from ..utils.registry import Registry, build_from_cfg
 LOSS = Registry("loss")
 
 __all__ = ["LOSS", "build_criterion_from_cfg", "SmoothCrossEntropy",
-           "CrossEntropy"]
+           "CrossEntropy", "BCELoss"]
 
 
 @LOSS.register_module(name="SmoothCrossEntropy")
@@ -66,6 +67,18 @@ class SmoothCrossEntropy:
 class CrossEntropy(SmoothCrossEntropy):
     def __init__(self, label_smoothing: float = 0.0, **kwargs):
         super().__init__(label_smoothing=label_smoothing, **kwargs)
+
+
+@LOSS.register_module(name="BCELoss")
+class BCELoss:
+    """Binary cross entropy on probabilities, clipped to [1e-7, 1 - 1e-7]
+    before the logarithms (the GAN criterion)."""
+
+    def __call__(self, probs: torch.Tensor,
+                 targets: torch.Tensor) -> torch.Tensor:
+        p = torch.clamp(probs, 1e-7, 1.0 - 1e-7)
+        t = targets.to(p.dtype)
+        return -(t * torch.log(p) + (1.0 - t) * torch.log(1.0 - p)).mean()
 
 
 def build_criterion_from_cfg(cfg, **default_args):

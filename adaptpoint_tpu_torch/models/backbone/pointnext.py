@@ -95,9 +95,17 @@ class SetAbstraction(nn.Module):
                           self.group_args.get("NAME", "ballquery")
                           == "ballquery")
 
-    def _sample_idx(self, p: torch.Tensor, npoint: int) -> torch.Tensor:
+    def _sample_idx(self, p: torch.Tensor, npoint: int,
+                    first_fps_idx: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
         if self.input_fps_ordered and self.sampler == "fps":
             return ops.fps_prefix_idx(p.shape[0], npoint, p.device)
+        if (first_fps_idx is not None and self.sampler == "fps"
+                and first_fps_idx.shape[0] == p.shape[0]
+                and first_fps_idx.shape[1] >= npoint):
+            # FPS is greedy: a longer FPS of the same cloud holds this one
+            # as its prefix
+            return first_fps_idx[:, :npoint]
         return ops.furthest_point_sample(p, npoint)
 
     def _fused_eval_ok(self) -> bool:
@@ -142,9 +150,9 @@ class SetAbstraction(nn.Module):
         return (float(self.group_args.get("radius", 0.1)),
                 int(self.group_args.get("nsample", 16)))
 
-    def _fused_eval_stage(self, p, f):
+    def _fused_eval_stage(self, p, f, first_fps_idx=None):
         radius, nsample = self._radius_nsample()
-        idx = self._sample_idx(p, p.shape[1] // self.stride)
+        idx = self._sample_idx(p, p.shape[1] // self.stride, first_fps_idx)
         (w1, b1, w2, b2), packed = self._fused_weights(p.device)
         new_p, fi, out = ops.sa_eval(
             radius, nsample, p, idx, f, w1, b1, w2, b2,
@@ -158,17 +166,21 @@ class SetAbstraction(nn.Module):
         return new_p, self.act(out)
 
     def forward(self, p: torch.Tensor, f: torch.Tensor,
-                fused_eval: bool = False):
+                fused_eval: bool = False,
+                first_fps_idx: Optional[torch.Tensor] = None):
+        """``first_fps_idx`` (B, >= M): FPS indices of ``p`` the caller
+        already has; a stage that would run FPS on ``p`` takes its prefix."""
         if self.is_head:
             x = f
             for cb in self.convs:
                 x = cb(x)
             return p, x
         if self.use_fused and fused_eval and self._fused_eval_ok():
-            return self._fused_eval_stage(p, f)
+            return self._fused_eval_stage(p, f, first_fps_idx)
         if self.use_fused:
             radius, nsample = self._radius_nsample()
-            idx = self._sample_idx(p, p.shape[1] // self.stride)
+            idx = self._sample_idx(p, p.shape[1] // self.stride,
+                                   first_fps_idx)
             new_p, fi, dpfj, _ = ops.ball_group(
                 radius, nsample, p, idx, f,
                 relative=self.group_args.get("relative_xyz", True),
@@ -183,7 +195,8 @@ class SetAbstraction(nn.Module):
                 group_args["nsample"] = None
                 group_args["radius"] = None
             else:
-                idx = self._sample_idx(p, p.shape[1] // self.stride)
+                idx = self._sample_idx(p, p.shape[1] // self.stride,
+                                       first_fps_idx)
                 new_p = ops.index_points(p, idx)
             fi = None
             if self.use_res or "df" in self.feature_type:
@@ -287,21 +300,29 @@ class PointNextEncoder(nn.Module):
     def out_channels(self) -> int:
         return self.channel_list[-1]
 
-    def forward_seg_feat(self, p0, f0=None, fused_eval: bool = False):
+    def forward_seg_feat(self, p0, f0=None, fused_eval: bool = False,
+                         first_fps_idx: Optional[torch.Tensor] = None):
+        """``first_fps_idx``: FPS indices of ``p0`` computed by the caller;
+        the first subsampling stage takes its prefix instead of running FPS
+        (the stages after it are in FPS order anyway)."""
         p, f = p0, (p0 if f0 is None else f0)
         ps, fs = [p], [f]
         for stage in self.encoder:
             for blk in stage:
-                p, f = blk(p, f, fused_eval)
+                # only a stage that still sees the input cloud may use it
+                shared = first_fps_idx if p is p0 else None
+                p, f = blk(p, f, fused_eval, shared)
             ps.append(p)
             fs.append(f)
         return ps, fs
 
-    def forward_cls_feat(self, p0, f0=None, fused_eval: bool = False):
-        ps, fs = self.forward_seg_feat(p0, f0, fused_eval)
+    def forward_cls_feat(self, p0, f0=None, fused_eval: bool = False,
+                         first_fps_idx: Optional[torch.Tensor] = None):
+        ps, fs = self.forward_seg_feat(p0, f0, fused_eval, first_fps_idx)
         f = fs[-1]
         # the group-all stage pools to (B, 1, C) (pointnext.py:441)
         return f.squeeze(1) if f.shape[1] == 1 else f.amax(dim=1)
 
-    def forward(self, p0, f0=None, fused_eval: bool = False):
-        return self.forward_seg_feat(p0, f0, fused_eval)
+    def forward(self, p0, f0=None, fused_eval: bool = False,
+                first_fps_idx: Optional[torch.Tensor] = None):
+        return self.forward_seg_feat(p0, f0, fused_eval, first_fps_idx)

@@ -9,18 +9,19 @@ from __future__ import annotations
 
 import torch
 
-from . import ballgroup, fpsample, gather, saeval
+from . import attention, ballgroup, fpsample, gather, knn, saeval
 from .ballgroup import ball_group_plain
 from .gather import gather_rows_plain
-from .geometry import (ball_query, fps_prefix_idx, index_points, knn_point,
-                       square_distance, three_interpolation, three_nn,
-                       furthest_point_sample as furthest_point_sample_plain)
+from .geometry import (ball_query, fps_prefix_idx, square_distance,
+                       furthest_point_sample as furthest_point_sample_plain,
+                       index_points as index_points_plain)
 from .saeval import sa_eval_plain
 
 __all__ = ["furthest_point_sample", "ball_group", "sa_eval", "gather_rows",
            "fps", "ball_query", "index_points", "fps_prefix_idx",
            "square_distance", "knn_point", "three_nn", "three_interpolation",
-           "launch_counts", "reset_launch_counts", "KERNEL_MODULES"]
+           "fused_self_attention", "launch_counts", "reset_launch_counts",
+           "KERNEL_MODULES"]
 
 # kernel name -> (module holding its wrapper, name of its launch counter)
 KERNEL_MODULES = {"fps": (fpsample, "LAUNCHES"),
@@ -28,7 +29,10 @@ KERNEL_MODULES = {"fps": (fpsample, "LAUNCHES"),
                   "ball_group_bwd": (ballgroup, "LAUNCHES_BWD"),
                   "sa_eval": (saeval, "LAUNCHES"),
                   "gather_rows": (gather, "LAUNCHES"),
-                  "gather_rows_bwd": (gather, "LAUNCHES_BWD")}
+                  "gather_rows_bwd": (gather, "LAUNCHES_BWD"),
+                  "mha": (attention, "LAUNCHES"),
+                  "mha_bwd": (attention, "LAUNCHES_BWD"),
+                  "knn": (knn, "LAUNCHES")}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -84,6 +88,74 @@ def gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return gather.GatherRows.apply(points.contiguous(),
                                        idx.int().contiguous())
     return gather_rows_plain(points, idx)
+
+
+def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """points (B, N, C), idx (B, ...) int -> (B, ..., C), differentiable in
+    ``points``. On CUDA every (B, N, C) float32 or bfloat16 gather, whatever
+    the rank of ``idx`` (>= 2), is the row-gather kernel on the flattened
+    index, and its gradient the scatter-add kernel; other types and ranks
+    take the plain gather."""
+    if (_on_cuda(points) and points.dim() == 3 and idx.dim() >= 2
+            and points.dtype in (torch.float32, torch.bfloat16)
+            and idx.numel() > 0):
+        flat = idx.reshape(points.shape[0], -1)
+        out = gather_rows(points, flat)
+        return out.reshape(tuple(idx.shape) + (points.shape[-1],))
+    return index_points_plain(points, idx)
+
+
+def knn_point(nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
+    """The ``nsample`` nearest of xyz (B, N, C) to each of new_xyz (B, M, C):
+    ``(d2, idx)``, both (B, M, nsample), nearest first, ties to the lowest
+    index; a cloud smaller than ``nsample`` repeats its nearest.
+
+    The indices come from the kNN kernel (CUDA) or its plain version (CPU)
+    and carry no gradient. ``d2`` is recomputed from the gathered rows in
+    the expanded form of ``square_distance``, so it is differentiable in
+    both clouds on either device."""
+    support = xyz.detach().float().contiguous()
+    query = new_xyz.detach().float().contiguous()
+    if _on_cuda(xyz):
+        idx = knn.knn_idx_cuda(int(nsample), support, query)
+    else:
+        idx = knn.knn_idx_plain(int(nsample), support, query)
+    nbr = index_points(xyz, idx).float()  # (B, M, K, C)
+    q = new_xyz.float()
+    cross = torch.einsum("bmc,bmkc->bmk", q, nbr)
+    d2 = (q ** 2).sum(dim=-1)[..., None] + (nbr ** 2).sum(dim=-1) - 2.0 * cross
+    return d2, idx
+
+
+def three_nn(unknown: torch.Tensor, known: torch.Tensor):
+    """3 nearest known (B, M, 3) points of each unknown (B, N, 3) point:
+    euclidean distances (B, N, 3) and int32 indices (B, N, 3)."""
+    d2, idx = knn_point(3, known, unknown)
+    return torch.sqrt(torch.clamp(d2, min=0.0)), idx
+
+
+def three_interpolation(unknown_xyz: torch.Tensor, known_xyz: torch.Tensor,
+                        known_feat: torch.Tensor) -> torch.Tensor:
+    """Feature-propagation upsampling: 3-NN, weights from reciprocal
+    distances (eps 1e-8) normalised to sum 1, then the gather and the
+    weighted sum as separate ops (the composite route of the JAX package;
+    its fused weighted-gather kernel for bf16 features is not ported yet)."""
+    dist, idx = three_nn(unknown_xyz, known_xyz)
+    recip = 1.0 / (dist + 1e-8)
+    weight = recip / recip.sum(dim=2, keepdim=True)
+    gathered = index_points(known_feat, idx)  # (B, N, 3, C)
+    return (gathered * weight[..., None].to(gathered.dtype)).sum(dim=2)
+
+
+def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """softmax(q k^T / scale) v over flattened heads (BH, N, d), bf16
+    operands for both products, f32 softmax and output; differentiable, with
+    the flash backward on both devices (``ops.attention``)."""
+    if _on_cuda(q):
+        return attention.FusedSelfAttention.apply(
+            q.contiguous(), k.contiguous(), v.contiguous(), float(scale))
+    return attention.PlainSelfAttention.apply(q, k, v, float(scale))
 
 
 def fps(data: torch.Tensor, number: int) -> torch.Tensor:

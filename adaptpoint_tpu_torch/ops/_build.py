@@ -24,7 +24,8 @@ __all__ = ["SOURCES", "build_all", "load", "check", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "adaptpoint_tpu_torch"
-SOURCES = ("fps", "ballgroup", "ballgroup_bwd", "gather", "saeval")
+SOURCES = ("fps", "ballgroup", "ballgroup_bwd", "gather", "saeval",
+           "attention", "knn")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v"]

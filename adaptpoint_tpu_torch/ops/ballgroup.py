@@ -240,7 +240,12 @@ class BallGroup(torch.autograd.Function):
         ctx.save_for_backward(idx, query_idx)
         ctx.args = (radius, xyz.shape[1], feats.shape[2], relative,
                     normalize_dp)
-        ctx.mark_non_differentiable(idx)
+        if ctx.needs_input_grad[0]:
+            ctx.mark_non_differentiable(idx)
+        else:
+            # new_xyz depends on xyz alone: without a gradient there it is a
+            # constant, and whatever is computed from it stays off the graph
+            ctx.mark_non_differentiable(idx, new_xyz)
         # an unused output's cotangent arrives as None, not as zeros
         ctx.set_materialize_grads(False)
         return new_xyz, fi, dpfj, idx

@@ -1,0 +1,114 @@
+"""Exact k nearest neighbours: ``csrc/knn.cu`` and its plain version.
+
+Replaces ``adaptpoint_tpu/ops/pallas/knn.py`` ``knn_pallas``
+(``_knn_kernel``): for each query the ``min(k, N)`` nearest support points,
+nearest first, ties to the lowest index; when ``k > N`` the remaining slots
+repeat the nearest. Both versions return indices only; ``ops.knn_point``
+recomputes the distances differentiably from the gathered rows, as the JAX
+package does around its kernel. Bound on the H100: operations (the k
+selection passes over M x N distances), see the source's note.
+
+The distance is the expanded form ``(|q|^2 + |x|^2) - 2 q.x`` of
+``geometry.square_distance``, here written out with one elementwise op per
+product and sum, in channel order. Each then rounds on its own in float32 on
+either device, which is the arithmetic the kernel spells with
+``__fmul_rn``/``__fadd_rn``: the two agree bit for bit, near-ties included.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+__all__ = ["knn_idx_cuda", "knn_idx_plain", "expanded_sq_dist", "LAUNCHES",
+           "MAX_K"]
+
+LAUNCHES = 0  # kernel launches of knn_idx_cuda
+MAX_K = 32
+
+
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    acc = x[..., 0] * x[..., 0]
+    for c in range(1, x.shape[-1]):
+        acc = acc + x[..., c] * x[..., c]
+    return acc
+
+
+def expanded_sq_dist(query: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
+    """query (B, M, C), xyz (B, N, C) -> (B, M, N) f32, every product and sum
+    a separate op so that nothing is fused or reordered."""
+    q, x = query.float(), xyz.float()
+    cross = q[:, :, None, 0] * x[:, None, :, 0]
+    for c in range(1, q.shape[-1]):
+        cross = cross + q[:, :, None, c] * x[:, None, :, c]
+    return (_sum_sq(q)[:, :, None] + _sum_sq(x)[:, None, :]) - 2.0 * cross
+
+
+def knn_idx_plain(k: int, xyz: torch.Tensor,
+                  query: torch.Tensor) -> torch.Tensor:
+    """xyz (B, N, C) support, query (B, M, C) -> idx (B, M, k) int32: k passes
+    of min / first argmin / mask, as the JAX package extracts them."""
+    N = xyz.shape[1]
+    k_eff = min(k, N)
+    cur = expanded_sq_dist(query, xyz)
+    lane = torch.arange(N, device=xyz.device)
+    idxs = []
+    for _ in range(k_eff):
+        d = cur.amin(dim=-1, keepdim=True)
+        # the first index of the minimum (torch.min's choice on ties is not
+        # specified)
+        i = torch.argmax((cur == d).int(), dim=-1)
+        idxs.append(i)
+        cur = torch.where(lane == i[..., None], torch.inf, cur)
+    idx = torch.stack(idxs, dim=-1).to(torch.int32)
+    if k_eff < k:
+        idx = torch.cat([idx, idx[..., :1].expand(-1, -1, k - k_eff)], dim=-1)
+    return idx
+
+
+@functools.cache
+def _lib():
+    lib = _build.load("knn")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.knn_launch.argtypes = [p, p, i, i, i, i, i, p, p]
+    lib.knn_launch.restype = ctypes.c_int
+    lib.knn_max_points.argtypes = [i]
+    lib.knn_max_points.restype = ctypes.c_int
+    return lib
+
+
+def knn_idx_cuda(k: int, xyz: torch.Tensor,
+                 query: torch.Tensor) -> torch.Tensor:
+    """The kernel on contiguous f32 CUDA tensors: xyz (B, N, C), query
+    (B, M, C) -> idx (B, M, k) int32, ``1 <= k <= 32``."""
+    global LAUNCHES
+    for name, t in (("xyz", xyz), ("query", query)):
+        if t.device.type != "cuda":
+            raise ValueError(f"the kNN kernel needs CUDA tensors, {name} is "
+                             f"on {t.device}")
+        if t.dtype != torch.float32 or t.dim() != 3 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (B, *, C) float32, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    B, N, C = xyz.shape
+    M = query.shape[1]
+    if query.shape[0] != B or query.shape[2] != C:
+        raise ValueError(f"query {tuple(query.shape)} does not match xyz "
+                         f"{tuple(xyz.shape)}")
+    if not 1 <= k <= MAX_K or min(B, N, M, C) < 1:
+        raise ValueError(f"the kNN kernel takes 1 <= k <= {MAX_K} and "
+                         f"non-empty clouds, got k={k} B={B} N={N} M={M} "
+                         f"C={C}")
+    lib = _lib()
+    if N > lib.knn_max_points(C):
+        raise ValueError(f"N={N} exceeds the kNN kernel's "
+                         f"{lib.knn_max_points(C)} points at C={C}")
+    idx = torch.empty((B, M, k), dtype=torch.int32, device=xyz.device)
+    err = lib.knn_launch(xyz.data_ptr(), query.data_ptr(), B, N, M, C, k,
+                         idx.data_ptr(),
+                         torch.cuda.current_stream(xyz.device).cuda_stream)
+    _build.check(lib, err, "knn")
+    LAUNCHES += 1
+    return idx

@@ -18,6 +18,14 @@ its own copy of the PointNeXt SA-stage and ClsHead rules of
 
 A reference ``.pth`` (or one written by ``scripts/export_torch_ckpt.py``)
 already has these names and loads with ``load_state_dict`` directly.
+
+``generator_state_dict_from_jax`` and ``discriminator_state_dict_from_jax`` do
+the same for the AdaptPoint augmentor and discriminator (its own copy of the
+rules of ``export_reference_generator`` / ``export_reference_discriminator``
+there). The discriminator's flax spectral norm stores the raw kernel and the
+power-iteration ``u``; the reference layout also has ``_v``, exported as
+``normalize(W^T u)``. ``discriminator_stats_to_jax`` reads the port's ``u``
+and ``sigma`` back under the flax module names, for comparisons.
 """
 from __future__ import annotations
 
@@ -28,7 +36,9 @@ from typing import Any, Dict, Iterable, Tuple
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax"]
+__all__ = ["state_dict_from_jax", "generator_state_dict_from_jax",
+           "discriminator_state_dict_from_jax", "discriminator_stats_to_jax",
+           "DIS_MODULES"]
 
 _SA_CONV = re.compile(r"^encoder\.encoder\.(\d+)\.0\.convs\.(\d+)\.([01])\.(.+)$")
 _SA_SKIP = re.compile(r"^encoder\.encoder\.(\d+)\.0\.skipconv\.0\.(weight|bias)$")
@@ -91,6 +101,67 @@ def _translate(key: str, keys) -> Tuple[str, str, bool]:
     raise KeyError(key)
 
 
+# augmentor sites under ``predict_prob_layer.``: reference prefix (conv at
+# .0, BN at .1) -> (Dense path, BatchNorm path) under ``predict_prob_layer/``
+_GEN_PAIR_SITES = [
+    (re.compile(r"^embedding\.net\.([01])\.(.+)$"),
+     lambda m: ("embedding/Dense_0", "embedding/BatchNorm_0")),
+    (re.compile(r"^extract_feat_list\.(\d+)\.net\.([01])\.(.+)$"),
+     lambda m: (f"pre{m.group(1)}/Dense_0", f"pre{m.group(1)}/BatchNorm_0")),
+    (re.compile(r"^decode_list\.(\d+)\.fuse\.net\.([01])\.(.+)$"),
+     lambda m: (f"fp{m.group(1)}/ConvBNReLU_0/Dense_0",
+                f"fp{m.group(1)}/ConvBNReLU_0/BatchNorm_0")),
+    (re.compile(r"^head\.global_layer\.([01])\.(.+)$"),
+     lambda m: ("head/global_conv", "head/global_bn")),
+    (re.compile(r"^head\.prob_head\.([01])\.(.+)$"),
+     lambda m: ("head/prob_head", "head/prob_bn")),
+    (re.compile(r"^head\.anchor_selfattention\.pos_embedding\.([01])\.(.+)$"),
+     lambda m: ("head/anchor_attn/pos_embedding", "head/anchor_attn/pos_bn")),
+    (re.compile(r"^head\.anchor_selfattention\.res\.([01])\.(.+)$"),
+     lambda m: ("head/anchor_attn/res", "head/anchor_attn/res_bn")),
+    (re.compile(r"^localfeat_mask_selfattention\.pos_embedding\.([01])\.(.+)$"),
+     lambda m: ("mask_attn/pos_embedding", "mask_attn/pos_bn")),
+    (re.compile(r"^localfeat_mask_selfattention\.res\.([01])\.(.+)$"),
+     lambda m: ("mask_attn/res", "mask_attn/res_bn")),
+    (re.compile(r"^extract_local_feat_masking\.([01])\.(.+)$"),
+     lambda m: ("mask_local", "mask_local_bn")),
+    (re.compile(r"^extract_global_feat_masking\.([01])\.(.+)$"),
+     lambda m: ("mask_global", "mask_global_bn")),
+    (re.compile(r"^fuse_masking\.([01])\.(.+)$"),
+     lambda m: ("mask_fuse", "mask_fuse_bn")),
+]
+_GEN_QKV = {"head.anchor_selfattention.to_qkv.weight":
+            "head/anchor_attn/to_qkv/kernel",
+            "localfeat_mask_selfattention.to_qkv.weight":
+            "mask_attn/to_qkv/kernel"}
+_GEN_AFFINE = re.compile(
+    r"^pointset_grouper_list\.(\d+)\.(affine_alpha|affine_beta)$")
+
+# discriminator: reference module -> flax Dense name
+DIS_MODULES = {"sa1.mlp_convs.0": "sa_conv0", "sa1.mlp_convs.1": "sa_conv1",
+               "sa1.mlp_convs.2": "sa_conv2", "fc1": "fc0", "fc2": "fc1",
+               "fc3": "fc2", "prob_head.0": "prob_head"}
+
+
+def _translate_generator(key: str, keys) -> Tuple[str, str, bool]:
+    root = "predict_prob_layer"
+    if not key.startswith(root + "."):
+        raise KeyError(key)
+    rest = key[len(root) + 1:]
+    for rx, dst in _GEN_PAIR_SITES:
+        m = rx.match(rest)
+        if m:
+            dense, bn = dst(m)
+            return _pair(m.group(m.lastindex - 1), m.group(m.lastindex),
+                         f"{root}/{dense}", f"{root}/{bn}")
+    if rest in _GEN_QKV:
+        return "params", f"{root}/{_GEN_QKV[rest]}", True
+    m = _GEN_AFFINE.match(rest)
+    if m:
+        return "params", f"{root}/grouper{m.group(1)}/{m.group(2)}", False
+    raise KeyError(key)
+
+
 def state_dict_from_jax(variables: Mapping, layout_rows: Iterable
                         ) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` from JAX ``variables`` (numpy leaves).
@@ -98,6 +169,85 @@ def state_dict_from_jax(variables: Mapping, layout_rows: Iterable
     ``layout_rows`` is ``[[key, shape], ...]``. Raises on a key with no
     rule, a missing source leaf, a size mismatch, or a source leaf no key
     consumed (trained weights would otherwise be dropped)."""
+    return _from_jax(variables, layout_rows, _translate)
+
+
+def generator_state_dict_from_jax(variables: Mapping, layout_rows: Iterable
+                                  ) -> Dict[str, torch.Tensor]:
+    """The augmentor's ``state_dict`` from its JAX ``variables``: the same
+    contract as :func:`state_dict_from_jax`. Every conv and bias slot exists
+    on both sides, so nothing is folded."""
+    return _from_jax(variables, layout_rows, _translate_generator)
+
+
+def _flatten_tuples(tree, prefix=()) -> Dict[tuple, Any]:
+    """Flatten with tuple paths: flax's SpectralNorm leaf names hold
+    slashes (``fc0/kernel/u``)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten_tuples(v, prefix + (str(k),)))
+        else:
+            out[prefix + (str(k),)] = v
+    return out
+
+
+def discriminator_state_dict_from_jax(variables: Mapping,
+                                      layout_rows: Iterable
+                                      ) -> Dict[str, torch.Tensor]:
+    """The discriminator's ``state_dict`` from its JAX ``variables``:
+    ``kernel`` (in, out) -> ``parametrizations.weight.original`` (out, in
+    [, 1, 1]), ``bias`` as it is, ``u`` (1, out) -> ``_u`` (out,), and
+    ``_v = normalize(W^T u)`` (in,), which flax does not store."""
+    shapes = {k: tuple(s) for k, s in layout_rows}
+    flat_p = _flatten_tuples(variables.get("params", {}))
+    flat_b = _flatten_tuples(variables.get("batch_stats", {}))
+    u_by_name = {path[-1][:-len("/kernel/u")]:
+                 np.asarray(leaf, np.float32).reshape(-1)
+                 for path, leaf in flat_b.items()
+                 if path[-1].endswith("/kernel/u")}
+    out: Dict[str, torch.Tensor] = {}
+    for src, name in DIS_MODULES.items():
+        w_key = f"{src}.parametrizations.weight.original"
+        if w_key not in shapes:
+            continue
+        if (name, "kernel") not in flat_p or name not in u_by_name:
+            raise ValueError(f"{src}: no source kernel or u for {name}")
+        w = np.ascontiguousarray(
+            np.asarray(flat_p[(name, "kernel")], np.float32).T)  # (out, in)
+        if w.size != int(np.prod(shapes[w_key])):
+            raise ValueError(f"{w_key}: kernel {w.shape} vs layout "
+                             f"{shapes[w_key]}")
+        out[w_key] = torch.from_numpy(w.reshape(shapes[w_key]))
+        if f"{src}.bias" in shapes:
+            out[f"{src}.bias"] = torch.from_numpy(np.array(
+                flat_p[(name, "bias")], np.float32))
+        u = u_by_name[name]
+        v = w.T @ u
+        v = v / max(float(np.linalg.norm(v)), 1e-12)
+        out[f"{src}.parametrizations.weight.0._u"] = torch.from_numpy(
+            u.copy())
+        out[f"{src}.parametrizations.weight.0._v"] = torch.from_numpy(
+            v.astype(np.float32))
+    missing = [k for k in shapes if k not in out]
+    if missing:
+        raise ValueError(f"layout keys with no source: {missing[:10]}")
+    return {k: out[k] for k in shapes}
+
+
+def discriminator_stats_to_jax(model: torch.nn.Module) -> Dict[str, Dict]:
+    """The port discriminator's power-iteration state under the flax Dense
+    names: ``{name: {"u": (1, out), "sigma": ()}}`` as numpy arrays."""
+    out = {}
+    for src, name in DIS_MODULES.items():
+        st = model.get_submodule(src).state
+        out[name] = {"u": st._u.detach().cpu().numpy()[None, :].copy(),
+                     "sigma": st._sigma.detach().cpu().numpy().copy()}
+    return out
+
+
+def _from_jax(variables: Mapping, layout_rows: Iterable, translate
+              ) -> Dict[str, torch.Tensor]:
     rows = [(k, tuple(s)) for k, s in layout_rows]
     keys = {k for k, _ in rows}
     flat = {c: _flatten(variables.get(c, {})) for c in ("params",
@@ -106,7 +256,7 @@ def state_dict_from_jax(variables: Mapping, layout_rows: Iterable
     out: Dict[str, torch.Tensor] = {}
     for key, shape in rows:
         try:
-            coll, path, is_kernel = _translate(key, keys)
+            coll, path, is_kernel = translate(key, keys)
         except KeyError:
             raise ValueError(f"no conversion rule for {key}") from None
         if coll == "count":

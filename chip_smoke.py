@@ -9,11 +9,14 @@ Phases, one JSON object a line:
 2. ``build``: the CUDA sources of ``adaptpoint_tpu_torch/ops/csrc``
    compiled in parallel (one nvcc each), with the time it took.
 3. ``kernel``: each kernel against its plain PyTorch version on the card at
-   the shapes the B=32 PointNeXt-S forward and train step give it (FPS
-   1024 -> 512 and 2048 -> 1200; the four SA stages for ball-group forward,
-   backward and fused SA; the row gather and its scatter-add at the
-   resampling shape and a feature shape), with errors, tolerances, bounds
-   and CUDA-event times.
+   the shapes the B=32 PointNeXt-S forward, train step and adversarial step
+   give it (FPS 1024 -> 512 and 2048 -> 1200; the four SA stages for
+   ball-group forward, backward and fused SA, at N=1024 and at the N=2048
+   of a ``gan_step``, and the augmentor's four grouper shapes; the row gather
+   and its scatter-add at the resampling shape, a feature shape and every
+   gather of a ``gan_step``; the kNN at the five shapes of a ``gan_step``;
+   the flash attention forward and backward at (128, 2048, 16) and at ragged
+   and wider shapes), with errors, tolerances, bounds and CUDA-event times.
 4. ``serve``: full-width ``cfgs/scanobjectnn/pointnext-s.yaml`` with seeded
    weights, exported unfused and fused at buckets 1,8,32 and served by the
    port's HTTP server; /predict with n = 1, 8, 32, 40 must match the same
@@ -26,6 +29,14 @@ Phases, one JSON object a line:
    same step on a CPU copy, the launches a step makes, a fixed batch's loss
    over 30 steps, the gradient through ``ops.fps``, and ms per step with
    the profiler's device-busy time.
+7. ``adapt``: phase A of the AdaptPoint protocol at full width
+   (``cfgs/scanobjectnn/pointnext-s_adaptpoint_1.yaml``) through ``build_gan``
+   / ``make_gan_step`` / ``train_gan_epoch``: the first ``gan_step`` against
+   the same step through the plain versions on the card and on a float64 CPU
+   copy (draws free of near-ties; the copy differentiated at the card's fake
+   clouds), the fake clouds' invariants, ten more steps, the launches a step
+   makes, the epoch loop and three classifier train steps on the fake
+   dataset it returns, and ms per step with the profiler's device-busy time.
 
 Then the card's name and power limit as nvidia-smi prints them, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` as the
@@ -35,6 +46,7 @@ CUDA device the script exits 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -76,9 +88,57 @@ TOL_STEP_PLAIN = {"loss": 1e-6, "logits": (1e-5, 1e-5), "grad_l2": 1e-4,
 TOL_STEP_CPU = {"loss": 1e-5, "logits": (1e-4, 1e-4), "grad_l2": 2e-2,
                 "buffers": (1e-4, 1e-6), "share": 0.9}
 TOL_STEP_PARAMS = (1e-4, 1e-6)
+# The first gan_step on the card against the same two references; see
+# compare() in phase_adapt. The step's gumbel noise is first moved off every
+# near-tie of the hard keep/drop choice (MASK_MARGIN), so all three steps make
+# the same choices: mask_flips is the number of points that may still differ;
+# gen: the clouds; metrics: relative; the rest as above. The float64 copy
+# takes its gradient at the card's fake clouds and FPS picks (see phase_adapt).
+MASK_MARGIN = 0.05
+# grad_l2: each gradient tensor; grad_l2_whole: a network's whole gradient.
+TOL_GAN_PLAIN = {"mask_flips": 0, "gen": 1e-4, "metrics": 2e-3,
+                 "grad_l2": {"G": 5e-2, "D": 1e-2},
+                 "grad_l2_whole": {"G": 5e-3, "D": 1e-3},
+                 "buffers": (1e-3, 1e-4), "share": 0.95}
+TOL_GAN_CPU = {"mask_flips": 0, "gen": 1e-3, "metrics": 2e-2,
+               "grad_l2": {"G": 1e-1, "D": 5e-2},
+               "grad_l2_whole": {"G": 5e-2, "D": 1e-2},
+               "buffers": (1e-3, 1e-4), "share": 0.8}
 # serve requests keep pool clouds whose CPU logits' top-2 gap is >= MARGIN
 POOL, MARGIN = 256, 0.05
 DEV = "cuda"
+# the kernels each path must launch at least once in its own run
+PATH_KERNELS = {
+    "serve": ("fps", "ball_group", "sa_eval"),
+    "train": ("fps", "ball_group", "ball_group_bwd", "sa_eval", "gather_rows",
+              "gather_rows_bwd"),
+    "adapt": ("fps", "ball_group", "ball_group_bwd", "sa_eval", "gather_rows",
+              "gather_rows_bwd", "mha", "mha_bwd", "knn")}
+# names of the hand-written kernels as the profiler prints them
+OWN_KERNELS = ("fps_kernel", "ball_group_kernel", "ball_group_bwd_kernel",
+               "sa_eval_kernel", "gather_rows_kernel",
+               "scatter_add_rows_kernel", "mha_fwd_kernel",
+               "mha_bwd_dq_kernel", "mha_bwd_dkv_kernel", "knn_kernel")
+# adapt phase: the augmentor's four groupers at N=2048: (N -> M, C, radius),
+# K_GAN neighbours, relative=False; the mask head's attention (BH, N, d)
+N_GAN, K_GAN = 2048, 24
+GAN_STAGES = [(2048, 1024, 128, 0.1), (1024, 512, 256, 0.2),
+              (512, 256, 512, 0.4), (256, 128, 1024, 0.8)]
+MHA_SHAPE, MHA_SCALE = (128, 2048, 16), 4.0
+TOL_MHA = 2e-3  # attention: |kernel - plain| <= TOL_MHA * (1 + |plain|)
+# exp results a second: 16 a clock on each of 132 SMs (NVIDIA's table of
+# arithmetic-instruction throughput for compute capability 9.0) at 1.98 GHz,
+# the clock PEAK_F32 = 132 * 128 * 2 * 1.98e9 stands for
+PEAK_EXP = 132 * 16 * 1.98e9
+# the frozen classifier's SA stages in a gan_step, where clouds keep all
+# N_GAN points: (N -> M, C in, mid, C out, radius). The real pass (fused SA)
+# sees the batch's clouds, the fake pass (ball group, forward and backward)
+# the augmentor's, FAKE_DROPPED of whose points sit exactly at the origin.
+GAN_CLS_STAGES = [(2048, 1024, 32, 32, 64, 0.15),
+                  (1024, 512, 64, 64, 128, 0.225),
+                  (512, 256, 128, 128, 256, 0.3375),
+                  (256, 128, 256, 256, 512, 0.50625)]
+FAKE_DROPPED = 0.5
 
 
 def emit(phase: str, **kw) -> None:
@@ -113,15 +173,21 @@ def cuda_ms(fn, min_total_ms: float = 200.0) -> float:
     return start.elapsed_time(end) / reps
 
 
-def stage_inputs(gen):
+def stage_inputs(gen, stages=None, dropped: float = 0.0):
     """Per-stage (xyz, qidx, feats) as the B=32 forward gives them: the
-    unit-sphere cloud, FPS to 512 at stage 1, then FPS-ordered prefixes."""
+    unit-sphere cloud (``dropped`` of its points moved to the origin, as the
+    augmentor's learned dropout leaves them), FPS to half at stage 1, then
+    FPS-ordered prefixes."""
     import torch
     from adaptpoint_tpu_torch import ops
-    xyz = torch.randn((B, N0, 3), generator=gen, device=DEV)
+    stages = STAGES if stages is None else stages
+    xyz = torch.randn((B, stages[0][0], 3), generator=gen, device=DEV)
     xyz = xyz / xyz.norm(dim=-1).amax(dim=1, keepdim=True)[..., None]
+    if dropped:
+        xyz = xyz * (torch.rand(xyz.shape[:2], generator=gen, device=DEV)
+                     >= dropped)[..., None]
     out = []
-    for i, (n, m, c, _, _, _) in enumerate(STAGES):
+    for i, (n, m, c, _, _, _) in enumerate(stages):
         if i == 0:
             qidx = ops.fpsample.furthest_point_sample_cuda(xyz, m)
         else:
@@ -132,7 +198,7 @@ def stage_inputs(gen):
     return out
 
 
-def scanned_points(xyz, qidx, radius):
+def scanned_points(xyz, qidx, radius, K=K):
     """Support points the ball query must look at: up to the K-th in-ball
     point, or all N when the ball holds fewer."""
     import torch
@@ -147,35 +213,13 @@ def scanned_points(xyz, qidx, radius):
                .sum())
 
 
-def phase_kernels(gen):
+def check_stages_forward(gen, stages, bg_inputs, sa_inputs):
+    """The ball-group kernel on ``bg_inputs`` and the fused SA kernel (folded
+    weights at each stage's widths) on ``sa_inputs``, K neighbours, dp
+    normalised as PointNeXt-S asks, each against its plain version. Returns
+    their rows, summed over the stages."""
     import torch
-    from adaptpoint_tpu_torch import ops
     from adaptpoint_tpu_torch.ops import ballgroup, saeval
-    from adaptpoint_tpu_torch.ops import fpsample as fps
-
-    inputs = stage_inputs(gen)
-    rows = {}
-
-    # FPS at (32, 1024) -> 512
-    xyz = inputs[0][0]
-    got = fps.furthest_point_sample_cuda(xyz, 512)
-    ref = fps.furthest_point_sample_plain(xyz, 512)
-    torch.cuda.synchronize()
-    mism = int((got != ref).sum())
-    err = float((got.long() - ref.long()).abs().max())
-    emit("kernel", name="fps", shape=[B, N0, 512], mismatches=mism,
-         max_abs_err=err, tolerance="exact")
-    if mism:
-        raise AssertionError(f"FPS kernel disagrees at {mism} indices")
-    ops_f = 511 * B * N0 * 10
-    bytes_f = B * N0 * 12 + B * 512 * 4
-    rows["fps"] = dict(
-        ms=cuda_ms(lambda: fps.furthest_point_sample_cuda(xyz, 512)),
-        plain_ms=cuda_ms(lambda: fps.furthest_point_sample_plain(xyz, 512),
-                         50.0),
-        bound_ms=1e3 * max(bytes_f / PEAK_BYTES, ops_f / PEAK_F32),
-        bound_by="bytes" if bytes_f / PEAK_BYTES > ops_f / PEAK_F32
-        else "operations", max_abs_err=err)
 
     bg = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0, t_b=0.0,
               t_o=0.0)
@@ -191,9 +235,8 @@ def phase_kernels(gen):
         acc["t_o"] += t_o
         return row
 
-    for i, ((n, m, c, mid, cout, r), (xyz, qidx, feats)) in enumerate(
-            zip(STAGES, inputs)):
-        # ball group, dp normalised as PointNeXt-S asks
+    for i, (n, m, c, mid, cout, r) in enumerate(stages):
+        xyz, qidx, feats = bg_inputs[i]
         args = (r, K, xyz, qidx, feats, True, True)
         got = ballgroup.ball_group_cuda(*args)
         ref = ballgroup.ball_group_plain(*args)
@@ -213,7 +256,9 @@ def phase_kernels(gen):
                      cuda_ms(lambda: ballgroup.ball_group_plain(*args)),
                      b_bytes / PEAK_BYTES, b_ops / PEAK_F32)
 
-        # fused SA with folded weights at this stage's widths
+        xyz, qidx, feats = sa_inputs[i]
+        if sa_inputs is not bg_inputs:
+            scanned = scanned_points(xyz, qidx, r)
         w1 = torch.randn((3 + c, mid), generator=gen, device=DEV) \
             / (3 + c) ** 0.5
         b1 = torch.randn((mid,), generator=gen, device=DEV) * 0.1
@@ -248,83 +293,23 @@ def phase_kernels(gen):
         sa["max_abs_err"] = max(sa["max_abs_err"], e_out)
         emit("stage_times", stage=i + 1, shape=[B, n, m, c, mid, cout, K],
              ball_group=bg_row, sa_eval=sa_row)
-    for name, acc in (("ball_group", bg), ("sa_eval", sa)):
+    for acc in (bg, sa):
         acc["bound_by"] = "bytes" if acc.pop("t_b") > acc.pop("t_o") \
             else "operations"
-        rows[name] = acc
-    phase_train_kernels(gen, inputs, rows)
-    emit("kernel_times", note="ms per B=32 forward or backward; ball_group, "
-         "ball_group_bwd and sa_eval summed over the four SA stages; "
-         "gather_rows and gather_rows_bwd at the resampling shape", rows=rows)
-    return rows
+    return bg, sa
 
 
-def bound_row(t_bytes: float, t_ops: float) -> dict:
-    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes > t_ops else "operations"}
-
-
-def scatter_bound(counts, abs_sum):
-    """Most that two f32 sums of the same ``n`` addends, taken in different
-    orders, can differ: each is within ``(n - 1) * 2^-24 * sum|addend|`` of
-    the true sum, so ``n * 2^-23 * sum|addend|`` bounds their difference."""
-    return counts * EPS32 * abs_sum + 1e-30
-
-
-def ball_group_bwd_bound(radius, idx, qidx, g_new, g_fi, g_dpfj, n):
-    """Per-element bound on |kernel - plain| for the ball-group backward:
-    both add the same f32 addends in another order (``scatter_bound``). The
-    center's row also carries the inner sum over its K slots."""
-    import torch
-    from adaptpoint_tpu_torch.ops.ballgroup import ball_group_bwd_plain
-    from adaptpoint_tpu_torch.ops.geometry import inv_radius
-    Bq, K, M, _ = g_dpfj.shape
-    one = torch.ones((Bq, K, M, 4), device=idx.device)
-    counts = ball_group_bwd_plain(radius, idx, qidx, None, one[:, 0, :, :1],
-                                  one, n, False, False)[1] + K
-    s = inv_radius(radius)
-    a_dp = g_dpfj[..., :3].abs() * s
-    a_xyz, a_feats = ball_group_bwd_plain(
-        radius, idx, qidx, g_new.abs() + a_dp.sum(dim=1), g_fi.abs(),
-        torch.cat([a_dp, g_dpfj[..., 3:].abs()], -1), n, False, False)
-    return scatter_bound(counts, a_xyz), scatter_bound(counts, a_feats)
-
-
-def phase_train_kernels(gen, inputs, rows) -> None:
-    """The kernels the train step adds, each against its plain version: FPS
-    at the resampling shape, the ball-group backward at the four stage
-    shapes (directly and through autograd), the row gather and its
-    scatter-add. Adds their rows to ``rows``."""
+def check_stages_backward(gen, stages, inputs):
+    """The ball-group backward kernel at ``stages`` (K neighbours, relative,
+    dp normalised), directly and through autograd, against its plain version.
+    Returns its row, summed over the stages."""
     import torch
     from adaptpoint_tpu_torch import ops
-    from adaptpoint_tpu_torch.ops import ballgroup, gather
-    from adaptpoint_tpu_torch.ops import fpsample as fps
+    from adaptpoint_tpu_torch.ops import ballgroup
 
-    # FPS at the resampling shape (32, 2048) -> 1200
-    cloud = torch.randn((B, N_TRAIN, 3), generator=gen, device=DEV)
-    cloud = cloud / cloud.norm(dim=-1).amax(dim=1, keepdim=True)[..., None]
-    got = fps.furthest_point_sample_cuda(cloud, N_FPS)
-    ref = fps.furthest_point_sample_plain(cloud, N_FPS)
-    torch.cuda.synchronize()
-    mism = int((got != ref).sum())
-    emit("kernel", name="fps", shape=[B, N_TRAIN, N_FPS], mismatches=mism,
-         tolerance="exact")
-    if mism:
-        raise AssertionError(f"FPS kernel disagrees at {mism} indices "
-                             f"(2048 -> 1200)")
-    ops_f = (N_FPS - 1) * B * N_TRAIN * 10
-    bytes_f = B * N_TRAIN * 12 + B * N_FPS * 4
-    rows["fps"]["resample_shape"] = dict(
-        shape=[B, N_TRAIN, N_FPS],
-        ms=cuda_ms(lambda: fps.furthest_point_sample_cuda(cloud, N_FPS)),
-        plain_ms=cuda_ms(
-            lambda: fps.furthest_point_sample_plain(cloud, N_FPS), 50.0),
-        **bound_row(bytes_f / PEAK_BYTES, ops_f / PEAK_F32))
-
-    # ball-group backward at the four stage shapes
     bwd = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, t_b=0.0, t_o=0.0)
     for i, ((n, m, c, _, _, r), (xyz, qidx, feats)) in enumerate(
-            zip(STAGES, inputs)):
+            zip(stages, inputs)):
         idx = ballgroup.ball_group_cuda(r, K, xyz, qidx, feats, True, True)[3]
         g_new = torch.randn((B, m, 3), generator=gen, device=DEV)
         g_fi = torch.randn((B, m, c), generator=gen, device=DEV)
@@ -381,82 +366,476 @@ def phase_train_kernels(gen, inputs, rows) -> None:
         emit("stage_times", stage=i + 1, shape=[B, n, m, c, K],
              ball_group_bwd=row)
     bwd.update(bound_row(bwd.pop("t_b"), bwd.pop("t_o")))
-    rows["ball_group_bwd"] = bwd
+    return bwd
+
+
+def phase_kernels(gen):
+    import torch
+    from adaptpoint_tpu_torch.ops import fpsample as fps
+
+    inputs = stage_inputs(gen)
+    rows = {}
+
+    # FPS at (32, 1024) -> 512
+    xyz = inputs[0][0]
+    got = fps.furthest_point_sample_cuda(xyz, 512)
+    ref = fps.furthest_point_sample_plain(xyz, 512)
+    torch.cuda.synchronize()
+    mism = int((got != ref).sum())
+    err = float((got.long() - ref.long()).abs().max())
+    emit("kernel", name="fps", shape=[B, N0, 512], mismatches=mism,
+         max_abs_err=err, tolerance="exact")
+    if mism:
+        raise AssertionError(f"FPS kernel disagrees at {mism} indices")
+    ops_f = 511 * B * N0 * 10
+    bytes_f = B * N0 * 12 + B * 512 * 4
+    rows["fps"] = dict(
+        ms=cuda_ms(lambda: fps.furthest_point_sample_cuda(xyz, 512)),
+        plain_ms=cuda_ms(lambda: fps.furthest_point_sample_plain(xyz, 512),
+                         50.0),
+        bound_ms=1e3 * max(bytes_f / PEAK_BYTES, ops_f / PEAK_F32),
+        bound_by="bytes" if bytes_f / PEAK_BYTES > ops_f / PEAK_F32
+        else "operations", max_abs_err=err)
+
+    rows["ball_group"], rows["sa_eval"] = check_stages_forward(
+        gen, STAGES, inputs, inputs)
+    phase_train_kernels(gen, inputs, rows)
+    del inputs
+    phase_adapt_kernels(gen, rows)
+    emit("kernel_times", note="ms per B=32 forward or backward; ball_group, "
+         "ball_group_bwd and sa_eval summed over the four SA stages; "
+         "gather_rows and gather_rows_bwd at the resampling shape", rows=rows)
+    return rows
+
+
+def bound_row(t_bytes: float, t_ops: float) -> dict:
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+
+
+def scatter_bound(counts, abs_sum):
+    """Most that two f32 sums of the same ``n`` addends, taken in different
+    orders, can differ: each is within ``(n - 1) * 2^-24 * sum|addend|`` of
+    the true sum, so ``n * 2^-23 * sum|addend|`` bounds their difference."""
+    return counts * EPS32 * abs_sum + 1e-30
+
+
+def ball_group_bwd_bound(radius, idx, qidx, g_new, g_fi, g_dpfj, n,
+                         relative=True):
+    """Per-element bound on |kernel - plain| for the ball-group backward:
+    both add the same f32 addends in another order (``scatter_bound``). With
+    ``relative`` (and dp normalised) the center's row also carries the inner
+    sum over its K slots."""
+    import torch
+    from adaptpoint_tpu_torch.ops.ballgroup import ball_group_bwd_plain
+    from adaptpoint_tpu_torch.ops.geometry import inv_radius
+    Bq, K, M, _ = g_dpfj.shape
+    one = torch.ones((Bq, K, M, 4), device=idx.device)
+    counts = ball_group_bwd_plain(radius, idx, qidx, None, one[:, 0, :, :1],
+                                  one, n, False, False)[1] + K
+    s = inv_radius(radius) if relative else 1.0
+    a_dp = g_dpfj[..., :3].abs() * s
+    a_center = g_new.abs() + a_dp.sum(dim=1) if relative else g_new.abs()
+    a_xyz, a_feats = ball_group_bwd_plain(
+        radius, idx, qidx, a_center, g_fi.abs(),
+        torch.cat([a_dp, g_dpfj[..., 3:].abs()], -1), n, False, False)
+    return scatter_bound(counts, a_xyz), scatter_bound(counts, a_feats)
+
+
+def check_gather(gen, tag, n, c, idx, distinct=False,
+                 dtypes=("float32", "bfloat16"), min_total_ms=200.0):
+    """The row gather and its scatter-add on seeded (B, n, c) points and
+    ``idx`` (B, ...) of any rank >= 2, against their plain versions: the
+    kernels called directly on the flattened index, and ``ops.index_points``
+    with its autograd on ``idx`` as it is. Returns the f32 rows (forward,
+    backward) with times."""
+    import torch
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.ops import gather
+    from adaptpoint_tpu_torch.ops.geometry import index_points as plain_index
+
+    flat_idx = idx.reshape(B, -1).int().contiguous()
+    m = flat_idx.shape[1]
+    pts = torch.randn((B, n, c), generator=gen, device=DEV)
+    g = torch.randn((B, m, c), generator=gen, device=DEV)
+    counts = gather.gather_rows_bwd_plain(torch.ones_like(g), flat_idx, n)
+    out_rows = None
+    for dtype in (getattr(torch, d) for d in dtypes):
+        p_t, g_t = pts.to(dtype), g.to(dtype)
+        fwd = gather.gather_rows_cuda(p_t, flat_idx)
+        fwd_ref = gather.gather_rows_plain(p_t, flat_idx)
+        back = gather.gather_rows_bwd_cuda(g_t, flat_idx, n)
+        back_ref = gather.gather_rows_bwd_plain(g_t, flat_idx, n)
+        p_req = p_t.clone().requires_grad_()
+        via_ops = ops.index_points(p_req, idx)
+        auto = torch.autograd.grad(via_ops, p_req,
+                                   g_t.reshape(via_ops.shape))[0]
+        torch.cuda.synchronize()
+        e_fwd = max(float((fwd.float() - fwd_ref.float()).abs().max()),
+                    float((via_ops.detach().float()
+                           - plain_index(p_t, idx).float()).abs().max()))
+        bound = scatter_bound(counts, gather.gather_rows_bwd_plain(
+            g_t.float().abs(), flat_idx, n))
+        if dtype == torch.bfloat16:  # one bf16 rounding may flip
+            bound = bound + back_ref.float().abs() * 2.0 ** -8
+        if distinct:
+            bound = torch.zeros_like(bound)
+        d_back = (back.float() - back_ref.float()).abs()
+        d_auto = (auto.float() - back_ref.float()).abs()
+        emit("kernel", name="gather_rows", case=tag,
+             shape=[B, n, c, list(idx.shape[1:])],
+             dtype=str(dtype), repeated_indices=not distinct,
+             max_repeat=int(counts.max()),
+             max_abs_err={"forward": e_fwd, "backward": float(d_back.max()),
+                          "autograd": float(d_auto.max())},
+             tolerance="forward exact; backward exact for distinct "
+                       "rows, else <= n * 2^-23 * sum|addend| per element "
+                       "(+ one bf16 ulp for bf16)")
+        if (e_fwd or not bool((d_back <= bound).all())
+                or not bool((d_auto <= bound).all())
+                or back.dtype != dtype or fwd.dtype != dtype
+                or via_ops.shape != tuple(idx.shape) + (c,)):
+            raise AssertionError(
+                f"row gather disagrees ({tag}, {dtype}): forward {e_fwd} "
+                f"backward {float(d_back.max())}")
+        if dtype != torch.float32:
+            continue
+        flat = (flat_idx.long() + torch.arange(B, device=DEV)[:, None] * n
+                ).reshape(-1)
+        long_idx = flat_idx.long()[..., None].expand(-1, -1, c)
+        f_row = dict(
+            shape=[B, n, c, m], max_abs_err=e_fwd,
+            ms=cuda_ms(lambda: gather.gather_rows_cuda(pts, flat_idx),
+                       min_total_ms),
+            plain_ms=cuda_ms(lambda: gather.gather_rows_plain(pts, flat_idx),
+                             min_total_ms),
+            library_ms=cuda_ms(lambda: torch.gather(pts, 1, long_idx),
+                               min_total_ms),
+            **bound_row((2 * B * m * c * 4 + B * m * 4) / PEAK_BYTES, 0.0))
+        b_row = dict(
+            shape=[B, n, c, m], max_abs_err=float(d_back.max()),
+            ms=cuda_ms(lambda: gather.gather_rows_bwd_cuda(g, flat_idx, n),
+                       min_total_ms),
+            plain_ms=cuda_ms(
+                lambda: gather.gather_rows_bwd_plain(g, flat_idx, n),
+                min_total_ms),
+            library_ms=cuda_ms(
+                lambda: torch.zeros((B * n, c), device=DEV).index_add_(
+                    0, flat, g.reshape(-1, c)), min_total_ms),
+            **bound_row((B * m * c * 4 + B * m * 4 + B * n * c * 4)
+                        / PEAK_BYTES, B * m * c / PEAK_F32))
+        out_rows = (f_row, b_row)
+    return out_rows
+
+
+def phase_train_kernels(gen, inputs, rows) -> None:
+    """The kernels the train step adds, each against its plain version: FPS
+    at the resampling shape, the ball-group backward at the four stage
+    shapes (directly and through autograd), the row gather and its
+    scatter-add. Adds their rows to ``rows``."""
+    import torch
+    from adaptpoint_tpu_torch.ops import fpsample as fps
+
+    # FPS at the resampling shape (32, 2048) -> 1200
+    cloud = torch.randn((B, N_TRAIN, 3), generator=gen, device=DEV)
+    cloud = cloud / cloud.norm(dim=-1).amax(dim=1, keepdim=True)[..., None]
+    got = fps.furthest_point_sample_cuda(cloud, N_FPS)
+    ref = fps.furthest_point_sample_plain(cloud, N_FPS)
+    torch.cuda.synchronize()
+    mism = int((got != ref).sum())
+    emit("kernel", name="fps", shape=[B, N_TRAIN, N_FPS], mismatches=mism,
+         tolerance="exact")
+    if mism:
+        raise AssertionError(f"FPS kernel disagrees at {mism} indices "
+                             f"(2048 -> 1200)")
+    ops_f = (N_FPS - 1) * B * N_TRAIN * 10
+    bytes_f = B * N_TRAIN * 12 + B * N_FPS * 4
+    rows["fps"]["resample_shape"] = dict(
+        shape=[B, N_TRAIN, N_FPS],
+        ms=cuda_ms(lambda: fps.furthest_point_sample_cuda(cloud, N_FPS)),
+        plain_ms=cuda_ms(
+            lambda: fps.furthest_point_sample_plain(cloud, N_FPS), 50.0),
+        **bound_row(bytes_f / PEAK_BYTES, ops_f / PEAK_F32))
+
+    # ball-group backward at the four stage shapes
+    rows["ball_group_bwd"] = check_stages_backward(gen, STAGES, inputs)
 
     # row gather and its scatter-add: the resampling shape (distinct rows)
     # and a feature shape whose indices repeat
-    shapes = {"resample": (N_TRAIN, 4, N0, False), "feature": (512, 64, 256,
-                                                                True)}
-    for tag, (n, c, m, repeats) in shapes.items():
-        pts = torch.randn((B, n, c), generator=gen, device=DEV)
-        if repeats:
-            idx = torch.randint(0, n // 4, (B, m), generator=gen, device=DEV,
-                                dtype=torch.int32)
-        else:
-            idx = torch.argsort(torch.rand((B, n), generator=gen, device=DEV),
-                                dim=1)[:, :m].int().contiguous()
-        g = torch.randn((B, m, c), generator=gen, device=DEV)
-        for dtype in (torch.float32, torch.bfloat16):
-            p_t, g_t = pts.to(dtype), g.to(dtype)
-            fwd = gather.gather_rows_cuda(p_t, idx)
-            fwd_ref = gather.gather_rows_plain(p_t, idx)
-            back = gather.gather_rows_bwd_cuda(g_t, idx, n)
-            back_ref = gather.gather_rows_bwd_plain(g_t, idx, n)
-            p_req = p_t.clone().requires_grad_()
-            auto = torch.autograd.grad(ops.gather_rows(p_req, idx), p_req,
-                                       g_t)[0]
-            torch.cuda.synchronize()
-            e_fwd = float((fwd.float() - fwd_ref.float()).abs().max())
-            counts = gather.gather_rows_bwd_plain(torch.ones_like(g), idx, n)
-            bound = scatter_bound(counts, gather.gather_rows_bwd_plain(
-                g_t.float().abs(), idx, n))
-            if dtype == torch.bfloat16:  # one bf16 rounding may flip
-                bound = bound + back_ref.float().abs() * 2.0 ** -8
-            if not repeats:
-                bound = torch.zeros_like(bound)
-            d_back = (back.float() - back_ref.float()).abs()
-            d_auto = (auto.float() - back_ref.float()).abs()
-            emit("kernel", name="gather_rows", shape=[B, n, c, m],
-                 dtype=str(dtype), repeated_indices=repeats,
-                 max_repeat=int(counts.max()),
-                 max_abs_err={"forward": e_fwd, "backward":
-                              float(d_back.max()),
-                              "autograd": float(d_auto.max())},
-                 tolerance="forward exact; backward exact for distinct "
-                           "rows, else <= n * 2^-23 * sum|addend| per element "
-                           "(+ one bf16 ulp for bf16)")
-            if (e_fwd or not bool((d_back <= bound).all())
-                    or not bool((d_auto <= bound).all())
-                    or back.dtype != dtype or fwd.dtype != dtype):
-                raise AssertionError(
-                    f"row gather disagrees ({tag}, {dtype}): forward {e_fwd} "
-                    f"backward {float(d_back.max())}")
-            if dtype != torch.float32:
-                continue
-            flat = (idx.long() + torch.arange(B, device=DEV)[:, None] * n
-                    ).reshape(-1)
-            long_idx = idx.long()[..., None].expand(-1, -1, c)
-            f_row = dict(
-                shape=[B, n, c, m], max_abs_err=e_fwd,
-                ms=cuda_ms(lambda: gather.gather_rows_cuda(pts, idx)),
-                plain_ms=cuda_ms(lambda: gather.gather_rows_plain(pts, idx)),
-                library_ms=cuda_ms(lambda: torch.gather(pts, 1, long_idx)),
-                **bound_row((2 * B * m * c * 4 + B * m * 4) / PEAK_BYTES, 0.0))
-            b_row = dict(
-                shape=[B, n, c, m], max_abs_err=float(d_back.max()),
-                ms=cuda_ms(lambda: gather.gather_rows_bwd_cuda(g, idx, n)),
-                plain_ms=cuda_ms(
-                    lambda: gather.gather_rows_bwd_plain(g, idx, n)),
-                library_ms=cuda_ms(
-                    lambda: torch.zeros((B * n, c), device=DEV).index_add_(
-                        0, flat, g.reshape(-1, c))),
-                **bound_row((B * m * c * 4 + B * m * 4 + B * n * c * 4)
-                            / PEAK_BYTES, B * m * c / PEAK_F32))
-            if tag == "resample":
-                rows["gather_rows"], rows["gather_rows_bwd"] = f_row, b_row
-            else:
-                rows["gather_rows"]["feature_shape"] = f_row
-                rows["gather_rows_bwd"]["feature_shape"] = b_row
+    idx = torch.argsort(torch.rand((B, N_TRAIN), generator=gen, device=DEV),
+                        dim=1)[:, :N0].int().contiguous()
+    rows["gather_rows"], rows["gather_rows_bwd"] = check_gather(
+        gen, "resample", N_TRAIN, 4, idx, distinct=True)
+    idx = torch.randint(0, 512 // 4, (B, 256), generator=gen, device=DEV,
+                        dtype=torch.int32)
+    rows["gather_rows"]["feature_shape"], \
+        rows["gather_rows_bwd"]["feature_shape"] = check_gather(
+            gen, "feature", 512, 64, idx)
+
+
+def phase_adapt_kernels(gen, rows) -> None:
+    """The kernels phase A adds, each against its plain version at the shapes
+    the B=32, N=2048 ``gan_step`` gives it: the kNN (indices exact), the
+    flash attention forward and backward (within TOL_MHA), the ball-group
+    kernels at the augmentor's grouper shapes (``relative=False``, K=24, C up
+    to 1024), the ball-group kernels and the fused SA at the frozen
+    classifier's stages from N=2048, and the step's twelve row gathers and
+    five scatter-adds at their own shapes and indices. Adds their rows to
+    ``rows``."""
+    import torch
+    import torch.nn.functional as F
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.ops import attention, ballgroup, knn
+    from adaptpoint_tpu_torch.ops import fpsample as fps
+
+    cloud = torch.randn((B, N_GAN, 3), generator=gen, device=DEV)
+    cloud = cloud / cloud.norm(dim=-1).amax(dim=1, keepdim=True)[..., None]
+    # the decode's levels: the cloud, its FPS half, then FPS-order prefixes
+    order = fps.furthest_point_sample_cuda(cloud, N_GAN // 2)
+    levels = [cloud, ops.index_points(cloud, order).contiguous()]
+    for m in (512, 256, 128):
+        levels.append(levels[1][:, :m].contiguous())
+
+    # ---- kNN: k=3 at the four FP-decode levels, k=24 for the 4 anchors;
+    # then ties (repeated points) and k > N
+    acc = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, t_b=0.0, t_o=0.0)
+    cases = [(3, levels[i + 1], levels[i]) for i in range(4)]
+    cases.append((24, levels[4], levels[0][:, :4].contiguous()))
+    for k, support, query in cases:
+        got = knn.knn_idx_cuda(k, support, query)
+        ref = knn.knn_idx_plain(k, support, query)
+        torch.cuda.synchronize()
+        mism = int((got != ref).sum())
+        n, m = support.shape[1], query.shape[1]
+        emit("kernel", name="knn", shape=[B, n, m, 3, k], mismatches=mism,
+             tolerance="exact")
+        if mism:
+            raise AssertionError(f"kNN kernel disagrees at {mism} indices "
+                                 f"(N={n}, M={m}, k={k})")
+        t_b = (B * (n + m) * 12 + B * m * k * 4) / PEAK_BYTES
+        t_o = B * m * n * 9 / PEAK_F32  # one expanded-form distance a pair
+        row = dict(ms=cuda_ms(lambda: knn.knn_idx_cuda(k, support, query)),
+                   plain_ms=cuda_ms(
+                       lambda: knn.knn_idx_plain(k, support, query), 50.0),
+                   **bound_row(t_b, t_o))
+        emit("stage_times", knn=row, shape=[B, n, m, 3, k])
+        acc["ms"] += row["ms"]
+        acc["plain_ms"] += row["plain_ms"]
+        acc["t_b"] += t_b
+        acc["t_o"] += t_o
+    tied = levels[3][:, :64].repeat(1, 2, 1).contiguous()  # every point twice
+    for k, support, query in ((5, tied, levels[4]), (24, levels[4][:, :8]
+                                                     .contiguous(), tied)):
+        got = knn.knn_idx_cuda(k, support, query)
+        ref = knn.knn_idx_plain(k, support, query)
+        mism = int((got != ref).sum())
+        emit("kernel", name="knn", case="ties" if k == 5 else "k > N",
+             shape=[B, support.shape[1], query.shape[1], 3, k],
+             mismatches=mism, tolerance="exact")
+        if mism:
+            raise AssertionError(f"kNN kernel disagrees ({k=}): {mism}")
+    acc.update(bound_row(acc.pop("t_b"), acc.pop("t_o")))
+    rows["knn"] = acc
+
+    # ---- attention at the mask head's shape, then ragged N and wider heads
+    def mha_inputs(shape, dtype=torch.float32):
+        return [torch.randn(shape, generator=gen, device=DEV).to(dtype)
+                for _ in range(4)]
+
+    def mha_check(shape, scale, dtype=torch.float32):
+        q, k, v, do = mha_inputs(shape, dtype)
+        do = do.float()
+        out, saved = attention.mha_cuda(q, k, v, scale, for_backward=True)
+        grads = attention.mha_bwd_cuda(q, k, v, scale, do, saved)
+        # through autograd, as the model calls it
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        auto = torch.autograd.grad(ops.fused_self_attention(*qkv, scale), qkv,
+                                   do)
+        ref = attention.mha_plain(q, k, v, scale)
+        ref_grads = attention.mha_bwd_plain(q, k, v, scale, do)
+        torch.cuda.synchronize()
+        errs, worst, ok = {}, 0.0, True
+        pairs = [("out", out, ref)]
+        for name, a, b_, c in zip(("dq", "dk", "dv"), grads, ref_grads, auto):
+            pairs += [(name, a, b_), ("autograd_" + name, c, b_)]
+        for name, a, b_ in pairs:
+            if a.dtype != b_.dtype or a.shape != b_.shape:
+                ok = False
+            a, b_ = a.float(), b_.float()
+            d = (a - b_).abs()
+            errs[name] = float(d.max())
+            scaled = float((d / (1.0 + b_.abs())).max())
+            worst = max(worst, scaled)
+            tol = TOL_MHA if dtype == torch.float32 or name == "out" \
+                else TOL_MHA + 2.0 ** -8  # a bf16 gradient: one more ulp
+            ok = ok and scaled <= tol and bool(torch.isfinite(a).all())
+        emit("kernel", name="mha", shape=list(shape), scale=scale,
+             dtype=str(dtype), max_abs_err=errs, max_scaled_err=worst,
+             out_absmax=float(ref.abs().max()),
+             tolerance=f"|kernel - plain| <= {TOL_MHA} * (1 + |plain|) "
+                       f"(+ 2^-8 for gradients stored as bf16)")
+        if not ok:
+            raise AssertionError(f"attention kernels disagree at {shape} "
+                                 f"{dtype}: {errs}")
+        return errs
+
+    for shape, scale in (((3, 100, 32), 32 ** 0.5), ((2, 65, 64), 8.0),
+                         ((2, 1, 16), 4.0), ((2, 520, 16), 4.0)):
+        mha_check(shape, scale)
+    mha_check((4, 1024, 16), MHA_SCALE, torch.bfloat16)
+    errs = mha_check(MHA_SHAPE, MHA_SCALE)
+    torch.cuda.empty_cache()  # the plain version's (BH, N, N) tensors
+
+    bh, n, d = MHA_SHAPE
+    q, k, v, do = mha_inputs(MHA_SHAPE)
+    qb, kb, vb = [t.to(torch.bfloat16).reshape(1, bh, n, d).requires_grad_()
+                  for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(qb, kb, vb,
+                                             scale=1.0 / MHA_SCALE)
+    dob = do.to(torch.bfloat16).reshape(1, bh, n, d)
+    _, saved = attention.mha_cuda(q, k, v, MHA_SCALE, for_backward=True)
+    t_bytes = 4 * bh * n * d * 4 / PEAK_BYTES
+    t_exp = bh * n * n / PEAK_EXP
+    rows["mha"] = dict(
+        shape=list(MHA_SHAPE), max_abs_err=errs["out"],
+        ms=cuda_ms(lambda: attention.mha_cuda(q, k, v, MHA_SCALE,
+                                              for_backward=True)),
+        ms_forward_only=cuda_ms(lambda: attention.mha_cuda(q, k, v,
+                                                           MHA_SCALE)),
+        plain_ms=cuda_ms(lambda: attention.mha_plain(q, k, v, MHA_SCALE),
+                         50.0),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, scale=1.0 / MHA_SCALE)),
+        **bound_row(t_bytes, max(4 * bh * n * n * d / PEAK_BF16, t_exp)),
+        bound_parts_ms={"bytes": 1e3 * t_bytes, "exp": 1e3 * t_exp,
+                        "tensor_core": 1e3 * 4 * bh * n * n * d / PEAK_BF16})
+    t_bytes = 7 * bh * n * d * 4 / PEAK_BYTES
+    rows["mha_bwd"] = dict(
+        shape=list(MHA_SHAPE),
+        max_abs_err=max(errs["dq"], errs["dk"], errs["dv"]),
+        ms=cuda_ms(lambda: attention.mha_bwd_cuda(q, k, v, MHA_SCALE, do,
+                                                  saved)),
+        plain_ms=cuda_ms(lambda: attention.mha_bwd_plain(q, k, v, MHA_SCALE,
+                                                         do), 50.0),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (qb, kb, vb), dob, retain_graph=True)),
+        **bound_row(t_bytes, max(10 * bh * n * n * d / PEAK_BF16, t_exp)),
+        bound_parts_ms={"bytes": 1e3 * t_bytes, "exp": 1e3 * t_exp,
+                        "tensor_core": 1e3 * 10 * bh * n * n * d / PEAK_BF16})
+    del q, k, v, do, qb, kb, vb, dob, lib_out, saved
+    torch.cuda.empty_cache()
+
+    # ---- ball group, forward and backward, at the four grouper shapes
+    bg = dict(ms=0.0, plain_ms=0.0, bwd_ms=0.0, bwd_plain_ms=0.0)
+    for i, (n, m, c, r) in enumerate(GAN_STAGES):
+        xyz = levels[i]
+        qidx = (order if i == 0 else ops.fps_prefix_idx(B, m, DEV)) \
+            .int().contiguous()
+        feats = torch.randn((B, n, c), generator=gen, device=DEV)
+        args = (r, K_GAN, xyz, qidx, feats, False, False)
+        got = ballgroup.ball_group_cuda(*args)
+        ref = ballgroup.ball_group_plain(*args)
+        torch.cuda.synchronize()
+        errs = [float((a.float() - b_.float()).abs().max())
+                for a, b_ in zip(got, ref)]
+        del ref
+        idx = got[3]
+        g_new = torch.randn((B, m, 3), generator=gen, device=DEV)
+        g_fi = torch.randn((B, m, c), generator=gen, device=DEV)
+        g_dpfj = torch.randn((B, K_GAN, m, 3 + c), generator=gen, device=DEV)
+        bargs = (r, idx, qidx, g_new, g_fi, g_dpfj, n, False, False)
+        back = ballgroup.ball_group_bwd_cuda(*bargs)
+        back_ref = ballgroup.ball_group_bwd_plain(*bargs)
+        bounds = ball_group_bwd_bound(r, idx, qidx, g_new, g_fi, g_dpfj, n,
+                                      relative=False)
+        torch.cuda.synchronize()
+        d_xyz = (back[0] - back_ref[0]).abs()
+        d_feats = (back[1] - back_ref[1]).abs()
+        ok = (not any(errs) and bool((d_xyz <= bounds[0]).all())
+              and bool((d_feats <= bounds[1]).all()))
+        row = dict(
+            ms=cuda_ms(lambda: ballgroup.ball_group_cuda(*args)),
+            plain_ms=cuda_ms(lambda: ballgroup.ball_group_plain(*args)),
+            bwd_ms=cuda_ms(lambda: ballgroup.ball_group_bwd_cuda(*bargs)),
+            bwd_plain_ms=cuda_ms(
+                lambda: ballgroup.ball_group_bwd_plain(*bargs)),
+            bound_ms=1e3 * B * K_GAN * m * (3 + c) * 4 / PEAK_BYTES)
+        emit("kernel", name="ball_group", grouper=[B, n, m, c, K_GAN],
+             relative=False, radius=r,
+             max_abs_err={"new_xyz": errs[0], "fi": errs[1], "dpfj": errs[2],
+                          "idx": errs[3], "g_xyz": float(d_xyz.max()),
+                          "g_feats": float(d_feats.max())},
+             full_balls=float((idx[..., -1] != idx[..., 0]).float().mean()),
+             tolerance="forward exact; backward <= n * 2^-23 * sum|addend| "
+                       "per element", times=row)
+        if not ok:
+            raise AssertionError(f"ball-group kernels disagree at the "
+                                 f"grouper shape {(n, m, c)}: {errs}, "
+                                 f"{float(d_xyz.max())}, "
+                                 f"{float(d_feats.max())}")
+        for key in bg:
+            bg[key] += row[key]
+        del got, back, back_ref, bounds, g_dpfj, feats
+        torch.cuda.empty_cache()
+    rows["ball_group"]["grouper_shapes"] = dict(
+        shape=[B, N_GAN, K_GAN, "C 128-1024, relative=False"],
+        ms=bg["ms"], plain_ms=bg["plain_ms"])
+    rows["ball_group_bwd"]["grouper_shapes"] = dict(
+        shape=[B, N_GAN, K_GAN, "C 128-1024, relative=False"],
+        ms=bg["bwd_ms"], plain_ms=bg["bwd_plain_ms"])
+
+    # ---- the frozen classifier's four stages at N_GAN points: the fused SA
+    # kernel on whole clouds (the real pass), the ball-group kernels (K=32,
+    # relative) on clouds with dropped points (the fake pass), and FPS of
+    # such a cloud, whose dropped points all tie at the origin
+    real = stage_inputs(gen, GAN_CLS_STAGES)
+    fake = stage_inputs(gen, GAN_CLS_STAGES, FAKE_DROPPED)
+    ref = fps.furthest_point_sample_plain(fake[0][0], N_GAN // 2)
+    mism = int((fake[0][1] != ref).sum())
+    emit("kernel", name="fps", case="fake cloud", shape=[B, N_GAN, N_GAN // 2],
+         dropped_share=float((fake[0][0].abs().sum(-1) == 0).float().mean()),
+         mismatches=mism, tolerance="exact")
+    if mism:
+        raise AssertionError(f"FPS kernel disagrees at {mism} indices on a "
+                             f"cloud with dropped points")
+    shape = [B, N_GAN, K, "the classifier's four stages from N=2048"]
+    bg_cls, sa_cls = check_stages_forward(gen, GAN_CLS_STAGES, fake, real)
+    rows["ball_group"]["gan_classifier_shapes"] = dict(shape=shape, **bg_cls)
+    rows["sa_eval"]["gan_classifier_shapes"] = dict(shape=shape, **sa_cls)
+    rows["ball_group_bwd"]["gan_classifier_shapes"] = dict(
+        shape=shape, **check_stages_backward(gen, GAN_CLS_STAGES, fake))
+    del real, fake
+    torch.cuda.empty_cache()
+
+    # ---- the row gathers of one gan_step, with the indices the step's own
+    # searches give: (case, launches a step, N, C, idx, source has a gradient)
+    idx24 = knn.knn_idx_cuda(24, levels[4], levels[0][:, :4].contiguous())
+    gathers = [("anchors", 2, N_GAN, 3, order[:, :4], False),
+               ("head kNN xyz", 1, 128, 3, idx24, False),
+               ("head pooling", 1, 128, 1024, idx24, True)]
+    for i, (_, m, c, _) in enumerate(GAN_STAGES):
+        idx3 = knn.knn_idx_cuda(3, levels[i + 1], levels[i])  # (B, N_i, 3)
+        gathers += [(f"decode {m} -> {2 * m} xyz", 1, m, 3, idx3, False),
+                    (f"decode {m} -> {2 * m} features", 1, m, c, idx3, True)]
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    tot_f, tot_b = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
+    n_f = n_b = 0
+    for tag, launches, n, c, idx, has_grad in gathers:
+        f_row, b_row = check_gather(gen, tag, n, c, idx, dtypes=("float32",),
+                                    distinct=tag == "anchors",
+                                    min_total_ms=30.0)
+        emit("stage_times", gather=tag, launches_a_step=launches,
+             gather_rows=f_row, gather_rows_bwd=b_row if has_grad else None)
+        n_f += launches
+        n_b += int(has_grad)
+        for key in keys:
+            tot_f[key] += launches * f_row[key]
+            tot_b[key] += b_row[key] if has_grad else 0.0
+        torch.cuda.empty_cache()
+    rows["gather_rows"]["gan_step_shapes"] = dict(
+        launches_a_step=n_f, bound_by="bytes", **tot_f)
+    rows["gather_rows_bwd"]["gan_step_shapes"] = dict(
+        launches_a_step=n_b, bound_by="bytes", **tot_b)
 
 
 def calibrate_bn(model, x):
@@ -678,6 +1057,64 @@ def plain_ops():
         ops._on_cuda = on_cuda
 
 
+@contextlib.contextmanager
+def fps_choices(log: list, replay=None):
+    """Inside, every ``ops.furthest_point_sample`` call appends its indices
+    to ``log``; or, given a dict as ``replay``, returns the logged indices of
+    the same call in their place and notes in the dict how many of its own
+    picks differ. A reference step run this way differentiates the sampling
+    the step under test made. Nothing of the port does this."""
+    from adaptpoint_tpu_torch import ops
+    own = ops.furthest_point_sample
+    calls = iter(log) if replay is not None else None
+
+    def wrapped(xyz, npoint):
+        idx = own(xyz, npoint)
+        if replay is None:
+            log.append(idx)
+            return idx
+        logged = next(calls).to(idx.device)
+        if logged.shape != idx.shape:
+            raise AssertionError(f"FPS calls differ: {logged.shape} logged, "
+                                 f"{idx.shape} asked")
+        differ = logged != idx
+        replay["calls"] = replay.get("calls", 0) + 1
+        replay["picks"] = replay.get("picks", 0) + idx.numel()
+        replay["picks_differ"] = replay.get("picks_differ", 0) \
+            + int(differ.sum())
+        replay["clouds_differ"] = replay.get("clouds_differ", 0) \
+            + int(differ.any(dim=1).sum())
+        return logged
+
+    ops.furthest_point_sample = wrapped
+    try:
+        yield
+    finally:
+        ops.furthest_point_sample = own
+
+
+def blob_batches(rng, count: int, n: int = B, points: int = N_TRAIN,
+                 axes=None):
+    """``count`` seeded batches ``{"x" (n, points, 4), "y" (n,)}``. Each class
+    is a gaussian blob with its own axis lengths (``axes`` (CLASSES, 3),
+    drawn here when not given), each cloud a jittered copy: the labels can be
+    learnt, and the clouds of a batch differ enough that a BatchNorm over the
+    batch's rows does not divide by a near-zero spread."""
+    import numpy as np
+    from adaptpoint_tpu_torch.serving import preprocess_clouds
+    if axes is None:
+        axes = rng.uniform(0.15, 1.0, (CLASSES, 3)).astype(np.float32)
+    out = []
+    for _ in range(count):
+        y = rng.integers(0, CLASSES, (n,)).astype(np.int64)
+        scale = axes[y] * rng.uniform(0.8, 1.25, (n, 3)).astype(np.float32)
+        x = preprocess_clouds(
+            rng.standard_normal((n, points, 3)).astype(np.float32)
+            * scale[:, None, :])
+        out.append({"x": x, "y": y})
+    return out
+
+
 def adam_slack(grad, lr: float, rtol: float, atol, eps: float = 1e-8):
     """How far the first Adam update ``lr * g / (|g| + eps)`` can move when
     ``g`` is only known to ``atol + rtol * |g|``: first order in that error,
@@ -701,7 +1138,6 @@ def phase_train(gen):
                                              train_one_epoch, validate)
     from adaptpoint_tpu_torch.models import build_model_from_cfg
     from adaptpoint_tpu_torch.ops.gather import gather_rows_bwd_plain
-    from adaptpoint_tpu_torch.serving import preprocess_clouds
     from adaptpoint_tpu_torch.utils import EasyConfig
 
     cfg = EasyConfig()
@@ -710,21 +1146,8 @@ def phase_train(gen):
     lr = float(cfg.lr)
     rng = np.random.default_rng(1)
 
-    # each class is a gaussian blob with its own axis lengths, each cloud a
-    # jittered copy: the labels can be learnt, and the clouds of a batch
-    # differ enough that the head's BatchNorm (statistics over B rows) does
-    # not divide by a near-zero spread
     axes = rng.uniform(0.15, 1.0, (CLASSES, 3)).astype(np.float32)
-
-    def batch(n=B, points=N_TRAIN):
-        y = rng.integers(0, CLASSES, (n,)).astype(np.int64)
-        scale = axes[y] * rng.uniform(0.8, 1.25, (n, 3)).astype(np.float32)
-        x = preprocess_clouds(
-            rng.standard_normal((n, points, 3)).astype(np.float32)
-            * scale[:, None, :])
-        return {"x": x, "y": y}
-
-    batches = [batch() for _ in range(TRAIN_BATCHES)]
+    batches = blob_batches(rng, TRAIN_BATCHES, axes=axes)
     model = build_model_from_cfg(cfg.model, seed=1)
     n_params = sum(p.numel() for p in model.parameters())
 
@@ -780,8 +1203,8 @@ def phase_train(gen):
     if ops.launch_counts() != per_step:
         raise AssertionError("a plain-version step launched a kernel")
     del plain_twin, cpu_twin
-    want = {"fps": 2, "gather_rows": 1, "gather_rows_bwd": 0,
-            "ball_group": 4, "ball_group_bwd": 4, "sa_eval": 0}
+    want = {**dict.fromkeys(ops.KERNEL_MODULES, 0), "fps": 2,
+            "gather_rows": 1, "ball_group": 4, "ball_group_bwd": 4}
 
     def compare(ref, tol):
         """Worst disagreements of ``got`` with ``ref`` and whether all are
@@ -875,7 +1298,8 @@ def phase_train(gen):
             or not np.isfinite(mean_loss):
         raise AssertionError(f"train_one_epoch: launches {got}, counted "
                              f"{int(cm.value.sum())}, loss {mean_loss}")
-    val = [batch(64, N0), dict(batch(64, N0), n_valid=40)]
+    val = blob_batches(rng, 2, 64, N0, axes)
+    val[1]["n_valid"] = 40
     for fused in (False, True):
         before = ops.launch_counts()
         macc, oa, _, cm = validate(make_eval_step(model, cfg, fused), state,
@@ -969,13 +1393,397 @@ def phase_train(gen):
     return launches
 
 
+def phase_adapt(gen):
+    """Phase A of the AdaptPoint protocol at full width: the adversarial
+    ``gan_step`` (augmentor, discriminator, frozen PointNeXt-S feedback) on
+    seeded (32, 2048, 4) batches, through the entry points a user calls, then
+    phase B on phase A's output. Returns the launch counts of this path's
+    run."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.adapt import draw_wolf
+    from adaptpoint_tpu_torch.engine import (GanDraws, TrainState, build_gan,
+                                             build_train_tools, make_gan_step,
+                                             make_train_step, train_gan_epoch)
+    from adaptpoint_tpu_torch.models import build_model_from_cfg
+    from adaptpoint_tpu_torch.utils import EasyConfig
+
+    cfg = EasyConfig()
+    cfg.load(os.path.join(ROOT,
+                          "cfgs/scanobjectnn/pointnext-s_adaptpoint_1.yaml"),
+             recursive=True)
+    lr_g = float(cfg.adaptpoint_params.lr_generator)
+    lr_d = float(cfg.adaptpoint_params.lr_discriminator)
+    rng = np.random.default_rng(4)
+    batches = blob_batches(rng, TRAIN_BATCHES, B, N_GAN)
+    first = {k: torch.from_numpy(v) for k, v in batches[0].items()}
+
+    # the frozen classifier: seeded weights, BN statistics from one pass
+    cls_model = build_model_from_cfg(cfg.model, seed=1)
+    calibrate_bn(cls_model, first["x"][:, :N0].to(DEV))
+    cls_before = {k: v.clone() for k, v in cls_model.state_dict().items()}
+    _, _, _, _, state = build_gan(cfg, seed=5)
+    n_params = {"generator": sum(p.numel() for p in
+                                 state.generator.parameters()),
+                "discriminator": sum(p.numel() for p in
+                                     state.discriminator.parameters())}
+
+    def twin(device, dtype=torch.float32):
+        """A copy of the GAN and the classifier on ``device``, its step and
+        state."""
+        g, d, g_opt, d_opt, st = build_gan(cfg, device=device)
+        c = build_model_from_cfg(cfg.model, device=device)
+        for dst, src in ((g, state.generator), (d, state.discriminator),
+                         (c, cls_model)):
+            dst.to(dtype)  # in place: the optimizers keep their parameters
+            dst.load_state_dict({k: v.to(device) for k, v in
+                                 src.state_dict().items()})
+        # (the float64 copy's real pass takes the unfused route: the fused
+        # stage works in bf16 and f32)
+        return st, make_gan_step(g, d, g_opt, d_opt, c.eval(), cfg)
+
+    # (a) the first step, taken three times from the same weights with the
+    # same draws: on the card through the kernels (the main path), on the
+    # card through the plain versions, and on a float64 CPU copy
+    host_gen = torch.Generator().manual_seed(6)
+    wolf = draw_wolf(host_gen, B, 4, "cpu")
+    u = torch.rand((B, N_GAN, 2), generator=host_gen).clamp_(min=1e-20)
+    draws = GanDraws(
+        wolf, -torch.log(-torch.log(u)),
+        [torch.rand((B, w), generator=host_gen) >= 0.4 for w in (512, 256)],
+        [torch.rand((2 * B, w), generator=host_gen) >= 0.4
+         for w in (512, 256)])
+    hardratio = float(cfg.adaptpoint_params.hardratio)
+
+    def to_dev(d, device):
+        w = d.wolf
+        return GanDraws(
+            type(w)(w.drop.to(device), w.axis_code.to(device),
+                    w.proj_code.to(device)), d.gumbel.to(device),
+            [m.to(device) for m in d.d_masks_g],
+            [m.to(device) for m in d.d_masks_d])
+
+    # The hard keep/drop choice is argmax(logits + gumbel) at tau 0.1, on
+    # logits that pass a bf16 attention: a point whose two noisy logits tie
+    # to within the arithmetic's error can fall either way, and then that
+    # cloud's FPS, balls and max-pool winners follow, which no tolerance on a
+    # gradient survives. The draws are this check's input, so they are chosen
+    # free of near-ties: a copy of the generator gives the logits, and where
+    # the noisy logits are closer than MASK_MARGIN the noise moves them apart
+    # by that much, towards the side they were on.
+    scout, seen = copy.deepcopy(state.generator).train(), {}
+    hook = scout.predict_prob_layer.fuse_masking.register_forward_hook(
+        lambda _m, _i, out: seen.__setitem__("logits", out.detach()))
+    with torch.no_grad():
+        pc = first["x"][..., :3].to(DEV).contiguous()
+        on_card = to_dev(draws, DEV)
+        scout(pc, on_card.wolf, on_card.gumbel,
+              first_fps_idx=ops.furthest_point_sample(pc, N_GAN // 2))
+    hook.remove()
+    gap = seen["logits"].float().cpu() + draws.gumbel
+    gap = gap[..., 0] - gap[..., 1]
+    near = gap.abs() < MASK_MARGIN
+    draws.gumbel[..., 0] += MASK_MARGIN * near * torch.where(gap >= 0, 1.0,
+                                                             -1.0)
+    emit("adapt_draws", margin=MASK_MARGIN, moved_points=int(near.sum()),
+         of=near.numel())
+    del scout, seen, on_card
+
+    def first_step(st, step, device, dtype=torch.float32, clouds=None):
+        """One step from the first batch and the draws. With ``clouds``, the
+        generator's fake clouds take those values on the way forward while
+        the gradient still flows to the generator (a straight-through
+        substitution); the step's own clouds are what comes back as
+        ``gen``."""
+        batch = {"x": first["x"].to(device, dtype),
+                 "y": first["y"].to(device)}
+        own = {}
+        if clouds is not None:
+            def substitute(_module, _inputs, out):
+                own["gen"] = out[1].detach()
+                return out[0], out[1] + (clouds.to(out[1]) - out[1]).detach()
+            hook = st.generator.register_forward_hook(substitute)
+        st, fake, metrics = step(st, batch, to_dev(draws, device), hardratio)
+        if clouds is not None:
+            hook.remove()
+        fake = own.get("gen", fake)
+        nets = {"G": st.generator, "D": st.discriminator}
+        return {
+            "gen": fake.double().cpu(),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {f"{t}.{n}": p.grad.double().cpu()
+                      for t, net in nets.items()
+                      for n, p in net.named_parameters()},
+            "params": {f"{t}.{n}": p.detach().double().cpu()
+                       for t, net in nets.items()
+                       for n, p in net.named_parameters()},
+            "buffers": {f"{t}.{n}": b_.double().cpu()
+                        for t, net in nets.items()
+                        for n, b_ in net.named_buffers()}}
+
+    plain_state, plain_step = twin(DEV)
+    cpu_state, cpu_step = twin("cpu", torch.float64)
+    ops.reset_launch_counts()  # this path's run starts here
+    gan_step = make_gan_step(state.generator, state.discriminator, state.g_opt,
+                             state.d_opt, cls_model, cfg)
+    fps_log, fps_own = [], {}
+    with fps_choices(fps_log):
+        got = first_step(state, gan_step, DEV)
+    torch.cuda.synchronize()
+    per_step = ops.launch_counts()
+    with plain_ops():
+        ref_plain = first_step(plain_state, plain_step, DEV)
+    del plain_state, plain_step
+    torch.cuda.empty_cache()  # the plain attention's (BH, N, N) tensors
+    # The float64 copy's fake clouds sit some 1e-5 from the card's, and the
+    # frozen classifier is no continuous function of its input cloud: ball
+    # memberships and max-pool winners flip, and in float64 alone a 1e-6
+    # perturbation of the clouds moves the classifier's input gradient by a
+    # tenth. So the copy's clouds are held to the card's on their own (gen),
+    # and its gradient is taken at the card's clouds and FPS picks: the same
+    # branch of the piecewise-smooth loss, differentiated in float64.
+    t0 = time.perf_counter()
+    with fps_choices(fps_log, replay=fps_own):
+        ref_cpu = first_step(cpu_state, cpu_step, "cpu", torch.float64,
+                             clouds=got["gen"])
+    cpu_seconds = time.perf_counter() - t0
+    del cpu_state, cpu_step
+    if ops.launch_counts() != per_step:
+        raise AssertionError("a plain-version step launched a kernel")
+    # per step: FPS of the raw cloud (shared) and of the fake cloud; 4
+    # groupers + 4 SA stages of the fake pass, forward and backward; 4 fused
+    # SA stages of the real pass; the mask head's attention; kNN of the
+    # deformation head and of 4 decode levels; row gathers: 2 anchor gathers,
+    # the deformation head's kNN recompute and its pooling, and 2 a decode
+    # level (3-NN recompute, features); their scatter-adds where the source
+    # carries a gradient (the pooling and the 4 feature gathers)
+    want = {"fps": 2, "ball_group": 8, "ball_group_bwd": 8, "sa_eval": 4,
+            "gather_rows": 12, "gather_rows_bwd": 5, "mha": 1, "mha_bwd": 1,
+            "knn": 5}
+
+    def compare(got, ref, tol):
+        """Worst disagreements of ``got`` with ``ref`` and whether all are
+        within ``tol``. With draws free of near-ties the masks agree
+        (``mask_flips``), so the clouds are held on every point, the metrics
+        to a relative bound, and the gradients as in the train phase: each
+        tensor's relative 2-norm, parameters within one Adam step's reach,
+        ``share`` of each tensor's entries within the tight bound plus
+        ``adam_slack``."""
+        kept_a = got["gen"].abs().sum(-1) != 0
+        kept_b = ref["gen"].abs().sum(-1) != 0
+        both = (kept_a & kept_b)[..., None]
+        w = {"mask_flips": int((kept_a != kept_b).sum()),
+             "gen_abs": float(((got["gen"] - ref["gen"]).abs() * both).max()),
+             "metric_rel": max((abs(got["metrics"][k] - v) / abs(v), k)
+                               for k, v in ref["metrics"].items()),
+             "buffer_abs": (0.0, "")}
+        for net in "GD":
+            for key in ("grad_rel_l2", "param_share_outside", "param_abs"):
+                w[f"{net}_{key}"] = (0.0, "")
+        good = (w["mask_flips"] <= tol["mask_flips"]
+                and w["gen_abs"] <= tol["gen"]
+                and w["metric_rel"][0] <= tol["metrics"])
+
+        def note(key, name, value):
+            if value > w[key][0]:
+                w[key] = (value, name)
+
+        for net, lr in (("G", lr_g), ("D", lr_d)):
+            names = [n for n in ref["grads"] if n.startswith(net + ".")]
+            total = float(torch.cat([ref["grads"][n].flatten()
+                                     for n in names]).norm())
+            count = sum(ref["grads"][n].numel() for n in names)
+            tol_g = tol["grad_l2"][net]
+            diff = float(torch.cat([(got["grads"][n] - ref["grads"][n])
+                                    .flatten() for n in names]).norm())
+            w[f"{net}_grad_rel_l2_whole"] = diff / total
+            good = good and diff / total <= tol["grad_l2_whole"][net]
+            per_tensor = []
+            for name in names:
+                ref_g = ref["grads"][name]
+                d = got["grads"][name] - ref_g
+                l2 = float(d.norm() / max(float(ref_g.norm()),
+                                          1e-3 * total))
+                note(f"{net}_grad_rel_l2", name, l2)
+                per_tensor.append((l2, name, float(ref_g.norm()) / total))
+                ref_p = ref["params"][name]
+                tight = TOL_STEP_PARAMS[1] + TOL_STEP_PARAMS[0] * ref_p.abs()
+                dp = (got["params"][name] - ref_p).abs()
+                note(f"{net}_param_abs", name, float(dp.max()))
+                good = good and bool((dp <= tight + 2.02 * lr).all())
+                slack = adam_slack(ref_g, lr, tol_g, tol_g * max(
+                    float(ref_g.abs().max()), total / count ** 0.5))
+                outside = float((dp > tight + slack).double().mean())
+                note(f"{net}_param_share_outside", name, outside)
+                good = (good and l2 <= tol_g
+                        and outside <= 1 - tol["share"])
+            # the worst tensors: [error, name, its share of the whole norm]
+            w[f"{net}_grad_worst_tensors"] = sorted(per_tensor)[-6:][::-1]
+        for name, ref_b in ref["buffers"].items():
+            if name.endswith("num_batches_tracked"):
+                good = good and int(got["buffers"][name]) == int(ref_b) == 1
+                continue
+            note("buffer_abs", name,
+                 float((got["buffers"][name] - ref_b).abs().max()))
+            good = good and bool(torch.allclose(
+                got["buffers"][name], ref_b, rtol=tol["buffers"][0],
+                atol=tol["buffers"][1]))
+        return w, good
+
+    w_plain, ok_plain = compare(got, ref_plain, TOL_GAN_PLAIN)
+    w_cpu, ok_cpu = compare(got, ref_cpu, TOL_GAN_CPU)
+    # not held: how far f32 arithmetic alone (the plain versions on the card)
+    # sits from float64
+    w_f32, _ = compare(ref_plain, ref_cpu, TOL_GAN_CPU)
+    # (b) the fake clouds: inside the unit sphere, dropped rows exactly zero,
+    # and the mask neither empty nor full
+    norms = got["gen"].norm(dim=-1)
+    dropped = float((norms == 0).double().mean())
+    emit("adapt_first_step", params=n_params, metrics=got["metrics"],
+         plain_metrics=ref_plain["metrics"],
+         cpu_f64_metrics=ref_cpu["metrics"],
+         cpu_f64_step_seconds=cpu_seconds,
+         cpu_f64_own_fps_picks=fps_own,
+         against_plain_versions_on_the_card=w_plain,
+         against_float64_cpu_copy=w_cpu,
+         plain_versions_on_the_card_against_float64_cpu_copy=w_f32,
+         launches=per_step, expected=want,
+         gen_max_norm=float(norms.max()), dropped_share=dropped,
+         tolerance={"against_plain_versions_on_the_card": TOL_GAN_PLAIN,
+                    "against_float64_cpu_copy": TOL_GAN_CPU})
+    if per_step != want:
+        raise AssertionError(f"launches in one gan_step {per_step} != {want}")
+    if not (float(norms.max()) <= 1.0 and 0.0 < dropped < 1.0
+            and all(np.isfinite(v) for v in got["metrics"].values())):
+        raise AssertionError(f"bad fake clouds: max norm {float(norms.max())}"
+                             f", dropped share {dropped}")
+    if not (ok_plain and ok_cpu):
+        raise AssertionError(f"the first gan_step disagrees: with the plain "
+                             f"versions {w_plain}, with the CPU copy {w_cpu}")
+
+    # (c) ten more steps: finite metrics; G, D and D's u move; the frozen
+    # classifier does not
+    start = {f"{t}.{n}": v.clone() for t, net in
+             (("G", state.generator), ("D", state.discriminator))
+             for n, v in net.state_dict().items()}
+    dev_gen = torch.Generator(device=DEV).manual_seed(7)
+    dev_batches = [{k: torch.from_numpy(v).to(DEV) for k, v in b.items()}
+                   for b in batches]
+    rows = []
+    for i in range(10):
+        state, fake, metrics = gan_step(state, dev_batches[i % TRAIN_BATCHES],
+                                        dev_gen, hardratio)
+        rows.append(torch.stack(list(metrics.values())))
+    rows = torch.stack(rows).cpu()
+    now = {f"{t}.{n}": v for t, net in
+           (("G", state.generator), ("D", state.discriminator))
+           for n, v in net.state_dict().items()}
+    # (a unit vector of one entry, the probability head's u, cannot move)
+    moved = {k: not torch.equal(v, start[k]) for k, v in now.items()
+             if not k.endswith("num_batches_tracked") and v.numel() > 1}
+    frozen = all(torch.equal(v, cls_before[k])
+                 for k, v in cls_model.state_dict().items())
+    emit("adapt_steps", steps=10, metric_names=list(metrics),
+         first=rows[0].tolist(), last=rows[-1].tolist(),
+         unmoved=[k for k, m in moved.items() if not m],
+         classifier_unchanged=frozen, step=state.step)
+    if not (bool(torch.isfinite(rows).all()) and all(moved.values())
+            and frozen and state.step == 11):
+        raise AssertionError(f"ten gan_steps: finite "
+                             f"{bool(torch.isfinite(rows).all())}, unmoved "
+                             f"{[k for k, m in moved.items() if not m]}, "
+                             f"classifier unchanged {frozen}")
+    got_l = ops.launch_counts()
+    if got_l != {k: 11 * v for k, v in want.items()}:
+        raise AssertionError(f"launches over eleven steps {got_l}")
+
+    # (f) the epoch loop, then phase B on phase A's output: three classifier
+    # train steps on the returned fake dataset
+    t0 = time.perf_counter()
+    state, fake_set, avg = train_gan_epoch(gan_step, state, batches, dev_gen,
+                                           hardratio, cfg)
+    epoch_s = time.perf_counter() - t0
+    ok_set = (len(fake_set) == TRAIN_BATCHES * B
+              and fake_set.x.shape == (TRAIN_BATCHES * B, N_GAN, 4)
+              and bool(np.isfinite(fake_set.pointcloud).all())
+              and all(np.isfinite(v) for v in avg.values()))
+    criterion, optimizer, lr_fn = build_train_tools(cfg, cls_model)
+    train_step = make_train_step(cls_model, optimizer, criterion, cfg)
+    cls_state = TrainState(cls_model, optimizer)
+    losses = []
+    for i in range(3):
+        rows_ = slice(i * B, (i + 1) * B)
+        cls_state, loss, _ = train_step(
+            cls_state,
+            {"x": torch.from_numpy(fake_set.x[rows_]).to(DEV),
+             "y": torch.from_numpy(fake_set.label[rows_]).to(DEV)},
+            dev_gen, lr_fn(0))
+        losses.append(loss)
+    losses = torch.stack(losses).cpu().tolist()
+    launches = ops.launch_counts()  # this path's run ends here
+    emit("adapt_epoch", steps=TRAIN_BATCHES, seconds=epoch_s, averages=avg,
+         fake_clouds=len(fake_set), phase_b_losses=losses, launches=launches)
+    if not (ok_set and np.isfinite(losses).all()
+            and cls_state.step == 3):
+        raise AssertionError(f"train_gan_epoch / phase B: dataset ok "
+                             f"{ok_set}, losses {losses}")
+
+    # (e) ms per gan_step (CUDA events after a warm-up), then the profiler
+    it = [0]
+
+    def one_step():
+        gan_step(state, dev_batches[it[0] % TRAIN_BATCHES], dev_gen, hardratio)
+        it[0] += 1
+
+    cls_model.eval()
+    ms = cuda_ms(one_step, 1000.0)
+    reps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        one_step()
+    enqueue_ms = 1e3 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            one_step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+    kernels = device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]
+    own = {}  # the hand-written kernels: [launches, ms] a step, by name
+    for e in kernels:
+        for name in OWN_KERNELS:
+            if name + "<" in e.key or name + "(" in e.key:
+                acc = own.setdefault(name, [0.0, 0.0])
+                acc[0] += e.count / reps
+                acc[1] += e.self_device_time_total / 1e3 / reps
+    emit("adapt_throughput", batch=B, points=N_GAN, ms_per_step=ms,
+         clouds_per_s=B * 1e3 / ms, host_enqueue_ms=enqueue_ms,
+         profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+         device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+         kernels_per_step=sum(e.count for e in kernels) / reps,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+         own_kernels_launches_and_ms=own,
+         own_kernels_ms=sum(v[1] for v in own.values()),
+         top_kernels_ms=[[e.key[:48], e.self_device_time_total / 1e3 / reps]
+                         for e in top])
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,serve,train",
-                    help="comma-separated subset of kernels,serve,train for "
-                         "a partial run, which prints no final result "
+    ap.add_argument("--phases", default="kernels,serve,train,adapt",
+                    help="comma-separated subset of kernels,serve,train,adapt "
+                         "for a partial run, which prints no final result "
                          "(default: all)")
     phases = set(ap.parse_args(argv).phases.split(","))
     t_start = time.perf_counter()
@@ -1002,16 +1810,19 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows = phase_kernels(gen) if "kernels" in phases else None
-    serve_launches = train_launches = None
+    by_path = {}
     if "serve" in phases:
         out_dir = os.path.join(ROOT, "build", "chip_smoke")
-        models, serve_launches = phase_serve(gen, out_dir)
+        models, by_path["serve"] = phase_serve(gen, out_dir)
         phase_throughput(models, gen)
         del models
     if "train" in phases:
-        train_launches = phase_train(gen)
+        by_path["train"] = phase_train(gen)
+    if "adapt" in phases:
+        torch.cuda.empty_cache()
+        by_path["adapt"] = phase_adapt(gen)
     emit("done", seconds=time.perf_counter() - t_start)
-    if None in (rows, serve_launches, train_launches):
+    if rows is None or set(by_path) != set(PATH_KERNELS):
         print(f"partial run ({sorted(phases)}): no final result",
               file=sys.stderr)
         return 0
@@ -1023,26 +1834,33 @@ def main(argv=None) -> int:
                "ball_group_bwd": ("ballgroup_bwd.cu",
                                   pallas + "ballgroup.py:547"),
                "gather_rows": ("gather.cu", pallas + "gather.py:110"),
-               "gather_rows_bwd": ("gather.cu", pallas + "gather.py:144")}
+               "gather_rows_bwd": ("gather.cu", pallas + "gather.py:144"),
+               "mha": ("attention.cu", pallas + "attention.py:128"),
+               "mha_bwd": ("attention.cu", pallas + "attention.py:158"),
+               "knn": ("knn.cu", pallas + "knn.py:107")}
+    for path, names in PATH_KERNELS.items():
+        never = [n for n in names if by_path[path][n] < 1]
+        if never:
+            raise AssertionError(f"never launched on the {path} path: "
+                                 f"{never}")
     kernels = []
     for name, (src, replaces) in sources.items():
         r = rows[name]
-        by_path = {"serve": serve_launches[name],
-                   "train": train_launches[name]}
+        launches = {path: counts[name] for path, counts in by_path.items()}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"adaptpoint_tpu_torch/ops/csrc/{src}",
-            "replaces": replaces, "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms")})
-        for extra in ("resample_shape", "feature_shape"):
+        for extra in ("resample_shape", "feature_shape", "grouper_shapes",
+                      "gan_classifier_shapes", "gan_step_shapes", "shape",
+                      "ms_forward_only", "bound_parts_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
-        if train_launches[name] < 1:
-            raise AssertionError(f"{name} never launched on the train path")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

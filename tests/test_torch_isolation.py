@@ -7,14 +7,18 @@
 - The CUDA wrappers raise on a CPU tensor instead of falling back.
 """
 import ast
+import importlib
 import os
+import shutil
+import sys
 
 import pytest
 import torch
 
 from adaptpoint_tpu_torch import ops, resolve_device
 from adaptpoint_tpu_torch.models import build_model_from_cfg
-from adaptpoint_tpu_torch.ops import ballgroup, fpsample, gather, saeval
+from adaptpoint_tpu_torch.ops import (attention, ballgroup, fpsample, gather,
+                                      knn, saeval)
 from adaptpoint_tpu_torch.serving import ServingModel, export_serving_artifact
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,6 +57,65 @@ def test_no_jax_imports_in_the_port():
             top = mod.split(".")[0]
             if top in FORBIDDEN:
                 bad.append((os.path.relpath(path, REPO), mod))
+    assert not bad, bad
+
+
+NEW_MODULES = ["adapt", "adapt.augmentor", "adapt.build", "adapt.common",
+               "adapt.discriminator", "adapt.feedback", "adapt.form_dataset",
+               "adapt.pointwolf", "ops.attention", "ops.knn",
+               "engine.adapt_trainer"]
+
+
+def test_phase_a_modules_are_covered_and_import_without_a_toolchain():
+    """The adversarial step's modules are among the scanned files, import
+    nothing forbidden, and importing them on the CPU needs neither ``triton``
+    nor ``nvcc``: kernels are built inside the call that launches them."""
+    scanned = {os.path.relpath(p, os.path.join(REPO, "adaptpoint_tpu_torch"))
+               for p in _port_files()[1:]}
+    for name in NEW_MODULES:
+        rel = name.replace(".", os.sep)
+        assert rel + ".py" in scanned or os.path.join(
+            rel, "__init__.py") in scanned, name
+        mod = importlib.import_module("adaptpoint_tpu_torch." + name)
+        for imported in _imported_modules(mod.__file__):
+            assert imported.split(".")[0] not in FORBIDDEN, (name, imported)
+    assert "triton" not in sys.modules
+    if shutil.which("nvcc") is None and not os.path.exists(
+            "/usr/local/cuda/bin/nvcc"):
+        from adaptpoint_tpu_torch.ops import _build
+        assert {"attention", "knn"} <= set(_build.SOURCES)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            _build.load("knn")
+    for src in ("attention.cu", "knn.cu"):
+        text = open(os.path.join(REPO, "adaptpoint_tpu_torch", "ops", "csrc",
+                                 src)).read()
+        assert "torch/" not in text and 'extern "C"' in text
+
+
+def test_port_tests_leave_the_environment_as_they_found_it():
+    """The JAX package reads ``ADAPTPOINT_TPU_*`` when it traces, and the
+    whole suite may share one process: the port's tests set such a variable
+    through ``monkeypatch`` / ``pytest.MonkeyPatch`` only, which restores it,
+    and never assign into ``os.environ``."""
+    tests = os.path.join(REPO, "tests")
+    files = [n for n in os.listdir(tests)
+             if n.startswith("test_torch_") and n.endswith(".py")]
+    assert len(files) >= 10
+    bad = []
+    for name in files:
+        for node in ast.walk(ast.parse(open(os.path.join(tests, name)).read())):
+            targets = node.targets if isinstance(node, ast.Assign) else \
+                [node.target] if isinstance(node, ast.AugAssign) else []
+            calls = [node.func] if isinstance(node, ast.Call) else []
+            for t in targets:
+                if isinstance(t, ast.Subscript) and \
+                        ast.unparse(t.value) == "os.environ":
+                    bad.append((name, node.lineno))
+            for f in calls:
+                if ast.unparse(f) in ("os.environ.update", "os.putenv",
+                                      "os.environ.setdefault",
+                                      "os.environ.pop"):
+                    bad.append((name, node.lineno))
     assert not bad, bad
 
 
@@ -106,18 +169,30 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
         gather.gather_rows_bwd_cuda(torch.zeros(1, 4, 5), q, 16)
     with pytest.raises(ValueError):
         saeval.sa_eval_cuda(0.3, 4, xyz, q, f, w1, b1, w2, b2)
+    qkv = torch.zeros(2, 8, 16)
+    with pytest.raises(ValueError):
+        attention.mha_cuda(qkv, qkv, qkv, 4.0)
+    with pytest.raises(ValueError):
+        attention.mha_bwd_cuda(qkv, qkv, qkv, 4.0, qkv, (qkv, qkv, qkv))
+    with pytest.raises(ValueError):
+        knn.knn_idx_cuda(3, xyz, xyz)
     # the dispatching ops take the plain versions on CPU tensors and never
     # count a launch, forward or backward
     ops.furthest_point_sample(xyz, 4)
     ops.sa_eval(0.3, 4, xyz, q, f, w1, b1, w2, b2)
     fg = f.clone().requires_grad_()
     out = ops.ball_group(0.3, 4, xyz, q, fg)
+    qg = qkv.clone().requires_grad_()
     (out[1].sum() + out[2].sum() + ops.gather_rows(fg, q).sum()
-     + ops.fps(fg, 4).sum()).backward()
-    assert fg.grad is not None
+     + ops.fps(fg, 4).sum() + ops.index_points(fg, idx).sum()
+     + ops.three_interpolation(xyz, xyz[:, :8], fg[:, :8]).sum()
+     + ops.fused_self_attention(qg, qg, qg, 4.0).sum()).backward()
+    ops.knn_point(3, xyz, xyz)
+    assert fg.grad is not None and qg.grad is not None
     assert ops.launch_counts() == before
     assert set(before) == {"fps", "ball_group", "ball_group_bwd", "sa_eval",
-                           "gather_rows", "gather_rows_bwd"}
+                           "gather_rows", "gather_rows_bwd", "mha", "mha_bwd",
+                           "knn"}
     assert not any(before.values())
 
 
