@@ -21,10 +21,14 @@ Everything is channels-last. Parameters live in the reference modules
 it is. Randomness is explicit: the PointWOLF draws (``adapt.common``) and the
 gumbel noise are tensors, or come from a ``torch.Generator``.
 
-The grouper takes the exact route of the JAX package
-(``ADAPTPOINT_TPU_CONTROLLER_EXACT=1`` there): ``ops.ball_group`` with
-``relative=False``, then the affine and the max over K. Its fused
-max/min-pooled grouping kernel is not ported yet.
+The grouper takes the JAX package's default route: ``ops.ball_group_max``,
+the max-pooled ball group whose values are rounded to bf16 as the TPU kernel
+rounds them, and the affine applied to the max or the min over K by the sign
+of ``alpha`` (the max over K of a per-channel affine with ``alpha >= 0`` is
+the affine of the max, with ``alpha < 0`` of the min), so the (B, K, M, C)
+grouped tensor never exists. The JAX package's exact route
+(``ADAPTPOINT_TPU_CONTROLLER_EXACT=1``, ball group + affine + max) is a
+switch for golden comparisons and is not carried over.
 """
 from __future__ import annotations
 
@@ -94,7 +98,9 @@ class ConvBNReLU(nn.Module):
 
 class PointsetGrouper(nn.Module):
     """FPS downsample + ball-query grouping with an anchor-normalised affine
-    and a max-pool over the K neighbours."""
+    and a max-pool over the K neighbours, through the max-pooled ball group:
+    ``where(alpha >= 0, (fmax - fi) alpha, (fmin - fi) alpha) + beta``. Each
+    max / min hands its gradient to its first winning neighbour."""
 
     def __init__(self, channels: int, reduce: int, kneighbors: int,
                  radius: float, input_fps_ordered: bool = False):
@@ -119,15 +125,11 @@ class PointsetGrouper(nn.Module):
             fps_idx = first_fps_idx[:, :npoint]
         else:
             fps_idx = ops.furthest_point_sample(xyz, npoint)
-        new_xyz, new_points, dpfj, _ = ops.ball_group(
-            self.radius, self.kneighbors, xyz, fps_idx, points,
-            relative=False)
-        grouped = dpfj[..., 3:]  # (B, K, M, C), neighbour-first
-        grouped = ((grouped - new_points[:, None, :, :]) * self.affine_alpha
-                   + self.affine_beta)
-        # amax splits the gradient evenly over tied maxima, as jnp.max does;
-        # a partial ball repeats its first neighbour, so ties are the rule
-        return new_xyz, grouped.amax(dim=1)
+        new_xyz, fi, fmax, fmin = ops.ball_group_max(
+            self.radius, self.kneighbors, xyz, fps_idx, points)
+        a = self.affine_alpha[0]  # (1, 1, C) over (B, M, C)
+        pooled = torch.where(a >= 0, (fmax - fi) * a, (fmin - fi) * a)
+        return new_xyz, pooled + self.affine_beta[0]
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:

@@ -10,11 +10,15 @@ from one batched pass over ``real || fake``. The discriminator's
 power-iteration state advances in the generator pass and the discriminator
 pass continues from there.
 
-The classifier sees the fake clouds through its unfused eval-mode route
-(ball group, f32 convs), differentiated with respect to the clouds only, and
-the real clouds without a gradient: through the fused eval SA kernel where
-the classifier is an f32 model on the card, through the unfused route
-elsewhere (as the JAX package does off its accelerator).
+The classifier sees the fake clouds differentiated with respect to the
+clouds only, and the real clouds without a gradient. Where it is an f32
+model on the card both passes take the fused SA route (``_fused_ok``), as
+the JAX package does on its accelerator: the fake pass, under autograd, the
+differentiable stage (``ops.sa_train``; the frozen weights take no gradient,
+so its backward computes none), the real pass the eval stage
+(``ops.sa_eval``). Elsewhere
+both take the unfused eval-mode route (ball group, f32 convs), as the JAX
+package does off its accelerator.
 
 Where the JAX package threads an immutable state through a jitted function,
 the port updates the models and optimizers in place and :class:`GanState`
@@ -22,9 +26,10 @@ holds them. Nothing inside a step reads a value back from the device.
 ``train_gan_epoch`` returns the epoch's fake clouds as a ``FormDatasetCls``
 for phase B (``cls_trainer``).
 
-Precision: ``gan_precision: f32`` (the port's default). The bf16 policy and
-the single fused G/D/classifier step (``make_fused_adapt_step``) are not
-ported yet; asking for bf16 raises.
+Precision: ``gan_precision: f32`` (the port's default). The bf16 policy (with
+its bf16 feature-propagation kernel) and the single fused G/D/classifier
+step (``make_fused_adapt_step``) are not ported yet; asking for bf16
+raises.
 """
 from __future__ import annotations
 
@@ -111,10 +116,10 @@ def _frozen(model: nn.Module):
             p.requires_grad_(flag)
 
 
-def _fused_real_ok(cls_model: nn.Module) -> bool:
-    """Whether the gradient-free real pass takes the fused eval SA route: the
-    fused stage works in bf16 and f32 and is written for the card, so only an
-    f32 classifier on a CUDA device does."""
+def _fused_ok(cls_model: nn.Module) -> bool:
+    """Whether both classifier passes take the fused SA route: the fused
+    stage works in bf16 and f32 and is written for the card, so only an f32
+    classifier on a CUDA device does."""
     p = next(cls_model.parameters())
     return p.is_cuda and p.dtype == torch.float32
 
@@ -133,13 +138,13 @@ def make_gan_step(generator: nn.Module, discriminator: nn.Module,
     if str(cfg.get("gan_precision", "f32")).lower() in ("bf16", "bfloat16"):
         raise NotImplementedError(
             "gan_precision: bf16 is not ported yet: it comes with the slice "
-            "that ports the bf16 feature-propagation and max-pooled "
-            "ball-group kernels")
+            "that ports the bf16 policy and the bf16 feature-propagation "
+            "kernels (weighted gather forward and backward)")
     criterion = build_criterion_from_cfg(cfg.criterion_args)
     feedback_ratio = float(cfg.get("feedbackloss_ratio", 1))
     in_channels = _in_channels(cfg)
     g_params = list(generator.parameters())
-    fused_eval_real = _fused_real_ok(cls_model)
+    fused = _fused_ok(cls_model)
 
     def gan_step(state: GanState, batch,
                  rng: Union[GanDraws, torch.Generator, None] = None,
@@ -173,11 +178,11 @@ def make_gan_step(generator: nn.Module, discriminator: nn.Module,
             # two separate classifier calls: the real pass is a constant of
             # the generator's loss and needs no graph
             fake_x = torch.cat([gen, points[..., 3:in_channels]], dim=-1)
-            logits_fake = cls_model(gen, fake_x, fused_eval=False).float()
+            logits_fake = cls_model(gen, fake_x, fused_eval=fused).float()
             with torch.no_grad():
                 logits_real = cls_model(
                     input_pc, points[..., :in_channels].contiguous(),
-                    fused_eval=fused_eval_real,
+                    fused_eval=fused,
                     first_fps_idx=fps_shared).float()
             loss_fake = criterion(logits_fake, label)
             loss_real = criterion(logits_real, label)

@@ -2,7 +2,8 @@
 
 Counterpart of ``adaptpoint_tpu/models/backbone/pointnext.py`` for the
 stages PointNeXt-S instantiates: the stem, the strided SetAbstraction
-stages (ball-group route or fused-eval route) and the group-all stage.
+stages (ball-group route or fused route, differentiable under autograd as
+the GAN step's fake pass needs it) and the group-all stage.
 ``InvResMLP`` depth blocks (``blocks[i] > 1``) wait for the PointNeXt-B
 slice and raise. Module names follow the reference openpoints layout
 (``encoder.{stage}.{block}.convs.{j}.{0|1}``, ``skipconv.0``).
@@ -109,8 +110,9 @@ class SetAbstraction(nn.Module):
         return ops.furthest_point_sample(p, npoint)
 
     def _fused_eval_ok(self) -> bool:
-        """The fused eval kernel covers eval forwards of the standard stage:
-        two convs, conv-norm-act with BN, relu, dp_fj features."""
+        """The fused kernels cover eval forwards of the standard stage: two
+        convs, conv-norm-act with BN, relu, dp_fj features (the gate of both
+        fused routes, as ``_fused_eval_ok`` is in the JAX package)."""
         return (not self.training and self.layers == 2
                 and self.feature_type == "dp_fj"
                 and self.order == "conv-norm-act"
@@ -133,10 +135,14 @@ class SetAbstraction(nn.Module):
         """Folded weights (and on CUDA their kernel packing), recomputed only
         when a conv or BN tensor changed: the key holds each tensor's storage
         and version counter, which ``load_state_dict``, ``.to()`` and
-        in-place updates all move."""
+        in-place updates all move. Where the stage's parameters take a
+        gradient, the weights are folded on the graph each call instead."""
         tensors = [t for cb in self.convs for t in (
             cb.conv.weight, cb.bn.weight, cb.bn.bias, cb.bn.running_mean,
             cb.bn.running_var)]
+        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+            (w1, b1), (w2, b2) = self.folded_convs()
+            return (w1, b1, w2, b2), None
         key = tuple((t.data_ptr(), t._version) for t in tensors)
         if self._fused_cache is None or self._fused_cache[0] != key:
             with torch.no_grad():
@@ -150,11 +156,18 @@ class SetAbstraction(nn.Module):
         return (float(self.group_args.get("radius", 0.1)),
                 int(self.group_args.get("nsample", 16)))
 
-    def _fused_eval_stage(self, p, f, first_fps_idx=None):
+    def _fused_stage(self, p, f, first_fps_idx=None):
+        """The stage through the fused kernel: ``ops.sa_train`` where
+        autograd asks for a gradient of the cloud, the features or the folded
+        weights (the eval kernel has no backward), ``ops.sa_eval`` otherwise.
+        The residual's skip conv and activation stay outside it."""
         radius, nsample = self._radius_nsample()
         idx = self._sample_idx(p, p.shape[1] // self.stride, first_fps_idx)
         (w1, b1, w2, b2), packed = self._fused_weights(p.device)
-        new_p, fi, out = ops.sa_eval(
+        differentiable = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (p, f, w1, b1, w2, b2))
+        op = ops.sa_train if differentiable else ops.sa_eval
+        new_p, fi, out = op(
             radius, nsample, p, idx, f, w1, b1, w2, b2,
             relative=self.group_args.get("relative_xyz", True),
             normalize_dp=self.group_args.get("normalize_dp", False),
@@ -169,14 +182,16 @@ class SetAbstraction(nn.Module):
                 fused_eval: bool = False,
                 first_fps_idx: Optional[torch.Tensor] = None):
         """``first_fps_idx`` (B, >= M): FPS indices of ``p`` the caller
-        already has; a stage that would run FPS on ``p`` takes its prefix."""
+        already has; a stage that would run FPS on ``p`` takes its prefix.
+        ``fused_eval`` asks for the fused route where the stage's form allows
+        it, differentiable where autograd needs it (``_fused_stage``)."""
         if self.is_head:
             x = f
             for cb in self.convs:
                 x = cb(x)
             return p, x
         if self.use_fused and fused_eval and self._fused_eval_ok():
-            return self._fused_eval_stage(p, f, first_fps_idx)
+            return self._fused_stage(p, f, first_fps_idx)
         if self.use_fused:
             radius, nsample = self._radius_nsample()
             idx = self._sample_idx(p, p.shape[1] // self.stride,

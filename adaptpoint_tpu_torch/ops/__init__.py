@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from . import attention, ballgroup, fpsample, gather, knn, saeval
+from . import (attention, ballgroup, ballgroup_max, fpsample, gather, knn,
+               saeval)
 from .ballgroup import ball_group_plain
 from .gather import gather_rows_plain
 from .geometry import (ball_query, fps_prefix_idx, square_distance,
@@ -17,7 +18,8 @@ from .geometry import (ball_query, fps_prefix_idx, square_distance,
                        index_points as index_points_plain)
 from .saeval import sa_eval_plain
 
-__all__ = ["furthest_point_sample", "ball_group", "sa_eval", "gather_rows",
+__all__ = ["furthest_point_sample", "ball_group", "ball_group_max", "sa_eval",
+           "sa_train", "gather_rows",
            "fps", "ball_query", "index_points", "fps_prefix_idx",
            "square_distance", "knn_point", "three_nn", "three_interpolation",
            "fused_self_attention", "launch_counts", "reset_launch_counts",
@@ -27,7 +29,11 @@ __all__ = ["furthest_point_sample", "ball_group", "sa_eval", "gather_rows",
 KERNEL_MODULES = {"fps": (fpsample, "LAUNCHES"),
                   "ball_group": (ballgroup, "LAUNCHES"),
                   "ball_group_bwd": (ballgroup, "LAUNCHES_BWD"),
+                  "ball_group_max": (ballgroup_max, "LAUNCHES"),
+                  "ball_group_max_bwd": (ballgroup_max, "LAUNCHES_BWD"),
                   "sa_eval": (saeval, "LAUNCHES"),
+                  "sa_train": (saeval, "LAUNCHES_TRAIN"),
+                  "sa_train_bwd": (saeval, "LAUNCHES_TRAIN_BWD"),
                   "gather_rows": (gather, "LAUNCHES"),
                   "gather_rows_bwd": (gather, "LAUNCHES_BWD"),
                   "mha": (attention, "LAUNCHES"),
@@ -66,6 +72,20 @@ def ball_group(radius: float, nsample: int, xyz, query_idx, feats,
                             normalize_dp)
 
 
+def ball_group_max(radius: float, nsample: int, xyz, query_idx, feats):
+    """Max-pooled ball group: ``(new_xyz (B,M,3), fi, fmax, fmin (B,M,C))``,
+    values rounded to bf16 as the TPU kernel rounds them, the (B, K, M, C)
+    grouped tensor never formed. Differentiable in ``xyz`` and ``feats``,
+    each max / min cotangent to its first winning slot: the kernels on CUDA,
+    the plain versions on the CPU (``ops.ballgroup_max``)."""
+    if _on_cuda(xyz):
+        return ballgroup_max.BallGroupMax.apply(
+            xyz.contiguous(), query_idx.int().contiguous(),
+            feats.contiguous(), float(radius), int(nsample), True)
+    return ballgroup_max.BallGroupMax.apply(xyz, query_idx, feats,
+                                            float(radius), int(nsample), False)
+
+
 def sa_eval(radius: float, nsample: int, xyz, query_idx, feats, w1, b1, w2,
             b2, relative: bool = True, normalize_dp: bool = False,
             packed=None):
@@ -79,6 +99,23 @@ def sa_eval(radius: float, nsample: int, xyz, query_idx, feats, w1, b1, w2,
             packed)
     return sa_eval_plain(radius, nsample, xyz, query_idx, feats, w1, b1, w2,
                          b2, relative, normalize_dp)
+
+
+def sa_train(radius: float, nsample: int, xyz, query_idx, feats, w1, b1, w2,
+             b2, relative: bool = True, normalize_dp: bool = False,
+             packed=None):
+    """The fused SA stage under autograd: :func:`sa_eval`'s outputs,
+    differentiable in ``xyz``, ``feats`` and the folded weights, each output's
+    cotangent to its first winning slot (``ops.saeval.SaTrain``). The weight
+    gradients are computed only where a folded weight requires one."""
+    if _on_cuda(xyz):
+        return saeval.SaTrain.apply(
+            xyz.contiguous(), query_idx.int().contiguous(), feats.contiguous(),
+            w1, b1, w2, b2, float(radius), int(nsample), bool(relative),
+            bool(normalize_dp), packed, True)
+    return saeval.SaTrain.apply(xyz, query_idx, feats, w1, b1, w2, b2,
+                                float(radius), int(nsample), bool(relative),
+                                bool(normalize_dp), None, False)
 
 
 def gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers, so
 ``nvcc`` takes seconds) and compiles on its own into
 ``build/adaptpoint_tpu_torch/lib<name>-<hash>.so`` at the root of the
-checkout, keyed by a hash of the source and the flags. Every C entry point
+checkout, keyed by a hash of the source, the shared ``csrc/*.cuh`` headers
+and the flags. Every C entry point
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises when it
 is not ``cudaSuccess``. A missing ``nvcc`` or a failed build raises.
 
@@ -24,8 +25,8 @@ __all__ = ["SOURCES", "build_all", "load", "check", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "adaptpoint_tpu_torch"
-SOURCES = ("fps", "ballgroup", "ballgroup_bwd", "gather", "saeval",
-           "attention", "knn")
+SOURCES = ("fps", "ballgroup", "ballgroup_bwd", "ballgroup_max", "gather",
+           "saeval", "sa_train_bwd", "attention", "knn")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v"]
@@ -44,6 +45,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -2,8 +2,11 @@
 // conv (BN folded) + ReLU + conv (BN folded) + max over the K neighbours.
 //
 // Replaces the TPU kernel adaptpoint_tpu/ops/pallas/saeval.py
-// (sa_eval_pallas, _sa_eval_kernel). Same function as the plain version
-// ops/saeval.py sa_eval_plain, with the TPU kernel's rounding (splits=1):
+// _sa_eval_kernel in both of its calls: sa_eval_pallas (the forward-only
+// eval stage) and _sa_train_call (the forward of sa_train_pallas, the
+// differentiable stage, whose backward is sa_train_bwd.cu). Same function
+// as the plain versions ops/saeval.py sa_eval_plain / sa_train_plain, with
+// the TPU kernel's rounding (splits=1):
 //   new_xyz = xyz[qidx] exact; fi = bf16(feats[qidx]) returned as f32
 //   selection as the ball-group kernel: first K with d2 < f32(r)^2,
 //   pad-with-first, empty ball -> point 0
@@ -11,8 +14,12 @@
 //   dp  = (gx - q) * dp_scale                  (when relative)
 //   gg  = bf16([dp || bf16(fj)])
 //   h   = relu(gg . bf16(w1) + b1)             (f32 accumulate)
-//   out = max_k (bf16(h) . bf16(w2)) + b2      (f32 accumulate)
-// Adding b2 after the max equals adding it before: rounding is monotone.
+//   out = max_k (bf16(h) . bf16(w2) + b2)      (f32 accumulate)
+// For the backward the kernel can also write the K neighbour indices of
+// each center and, for each output, the first slot that holds the maximum:
+// the backward then routes the cotangent to that slot without comparing a
+// recomputed value with the saved maximum (a recompute in another sum order
+// would match no slot and drop the gradient).
 //
 // Design: one block of 8 warps per tile of TM query centers of one cloud.
 // Each center owns Kp = round16(K) rows (K <= 128), so every 16-row tile
@@ -41,48 +48,33 @@
 // -fmad=false) so the selection equals the plain version's; the conv sums run
 // in another order than the plain f32 matmul, which can flip one bf16
 // rounding of h (the tolerance in chip_smoke.py and the tests says so).
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-
-using namespace nvcuda;
+#include "sa_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr size_t kSmemLimit = 232448;  // bytes a block may use on sm_90
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+using namespace apt_sa;
 
 struct Params {
   const float* xyz;
   const int* qidx;
   const float* feats;
-  const __nv_bfloat16* w1;  // (Wp, midp) row-major, zero padded
-  const float* b1;          // (midp)
-  const __nv_bfloat16* w2;  // (midp, coutp) row-major, zero padded
-  const float* b2;          // (coutp)
+  const bf16* w1;    // (Wp, midp) row-major, zero padded
+  const float* b1;   // (midp)
+  const bf16* w2;    // (midp, coutp) row-major, zero padded
+  const float* b2;   // (coutp)
   int N, M, C, K, TM, Wp, midp, coutp, cout;
   float r2, dp_scale;
   int relative, use_xs;
   float* new_xyz;
   float* fi;
   float* out;
+  int* idx_out;             // (B, M, K) neighbour indices, or null
+  unsigned char* arg_out;   // (B, M, cout) winning slots, or null
 };
 
 struct Layout {
-  size_t a, h, scratch, omax, nbr, qs, xs, total;
+  size_t a, h, scratch, omax, oarg, nbr, qs, xs, total;
 };
-
-__host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
-__host__ __device__ inline size_t align128(size_t x) {
-  return (x + 127) / 128 * 128;
-}
 
 __host__ __device__ inline Layout layout(int TM, int K, int Wp, int midp,
                                          int coutp, int N, int use_xs) {
@@ -92,99 +84,80 @@ __host__ __device__ inline Layout layout(int TM, int K, int Wp, int midp,
   L.h = L.a + align128(R * Wp * 2);
   L.scratch = L.h + align128(R * midp * 2);
   L.omax = L.scratch + align128((size_t)kWarps * 256 * 4);
-  L.nbr = L.omax + align128((size_t)TM * coutp * 4);
+  L.oarg = L.omax + align128((size_t)TM * coutp * 4);
+  L.nbr = L.oarg + align128((size_t)TM * coutp);
   L.qs = L.nbr + align128((size_t)TM * K * 4);
   L.xs = L.qs + align128((size_t)TM * 4 * 4);
   L.total = L.xs + (use_xs ? align128((size_t)N * 3 * 4) : 0);
   return L;
 }
 
-// Largest number of whole centers per unit of work that still gives every
-// warp a unit: units = col_tiles * (TM / group).
-__device__ inline int center_group(int TM, int col_tiles) {
-  for (int g = TM; g > 1; --g)
-    if (TM % g == 0 && col_tiles * (TM / g) >= kWarps) return g;
-  return 1;
-}
-
-// acc[t] = A[rows of tile rt0 + t] . Bm[:, col tile ct], t < NT; each B
-// fragment is loaded once and used for all NT row tiles.
+// Conv 2 for one unit: the max over the valid rows of each center of
+// bf16(h) . w2 + b2 and its first slot, written once per (center, column)
+// since a unit holds whole centers. b2 is added before the comparison, as
+// the plain version's argmax sees it (the max itself is the same either
+// way: rounding is monotone).
 template <int NT>
-__device__ inline void mma_tiles(FragC (&acc)[NT], const __nv_bfloat16* A,
-                                 int lda, int rt0,
-                                 const __nv_bfloat16* Bm, int ldb, int ct,
-                                 int KT) {
-#pragma unroll
-  for (int t = 0; t < NT; ++t) wmma::fill_fragment(acc[t], 0.0f);
-  for (int kt = 0; kt < KT; ++kt) {
-    FragB fb;
-    wmma::load_matrix_sync(fb, Bm + (size_t)kt * 16 * ldb + ct * 16, ldb);
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      FragA fa;
-      wmma::load_matrix_sync(fa, A + (size_t)(rt0 + t) * 16 * lda + kt * 16,
-                             lda);
-      wmma::mma_sync(acc[t], fa, fb, acc[t]);
-    }
-  }
-}
-
-// Conv 1 for one unit: H tiles = bf16(relu(acc + b1)).
-template <int NT>
-__device__ void conv1_unit(const Params& p, const __nv_bfloat16* A,
-                           __nv_bfloat16* H, float* sc, int rt0, int ct,
-                           int lane) {
+__device__ void conv2_tiles(const Params& p, const bf16* H, float* omax,
+                            unsigned char* oarg, float* sc, int rt0, int ct,
+                            int lane) {
   FragC acc[NT];
-  mma_tiles<NT>(acc, A, p.Wp, rt0, p.w1, p.midp, ct, p.Wp / 16);
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    wmma::store_matrix_sync(sc, acc[t], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int rr = e >> 4;
-      const int cc = e & 15;
-      const float v = fmaxf(__fadd_rn(sc[e], p.b1[ct * 16 + cc]), 0.0f);
-      H[(size_t)((rt0 + t) * 16 + rr) * p.midp + ct * 16 + cc] =
-          __float2bfloat16_rn(v);
-    }
-    __syncwarp();
-  }
-}
-
-// Conv 2 for one unit: the max over the valid rows of each center, written
-// once per (center, column) since a unit holds whole centers.
-template <int NT>
-__device__ void conv2_unit(const Params& p, const __nv_bfloat16* H,
-                           float* omax, float* sc, int rt0, int ct,
-                           int lane) {
-  FragC acc[NT];
-  mma_tiles<NT>(acc, H, p.midp, rt0, p.w2, p.coutp, ct, p.midp / 16);
+  mma_tiles<NT, FragA, FragB>(acc, H, p.midp, (size_t)16 * p.midp, 16, rt0,
+                              p.w2 + ct * 16, p.coutp, (size_t)16 * p.coutp,
+                              p.midp / 16);
   const int Kp = round16(p.K);
+  const float bias = lane < 16 ? p.b2[ct * 16 + lane] : 0.0f;
   float run = __int_as_float((int)0xff800000u);  // -inf
+  int arg = 0;
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
     wmma::store_matrix_sync(sc, acc[t], 16, wmma::mem_row_major);
     __syncwarp();
     const int r0 = (rt0 + t) * 16;
     if (lane < 16) {
-      for (int rr = 0; rr < 16; ++rr)
-        if ((r0 + rr) % Kp < p.K) run = fmaxf(run, sc[rr * 16 + lane]);
+      for (int rr = 0; rr < 16; ++rr) {
+        const int k = (r0 + rr) % Kp;
+        const float v = __fadd_rn(sc[rr * 16 + lane], bias);
+        if (k < p.K && v > run) {
+          run = v;
+          arg = k;
+        }
+      }
       if ((r0 + 16) % Kp == 0) {  // last tile of this center
-        omax[(size_t)(r0 / Kp) * p.coutp + ct * 16 + lane] = run;
+        const size_t o = (size_t)(r0 / Kp) * p.coutp + ct * 16 + lane;
+        omax[o] = run;
+        oarg[o] = (unsigned char)arg;
         run = __int_as_float((int)0xff800000u);
+        arg = 0;
       }
     }
     __syncwarp();
   }
 }
 
+__device__ inline void conv2_unit(int nt, const Params& p, const bf16* H,
+                                  float* omax, unsigned char* oarg, float* sc,
+                                  int rt0, int ct, int lane) {
+  switch (nt) {
+    case 1: conv2_tiles<1>(p, H, omax, oarg, sc, rt0, ct, lane); break;
+    case 2: conv2_tiles<2>(p, H, omax, oarg, sc, rt0, ct, lane); break;
+    case 3: conv2_tiles<3>(p, H, omax, oarg, sc, rt0, ct, lane); break;
+    case 4: conv2_tiles<4>(p, H, omax, oarg, sc, rt0, ct, lane); break;
+    case 5: conv2_tiles<5>(p, H, omax, oarg, sc, rt0, ct, lane); break;
+    case 6: conv2_tiles<6>(p, H, omax, oarg, sc, rt0, ct, lane); break;
+    case 7: conv2_tiles<7>(p, H, omax, oarg, sc, rt0, ct, lane); break;
+    default: conv2_tiles<8>(p, H, omax, oarg, sc, rt0, ct, lane); break;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) sa_eval_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = layout(p.TM, p.K, p.Wp, p.midp, p.coutp, p.N, p.use_xs);
-  __nv_bfloat16* A = reinterpret_cast<__nv_bfloat16*>(smem + L.a);
-  __nv_bfloat16* H = reinterpret_cast<__nv_bfloat16*>(smem + L.h);
+  bf16* A = reinterpret_cast<bf16*>(smem + L.a);
+  bf16* H = reinterpret_cast<bf16*>(smem + L.h);
   float* scratch = reinterpret_cast<float*>(smem + L.scratch);
   float* omax = reinterpret_cast<float*>(smem + L.omax);
+  unsigned char* oarg = smem + L.oarg;
   int* nbr = reinterpret_cast<int*>(smem + L.nbr);
   float* qs = reinterpret_cast<float*>(smem + L.qs);
 
@@ -197,7 +170,6 @@ __global__ void __launch_bounds__(kThreads) sa_eval_kernel(Params p) {
   const int K = p.K;
   const int Kp = round16(K);
   const int R = p.TM * Kp;
-  const int W = p.C + 3;
 
   // 0. the cloud's xyz, in shared memory when it fits
   const float* X = Xg;
@@ -237,43 +209,24 @@ __global__ void __launch_bounds__(kThreads) sa_eval_kernel(Params p) {
     const int found = cnt < K ? cnt : K;
     const int first = found > 0 ? nb[0] : 0;
     for (int k = found + lane; k < K; k += 32) nb[k] = first;
+    __syncwarp();
     if (lane < 3) qs[c * 4 + lane] = X[3 * q + lane];
     if (valid) {
       const size_t bm = (size_t)b * p.M + m;
       if (lane < 3) p.new_xyz[bm * 3 + lane] = X[3 * q + lane];
       for (int cc = lane; cc < p.C; cc += 32)
-        p.fi[bm * p.C + cc] =
-            __bfloat162float(__float2bfloat16_rn(F[(size_t)q * p.C + cc]));
+        p.fi[bm * p.C + cc] = bf16r(F[(size_t)q * p.C + cc]);
+      if (p.idx_out)
+        for (int k = lane; k < K; k += 32) p.idx_out[bm * K + k] = nb[k];
     }
   }
   __syncthreads();
 
-  // 2. gathered rows [dp || fj] as bf16; row r is slot r % Kp of center
-  //    r / Kp; slots past K and columns past 3+C are zero
-  for (int e = threadIdx.x; e < R * p.Wp; e += kThreads) {
-    const int r = e / p.Wp;
-    const int col = e - r * p.Wp;
-    const int c = r / Kp;
-    const int k = r - c * Kp;
-    float v = 0.0f;
-    if (k < K && col < W) {
-      const int j = nbr[c * K + k];
-      if (col < 3) {
-        const float x = X[3 * j + col];
-        const float hf = __bfloat162float(__float2bfloat16_rn(x));
-        const float lf = __bfloat162float(__float2bfloat16_rn(__fsub_rn(x, hf)));
-        v = __fadd_rn(hf, lf);
-        if (p.relative)
-          v = __fmul_rn(__fsub_rn(v, qs[c * 4 + col]), p.dp_scale);
-      } else {
-        v = F[(size_t)j * p.C + (col - 3)];
-      }
-    }
-    A[e] = __float2bfloat16_rn(v);
-  }
+  // 2. gathered rows [dp || fj] as bf16
+  stage_rows(A, nbr, qs, X, F, R, p.Wp, K, p.C, p.relative, p.dp_scale);
   __syncthreads();
 
-  // 3. H = bf16(relu(A . w1 + b1)); 4. max over K of H . w2
+  // 3. H = bf16(relu(A . w1 + b1)); 4. max over K of H . w2 + b2
   float* sc = scratch + warp * 256;
   const int tpc = Kp / 16;  // row tiles a center
   const int MT = p.midp / 16;
@@ -282,45 +235,25 @@ __global__ void __launch_bounds__(kThreads) sa_eval_kernel(Params p) {
   const int g2 = center_group(p.TM, CT);
   const int n1 = MT * (p.TM / g1);
   const int n2 = CT * (p.TM / g2);
-  for (int u = warp; u < n1; u += kWarps) {
-    const int rt0 = (u / MT) * g1 * tpc;
-    const int ct = u % MT;
-    switch (g1 * tpc) {
-      case 1: conv1_unit<1>(p, A, H, sc, rt0, ct, lane); break;
-      case 2: conv1_unit<2>(p, A, H, sc, rt0, ct, lane); break;
-      case 3: conv1_unit<3>(p, A, H, sc, rt0, ct, lane); break;
-      case 4: conv1_unit<4>(p, A, H, sc, rt0, ct, lane); break;
-      case 5: conv1_unit<5>(p, A, H, sc, rt0, ct, lane); break;
-      case 6: conv1_unit<6>(p, A, H, sc, rt0, ct, lane); break;
-      case 7: conv1_unit<7>(p, A, H, sc, rt0, ct, lane); break;
-      default: conv1_unit<8>(p, A, H, sc, rt0, ct, lane); break;
-    }
-  }
+  for (int u = warp; u < n1; u += kWarps)
+    conv1_unit(g1 * tpc, A, p.Wp, p.w1, p.b1, H, p.midp, sc,
+               (u / MT) * g1 * tpc, u % MT, lane);
   __syncthreads();
-  for (int u = warp; u < n2; u += kWarps) {
-    const int rt0 = (u / CT) * g2 * tpc;
-    const int ct = u % CT;
-    switch (g2 * tpc) {
-      case 1: conv2_unit<1>(p, H, omax, sc, rt0, ct, lane); break;
-      case 2: conv2_unit<2>(p, H, omax, sc, rt0, ct, lane); break;
-      case 3: conv2_unit<3>(p, H, omax, sc, rt0, ct, lane); break;
-      case 4: conv2_unit<4>(p, H, omax, sc, rt0, ct, lane); break;
-      case 5: conv2_unit<5>(p, H, omax, sc, rt0, ct, lane); break;
-      case 6: conv2_unit<6>(p, H, omax, sc, rt0, ct, lane); break;
-      case 7: conv2_unit<7>(p, H, omax, sc, rt0, ct, lane); break;
-      default: conv2_unit<8>(p, H, omax, sc, rt0, ct, lane); break;
-    }
-  }
+  for (int u = warp; u < n2; u += kWarps)
+    conv2_unit(g2 * tpc, p, H, omax, oarg, sc, (u / CT) * g2 * tpc, u % CT,
+               lane);
   __syncthreads();
 
-  // 5. out = max + b2 for the centers of this tile that exist
+  // 5. out (and the winning slots) for the centers of this tile that exist
   for (int e = threadIdx.x; e < p.TM * p.cout; e += kThreads) {
     const int c = e / p.cout;
     const int col = e - c * p.cout;
     const int m = m0 + c;
-    if (m < p.M)
-      p.out[((size_t)b * p.M + m) * p.cout + col] =
-          __fadd_rn(omax[c * p.coutp + col], p.b2[col]);
+    if (m < p.M) {
+      const size_t o = ((size_t)b * p.M + m) * p.cout + col;
+      p.out[o] = omax[c * p.coutp + col];
+      if (p.arg_out) p.arg_out[o] = oarg[c * p.coutp + col];
+    }
   }
 }
 
@@ -337,13 +270,17 @@ long long sa_eval_smem_bytes(int TM, int K, int Wp, int midp, int coutp) {
 // xyz (B,N,3) f32, qidx (B,M) i32, feats (B,N,C) f32; w1 (Wp,midp) bf16,
 // b1 (midp) f32, w2 (midp,coutp) bf16, b2 (coutp) f32 -- Wp, midp, coutp
 // multiples of 16 and zero padded -> new_xyz (B,M,3), fi (B,M,C),
-// out (B,M,cout) f32. Returns cudaError_t.
+// out (B,M,cout) f32, and when not null the neighbour indices idx_out
+// (B,M,K) i32 and each output's first winning slot arg_out (B,M,cout) u8
+// (the fused SA under autograd keeps both for its backward). K <= 128.
+// Returns cudaError_t.
 int sa_eval_launch(const float* xyz, const int* qidx, const float* feats,
                    const void* w1, const float* b1, const void* w2,
                    const float* b2, int B, int N, int M, int C, int K, int TM,
                    int Wp, int midp, int coutp, int cout, float r2,
                    float dp_scale, int relative, float* new_xyz, float* fi,
-                   float* out, cudaStream_t stream) {
+                   float* out, int* idx_out, unsigned char* arg_out,
+                   cudaStream_t stream) {
   if (B <= 0 || N <= 0 || M <= 0 || K <= 0 || TM <= 0 ||
       TM * round16(K) > 128 || Wp % 16 || midp % 16 || coutp % 16 ||
       Wp < C + 3 || cout > coutp)
@@ -372,6 +309,8 @@ int sa_eval_launch(const float* xyz, const int* qidx, const float* feats,
   p.new_xyz = new_xyz;
   p.fi = fi;
   p.out = out;
+  p.idx_out = idx_out;
+  p.arg_out = arg_out;
   const size_t smem = layout(TM, K, Wp, midp, coutp, N, p.use_xs).total;
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(

@@ -1,17 +1,28 @@
-"""Fused eval SetAbstraction: the CUDA kernel ``csrc/saeval.cu`` and its plain version.
+"""Fused SetAbstraction, eval and differentiable: the CUDA kernels and their plain versions.
 
-Replaces ``adaptpoint_tpu/ops/pallas/saeval.py`` ``sa_eval_pallas``
-(``_sa_eval_kernel``): ball group + conv (BN folded) + ReLU + conv (BN
-folded) + max over K, forward only. Bound on the H100: operations -- the two
-convs over B*M*K rows. The kernel stages the grouped rows of a tile of
-centers in shared memory as bf16, runs both convs on the tensor cores (wmma,
-f32 accumulate) and keeps the max over K in shared memory, so nothing grouped
-reaches device memory; see the source's note.
+Forward (``csrc/saeval.cu``) replaces ``adaptpoint_tpu/ops/pallas/saeval.py``
+``_sa_eval_kernel`` in both of its calls: ``sa_eval_pallas`` (forward only,
+:func:`sa_eval_cuda`) and ``_sa_train_call`` (the forward of
+``sa_train_pallas``, :func:`sa_train_cuda`): ball group + conv (BN folded) +
+ReLU + conv (BN folded) + max over K. Backward (``csrc/sa_train_bwd.cu``)
+replaces ``_sa_train_bwd`` (``_sa_bwd_kernel``): the gradients for xyz and
+the features, and with ``param_grads`` for the folded weights, recomputed
+without the grouped tensor. Bound on the H100: operations -- the convs over
+B*M*K rows, about twice as many in the backward. The kernels stage the
+grouped rows of a tile of centers in shared memory as bf16 and run the
+convs on the tensor cores (wmma, f32 accumulate); see the sources' notes.
 
 The TPU kernel's rounding is part of the function (``splits=1``), and both
 versions here reproduce it: ``fi = bf16(f)``; gathered xyz is the two-split
 sum ``bf16(x) + bf16(x - bf16(x))``; ``new_xyz`` is exact;
 ``h = relu(bf16(gg) . bf16(w1) + b1)``; ``out = max_k bf16(h) . bf16(w2) + b2``.
+The backward sends each output's cotangent to the first slot holding its
+maximum (``torch.argmax``'s rule), which the forward records:
+``g_h = bf16(g_o) . bf16(w2)^T`` where ``h_pre > 0``; ``g_v = bf16(g_h) .
+bf16(w1)^T``, times ``1/r`` on the dp columns when dp is normalised;
+``bf16(g_v)`` goes to each slot's neighbour row, ``g_new - sum_k g_dp``
+(when relative) and ``g_fi`` unrounded to the center's row.
+:class:`SaTrain` is the differentiable op on either device.
 """
 from __future__ import annotations
 
@@ -22,41 +33,127 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
-from .ballgroup import _check_inputs
+from .ballgroup import _check_inputs, _cotangent
 from .geometry import ball_query, index_points, inv_radius, radius_sq
 
-__all__ = ["sa_eval_cuda", "sa_eval_plain", "pack_weights", "PackedWeights",
-           "LAUNCHES"]
+__all__ = ["sa_eval_cuda", "sa_eval_plain", "sa_train_cuda", "sa_train_plain",
+           "sa_train_bwd_cuda", "sa_train_bwd_plain", "SaTrain",
+           "pack_weights", "PackedWeights", "LAUNCHES", "LAUNCHES_TRAIN",
+           "LAUNCHES_TRAIN_BWD"]
 
-LAUNCHES = 0  # kernel launches of sa_eval_cuda
+LAUNCHES = 0            # kernel launches of sa_eval_cuda
+LAUNCHES_TRAIN = 0      # kernel launches of sa_train_cuda
+LAUNCHES_TRAIN_BWD = 0  # kernel launches of sa_train_bwd_cuda
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.bfloat16).to(torch.float32)
+    """Rounded to bf16, held in ``t``'s own type."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
-def sa_eval_plain(radius: float, nsample: int, xyz, query_idx, feats,
-                  w1, b1, w2, b2, relative: bool = True,
-                  normalize_dp: bool = False):
-    """xyz (B,N,3), query_idx (B,M), feats (B,N,C) f32; w1 (3+C, mid),
-    b1 (mid,), w2 (mid, cout), b2 (cout,) with BN folded in.
-    Returns (new_xyz (B,M,3), fi (B,M,C), out (B,M,cout)) f32."""
+def _dp_scale(radius: float, relative: bool, normalize_dp: bool) -> float:
+    return inv_radius(radius) if (relative and normalize_dp) else 1.0
+
+
+def _grouped_rows(radius, nsample, xyz, query_idx, feats, relative,
+                  normalize_dp, idx=None):
+    """``(new_xyz, idx, fb, gg)``: the centers, the ball query's neighbours
+    (or the given ``idx``), ``bf16(feats)`` and the rounded gathered rows
+    ``gg (B,M,K,3+C)``, all in the inputs' float type."""
     new_xyz = index_points(xyz, query_idx)
-    idx = ball_query(radius, nsample, xyz, new_xyz)
+    if idx is None:
+        idx = ball_query(radius, nsample, xyz, new_xyz)
     hi = _bf16(xyz)
     gx = index_points(hi + _bf16(xyz - hi), idx)  # (B, M, K, 3)
     if relative:
         gx = gx - new_xyz[:, :, None, :]
         if normalize_dp:
-            gx = gx * torch.tensor(inv_radius(radius), dtype=torch.float32,
+            gx = gx * torch.tensor(inv_radius(radius), dtype=gx.dtype,
                                    device=xyz.device)
     fb = _bf16(feats)
     gg = _bf16(torch.cat([gx, index_points(fb, idx)], dim=-1))
+    return new_xyz, idx, fb, gg
+
+
+def _slot_outputs(radius, nsample, xyz, query_idx, feats, w1, b1, w2, b2,
+                  relative, normalize_dp):
+    """``(new_xyz, fi, o (B,M,K,cout), idx)`` with o each slot's output."""
+    new_xyz, idx, fb, gg = _grouped_rows(radius, nsample, xyz, query_idx,
+                                         feats, relative, normalize_dp)
     h = torch.relu(torch.matmul(gg, _bf16(w1)) + b1)
     o = torch.matmul(_bf16(h), _bf16(w2)) + b2
-    return new_xyz, index_points(fb, query_idx), o.amax(dim=2)
+    return new_xyz, index_points(fb, query_idx), o, idx
+
+
+def sa_eval_plain(radius: float, nsample: int, xyz, query_idx, feats,
+                  w1, b1, w2, b2, relative: bool = True,
+                  normalize_dp: bool = False):
+    """xyz (B,N,3), query_idx (B,M), feats (B,N,C); w1 (3+C, mid),
+    b1 (mid,), w2 (mid, cout), b2 (cout,) with BN folded in, all of one float
+    type. Returns (new_xyz (B,M,3), fi (B,M,C), out (B,M,cout))."""
+    new_xyz, fi, o, _ = _slot_outputs(radius, nsample, xyz, query_idx, feats,
+                                      w1, b1, w2, b2, relative, normalize_dp)
+    return new_xyz, fi, o.amax(dim=2)
+
+
+def sa_train_plain(radius: float, nsample: int, xyz, query_idx, feats,
+                   w1, b1, w2, b2, relative: bool = True,
+                   normalize_dp: bool = False):
+    """:func:`sa_eval_plain` and what its backward keeps: ``(new_xyz, fi,
+    out, arg (B,M,cout) uint8, idx (B,M,K) int32)``, ``arg`` the first slot
+    holding each output's maximum."""
+    new_xyz, fi, o, idx = _slot_outputs(radius, nsample, xyz, query_idx,
+                                        feats, w1, b1, w2, b2, relative,
+                                        normalize_dp)
+    arg = torch.argmax(o, dim=2)
+    out = torch.gather(o, 2, arg[:, :, None]).squeeze(2)
+    return new_xyz, fi, out, arg.to(torch.uint8), idx
+
+
+def sa_train_bwd_plain(radius: float, xyz, query_idx, feats, w1, b1, w2, b2,
+                       idx, arg, g_new, g_fi, g_out, relative: bool = True,
+                       normalize_dp: bool = False, param_grads: bool = False):
+    """VJP of :func:`sa_train_plain` with the forward's ``idx`` and ``arg``
+    (see the module's note). ``g_new`` and ``g_fi`` may be ``None`` (zero).
+    Returns ``(g_xyz (B,N,3), g_feats (B,N,C), weight_grads)``,
+    ``weight_grads`` ``(gw1, gb1, gw2, gb2)`` with ``param_grads``, else
+    ``None``."""
+    B, N, _ = xyz.shape
+    C = feats.shape[-1]
+    K = idx.shape[-1]
+    _, _, _, gg = _grouped_rows(radius, K, xyz, query_idx, feats, relative,
+                                normalize_dp, idx)
+    h_pre = torch.matmul(gg, _bf16(w1)) + b1
+    win = arg.long()[:, :, None, :] == torch.arange(K, device=xyz.device
+                                                    )[:, None]
+    g_o = torch.where(win, g_out[:, :, None, :], 0.0)  # (B, M, K, cout)
+    g_ob = _bf16(g_o)
+    g_h = torch.where(h_pre > 0, torch.matmul(g_ob, _bf16(w2).t()), 0.0)
+    g_hb = _bf16(g_h)
+    g_v = torch.matmul(g_hb, _bf16(w1).t())  # (B, M, K, 3+C)
+    g_dp = g_v[..., :3] * _dp_scale(radius, relative, normalize_dp)
+    rows = idx.long().reshape(B, -1, 1)
+    g_xyz = torch.zeros_like(xyz).scatter_add_(
+        1, rows.expand(-1, -1, 3), _bf16(g_dp).reshape(B, -1, 3))
+    g_feats = torch.zeros_like(feats).scatter_add_(
+        1, rows.expand(-1, -1, C), _bf16(g_v[..., 3:]).reshape(B, -1, C))
+    q = query_idx.long()[..., None]
+    g_c = torch.zeros_like(g_dp[:, :, 0]) if g_new is None else g_new
+    if relative:
+        g_c = g_c - g_dp.sum(dim=2)
+    g_xyz.scatter_add_(1, q.expand(-1, -1, 3), g_c)
+    if g_fi is not None:
+        g_feats.scatter_add_(1, q.expand(-1, -1, C), g_fi)
+    weight_grads = None
+    if param_grads:
+        hb = _bf16(torch.relu(h_pre))
+        weight_grads = (torch.einsum("bmkw,bmkh->wh", gg, g_hb),
+                        g_h.sum(dim=(0, 1, 2)),
+                        torch.einsum("bmkh,bmkc->hc", hb, g_ob),
+                        g_o.sum(dim=(0, 1, 2)))
+    return g_xyz, g_feats, weight_grads
 
 
 @functools.cache
@@ -65,10 +162,23 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sa_eval_launch.argtypes = [p, p, p, p, p, p, p,
                                    i, i, i, i, i, i, i, i, i, i,
-                                   f, f, i, p, p, p, p]
+                                   f, f, i, p, p, p, p, p, p]
     lib.sa_eval_launch.restype = ctypes.c_int
     lib.sa_eval_smem_bytes.argtypes = [i, i, i, i, i]
     lib.sa_eval_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+@functools.cache
+def _lib_bwd():
+    lib = _build.load("sa_train_bwd")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.sa_train_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
+                                        i, i, i, i, i, i, i, i, i, i,
+                                        f, i, p, p, p, p, p, p, p]
+    lib.sa_train_bwd_launch.restype = ctypes.c_int
+    lib.sa_train_bwd_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.sa_train_bwd_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -97,7 +207,8 @@ class PackedWeights(NamedTuple):
 
 def pack_weights(w1, b1, w2, b2) -> PackedWeights:
     """Pack folded f32 weights ``w1 (3+C, mid)``, ``b1 (mid,)``,
-    ``w2 (mid, cout)``, ``b2 (cout,)`` for :func:`sa_eval_cuda`."""
+    ``w2 (mid, cout)``, ``b2 (cout,)`` for the fused kernels
+    (:func:`sa_eval_cuda`, :func:`sa_train_cuda`, :func:`sa_train_bwd_cuda`)."""
     if w1.dim() != 2 or w2.dim() != 2 or w2.shape[0] != w1.shape[1] \
             or b1.shape != (w1.shape[1],) or b2.shape != (w2.shape[1],):
         raise ValueError(f"weights do not chain: w1 {tuple(w1.shape)} b1 "
@@ -114,33 +225,34 @@ def pack_weights(w1, b1, w2, b2) -> PackedWeights:
                          _padded(b2, (coutp,), torch.float32), cin, mid, cout)
 
 
-@functools.lru_cache(maxsize=64)
-def _centers_per_block(K: int, Wp: int, midp: int, coutp: int) -> int:
+def _tile_centers(smem_bytes, K: int, Wp: int, midp: int,
+                  coutp: int) -> int:
     """128 rows of round16(K) a block, fewer if shared memory runs out."""
-    lib = _lib()
     tm = 128 // _round16(K)
-    while tm > 1 and lib.sa_eval_smem_bytes(tm, K, Wp, midp, coutp) > _SMEM_LIMIT:
+    while tm > 1 and smem_bytes(tm, K, Wp, midp, coutp) > _SMEM_LIMIT:
         tm //= 2
-    if lib.sa_eval_smem_bytes(tm, K, Wp, midp, coutp) > _SMEM_LIMIT:
+    if smem_bytes(tm, K, Wp, midp, coutp) > _SMEM_LIMIT:
         raise ValueError(f"SA stage too wide for one block: K={K} Wp={Wp} "
                          f"mid={midp} cout={coutp}")
     return tm
 
 
-def sa_eval_cuda(radius: float, nsample: int, xyz, query_idx, feats,
-                 w1=None, b1=None, w2=None, b2=None, relative: bool = True,
-                 normalize_dp: bool = False,
-                 packed: Optional[PackedWeights] = None):
-    """The kernel on CUDA tensors; same outputs as :func:`sa_eval_plain`.
-    ``packed`` (from :func:`pack_weights`) replaces ``w1, b1, w2, b2``."""
-    global LAUNCHES
-    if torch.is_grad_enabled() and (xyz.requires_grad or feats.requires_grad):
-        raise NotImplementedError(
-            "the fused eval SA kernel has no backward: run it under "
-            "torch.no_grad() or inference_mode()")
+@functools.lru_cache(maxsize=64)
+def _centers_per_block(K: int, Wp: int, midp: int, coutp: int) -> int:
+    return _tile_centers(_lib().sa_eval_smem_bytes, K, Wp, midp, coutp)
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_centers_per_block(K: int, Wp: int, midp: int, coutp: int) -> int:
+    return _tile_centers(_lib_bwd().sa_train_bwd_smem_bytes, K, Wp, midp,
+                         coutp)
+
+
+def _forward_cuda(radius, nsample, xyz, query_idx, feats, packed, relative,
+                  normalize_dp, keep: bool):
+    """One launch of the forward kernel; with ``keep`` also the winning
+    slots and neighbour indices the backward needs."""
     _check_inputs(xyz, query_idx, feats)
-    if packed is None:
-        packed = pack_weights(w1, b1, w2, b2)
     B, N, _ = xyz.shape
     M = query_idx.shape[1]
     C = feats.shape[2]
@@ -159,15 +271,166 @@ def sa_eval_cuda(radius: float, nsample: int, xyz, query_idx, feats,
     new_xyz = torch.empty((B, M, 3), dtype=torch.float32, device=dev)
     fi = torch.empty((B, M, C), dtype=torch.float32, device=dev)
     out = torch.empty((B, M, packed.cout), dtype=torch.float32, device=dev)
-    scale = inv_radius(radius) if (relative and normalize_dp) else 1.0
+    arg = idx = None
+    if keep:
+        arg = torch.empty((B, M, packed.cout), dtype=torch.uint8, device=dev)
+        idx = torch.empty((B, M, K), dtype=torch.int32, device=dev)
     lib = _lib()
     err = lib.sa_eval_launch(
         xyz.data_ptr(), query_idx.data_ptr(), feats.data_ptr(),
         packed.w1.data_ptr(), packed.b1.data_ptr(), packed.w2.data_ptr(),
         packed.b2.data_ptr(), B, N, M, C, K, tm, Wp, midp, coutp, packed.cout,
-        radius_sq(radius), scale, int(bool(relative)), new_xyz.data_ptr(),
-        fi.data_ptr(), out.data_ptr(),
+        radius_sq(radius), _dp_scale(radius, relative, normalize_dp),
+        int(bool(relative)), new_xyz.data_ptr(), fi.data_ptr(),
+        out.data_ptr(), None if idx is None else idx.data_ptr(),
+        None if arg is None else arg.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "sa_eval")
+    _build.check(lib, err, "sa_train" if keep else "sa_eval")
+    return new_xyz, fi, out, arg, idx
+
+
+def sa_eval_cuda(radius: float, nsample: int, xyz, query_idx, feats,
+                 w1=None, b1=None, w2=None, b2=None, relative: bool = True,
+                 normalize_dp: bool = False,
+                 packed: Optional[PackedWeights] = None):
+    """The kernel on CUDA tensors; same outputs as :func:`sa_eval_plain`.
+    ``packed`` (from :func:`pack_weights`) replaces ``w1, b1, w2, b2``."""
+    global LAUNCHES
+    if torch.is_grad_enabled() and (xyz.requires_grad or feats.requires_grad):
+        raise NotImplementedError(
+            "the fused eval SA kernel has no backward: run it under "
+            "torch.no_grad() or inference_mode(), or use ops.sa_train")
+    if packed is None:
+        packed = pack_weights(w1, b1, w2, b2)
+    out = _forward_cuda(radius, nsample, xyz, query_idx, feats, packed,
+                        relative, normalize_dp, keep=False)[:3]
     LAUNCHES += 1
-    return new_xyz, fi, out
+    return out
+
+
+def sa_train_cuda(radius: float, nsample: int, xyz, query_idx, feats,
+                  packed: PackedWeights, relative: bool = True,
+                  normalize_dp: bool = False):
+    """The forward kernel for the differentiable stage; same outputs as
+    :func:`sa_train_plain`, detached from the inputs."""
+    global LAUNCHES_TRAIN
+    new_xyz, fi, out, arg, idx = _forward_cuda(
+        radius, nsample, xyz, query_idx, feats, packed, relative,
+        normalize_dp, keep=True)
+    LAUNCHES_TRAIN += 1
+    return new_xyz, fi, out, arg, idx
+
+
+def sa_train_bwd_cuda(radius: float, xyz, query_idx, feats,
+                      packed: PackedWeights, idx, arg, g_new, g_fi, g_out,
+                      relative: bool = True, normalize_dp: bool = False,
+                      param_grads: bool = False, need_xyz: bool = True,
+                      need_feats: bool = True):
+    """The backward kernel; same outputs as :func:`sa_train_bwd_plain` (the
+    weight gradients unpadded, ``None`` for a gradient not asked for).
+    Cotangents may be ``None`` (zero) or non-contiguous."""
+    global LAUNCHES_TRAIN_BWD
+    _check_inputs(xyz, query_idx, feats)
+    B, N, _ = xyz.shape
+    M, K = idx.shape[1], idx.shape[2]
+    C = feats.shape[2]
+    cout = packed.cout
+    dev = xyz.device
+    for name, t, shape, dtype in (
+            ("idx", idx, (B, M, K), torch.int32),
+            ("arg", arg, (B, M, cout), torch.uint8)):
+        if tuple(t.shape) != shape or t.dtype != dtype \
+                or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name} must be a contiguous {dtype} {shape} "
+                             f"tensor on {dev}")
+
+    g_new = _cotangent(g_new, (B, M, 3), "g_new", dev)
+    g_fi = _cotangent(g_fi, (B, M, C), "g_fi", dev)
+    g_out = _cotangent(g_out, (B, M, cout), "g_out", dev)
+    if g_out is None:
+        g_out = torch.zeros((B, M, cout), dtype=torch.float32, device=dev)
+    Wp, midp = packed.w1.shape
+    coutp = packed.w2.shape[1]
+    tm = _bwd_centers_per_block(K, Wp, midp, coutp)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    g_xyz = empty(B, N, 3) if need_xyz else None
+    g_feats = empty(B, N, C) if need_feats else None
+    wg = (empty(Wp, midp), empty(midp), empty(midp, coutp), empty(coutp)) \
+        if param_grads else (None,) * 4
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _lib_bwd()
+    err = lib.sa_train_bwd_launch(
+        xyz.data_ptr(), query_idx.data_ptr(), feats.data_ptr(),
+        idx.data_ptr(), arg.data_ptr(), packed.w1.data_ptr(),
+        packed.b1.data_ptr(), packed.w2.data_ptr(), g_out.data_ptr(),
+        ptr(g_new), ptr(g_fi), B, N, M, C, K, tm, Wp, midp, coutp, cout,
+        _dp_scale(radius, relative, normalize_dp), int(bool(relative)),
+        ptr(g_xyz), ptr(g_feats), *(ptr(t) for t in wg),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "sa_train_bwd")
+    LAUNCHES_TRAIN_BWD += 1
+    weight_grads = None
+    if param_grads:
+        cin, mid = packed.cin, packed.mid
+        weight_grads = (wg[0][:cin, :mid], wg[1][:mid], wg[2][:mid, :cout],
+                        wg[3][:cout])
+    return g_xyz, g_feats, weight_grads
+
+
+class SaTrain(torch.autograd.Function):
+    """The differentiable fused SA stage: the kernels when ``use_kernels``
+    (``packed`` spares the weight packing), the plain versions otherwise.
+    Returns ``(new_xyz, fi, out)``. The weight gradients are computed only
+    where a folded weight asks for one (``param_grads``: the JAX package's
+    ``frozen_params`` read off the graph); ``query_idx`` gets none."""
+
+    @staticmethod
+    def forward(ctx, xyz, query_idx, feats, w1, b1, w2, b2, radius, nsample,
+                relative, normalize_dp, packed, use_kernels):
+        if use_kernels:
+            if packed is None:
+                packed = pack_weights(w1, b1, w2, b2)
+            new_xyz, fi, out, arg, idx = sa_train_cuda(
+                radius, nsample, xyz, query_idx, feats, packed, relative,
+                normalize_dp)
+        else:
+            new_xyz, fi, out, arg, idx = sa_train_plain(
+                radius, nsample, xyz, query_idx, feats, w1, b1, w2, b2,
+                relative, normalize_dp)
+        ctx.save_for_backward(xyz, query_idx, feats, w1, b1, w2, b2, idx, arg)
+        ctx.args = (radius, relative, normalize_dp, packed, use_kernels)
+        if not ctx.needs_input_grad[0]:
+            # a constant of xyz alone: keep what is computed from it off the
+            # graph
+            ctx.mark_non_differentiable(new_xyz)
+        ctx.set_materialize_grads(False)
+        return new_xyz, fi, out
+
+    @staticmethod
+    def backward(ctx, g_new, g_fi, g_out):
+        xyz, query_idx, feats, w1, b1, w2, b2, idx, arg = ctx.saved_tensors
+        radius, relative, normalize_dp, packed, use_kernels = ctx.args
+        need = ctx.needs_input_grad
+        param_grads = any(need[3:7])
+        if use_kernels:
+            g_xyz, g_feats, wg = sa_train_bwd_cuda(
+                radius, xyz, query_idx, feats, packed, idx, arg, g_new, g_fi,
+                g_out, relative, normalize_dp, param_grads, need[0], need[2])
+        else:
+            if g_out is None:
+                g_out = torch.zeros(arg.shape, dtype=feats.dtype,
+                                    device=feats.device)
+            g_xyz, g_feats, wg = sa_train_bwd_plain(
+                radius, xyz, query_idx, feats, w1, b1, w2, b2, idx, arg,
+                g_new, g_fi, g_out, relative, normalize_dp, param_grads)
+        wg = (None,) * 4 if wg is None else wg
+        return ((g_xyz if need[0] else None, None,
+                 g_feats if need[2] else None)
+                + tuple(g if n else None for g, n in zip(wg, need[3:7]))
+                + (None,) * 6)

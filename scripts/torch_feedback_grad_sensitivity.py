@@ -20,16 +20,30 @@ JSON object:
   what f32 arithmetic leaves in the fake clouds.
 - ``gan_step``: the generator's gradient of one whole step, f32 against
   float64, as the relative 2-norm over all its tensors and for the worst
-  tensor (scale floored at a thousandth of the whole): ``own_clouds``, each
-  step on the fake clouds it made (FPS picks shared); ``shared_clouds``, the
-  float64 step differentiated at the f32 step's fake clouds (a
-  straight-through substitution), which is how ``chip_smoke.py`` holds the
-  card's step to its float64 copy; ``no_feedback``, own clouds with
-  ``feedbackloss_ratio`` 0, where the classifier is out of the loss.
+  tensor (scale floored at a thousandth of the whole), the float64 step
+  taking the f32 step's FPS picks and its groupers' rounding decisions
+  (their bf16 values and winning slots; ``choices_the_copy_would_make``
+  counts those it would have made otherwise): ``own_clouds``, each step on
+  the fake clouds it made; ``shared_clouds``, the float64 step
+  differentiated at the f32 step's fake clouds (a straight-through
+  substitution), which is how ``chip_smoke.py`` holds the card's step to
+  its float64 copy; ``no_feedback``, own clouds with ``feedbackloss_ratio``
+  0, where the classifier is out of the loss.
+- ``gan_step_fused``: the same on the route the card takes, both classifier
+  passes through the fused SA stages: ``shared_clouds`` as above;
+  ``shared_choices``, the float64 step also taking the f32 step's rounded
+  grouper values and max-pool winners (``chip_smoke.winner_choices``), how
+  ``chip_smoke.py`` holds the step now; ``shared_choices_no_feedback``
+  likewise without the feedback term; ``choices_the_copy_would_make``: how
+  many of those the float64 step would have made otherwise.
+- ``classifier_fused``: the classifier's input gradient on its fused route
+  under autograd, f32 against float64, on its own winners and on the f32
+  ones.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -101,7 +115,7 @@ def main(argv=None) -> dict:
     near = gap.abs() < MARGIN
     gumbel[..., 0] += MARGIN * near * torch.where(gap >= 0, 1.0, -1.0)
 
-    def models(dtype, ratio=None):
+    def models(dtype, ratio=None, fused=False):
         c = copy.deepcopy(cfg)
         if ratio is not None:
             c.feedbackloss_ratio = ratio
@@ -110,12 +124,19 @@ def main(argv=None) -> dict:
         for dst, src in ((g, gen0), (d, dis0), (cls, cls0)):
             dst.to(dtype)
             dst.load_state_dict(src.state_dict())
-        return st, make_gan_step(g, d, g_opt, d_opt, cls.eval(), c), cls
+        routes = chip_smoke.fused_routes() if fused \
+            else contextlib.nullcontext()
+        with routes:
+            step = make_gan_step(g, d, g_opt, d_opt, cls.eval(), c)
+        return st, step, cls
 
-    def run(dtype, log, replay=None, clouds=None, ratio=None):
+    def run(dtype, log, replay=None, clouds=None, ratio=None, fused=False,
+            winners=None, winner_replay=None):
         """One step (the discriminator's dropout masks from one seed);
-        returns the generator's gradients and the step's own fake clouds."""
-        st, step, _ = models(dtype, ratio)
+        returns the generator's gradients and the step's own fake clouds.
+        ``winners`` logs (or with ``winner_replay`` replays) the grouper's
+        and the fused SA's choices."""
+        st, step, _ = models(dtype, ratio, fused)
         own = {}
 
         def keep(_m, _i, out):
@@ -130,26 +151,44 @@ def main(argv=None) -> dict:
             [torch.rand((B, w), generator=masks) >= 0.4 for w in (512, 256)],
             [torch.rand((2 * B, w), generator=masks) >= 0.4
              for w in (512, 256)])
-        with chip_smoke.fps_choices(log, replay):
+        with chip_smoke.fps_choices(log, replay), chip_smoke.winner_choices(
+                {} if winners is None else winners, winner_replay):
             step(st, {"x": x.to(dtype), "y": y}, draws, 3.0)
         return ({n: p.grad.double()
                  for n, p in st.generator.named_parameters()}, own["gen"])
 
     out = {"batch": B, "points": N, "moved_points": int(near.sum())}
-    log = []
-    g32, clouds32 = run(torch.float32, log)
-    g64, clouds64 = run(torch.float64, log, replay={})
-    g64_shared, _ = run(torch.float64, log, replay={}, clouds=clouds32)
-    log0 = []
-    g32_nofb, _ = run(torch.float32, log0, ratio=0.0)
-    g64_nofb, _ = run(torch.float64, log0, replay={}, ratio=0.0)
+    log, log0, wl, wl0, own = [], [], {}, {}, {}
+    g32, clouds32 = run(torch.float32, log, winners=wl)
+    g64, clouds64 = run(torch.float64, log, replay={}, winners=wl,
+                        winner_replay=own)
+    g64_shared, _ = run(torch.float64, log, replay={}, clouds=clouds32,
+                        winners=wl, winner_replay={})
+    g32_nofb, _ = run(torch.float32, log0, ratio=0.0, winners=wl0)
+    g64_nofb, _ = run(torch.float64, log0, replay={}, ratio=0.0, winners=wl0,
+                      winner_replay={})
     out["gan_step"] = {
         "clouds_max_abs_diff": float((clouds32 - clouds64).abs().max()),
         "mask_flips": int(((clouds32.abs().sum(-1) != 0)
                            != (clouds64.abs().sum(-1) != 0)).sum()),
         "own_clouds": rel_l2(g32, g64),
         "shared_clouds": rel_l2(g32, g64_shared),
-        "no_feedback": rel_l2(g32_nofb, g64_nofb)}
+        "no_feedback": rel_l2(g32_nofb, g64_nofb),
+        "choices_the_copy_would_make": own}
+    fl, wl, wl0, rep, rep0 = [], {}, {}, {}, {}
+    g32, clouds32 = run(torch.float32, fl, fused=True, winners=wl)
+    g64, _ = run(torch.float64, fl, replay={}, clouds=clouds32, fused=True)
+    g64_shared, _ = run(torch.float64, fl, replay={}, clouds=clouds32,
+                        fused=True, winners=wl, winner_replay=rep)
+    g32_nofb, _ = run(torch.float32, fl, replay={}, ratio=0.0, fused=True,
+                      winners=wl0)
+    g64_nofb, _ = run(torch.float64, fl, replay={}, clouds=clouds32,
+                      ratio=0.0, fused=True, winners=wl0, winner_replay=rep0)
+    out["gan_step_fused"] = {
+        "shared_clouds": rel_l2(g32, g64),
+        "shared_choices": rel_l2(g32, g64_shared),
+        "shared_choices_no_feedback": rel_l2(g32_nofb, g64_nofb),
+        "choices_the_copy_would_make": rep}
 
     # the classifier alone, on the float64 step's fake clouds
     criterion = build_criterion_from_cfg(cfg.criterion_args)
@@ -180,6 +219,25 @@ def main(argv=None) -> dict:
     ref, ref_logits, ref_slots = input_grad(torch.float64, clouds64)
     got, _, _ = input_grad(torch.float32, clouds64.float(), replay={})
     out["classifier"] = {"f32_vs_f64": float((got - ref).norm() / ref.norm())}
+
+    def fused_input_grad(dtype, winners, winner_replay=None):
+        _, _, cls = models(dtype)
+        for p in cls.parameters():
+            p.requires_grad_(False)
+        cloud = clouds64.to(dtype).clone().requires_grad_()
+        with chip_smoke.fps_choices(fps_log, {}), \
+                chip_smoke.winner_choices(winners, winner_replay):
+            logits = cls(cloud, torch.cat([cloud, extra.to(dtype)], -1),
+                         fused_eval=True)
+        (grad,) = torch.autograd.grad(criterion(logits.float(), y), cloud)
+        return grad.double()
+
+    wl = {}
+    got = fused_input_grad(torch.float32, wl)
+    rel = [float((got - fused_input_grad(torch.float64, w, r)).norm()
+                 / got.norm()) for w, r in (({}, None), (wl, {}))]
+    out["classifier_fused"] = {"f32_vs_f64": rel[0],
+                               "f32_vs_f64_shared_winners": rel[1]}
     kept = (clouds64.abs().sum(-1, keepdim=True) != 0)
     for size in (1e-6, 1e-5):
         noise = torch.randn(clouds64.shape, dtype=torch.float64,

@@ -4,10 +4,14 @@ The tiny classifier, augmentor and discriminator of
 ``cfgs/synthetic/pointnext-tiny_adaptpoint.yaml`` on B = 4 clouds of N = 128
 points, ``gan_precision: f32``. Both packages start from the same numpy
 weights and see the same batch. JAX runs its XLA route with the controller's
-exact grouping route (``ADAPTPOINT_TPU_CONTROLLER_EXACT=1``); off the TPU its
+default grouping route as its XLA composite (f32 values), and the port's
+grouper takes the same f32 formula here (``xla_route_ball_group_max`` of
+``test_torch_adapt_models``, for this module's steps); off the TPU the
 frozen classifier takes the unfused f32 route for the fake and the real pass,
-as the port's step does off the card (one test holds the fused real pass,
-which the step takes on the card, to the unfused one).
+as the port's step does off the card (one test holds the fused passes to
+the unfused ones). ``tests/test_torch_gan_route.py`` holds the step on the
+route the card takes (the bf16-rounding grouper, the fused passes) against
+the JAX step on its TPU kernels, interpreted.
 
 Randomness. ``gan_step`` splits its key into ``r_wolf, r_gum, r_d1, r_d2``
 (``adapt_trainer.py``). The test makes the same split and recovers every draw
@@ -66,9 +70,10 @@ from adaptpoint_tpu_torch.utils import EasyConfig
 from adaptpoint_tpu_torch.utils.convert import (
     discriminator_state_dict_from_jax, discriminator_stats_to_jax,
     generator_state_dict_from_jax, state_dict_from_jax)
+from adaptpoint_tpu_torch import ops as pops
 from test_torch_adapt_models import (LAYOUT, TOL_BF16, _dis_layout,
                                      augmentor_draws, dropout_masks,
-                                     randomize)
+                                     xla_route_ball_group_max, randomize)
 
 B, N, CLASSES = 4, 128, 5
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -126,6 +131,7 @@ class _Setup:
         # generator, discriminator, optimizers, steps
         (self.jgen, self.jdis, tx_g, tx_d, jstate) = jat.build_gan(
             self.jcfg, jnp.asarray(b0["x"][..., :3]), jax.random.PRNGKey(2))
+        self.tx = (tx_g, tx_d)
         g_vars = randomize({"params": jstate.g_params,
                             "batch_stats": jstate.g_bs}, 3)
         self.jstate0 = jstate.replace(
@@ -161,11 +167,10 @@ class _Setup:
 
 @pytest.fixture(scope="module")
 def setup():
-    """Both packages' models and steps. The JAX package reads the grouping
-    route when it traces, so the variable stays set for the whole module and
-    is restored after it."""
+    """Both packages' models and steps, the port's grouper on the JAX XLA
+    route's formula for the whole module (restored after it)."""
     mp = pytest.MonkeyPatch()
-    mp.setenv("ADAPTPOINT_TPU_CONTROLLER_EXACT", "1")
+    mp.setattr(pops, "ball_group_max", xla_route_ball_group_max)
     yield _Setup()
     mp.undo()
 
@@ -332,29 +337,32 @@ def test_second_gan_step_from_the_first_state_matches_jax(two_steps, setup):
 
 def test_fused_real_pass_changes_only_the_feedback_within_its_tolerance(
         setup, monkeypatch):
-    """On the card the step sends the gradient-free real pass through the
-    fused eval SA route (bf16 operands); here the route is forced on CPU
-    tensors, where the fused stage's plain version runs: ``loss_real`` moves
-    within the fused route's tolerance (2e-2 on logits), everything the real
-    pass does not feed is unchanged."""
+    """On the card the step sends both classifier passes through the fused
+    SA route (bf16 operands): the gradient-free real pass through the eval
+    stage, the differentiated fake pass through the differentiable one. Here
+    the route is forced on CPU tensors, where the fused stages' plain
+    versions run: ``loss_real`` and ``loss_fake`` move within the fused
+    route's tolerance (2e-2 on logits), everything the classifier does not
+    feed is unchanged."""
     batch, key = _batch(10), jax.random.PRNGKey(20)
     draws = setup.draws(setup.jstate0, key)
     tbatch = {"x": torch.from_numpy(batch["x"]),
               "y": torch.from_numpy(batch["y"]).long()}
     outs = []
-    assert not adapt_trainer._fused_real_ok(setup.pcls)
+    assert not adapt_trainer._fused_ok(setup.pcls)
     for fused in (False, True):
-        monkeypatch.setattr(adapt_trainer, "_fused_real_ok",
+        monkeypatch.setattr(adapt_trainer, "_fused_ok",
                             lambda _model, fused=fused: fused)
         pstate, pstep = setup.port()
         _, gen, metrics = pstep(pstate, tbatch, draws, HARDRATIO)
         outs.append((gen, {k: float(v) for k, v in metrics.items()}))
     (gen_a, m_a), (gen_b, m_b) = outs
     assert torch.equal(gen_a, gen_b)
-    for k in ("g_loss_raw", "d_loss", "loss_fake"):
+    for k in ("g_loss_raw", "d_loss"):
         assert m_a[k] == m_b[k], k
-    assert abs(m_a["loss_real"] - m_b["loss_real"]) <= 2e-2
-    assert m_a["loss_real"] != m_b["loss_real"]
+    for k in ("loss_real", "loss_fake"):
+        assert abs(m_a[k] - m_b[k]) <= 2e-2, k
+        assert m_a[k] != m_b[k], k
 
 
 def test_gan_precision_bf16_waits_for_its_slice(setup):

@@ -17,8 +17,8 @@ import torch
 
 from adaptpoint_tpu_torch import ops, resolve_device
 from adaptpoint_tpu_torch.models import build_model_from_cfg
-from adaptpoint_tpu_torch.ops import (attention, ballgroup, fpsample, gather,
-                                      knn, saeval)
+from adaptpoint_tpu_torch.ops import (attention, ballgroup, ballgroup_max,
+                                      fpsample, gather, knn, saeval)
 from adaptpoint_tpu_torch.serving import ServingModel, export_serving_artifact
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -63,7 +63,7 @@ def test_no_jax_imports_in_the_port():
 NEW_MODULES = ["adapt", "adapt.augmentor", "adapt.build", "adapt.common",
                "adapt.discriminator", "adapt.feedback", "adapt.form_dataset",
                "adapt.pointwolf", "ops.attention", "ops.knn",
-               "engine.adapt_trainer"]
+               "ops.ballgroup_max", "ops.saeval", "engine.adapt_trainer"]
 
 
 def test_phase_a_modules_are_covered_and_import_without_a_toolchain():
@@ -83,13 +83,16 @@ def test_phase_a_modules_are_covered_and_import_without_a_toolchain():
     if shutil.which("nvcc") is None and not os.path.exists(
             "/usr/local/cuda/bin/nvcc"):
         from adaptpoint_tpu_torch.ops import _build
-        assert {"attention", "knn"} <= set(_build.SOURCES)
+        assert {"attention", "knn", "ballgroup_max",
+                "sa_train_bwd"} <= set(_build.SOURCES)
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.load("knn")
-    for src in ("attention.cu", "knn.cu"):
+    for src in ("attention.cu", "knn.cu", "ballgroup_max.cu",
+                "sa_train_bwd.cu", "sa_common.cuh"):
         text = open(os.path.join(REPO, "adaptpoint_tpu_torch", "ops", "csrc",
                                  src)).read()
-        assert "torch/" not in text and 'extern "C"' in text
+        assert "torch/" not in text
+        assert 'extern "C"' in text or src.endswith(".cuh")
 
 
 def test_port_tests_leave_the_environment_as_they_found_it():
@@ -176,23 +179,40 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
         attention.mha_bwd_cuda(qkv, qkv, qkv, 4.0, qkv, (qkv, qkv, qkv))
     with pytest.raises(ValueError):
         knn.knn_idx_cuda(3, xyz, xyz)
+    with pytest.raises(ValueError):
+        ballgroup_max.ball_group_max_cuda(0.3, 4, xyz, q, f)
+    u8 = torch.zeros(1, 4, 5, dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        ballgroup_max.ball_group_max_bwd_cuda(idx, q, u8, u8, None, None,
+                                              torch.zeros(1, 4, 5), None, 16)
+    packed = saeval.pack_weights(w1, b1, w2, b2)
+    with pytest.raises(ValueError):
+        saeval.sa_train_cuda(0.3, 4, xyz, q, f, packed)
+    with pytest.raises(ValueError):
+        saeval.sa_train_bwd_cuda(0.3, xyz, q, f, packed, idx,
+                                 torch.zeros(1, 4, 7, dtype=torch.uint8),
+                                 None, None, torch.zeros(1, 4, 7))
     # the dispatching ops take the plain versions on CPU tensors and never
     # count a launch, forward or backward
     ops.furthest_point_sample(xyz, 4)
     ops.sa_eval(0.3, 4, xyz, q, f, w1, b1, w2, b2)
     fg = f.clone().requires_grad_()
     out = ops.ball_group(0.3, 4, xyz, q, fg)
+    pooled = ops.ball_group_max(0.3, 4, xyz, q, fg)
+    fused = ops.sa_train(0.3, 4, xyz, q, fg, w1, b1, w2, b2)
     qg = qkv.clone().requires_grad_()
-    (out[1].sum() + out[2].sum() + ops.gather_rows(fg, q).sum()
+    (out[1].sum() + out[2].sum() + pooled[2].sum() + pooled[3].sum()
+     + fused[2].sum() + ops.gather_rows(fg, q).sum()
      + ops.fps(fg, 4).sum() + ops.index_points(fg, idx).sum()
      + ops.three_interpolation(xyz, xyz[:, :8], fg[:, :8]).sum()
      + ops.fused_self_attention(qg, qg, qg, 4.0).sum()).backward()
     ops.knn_point(3, xyz, xyz)
     assert fg.grad is not None and qg.grad is not None
     assert ops.launch_counts() == before
-    assert set(before) == {"fps", "ball_group", "ball_group_bwd", "sa_eval",
-                           "gather_rows", "gather_rows_bwd", "mha", "mha_bwd",
-                           "knn"}
+    assert set(before) == {"fps", "ball_group", "ball_group_bwd",
+                           "ball_group_max", "ball_group_max_bwd", "sa_eval",
+                           "sa_train", "sa_train_bwd", "gather_rows",
+                           "gather_rows_bwd", "mha", "mha_bwd", "knn"}
     assert not any(before.values())
 
 
@@ -216,3 +236,9 @@ def test_cuda_wrappers_refuse_to_drop_gradients():
         ballgroup.BallGroup.apply(xyz, q, f, 0.3, 4, True, False)
     with pytest.raises(ValueError):
         gather.GatherRows.apply(f, q)
+    with pytest.raises(ValueError):
+        ballgroup_max.BallGroupMax.apply(xyz, q, f, 0.3, 4, True)
+    with pytest.raises(ValueError):
+        saeval.SaTrain.apply(xyz, q, f, torch.zeros(8, 6), torch.zeros(6),
+                             torch.zeros(6, 7), torch.zeros(7), 0.3, 4, True,
+                             False, None, True)
