@@ -29,6 +29,14 @@ the affine of the max, with ``alpha < 0`` of the min), so the (B, K, M, C)
 grouped tensor never exists. The JAX package's exact route
 (``ADAPTPOINT_TPU_CONTROLLER_EXACT=1``, ball group + affine + max) is a
 switch for golden comparisons and is not carried over.
+
+Under the bf16 compute policy (``utils.precision``) every conv, the
+attentions' ``to_qkv`` and every BatchNorm round as flax's bf16 ``Dense``
+and ``BatchNorm`` do (``models.layers.blocks``); the groupers take bf16
+features and give bf16 pooled values, whose affine with the f32 ``alpha``
+and ``beta`` is f32; the decode interpolates bf16 features into f32; the
+R/S/T logits and the mask logits go to f32 before the transforms and the
+gumbel softmax. Mixed bf16 and f32 operands promote to f32, as in JAX.
 """
 from __future__ import annotations
 
@@ -39,7 +47,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import ops
-from ..models.layers.blocks import BatchNorm
+from ..models.layers.blocks import BatchNorm, dense
+from ..utils.precision import compute_dtype
 from .build import ADAPTMODELS
 from .common import WolfDraws, pointwolf_transform
 
@@ -79,7 +88,7 @@ class ConvBN(nn.Sequential):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x, self[0].weight.flatten(1), self[0].bias)
+        y = dense(x, self[0].weight.flatten(1), self[0].bias)
         y = self[1](y.reshape(-1, y.shape[-1])).reshape(y.shape)
         return F.relu(y) if self.act else y
 
@@ -155,7 +164,7 @@ class AnchorSelfAttention(nn.Module):
         head_dim = self.dim // self.head_num
         rel = xyz - xyz.mean(dim=1, keepdim=True)
         pe = self.pos_embedding(rel)
-        q, k, v = self.to_qkv(x).chunk(3, dim=-1)
+        q, k, v = dense(x, self.to_qkv.weight).chunk(3, dim=-1)
         q, k, v = q + pe, k + pe, v + pe
 
         def heads(t):
@@ -185,6 +194,11 @@ class FeaturePropagationFuse(nn.Module):
         self.fuse = ConvBNReLU(in_channels, out_channels, bias=False)
 
     def forward(self, xyz1, xyz2, points1, points2):
+        # the coarse level's features in the compute type: under the bf16
+        # policy they take the weighted-gather kernel and come back in f32
+        dt = compute_dtype()
+        if dt is not None:
+            points2 = points2.to(dt)
         interp = ops.three_interpolation(xyz1, xyz2, points2)
         x = interp if points1 is None else torch.cat([points1, interp], -1)
         return self.fuse(x)

@@ -18,6 +18,11 @@ not ``torch.nn.utils.parametrizations.spectral_norm``:
   divides by ``max(|x|, eps)``);
 - the bias is not normalised.
 
+Under the bf16 compute policy (``utils.precision``) each layer multiplies
+with the normalised weight computed in f32 and rounded to bf16 (flax's
+``Dense(dtype=bf16)`` inside ``SpectralNorm``), the activations are bf16,
+dropout divides by bf16(0.6), and the probability is an f32 sigmoid.
+
 Parameter and buffer names are those of the reference ``state_dict``
 (``parametrizations.weight.original``, ``.0._u``, ``.0._v``), so one loads as
 it is. ``sigma``, which flax keeps beside ``u``, has no slot there: it is a
@@ -31,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.layers.blocks import Dropout
+from ..models.layers.blocks import Dropout, dense
 from .build import ADAPTMODELS
 
 __all__ = ["SpectralNormLinear", "PointDiscriminator1"]
@@ -119,7 +124,7 @@ class SpectralNormLinear(nn.Module):
         return w_bar
 
     def forward(self, x: torch.Tensor, update_stats: bool) -> torch.Tensor:
-        return F.linear(x, self.normed_weight(update_stats), self.bias)
+        return dense(x, self.normed_weight(update_stats), self.bias)
 
 
 class _SetAbstraction(nn.Module):

@@ -17,7 +17,7 @@ the JAX package does on its accelerator: the fake pass, under autograd, the
 differentiable stage (``ops.sa_train``; the frozen weights take no gradient,
 so its backward computes none), the real pass the eval stage
 (``ops.sa_eval``). Elsewhere
-both take the unfused eval-mode route (ball group, f32 convs), as the JAX
+both take the unfused eval-mode route (ball group, pointwise convs), as the JAX
 package does off its accelerator.
 
 Where the JAX package threads an immutable state through a jitted function,
@@ -26,10 +26,16 @@ holds them. Nothing inside a step reads a value back from the device.
 ``train_gan_epoch`` returns the epoch's fake clouds as a ``FormDatasetCls``
 for phase B (``cls_trainer``).
 
-Precision: ``gan_precision: f32`` (the port's default). The bf16 policy (with
-its bf16 feature-propagation kernel) and the single fused G/D/classifier
-step (``make_fused_adapt_step``) are not ported yet; asking for bf16
-raises.
+Precision: ``gan_precision`` picks the compute policy the whole step runs
+under (``utils.precision``): ``bf16``, the JAX package's default on its
+accelerator and the port's on the card, or ``f32``, the default on the CPU
+(as the JAX package's off its accelerator). Under bf16 the generator, the
+discriminator and both classifier passes compute their convs, attentions
+and BatchNorms in bf16 (parameters, statistics, losses, the transforms and
+the selections stay f32) and the augmentor's decode takes the weighted-gather
+kernel (``ops.fpinterp``); the classifier keeps its f32 parameters and, on
+the card, the fused routes. The single fused G/D/classifier step
+(``make_fused_adapt_step``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -48,10 +54,11 @@ from ..adapt import (WolfDraws, build_adaptpointmodels_from_cfg,
 from ..adapt.form_dataset import FormDatasetCls
 from ..loss import BCELoss, build_criterion_from_cfg
 from ..utils.metrics import AverageMeter
+from ..utils.precision import dtype_override, parse_precision
 from .cls_trainer import _in_channels, _to_device
 
-__all__ = ["GanState", "GanDraws", "build_gan", "make_gan_step",
-           "train_gan_epoch"]
+__all__ = ["GanState", "GanDraws", "build_gan", "gan_compute_dtype",
+           "make_gan_step", "train_gan_epoch"]
 
 _bce = BCELoss()
 
@@ -124,6 +131,14 @@ def _fused_ok(cls_model: nn.Module) -> bool:
     return p.is_cuda and p.dtype == torch.float32
 
 
+def gan_compute_dtype(cfg, device: torch.device) -> Optional[torch.dtype]:
+    """The step's compute policy: ``cfg.gan_precision``, by default bf16 on
+    a CUDA device and f32 (``None``) elsewhere, as the JAX package's default
+    follows its backend (``adapt_trainer.py`` ``default_prec``)."""
+    default = "bf16" if torch.device(device).type == "cuda" else "f32"
+    return parse_precision(str(cfg.get("gan_precision", default)))
+
+
 def make_gan_step(generator: nn.Module, discriminator: nn.Module,
                   g_opt: torch.optim.Optimizer, d_opt: torch.optim.Optimizer,
                   cls_model: nn.Module, cfg) -> Callable:
@@ -134,12 +149,9 @@ def make_gan_step(generator: nn.Module, discriminator: nn.Module,
     ``torch.Generator`` every draw comes from (``None``: the default one).
     ``gen (B, N, 3)`` and the six metrics (``g_loss``, ``g_loss_raw``,
     ``d_loss``, ``feedback``, ``loss_fake``, ``loss_real``) are detached
-    device tensors."""
-    if str(cfg.get("gan_precision", "f32")).lower() in ("bf16", "bfloat16"):
-        raise NotImplementedError(
-            "gan_precision: bf16 is not ported yet: it comes with the slice "
-            "that ports the bf16 policy and the bf16 feature-propagation "
-            "kernels (weighted gather forward and backward)")
+    device tensors. The step runs under the compute policy of
+    :func:`gan_compute_dtype` for the generator's device."""
+    compute = gan_compute_dtype(cfg, next(generator.parameters()).device)
     criterion = build_criterion_from_cfg(cfg.criterion_args)
     feedback_ratio = float(cfg.get("feedbackloss_ratio", 1))
     in_channels = _in_channels(cfg)
@@ -149,6 +161,10 @@ def make_gan_step(generator: nn.Module, discriminator: nn.Module,
     def gan_step(state: GanState, batch,
                  rng: Union[GanDraws, torch.Generator, None] = None,
                  hardratio=1.0):
+        with dtype_override(compute):
+            return _gan_step(state, batch, rng, hardratio)
+
+    def _gan_step(state, batch, rng, hardratio):
         points, label = batch["x"], batch["y"]
         input_pc = points[..., :3].contiguous()
         bsz = input_pc.shape[0]

@@ -7,6 +7,12 @@ the GAN step's fake pass needs it) and the group-all stage.
 ``InvResMLP`` depth blocks (``blocks[i] > 1``) wait for the PointNeXt-B
 slice and raise. Module names follow the reference openpoints layout
 (``encoder.{stage}.{block}.convs.{j}.{0|1}``, ``skipconv.0``).
+
+Under the bf16 compute policy (``utils.precision``) the convs and their
+BatchNorms give bf16, the skip conv computes in f32 from its input (bf16 or
+f32), and a stage's residual sum is f32; the fused kernels take bf16
+features as the f32 that holds them, and the unfused route's ball group
+gives a bf16 ``dpfj``, as the JAX package's stages do.
 """
 from __future__ import annotations
 
@@ -87,8 +93,10 @@ class SetAbstraction(nn.Module):
         # skipconv registers first: the reference state_dict lists it first
         self.skipconv = None
         if self.use_res and in_channels != channels[-1]:
+            # a flax Dense without a dtype in the JAX package: f32 under
+            # the bf16 policy too
             self.skipconv = ConvBlock(in_channels, channels[-1],
-                                      kind="conv1d")
+                                      kind="conv1d", policy=False)
         self.convs = nn.ModuleList(convs)
         self.act = create_act(act_args)
         self._fused_cache = None  # see _fused_weights

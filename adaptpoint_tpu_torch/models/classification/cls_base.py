@@ -6,7 +6,8 @@ reference: ``head.{2k}`` = Linear (no bias) + BatchNorm1d + act,
 ``head.{2k+1}`` = Dropout, last slot = Linear with bias. Dropout is inactive
 in eval; in training its keep-masks come from the caller, as tensors or as
 the ``torch.Generator`` to draw them from (the two packages' random streams
-cannot match, so parity tests inject the masks).
+cannot match, so parity tests inject the masks). Under the bf16 compute
+policy the hidden layers give bf16 and the last one f32 logits.
 """
 from __future__ import annotations
 
@@ -44,7 +45,10 @@ class ClsHead(nn.Module):
             if dropout > 0:
                 layers.append(Dropout(dropout))
             c_in = c
-        layers.append(ConvBlock(c_in, num_classes, kind="linear"))
+        # the last layer is a flax Dense without a dtype in the JAX package:
+        # f32 logits under the bf16 policy too
+        layers.append(ConvBlock(c_in, num_classes, kind="linear",
+                                policy=False))
         self.head = nn.Sequential(*layers)
 
     @property

@@ -10,16 +10,25 @@ BatchNorm: eps 1e-5, momentum 0.1 (flax's momentum 0.9 is torch's 0.1; eval
 uses only the running statistics). In training :class:`BatchNorm` follows
 flax's ``nn.BatchNorm`` and keeps the *biased* batch variance in
 ``running_var`` (``nn.BatchNorm1d`` would keep the unbiased one).
+
+The bf16 compute policy (``utils.precision``) rounds where flax's
+``nn.Dense(dtype=bf16)`` and ``nn.BatchNorm(dtype=bf16)`` round:
+:func:`dense` and :class:`BatchNorm` read it; a :class:`ConvBlock` built
+with ``policy=False`` stands for a flax ``Dense`` without a ``dtype`` and
+computes in the promoted type of its input and its f32 parameters.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ...utils.precision import compute_dtype
+
 __all__ = ["create_act", "ConvBlock", "BatchNorm", "Dropout", "CHANNEL_MAP",
-           "norm_kind"]
+           "norm_kind", "dense"]
 
 # channel-size mapper per aggregation feature type
 # (parity: openpoints/models/layers/local_aggregation.py CHANNEL_MAP)
@@ -61,6 +70,19 @@ def create_act(act_args: Optional[dict]) -> Optional[nn.Module]:
     raise ValueError(f"unknown activation {name}")
 
 
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ weight.T + bias`` as flax's ``nn.Dense(dtype=compute_dtype())``
+    computes it: under the bf16 policy the operands are rounded to bf16, the
+    product is bf16 and the bias is added in bf16 after it (a second
+    rounding); without a policy in the tensors' own type."""
+    dt = compute_dtype()
+    if dt is None:
+        return F.linear(x, weight, bias)
+    y = F.linear(x.to(dt), weight.to(dt))
+    return y if bias is None else y + bias.to(dt)
+
+
 def norm_kind(norm_args: Optional[dict]) -> Optional[str]:
     """'bn' when the args ask for batch norm, None for no norm."""
     if not norm_args or not norm_args.get("norm"):
@@ -85,6 +107,14 @@ class BatchNorm(nn.BatchNorm1d):
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the bf16 policy (flax's nn.BatchNorm(dtype=bf16)): statistics and
+        # normalisation in f32 from the bf16 input, one rounding after
+        dt = compute_dtype()
+        if dt is not None:
+            return self._forward(x.float()).to(dt)
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or not self.track_running_stats:
             return super().forward(x)
         if self.momentum is None:
@@ -104,8 +134,9 @@ class BatchNorm(nn.BatchNorm1d):
 class Dropout(nn.Dropout):
     """Dropout whose randomness is explicit: the caller hands in the keep-mask
     (1 keeps, 0 drops) or the ``torch.Generator`` it is drawn from. Kept
-    units are scaled by ``1 / (1 - p)`` as flax's ``nn.Dropout`` does; eval is
-    the identity."""
+    units are divided by ``1 - p`` as flax's ``nn.Dropout`` does, the keep
+    probability in the input's type (bf16(0.6) for a bf16 input, as JAX
+    casts the python float); eval is the identity."""
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -115,7 +146,8 @@ class Dropout(nn.Dropout):
             dev = x.device if generator is None else generator.device
             mask = (torch.rand(x.shape, generator=generator, device=dev)
                     >= self.p).to(x.device)
-        return x * mask.to(x.dtype) / (1.0 - self.p)
+        keep = torch.tensor(1.0 - self.p, dtype=x.dtype)
+        return x * mask.to(x.dtype) / keep
 
 
 class ConvBlock(nn.Sequential):
@@ -125,13 +157,17 @@ class ConvBlock(nn.Sequential):
     (out, in, 1, 1) for grouped SA convs, ``conv1d`` (out, in, 1) for the
     stem and skip convs, ``linear`` (out, in) for head layers. The conv has
     a bias only when no norm follows (reference ``create_convblock*``).
-    Only the ``conv-norm-act`` order is ported.
+    Only the ``conv-norm-act`` order is ported. The conv follows the compute
+    policy (:func:`dense`), unless ``policy`` is False: then it computes in
+    the promoted type of its input and its parameters, as a flax ``Dense``
+    without a ``dtype`` does (the SA stage's skip conv, the head's last
+    layer).
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  norm_args: Optional[dict] = None,
                  act_args: Optional[dict] = None, kind: str = "conv2d",
-                 order: str = "conv-norm-act"):
+                 order: str = "conv-norm-act", policy: bool = True):
         if order != "conv-norm-act":
             raise ValueError(f"conv order {order} is not ported yet")
         norm = norm_kind(norm_args)
@@ -149,6 +185,7 @@ class ConvBlock(nn.Sequential):
         if act is not None:
             mods.append(act)
         super().__init__(*mods)
+        self.policy = policy
 
     @property
     def conv(self) -> nn.Module:
@@ -164,7 +201,12 @@ class ConvBlock(nn.Sequential):
         return self.conv.weight.flatten(1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.nn.functional.linear(x, self.weight_matrix(), self.conv.bias)
+        w = self.weight_matrix()
+        if self.policy:
+            y = dense(x, w, self.conv.bias)
+        else:
+            y = F.linear(x.to(torch.promote_types(x.dtype, w.dtype)), w,
+                         self.conv.bias)
         for mod in list(self)[1:]:
             if isinstance(mod, nn.BatchNorm1d):
                 y = mod(y.reshape(-1, y.shape[-1])).reshape(y.shape)

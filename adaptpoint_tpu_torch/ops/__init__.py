@@ -9,8 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from . import (attention, ballgroup, ballgroup_max, fpsample, gather, knn,
-               saeval)
+from . import (attention, ballgroup, ballgroup_max, fpinterp, fpsample,
+               gather, knn, saeval)
 from .ballgroup import ball_group_plain
 from .gather import gather_rows_plain
 from .geometry import (ball_query, fps_prefix_idx, square_distance,
@@ -38,7 +38,9 @@ KERNEL_MODULES = {"fps": (fpsample, "LAUNCHES"),
                   "gather_rows_bwd": (gather, "LAUNCHES_BWD"),
                   "mha": (attention, "LAUNCHES"),
                   "mha_bwd": (attention, "LAUNCHES_BWD"),
-                  "knn": (knn, "LAUNCHES")}
+                  "knn": (knn, "LAUNCHES"),
+                  "fpinterp": (fpinterp, "LAUNCHES"),
+                  "fpinterp_bwd": (fpinterp, "LAUNCHES_BWD")}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -58,18 +60,33 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return furthest_point_sample_plain(xyz, npoint)
 
 
+def _f32_features(feats: torch.Tensor) -> torch.Tensor:
+    """bf16 features (the bf16 compute policy's) as the f32 the kernels
+    take, which holds them exactly; others as they are."""
+    return feats.float() if feats.dtype == torch.bfloat16 else feats
+
+
 def ball_group(radius: float, nsample: int, xyz, query_idx, feats,
                relative: bool = True, normalize_dp: bool = False):
     """(new_xyz (B,M,3), fi (B,M,C), dpfj (B,K,M,3+C), idx (B,M,K)).
     Differentiable in ``xyz`` and ``feats`` on both devices: the backward
-    kernel on CUDA, PyTorch's autograd of the plain version on the CPU."""
+    kernel on CUDA, PyTorch's autograd of the plain version on the CPU.
+    bf16 features give ``fi`` and ``dpfj`` in bf16, as the JAX package's
+    ``ball_group`` does under its bf16 policy."""
+    in_dt = feats.dtype
+    feats = _f32_features(feats)
     if _on_cuda(xyz):
-        return ballgroup.BallGroup.apply(
+        out = ballgroup.BallGroup.apply(
             xyz.contiguous(), query_idx.int().contiguous(),
             feats.contiguous(), float(radius), int(nsample), bool(relative),
             bool(normalize_dp))
-    return ball_group_plain(radius, nsample, xyz, query_idx, feats, relative,
-                            normalize_dp)
+    else:
+        out = ball_group_plain(radius, nsample, xyz, query_idx, feats,
+                               relative, normalize_dp)
+    if in_dt != torch.bfloat16:
+        return out
+    new_xyz, fi, dpfj, idx = out
+    return new_xyz, fi.to(in_dt), dpfj.to(in_dt), idx
 
 
 def ball_group_max(radius: float, nsample: int, xyz, query_idx, feats):
@@ -77,21 +94,32 @@ def ball_group_max(radius: float, nsample: int, xyz, query_idx, feats):
     values rounded to bf16 as the TPU kernel rounds them, the (B, K, M, C)
     grouped tensor never formed. Differentiable in ``xyz`` and ``feats``,
     each max / min cotangent to its first winning slot: the kernels on CUDA,
-    the plain versions on the CPU (``ops.ballgroup_max``)."""
+    the plain versions on the CPU (``ops.ballgroup_max``). bf16 features
+    give ``fi``, ``fmax`` and ``fmin`` in bf16 (the same values) and their
+    cotangent in bf16, as under the JAX package's bf16 policy."""
+    in_dt = feats.dtype
+    feats = _f32_features(feats)
     if _on_cuda(xyz):
-        return ballgroup_max.BallGroupMax.apply(
+        out = ballgroup_max.BallGroupMax.apply(
             xyz.contiguous(), query_idx.int().contiguous(),
             feats.contiguous(), float(radius), int(nsample), True)
-    return ballgroup_max.BallGroupMax.apply(xyz, query_idx, feats,
-                                            float(radius), int(nsample), False)
+    else:
+        out = ballgroup_max.BallGroupMax.apply(xyz, query_idx, feats,
+                                               float(radius), int(nsample),
+                                               False)
+    if in_dt != torch.bfloat16:
+        return out
+    return (out[0],) + tuple(t.to(in_dt) for t in out[1:])
 
 
 def sa_eval(radius: float, nsample: int, xyz, query_idx, feats, w1, b1, w2,
             b2, relative: bool = True, normalize_dp: bool = False,
             packed=None):
-    """Fused eval SA stage: (new_xyz, fi = bf16(f), out (B,M,cout)).
-    ``packed`` (``saeval.pack_weights`` of the same weights) spares the
-    kernel's weight packing on CUDA."""
+    """Fused eval SA stage: (new_xyz, fi = bf16(f), out (B,M,cout)), all f32
+    (bf16 features too, as the TPU kernel returns them). ``packed``
+    (``saeval.pack_weights`` of the same weights) spares the kernel's weight
+    packing on CUDA."""
+    feats = _f32_features(feats)
     if _on_cuda(xyz):
         return saeval.sa_eval_cuda(
             radius, nsample, xyz.contiguous(), query_idx.int().contiguous(),
@@ -107,7 +135,9 @@ def sa_train(radius: float, nsample: int, xyz, query_idx, feats, w1, b1, w2,
     """The fused SA stage under autograd: :func:`sa_eval`'s outputs,
     differentiable in ``xyz``, ``feats`` and the folded weights, each output's
     cotangent to its first winning slot (``ops.saeval.SaTrain``). The weight
-    gradients are computed only where a folded weight requires one."""
+    gradients are computed only where a folded weight requires one. bf16
+    features get their cotangent in bf16."""
+    feats = _f32_features(feats)
     if _on_cuda(xyz):
         return saeval.SaTrain.apply(
             xyz.contiguous(), query_idx.int().contiguous(), feats.contiguous(),
@@ -174,14 +204,23 @@ def three_nn(unknown: torch.Tensor, known: torch.Tensor):
 def three_interpolation(unknown_xyz: torch.Tensor, known_xyz: torch.Tensor,
                         known_feat: torch.Tensor) -> torch.Tensor:
     """Feature-propagation upsampling: 3-NN, weights from reciprocal
-    distances (eps 1e-8) normalised to sum 1, then the gather and the
-    weighted sum as separate ops (the composite route of the JAX package;
-    its fused weighted-gather kernel for bf16 features is not ported yet)."""
+    distances (eps 1e-8) normalised to sum 1, then the weighted sum of the
+    three neighbours' features, f32 weights throughout.
+
+    bf16 features (the bf16 policy's) take the weighted gather of
+    ``ops.fpinterp`` (the kernel on CUDA, its plain version on the CPU) and
+    give f32, as the JAX package's TPU kernel does. Other features take the
+    gather and the weighted sum as separate ops (the JAX package's
+    composite) and keep their type."""
     dist, idx = three_nn(unknown_xyz, known_xyz)
     recip = 1.0 / (dist + 1e-8)
     weight = recip / recip.sum(dim=2, keepdim=True)
+    if known_feat.dtype == torch.bfloat16:
+        return fpinterp.WeightedGather3.apply(
+            known_feat.contiguous(), idx.int().contiguous(),
+            weight.float().contiguous(), _on_cuda(known_feat))
     gathered = index_points(known_feat, idx)  # (B, N, 3, C)
-    return (gathered * weight[..., None].to(gathered.dtype)).sum(dim=2)
+    return (gathered * weight[..., None]).sum(dim=2)
 
 
 def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -18,8 +18,10 @@ Phases, one JSON object a line:
    row gather and its scatter-add at the resampling shape, a feature shape
    and every gather of a ``gan_step``; the kNN at the five shapes of a
    ``gan_step``; the flash attention forward and backward at (128, 2048, 16)
-   and at ragged and wider shapes), with errors, tolerances, bounds and
-   CUDA-event times.
+   and at ragged and wider shapes; the 3-NN weighted gather forward and
+   backward at the four feature-propagation levels of a bf16 ``gan_step``,
+   with repeated neighbours and on a cloud with half its points at the
+   origin), with errors, tolerances, bounds and CUDA-event times.
 4. ``serve``: full-width ``cfgs/scanobjectnn/pointnext-s.yaml`` with seeded
    weights, exported unfused and fused at buckets 1,8,32 and served by the
    port's HTTP server; /predict with n = 1, 8, 32, 40 must match the same
@@ -33,8 +35,9 @@ Phases, one JSON object a line:
    over 30 steps, the gradient through ``ops.fps``, and ms per step with
    the profiler's device-busy time.
 7. ``adapt``: phase A of the AdaptPoint protocol at full width
-   (``cfgs/scanobjectnn/pointnext-s_adaptpoint_1.yaml``) through ``build_gan``
-   / ``make_gan_step`` / ``train_gan_epoch``: the first ``gan_step`` against
+   (``cfgs/scanobjectnn/pointnext-s_adaptpoint_1.yaml``, ``gan_precision:
+   f32``) through ``build_gan`` / ``make_gan_step`` / ``train_gan_epoch``: the
+   first ``gan_step`` against
    the same step through the plain versions on the card and on a float64 CPU
    copy routed the same way (draws free of near-ties; the copy
    differentiated at the card's fake clouds), the fake clouds' invariants,
@@ -42,6 +45,13 @@ Phases, one JSON object a line:
    differentiable fused SA 4 + 4 each, fused SA 4, no plain ball group), the
    epoch loop and three classifier train steps on the fake dataset it
    returns, and ms per step with the profiler's device-busy time.
+8. ``adapt_bf16``: the same under ``gan_precision: bf16``, the card's
+   default: the first step from the same weights and draws against the same
+   step through the plain versions on the card under the same policy (with
+   and without the feedback term), its clouds and metrics against the f32
+   step's, ten more steps, the launches a step makes (the weighted gather
+   4 + 4, and four row gathers and four scatter-adds fewer than in f32),
+   the epoch loop, and ms per step beside the f32 step's.
 
 Then the card's name and power limit as nvidia-smi prints them, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` as the
@@ -150,6 +160,48 @@ OWN_CHOICES = {"plain": {"grouper_values": 0.0, "grouper_winners": 0.0,
                          "fused_sa_winners": 1e-3},
                "float64": {"grouper_values": 3e-4, "grouper_winners": 2e-6,
                            "fused_sa_winners": 3e-3, "fps_picks": 0.0}}
+# The first bf16 gan_step (gan_precision: bf16) against the same step through
+# the plain versions on the card under the same policy, with the kernel
+# run's discrete choices; no float64 copy. Both run the policy's bf16 convs
+# and BatchNorms through the same PyTorch calls: they differ only where a
+# kernel's sums run in another order than its plain version's (attention,
+# the backward scatters, the fused SA backward), and a bf16 rounding after
+# such a sum may fall the other way. The discriminator is held tensor by
+# tensor, the generator as a whole (its near-zero tensors, a beta or bias
+# that a BatchNorm removes, are bf16 noise: 0.32 of its own norm in the
+# grouper's beta against 9.1e-3 for the whole). Readings on the H100 in
+# brackets: without the feedback term G 9.1e-3, D 0, metrics 3.6e-4, clouds
+# 0, BN statistics 3.1e-6.
+TOL_GAN16_PLAIN = {"mask_flips": 0, "gen": 1e-4, "metrics": 1e-3,
+                   "grad_l2": {"D": 1e-2},
+                   "grad_l2_whole": {"G": 2e-2, "D": 1e-3},
+                   "buffers": (1e-3, 1e-4), "share": {"D": 0.95}}
+# with the feedback term, the fused SA backward's bf16 roundings reach the
+# generator through the mask's straight-through gumbel, as in f32 (reading
+# 0.218; f32 0.105)
+TOL_GAN16_PLAIN_FEEDBACK = dict(TOL_GAN16_PLAIN,
+                                grad_l2_whole={"G": 0.4, "D": 1e-3})
+OWN_CHOICES_BF16 = {"plain": {"grouper_values": 0.0, "grouper_winners": 0.0,
+                              "fused_sa_winners": 1e-3}}
+# the bf16 step against the f32 step from the same weights and draws, in
+# brackets the readings on the H100: the points whose keep/drop choice
+# differs (the policies' mask logits fall on opposite sides of the noise for
+# 1371 of 65536 points before the draws are moved, 621-629 after; held at
+# 2 %), the clouds on the points both keep (1.6e-2-2.0e-2: the R/S/T logits
+# are bf16-rounded, the rotations reach 10 degrees) and the six metrics,
+# relative (4.0e-4-1.1e-2, loss_fake: the fake clouds differ)
+TOL_BF16_VS_F32 = {"mask_flips": 1310, "gen": 4e-2, "metrics": 3e-2}
+# ... and at least this far from it on the mask and the clouds: a step that
+# stayed f32 under the bf16 label would read 0 on each. The metrics get no
+# floor: six scalar losses over the batch, they came within 4.0e-4 of f32's
+# in one run and 1.1e-2 in another.
+FLOOR_BF16_VS_F32 = {"mask_flips": 100, "gen": 1e-3}
+# the policy's sites in the first bf16 step's kernel run and the one type
+# each must give (``policy_outputs``)
+POLICY_OUTPUTS = {("G", "BatchNorm"): "bfloat16",
+                  ("D", "SpectralNormLinear"): "bfloat16",
+                  ("C", "ConvBlock"): "bfloat16",
+                  ("C", "ConvBlock(policy=False)"): "float32"}
 # serve requests keep pool clouds whose CPU logits' top-2 gap is >= MARGIN
 POOL, MARGIN = 256, 0.05
 DEV = "cuda"
@@ -160,13 +212,18 @@ PATH_KERNELS = {
               "gather_rows_bwd"),
     "adapt": ("fps", "ball_group_max", "ball_group_max_bwd", "sa_eval",
               "sa_train", "sa_train_bwd", "gather_rows", "gather_rows_bwd",
-              "mha", "mha_bwd", "knn")}
+              "mha", "mha_bwd", "knn"),
+    "adapt_bf16": ("fps", "ball_group_max", "ball_group_max_bwd", "sa_eval",
+                   "sa_train", "sa_train_bwd", "gather_rows",
+                   "gather_rows_bwd", "mha", "mha_bwd", "knn", "fpinterp",
+                   "fpinterp_bwd")}
 # names of the hand-written kernels as the profiler prints them
 OWN_KERNELS = ("fps_kernel", "ball_group_kernel", "ball_group_bwd_kernel",
                "ball_group_max_kernel", "ball_group_max_bwd_kernel",
                "sa_eval_kernel", "sa_train_bwd_kernel", "gather_rows_kernel",
                "scatter_add_rows_kernel", "mha_fwd_kernel",
-               "mha_bwd_dq_kernel", "mha_bwd_dkv_kernel", "knn_kernel")
+               "mha_bwd_dq_kernel", "mha_bwd_dkv_kernel", "knn_kernel",
+               "fpinterp_fwd_kernel", "fpinterp_bwd_kernel")
 # adapt phase: the augmentor's four groupers at N=2048: (N -> M, C, radius),
 # K_GAN neighbours (the max-pooled ball group); the mask head's attention
 # (BH, N, d)
@@ -1079,6 +1136,160 @@ def phase_adapt_kernels(gen, rows) -> None:
     rows["gather_rows_bwd"]["gan_step_shapes"] = dict(
         launches_a_step=n_b, bound_by="bytes", **tot_b)
 
+    # ---- the 3-NN weighted gather of the bf16 step's decode
+    check_fpinterp(gen, levels, rows)
+
+
+def check_fpinterp(gen, levels, rows) -> None:
+    """The 3-NN weighted gather (rows 12, 13) at the four feature-propagation
+    levels of a B=32, N=2048 ``gan_step``, against its plain versions: on
+    the real cloud's decode levels with some rows' neighbours made to repeat
+    (slots 0 = 1 every 7th row, all three every 11th, 1 = 2 every 13th), and
+    on a fake-like cloud with FAKE_DROPPED of its points at the origin
+    (exact distance ties). Forward bit for bit; ``d_feat`` within the
+    reordering bound of its f32 sums plus one bf16 ulp (entries beyond the
+    bound counted); ``d_w`` within C * 2^-23 * sum|addend|; both directly and
+    through autograd. Adds the rows ``fpinterp`` and ``fpinterp_bwd``."""
+    import torch
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.ops import fpinterp as fpi
+
+    fake = stage_inputs(gen, [(N_GAN, N_GAN // 2, 3, 0, 0, 0.1)],
+                        FAKE_DROPPED)[0]
+    fake_levels = [fake[0], ops.index_points(fake[0], fake[1]).contiguous()]
+    for _, m, _, _ in GAN_STAGES[1:]:
+        fake_levels.append(fake_levels[1][:, :m].contiguous())
+    keys = ("ms", "plain_ms", "composite_ms", "t_b")
+    fwd, bwd = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
+    bwd.update(ms_with_d_w=0.0, t_b_with_d_w=0.0)
+    worst = {"forward": 0.0, "d_feat": 0.0, "d_w": 0.0}
+    for case, lv in (("repeated neighbours", levels), ("half at the origin",
+                                                       fake_levels)):
+        for i, (_, m, c, _) in enumerate(GAN_STAGES):
+            n = 2 * m
+            dist, idx = ops.three_nn(lv[i], lv[i + 1])
+            recip = 1.0 / (dist + 1e-8)
+            w = (recip / recip.sum(dim=2, keepdim=True)).contiguous()
+            idx = idx.int().contiguous()
+            if case == "repeated neighbours":
+                rows_n = torch.arange(n, device=DEV)
+                idx[:, rows_n % 7 == 0, 1] = idx[:, rows_n % 7 == 0, 0]
+                idx[:, rows_n % 11 == 0, 1:] = idx[:, rows_n % 11 == 0, :1]
+                idx[:, rows_n % 13 == 0, 2] = idx[:, rows_n % 13 == 0, 1]
+            feat = torch.randn((B, m, c), generator=gen, device=DEV).to(
+                torch.bfloat16)
+            g = torch.randn((B, n, c), generator=gen, device=DEV)
+            out = fpi.weighted_gather3_cuda(feat, idx, w)
+            out_ref = fpi.weighted_gather3_plain(feat, idx, w)
+            d_feat, d_w = fpi.weighted_gather3_bwd_cuda(feat, idx, w, g)
+            d_feat_ref, d_w_ref = fpi.weighted_gather3_bwd_plain(feat, idx,
+                                                                 w, g)
+            # through autograd, as ops.three_interpolation calls it
+            f_req, w_req = feat.clone().requires_grad_(), \
+                w.clone().requires_grad_()
+            auto = torch.autograd.grad(
+                fpi.WeightedGather3.apply(f_req, idx, w_req, True),
+                (f_req, w_req), g)
+            # bounds: the f32 sums' reordering, each over its own addends
+            hi, lo = fpi._split_weights(idx, w)
+            gb = g.to(torch.bfloat16).float()
+            terms = ((hi.abs() + lo.abs())[..., None]
+                     * gb.abs()[:, :, None, :]).reshape(B, n * 3, c)
+            rows3 = idx.long().reshape(B, n * 3, 1).expand(-1, -1, c)
+            abs_sum = torch.zeros((B, m, c), device=DEV).scatter_add_(
+                1, rows3, terms)
+            count = torch.zeros((B, m, c), device=DEV).scatter_add_(
+                1, rows3, (terms != 0).float())
+            reorder = scatter_bound(count, abs_sum)
+            big = torch.maximum(d_feat_ref.float().abs(),
+                                d_feat.float().abs()).clamp(min=2.0 ** -126)
+            ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+            f_abs = ops.index_points(feat, idx).float().abs()
+            dw_bound = c * EPS32 * (gb.abs()[:, :, None, :] * f_abs).sum(-1)
+            del terms, rows3, f_abs
+            torch.cuda.synchronize()
+            mism = int((out != out_ref).sum())
+            e_f = (d_feat.float() - d_feat_ref.float()).abs()
+            e_fa = (auto[0].float() - d_feat_ref.float()).abs()
+            e_w = (d_w - d_w_ref).abs()
+            e_wa = (auto[1] - d_w_ref).abs()
+            beyond = int((e_f > reorder).sum())
+            ok = (mism == 0 and bool((e_f <= reorder + ulp).all())
+                  and bool((e_fa <= reorder + ulp).all())
+                  and bool((e_w <= dw_bound).all())
+                  and bool((e_wa <= dw_bound).all())
+                  and d_feat.dtype == torch.bfloat16
+                  and bool(torch.isfinite(out).all()))
+            errs = {"forward": float((out - out_ref).abs().max()),
+                    "d_feat": float(e_f.max()),
+                    "d_feat_autograd": float(e_fa.max()),
+                    "d_w": float(e_w.max()), "d_w_autograd": float(e_wa.max())}
+            for k in worst:
+                worst[k] = max(worst[k], errs[k])
+            emit("kernel", name="fpinterp", case=case, shape=[B, n, m, c],
+                 forward_mismatches=mism, max_abs_err=errs,
+                 d_feat_entries_beyond_reordering_bound=beyond,
+                 of=d_feat.numel(),
+                 repeated_rows=int((idx[..., 1] == idx[..., 0]).sum()
+                                   + (idx[..., 2] == idx[..., 1]).sum()),
+                 tolerance="forward bit for bit; d_feat <= n * 2^-23 * "
+                           "sum|addend| + one bf16 ulp (the f32 sum may sit "
+                           "on a rounding boundary); d_w <= C * 2^-23 * "
+                           "sum|addend|")
+            if not ok:
+                raise AssertionError(f"weighted-gather kernels disagree "
+                                     f"({case}, level {i}): {errs}, "
+                                     f"{mism} forward mismatches")
+            if case != "repeated neighbours":
+                continue
+            # times on the path's inputs: the composite (gather, f32
+            # multiply, sum: three calls) is the port's f32 route, timed as
+            # context (no single PyTorch call computes this function)
+
+            def composite(f=feat, ix=idx, ww=w):
+                return (ops.index_points(f, ix) * ww[..., None]).sum(dim=2)
+
+            f_c = feat.clone().requires_grad_()
+            c_out = composite(f_c)
+            fwd["ms"] += cuda_ms(lambda: fpi.weighted_gather3_cuda(feat, idx,
+                                                                   w), 30.0)
+            fwd["plain_ms"] += cuda_ms(
+                lambda: fpi.weighted_gather3_plain(feat, idx, w), 30.0)
+            fwd["composite_ms"] += cuda_ms(composite, 30.0)
+            fwd["t_b"] += (B * m * c * 2 + B * n * 3 * 8 + B * n * c * 4) \
+                / PEAK_BYTES
+            bwd["ms"] += cuda_ms(lambda: fpi.weighted_gather3_bwd_cuda(
+                feat, idx, w, g, need_w=False), 30.0)
+            bwd["ms_with_d_w"] += cuda_ms(lambda: fpi.weighted_gather3_bwd_cuda(
+                feat, idx, w, g), 30.0)
+            bwd["plain_ms"] += cuda_ms(lambda: fpi.weighted_gather3_bwd_plain(
+                feat, idx, w, g, need_w=False), 30.0)
+            bwd["composite_ms"] += cuda_ms(lambda: torch.autograd.grad(
+                c_out, f_c, g, retain_graph=True), 30.0)
+            # without d_w the kernel reads no feat: g, idx+w in, d_feat out;
+            # with it, feat in and d_w out as well
+            bwd["t_b"] += (B * n * c * 4 + B * n * 3 * 8 + B * m * c * 2) \
+                / PEAK_BYTES
+            bwd["t_b_with_d_w"] += (B * m * c * 2 + B * n * 3 * 4) / PEAK_BYTES
+            del c_out, f_c
+        torch.cuda.empty_cache()
+    shape = [B, N_GAN, "the decode's four levels: (N, M, C) = (256, 128, "
+             "1024) .. (2048, 1024, 128)"]
+    for name, acc, err in (("fpinterp", fwd, worst["forward"]),
+                           ("fpinterp_bwd", bwd, max(worst["d_feat"],
+                                                     worst["d_w"]))):
+        if "t_b_with_d_w" in acc:
+            acc["bound_ms_with_d_w"] = 1e3 * (acc["t_b"]
+                                              + acc.pop("t_b_with_d_w"))
+        acc.update(bound_row(acc.pop("t_b"), 0.0))
+        rows[name] = dict(shape=shape, max_abs_err=err, library_ms=None,
+                          **acc)
+    emit("stage_times", fpinterp=rows["fpinterp"],
+         fpinterp_bwd=rows["fpinterp_bwd"],
+         note="ms summed over the four levels; the backward without d_w as "
+              "the gan_step asks for it (ms_with_d_w with it); composite_ms: "
+              "the port's f32 route (gather, multiply, sum), no library call")
+
 
 def calibrate_bn(model, x):
     """Running statistics from one train-mode pass over ``x`` (momentum 1,
@@ -1312,6 +1523,37 @@ def fused_routes():
         yield
     finally:
         adapt_trainer._fused_ok = gate
+
+
+@contextlib.contextmanager
+def policy_outputs(log: dict, generator, discriminator, classifier):
+    """Inside, the output types of the modules the bf16 policy rounds at are
+    counted in ``log`` under ``(net, site, dtype)``: the generator's
+    BatchNorms, the discriminator's spectral-norm layers, and the
+    classifier's pointwise convs (``policy`` ConvBlocks, which round, and the
+    others, which compute in f32). Nothing of the port does this."""
+    from adaptpoint_tpu_torch.adapt.discriminator import SpectralNormLinear
+    from adaptpoint_tpu_torch.models.layers.blocks import BatchNorm, ConvBlock
+    sites = [("G", "BatchNorm", m) for m in generator.modules()
+             if isinstance(m, BatchNorm)]
+    sites += [("D", "SpectralNormLinear", m) for m in discriminator.modules()
+              if isinstance(m, SpectralNormLinear)]
+    sites += [("C", "ConvBlock" if m.policy else "ConvBlock(policy=False)", m)
+              for m in classifier.modules() if isinstance(m, ConvBlock)]
+
+    def counter(net, site):
+        def hook(_module, _inputs, out):
+            key = (net, site, str(out.dtype).replace("torch.", ""))
+            log[key] = log.get(key, 0) + 1
+        return hook
+
+    hooks = [m.register_forward_hook(counter(net, site))
+             for net, site, m in sites]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 @contextlib.contextmanager
@@ -1726,29 +1968,25 @@ def phase_train(gen):
     return launches
 
 
-def phase_adapt(gen):
-    """Phase A of the AdaptPoint protocol at full width: the adversarial
-    ``gan_step`` (augmentor, discriminator, frozen PointNeXt-S feedback) on
-    seeded (32, 2048, 4) batches, through the entry points a user calls, then
-    phase B on phase A's output. Returns the launch counts of this path's
-    run."""
+def adapt_setup(gen):
+    """What both phase-A paths start from: the configuration, seeded
+    (32, 2048, 4) batches, the initial weights of the augmentor, the
+    discriminator and the frozen classifier (seeded, BN statistics from one
+    pass), and the first step's draws, free of near-ties of the hard
+    keep/drop choice under both compute policies."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from adaptpoint_tpu_torch import ops
     from adaptpoint_tpu_torch.adapt import draw_wolf
-    from adaptpoint_tpu_torch.engine import (GanDraws, TrainState, build_gan,
-                                             build_train_tools, make_gan_step,
-                                             make_train_step, train_gan_epoch)
+    from adaptpoint_tpu_torch.engine import GanDraws, build_gan
     from adaptpoint_tpu_torch.models import build_model_from_cfg
     from adaptpoint_tpu_torch.utils import EasyConfig
+    from adaptpoint_tpu_torch.utils.precision import dtype_override
 
     cfg = EasyConfig()
     cfg.load(os.path.join(ROOT,
                           "cfgs/scanobjectnn/pointnext-s_adaptpoint_1.yaml"),
              recursive=True)
-    lr_g = float(cfg.adaptpoint_params.lr_generator)
-    lr_d = float(cfg.adaptpoint_params.lr_discriminator)
     rng = np.random.default_rng(4)
     batches = blob_batches(rng, TRAIN_BATCHES, B, N_GAN)
     first = {k: torch.from_numpy(v) for k, v in batches[0].items()}
@@ -1756,34 +1994,15 @@ def phase_adapt(gen):
     # the frozen classifier: seeded weights, BN statistics from one pass
     cls_model = build_model_from_cfg(cfg.model, seed=1)
     calibrate_bn(cls_model, first["x"][:, :N0].to(DEV))
-    cls_before = {k: v.clone() for k, v in cls_model.state_dict().items()}
     _, _, _, _, state = build_gan(cfg, seed=5)
     n_params = {"generator": sum(p.numel() for p in
                                  state.generator.parameters()),
                 "discriminator": sum(p.numel() for p in
                                      state.discriminator.parameters())}
-
     # the weights every copy starts from
     init = [copy.deepcopy(m.state_dict()) for m in
             (state.generator, state.discriminator, cls_model)]
 
-    def twin(device, dtype=torch.float32, step_cfg=cfg):
-        """A copy of the GAN and the classifier from the initial weights on
-        ``device``, its step (under ``step_cfg``) and state."""
-        g, d, g_opt, d_opt, st = build_gan(step_cfg, device=device)
-        c = build_model_from_cfg(cfg.model, device=device)
-        for dst, src in zip((g, d, c), init):
-            dst.to(dtype)  # in place: the optimizers keep their parameters
-            dst.load_state_dict({k: v.to(device) for k, v in src.items()})
-        # the classifier's passes take the fused routes as on the card, in
-        # every copy: the float64 one runs their plain versions in float64,
-        # with the same bf16 roundings
-        with fused_routes():
-            return st, make_gan_step(g, d, g_opt, d_opt, c.eval(), step_cfg)
-
-    # (a) the first step, taken three times from the same weights with the
-    # same draws: on the card through the kernels (the main path), on the
-    # card through the plain versions, and on a float64 CPU copy
     host_gen = torch.Generator().manual_seed(6)
     wolf = draw_wolf(host_gen, B, 4, "cpu")
     u = torch.rand((B, N_GAN, 2), generator=host_gen).clamp_(min=1e-20)
@@ -1792,7 +2011,93 @@ def phase_adapt(gen):
         [torch.rand((B, w), generator=host_gen) >= 0.4 for w in (512, 256)],
         [torch.rand((2 * B, w), generator=host_gen) >= 0.4
          for w in (512, 256)])
-    hardratio = float(cfg.adaptpoint_params.hardratio)
+
+    # The hard keep/drop choice is argmax(logits + gumbel) at tau 0.1, on
+    # logits that pass a bf16 attention: a point whose two noisy logits tie
+    # to within the arithmetic's error can fall either way, and then that
+    # cloud's FPS, balls and max-pool winners follow, which no tolerance on a
+    # gradient survives. The draws are this check's input, so they are chosen
+    # free of near-ties: a copy of the generator gives the logits under each
+    # policy, and where either's noisy logits are closer than MASK_MARGIN the
+    # noise moves both gaps apart by 2 MASK_MARGIN, towards the side of the
+    # larger gap (then both gaps are at least MASK_MARGIN, on one side, and
+    # the f32 and bf16 steps choose alike).
+    scout = copy.deepcopy(state.generator).train()
+    seen = []
+    hook = scout.predict_prob_layer.fuse_masking.register_forward_hook(
+        lambda _m, _i, out: seen.append(out.detach().float().cpu()))
+    pc = first["x"][..., :3].to(DEV).contiguous()
+    fps_idx = ops.furthest_point_sample(pc, N_GAN // 2)
+    wolf_dev = type(wolf)(wolf.drop.to(DEV), wolf.axis_code.to(DEV),
+                          wolf.proj_code.to(DEV))
+    with torch.no_grad():
+        for precision in ("f32", "bf16"):
+            with dtype_override(precision):
+                scout(pc, wolf_dev, draws.gumbel.to(DEV),
+                      first_fps_idx=fps_idx)
+    hook.remove()
+    gaps = [(logits + draws.gumbel) for logits in seen]
+    gaps = torch.stack([g[..., 0] - g[..., 1] for g in gaps])  # (2, B, N)
+    near = (gaps.abs() < MASK_MARGIN).any(dim=0)
+    larger = torch.gather(gaps, 0, gaps.abs().argmax(dim=0)[None])[0]
+    draws.gumbel[..., 0] += 2 * MASK_MARGIN * near * torch.where(
+        larger >= 0, 1.0, -1.0)
+    emit("adapt_draws", margin=MASK_MARGIN, moved_points=int(near.sum()),
+         of=near.numel(),
+         sides_differ_between_policies=int(
+             ((gaps[0] >= 0) != (gaps[1] >= 0)).sum()))
+    del scout, seen, state, cls_model
+    return {"cfg": cfg, "batches": batches, "first": first, "init": init,
+            "n_params": n_params, "draws": draws,
+            "hardratio": float(cfg.adaptpoint_params.hardratio)}
+
+
+def phase_adapt(gen, ctx, precision: str, f32_run=None):
+    """Phase A of the AdaptPoint protocol at full width under
+    ``gan_precision: precision``: the adversarial ``gan_step`` (augmentor,
+    discriminator, frozen PointNeXt-S feedback) on seeded (32, 2048, 4)
+    batches, through the entry points a user calls, from ``ctx``'s weights
+    and draws (``adapt_setup``); then, in f32, phase B on phase A's output.
+    The bf16 step is also held against the f32 step of ``f32_run`` (the f32
+    path's return). Returns ``(launches of this path's run, {"first": the
+    first step, "throughput": the timing row})``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.engine import (GanDraws, TrainState, build_gan,
+                                             build_train_tools, make_gan_step,
+                                             make_train_step, train_gan_epoch)
+    from adaptpoint_tpu_torch.models import build_model_from_cfg
+
+    bf16 = precision == "bf16"
+    tag = "adapt_bf16" if bf16 else "adapt"
+    cfg = copy.deepcopy(ctx["cfg"])
+    cfg.gan_precision = precision
+    lr_g = float(cfg.adaptpoint_params.lr_generator)
+    lr_d = float(cfg.adaptpoint_params.lr_discriminator)
+    batches, first, init = ctx["batches"], ctx["first"], ctx["init"]
+    draws, hardratio = ctx["draws"], ctx["hardratio"]
+
+    def fresh(device, dtype=torch.float32, step_cfg=cfg):
+        """A copy of the GAN and the classifier from the initial weights on
+        ``device``: ``(state, classifier)``."""
+        g, d, _, _, st = build_gan(step_cfg, device=device)
+        c = build_model_from_cfg(cfg.model, device=device)
+        for dst, src in zip((g, d, c), init):
+            dst.to(dtype)  # in place: the optimizers keep their parameters
+            dst.load_state_dict({k: v.to(device) for k, v in src.items()})
+        return st, c.eval()
+
+    def twin(device, dtype=torch.float32, step_cfg=cfg):
+        """``fresh``'s copy and its step (under ``step_cfg``)."""
+        st, c = fresh(device, dtype, step_cfg)
+        # the classifier's passes take the fused routes as on the card, in
+        # every copy: the float64 one runs their plain versions in float64,
+        # with the same bf16 roundings
+        with fused_routes():
+            return st, make_gan_step(st.generator, st.discriminator,
+                                     st.g_opt, st.d_opt, c, step_cfg)
 
     def to_dev(d, device):
         w = d.wolf
@@ -1801,32 +2106,6 @@ def phase_adapt(gen):
                     w.proj_code.to(device)), d.gumbel.to(device),
             [m.to(device) for m in d.d_masks_g],
             [m.to(device) for m in d.d_masks_d])
-
-    # The hard keep/drop choice is argmax(logits + gumbel) at tau 0.1, on
-    # logits that pass a bf16 attention: a point whose two noisy logits tie
-    # to within the arithmetic's error can fall either way, and then that
-    # cloud's FPS, balls and max-pool winners follow, which no tolerance on a
-    # gradient survives. The draws are this check's input, so they are chosen
-    # free of near-ties: a copy of the generator gives the logits, and where
-    # the noisy logits are closer than MASK_MARGIN the noise moves them apart
-    # by that much, towards the side they were on.
-    scout, seen = copy.deepcopy(state.generator).train(), {}
-    hook = scout.predict_prob_layer.fuse_masking.register_forward_hook(
-        lambda _m, _i, out: seen.__setitem__("logits", out.detach()))
-    with torch.no_grad():
-        pc = first["x"][..., :3].to(DEV).contiguous()
-        on_card = to_dev(draws, DEV)
-        scout(pc, on_card.wolf, on_card.gumbel,
-              first_fps_idx=ops.furthest_point_sample(pc, N_GAN // 2))
-    hook.remove()
-    gap = seen["logits"].float().cpu() + draws.gumbel
-    gap = gap[..., 0] - gap[..., 1]
-    near = gap.abs() < MASK_MARGIN
-    draws.gumbel[..., 0] += MASK_MARGIN * near * torch.where(gap >= 0, 1.0,
-                                                             -1.0)
-    emit("adapt_draws", margin=MASK_MARGIN, moved_points=int(near.sum()),
-         of=near.numel())
-    del scout, seen, on_card
 
     def first_step(st, step, device, dtype=torch.float32, clouds=None):
         """One step from the first batch and the draws. With ``clouds``, the
@@ -1903,11 +2182,13 @@ def phase_adapt(gen):
             raise AssertionError("a plain-version step launched a kernel")
         return got, ref_plain, ref_cpu, launched, own, seconds
 
+    own_caps = OWN_CHOICES_BF16 if bf16 else OWN_CHOICES
+
     def own_choices(own):
         """The share of each reference's own discrete choices that differ
-        from the kernel run's, and whether all are within OWN_CHOICES."""
+        from the kernel run's, and whether all are within ``own_caps``."""
         shares, good = {}, True
-        for ref, caps in OWN_CHOICES.items():
+        for ref, caps in own_caps.items():
             rows = {**{f"grouper_{k}": (own[ref].get("grouper", {}), k)
                        for k in ("values", "winners")},
                     "fused_sa_winners": (own[ref].get("fused_sa", {}),
@@ -1927,13 +2208,19 @@ def phase_adapt(gen):
     # pass, forward and backward; 4 fused SA stages of the real pass; the
     # mask head's attention; kNN of the deformation head and of 4 decode
     # levels; row gathers: 2 anchor gathers, the deformation head's kNN
-    # recompute and its pooling, and 2 a decode level (3-NN recompute,
-    # features); their scatter-adds where the source carries a gradient (the
-    # pooling and the 4 feature gathers); no plain ball group
+    # recompute and its pooling, and a decode level's 3-NN recompute; their
+    # scatter-adds where the source carries a gradient (the pooling); in
+    # f32 each decode level also gathers its features (4 gathers, 4
+    # scatter-adds), in bf16 it takes the weighted gather instead (4
+    # forward, 4 backward); no plain ball group
     want = {**dict.fromkeys(ops.KERNEL_MODULES, 0), "fps": 2,
             "ball_group_max": 4, "ball_group_max_bwd": 4, "sa_train": 4,
-            "sa_train_bwd": 4, "sa_eval": 4, "gather_rows": 12,
-            "gather_rows_bwd": 5, "mha": 1, "mha_bwd": 1, "knn": 5}
+            "sa_train_bwd": 4, "sa_eval": 4, "gather_rows": 8,
+            "gather_rows_bwd": 1, "mha": 1, "mha_bwd": 1, "knn": 5}
+    if bf16:
+        want.update(fpinterp=4, fpinterp_bwd=4)
+    else:
+        want.update(gather_rows=12, gather_rows_bwd=5)
 
     def compare(got, ref, tol):
         """Worst disagreements of ``got`` with ``ref`` and whether all are
@@ -1957,6 +2244,8 @@ def phase_adapt(gen):
         good = (w["mask_flips"] <= tol["mask_flips"]
                 and w["gen_abs"] <= tol["gen"]
                 and w["metric_rel"][0] <= tol["metrics"])
+        if "grad_l2_whole" not in tol:  # the clouds and metrics only
+            return w, good
 
         def note(key, name, value):
             if value > w[key][0]:
@@ -2007,6 +2296,10 @@ def phase_adapt(gen):
                 atol=tol["buffers"][1]))
         return w, good
 
+    tol_plain = TOL_GAN16_PLAIN if bf16 else TOL_GAN_PLAIN
+    tol_plain_fb = TOL_GAN16_PLAIN_FEEDBACK if bf16 \
+        else TOL_GAN_PLAIN_FEEDBACK
+
     # (a1) without the feedback term: the generator's gradient comes from
     # the discriminator alone and is held on every tensor against the plain
     # versions on the card
@@ -2014,84 +2307,97 @@ def phase_adapt(gen):
     cfg_nofb.feedbackloss_ratio = 0.0
     got_nofb, plain_nofb, _, _, own_nofb, _ = three_ways(
         *twin(DEV, step_cfg=cfg_nofb), cfg_nofb, float64=False)
-    w_plain, ok_plain = compare(got_nofb, plain_nofb, TOL_GAN_PLAIN)
+    w_plain, ok_plain = compare(got_nofb, plain_nofb, tol_plain)
     shares, ok_own = own_choices(own_nofb)
-    emit("adapt_first_step_without_feedback", metrics=got_nofb["metrics"],
+    emit(f"{tag}_first_step_without_feedback", metrics=got_nofb["metrics"],
          against_plain_versions_on_the_card=w_plain,
          own_choices_of_the_references=own_nofb, own_choice_shares=shares,
-         tolerance={"against_plain_versions_on_the_card": TOL_GAN_PLAIN,
-                    "own_choice_shares": OWN_CHOICES})
+         tolerance={"against_plain_versions_on_the_card": tol_plain,
+                    "own_choice_shares": own_caps})
     if not (ok_plain and ok_own):
-        raise AssertionError(f"the first gan_step without feedback "
-                             f"disagrees: with the plain versions {w_plain}, "
-                             f"own choices {shares}")
+        raise AssertionError(f"the first {precision} gan_step without "
+                             f"feedback disagrees: with the plain versions "
+                             f"{w_plain}, own choices {shares}")
     del got_nofb, plain_nofb
     torch.cuda.empty_cache()
 
     # (a2) the step itself: the main path's run starts here
+    state, cls_model = fresh(DEV)
+    cls_before = {k: v.clone() for k, v in cls_model.state_dict().items()}
     ops.reset_launch_counts()
     gan_step = make_gan_step(state.generator, state.discriminator, state.g_opt,
                              state.d_opt, cls_model, cfg)
-    got, ref_plain, ref_cpu, per_step, own, cpu_seconds = three_ways(
-        state, gan_step)
-    w_plain, ok_plain = compare(got, ref_plain, TOL_GAN_PLAIN_FEEDBACK)
-    w_cpu, ok_cpu = compare(got, ref_cpu, TOL_GAN_CPU_FEEDBACK)
+    policy_log = {}
+    with policy_outputs(policy_log, state.generator, state.discriminator,
+                        cls_model) if bf16 else contextlib.nullcontext():
+        got, ref_plain, ref_cpu, per_step, own, cpu_seconds = three_ways(
+            state, gan_step, float64=not bf16)
+    w_plain, ok_plain = compare(got, ref_plain, tol_plain_fb)
     shares, ok_own = own_choices(own)
-    # how far f32 arithmetic alone (the plain versions on the card) sits from
-    # float64: the kernels may be no further from float64 than that
-    w_f32, _ = compare(ref_plain, ref_cpu, TOL_GAN_CPU_FEEDBACK)
-    no_further = (w_cpu["G_grad_rel_l2_whole"]
-                  <= FEEDBACK_NOISE * w_f32["G_grad_rel_l2_whole"] + 1e-2)
     # (b) the fake clouds: inside the unit sphere, dropped rows exactly zero,
     # and the mask neither empty nor full
     norms = got["gen"].norm(dim=-1)
     dropped = float((norms == 0).double().mean())
-    emit("adapt_first_step", params=n_params, metrics=got["metrics"],
-         plain_metrics=ref_plain["metrics"],
-         cpu_f64_metrics=ref_cpu["metrics"],
-         cpu_f64_step_seconds=cpu_seconds,
-         own_choices_of_the_references=own, own_choice_shares=shares,
-         against_plain_versions_on_the_card=w_plain,
-         against_float64_cpu_copy=w_cpu,
-         plain_versions_on_the_card_against_float64_cpu_copy=w_f32,
-         launches=per_step, expected=want,
-         gen_max_norm=float(norms.max()), dropped_share=dropped,
-         tolerance={"against_plain_versions_on_the_card":
-                    TOL_GAN_PLAIN_FEEDBACK,
-                    "against_float64_cpu_copy": TOL_GAN_CPU_FEEDBACK,
-                    "G_whole_against_float64": f"<= {FEEDBACK_NOISE} x the "
-                    f"plain versions' own + 1e-2",
-                    "own_choice_shares": OWN_CHOICES})
-    # (b) the fake clouds: inside the unit sphere, dropped rows exactly zero,
-    # and the mask neither empty nor full
-    norms = got["gen"].norm(dim=-1)
-    dropped = float((norms == 0).double().mean())
-    emit("adapt_first_step", params=n_params, metrics=got["metrics"],
-         plain_metrics=ref_plain["metrics"],
-         cpu_f64_metrics=ref_cpu["metrics"],
-         cpu_f64_step_seconds=cpu_seconds,
-         own_choices_of_the_references=own,
-         against_plain_versions_on_the_card=w_plain,
-         against_float64_cpu_copy=w_cpu,
-         plain_versions_on_the_card_against_float64_cpu_copy=w_f32,
-         launches=per_step, expected=want,
-         gen_max_norm=float(norms.max()), dropped_share=dropped,
-         tolerance={"against_plain_versions_on_the_card":
-                    TOL_GAN_PLAIN_FEEDBACK,
-                    "against_float64_cpu_copy": TOL_GAN_CPU_FEEDBACK,
-                    "G_whole_against_float64": f"<= {FEEDBACK_NOISE} x the "
-                    f"plain versions' own + 1e-2"})
+    report = dict(params=ctx["n_params"], metrics=got["metrics"],
+                  plain_metrics=ref_plain["metrics"],
+                  own_choices_of_the_references=own,
+                  own_choice_shares=shares,
+                  against_plain_versions_on_the_card=w_plain,
+                  launches=per_step, expected=want,
+                  gen_max_norm=float(norms.max()), dropped_share=dropped)
+    tols = {"against_plain_versions_on_the_card": tol_plain_fb,
+            "own_choice_shares": own_caps}
+    ok_ref = True
+    if bf16 and f32_run is not None:
+        # the same weights and draws under the f32 policy: the clouds and
+        # the six metrics, at bf16 grade
+        w_f32, ok_ref = compare(got, f32_run["first"], TOL_BF16_VS_F32)
+        ok_ref = (ok_ref
+                  and w_f32["mask_flips"] >= FLOOR_BF16_VS_F32["mask_flips"]
+                  and w_f32["gen_abs"] >= FLOOR_BF16_VS_F32["gen"])
+        report["against_the_f32_step"] = w_f32
+        tols["against_the_f32_step"] = TOL_BF16_VS_F32
+        tols["against_the_f32_step_at_least"] = FLOOR_BF16_VS_F32
+    if bf16:
+        # the policy is in force on the card: each site gave its one type,
+        # and every site fired
+        seen = {(net, site): {} for net, site in POLICY_OUTPUTS}
+        for (net, site, dt), n in policy_log.items():
+            seen[(net, site)][dt] = n
+        report["policy_outputs"] = {f"{k[0]}.{k[1]}": v
+                                    for k, v in seen.items()}
+        tols["policy_outputs"] = {f"{k[0]}.{k[1]}": v
+                                  for k, v in POLICY_OUTPUTS.items()}
+        ok_ref = ok_ref and all(list(seen[k]) == [dt]
+                                for k, dt in POLICY_OUTPUTS.items())
+    elif not bf16:
+        w_cpu, ok_cpu = compare(got, ref_cpu, TOL_GAN_CPU_FEEDBACK)
+        # how far f32 arithmetic alone (the plain versions on the card) sits
+        # from float64: the kernels may be no further from float64 than that
+        w_f32, _ = compare(ref_plain, ref_cpu, TOL_GAN_CPU_FEEDBACK)
+        no_further = (w_cpu["G_grad_rel_l2_whole"]
+                      <= FEEDBACK_NOISE * w_f32["G_grad_rel_l2_whole"] + 1e-2)
+        ok_ref = ok_cpu and no_further
+        report.update(cpu_f64_metrics=ref_cpu["metrics"],
+                      cpu_f64_step_seconds=cpu_seconds,
+                      against_float64_cpu_copy=w_cpu,
+                      plain_versions_on_the_card_against_float64_cpu_copy=w_f32)
+        tols.update(against_float64_cpu_copy=TOL_GAN_CPU_FEEDBACK,
+                    G_whole_against_float64=f"<= {FEEDBACK_NOISE} x the "
+                    f"plain versions' own + 1e-2")
+    emit(f"{tag}_first_step", tolerance=tols, **report)
     if per_step != want:
-        raise AssertionError(f"launches in one gan_step {per_step} != {want}")
+        raise AssertionError(f"launches in one {precision} gan_step "
+                             f"{per_step} != {want}")
     if not (float(norms.max()) <= 1.0 and 0.0 < dropped < 1.0
             and all(np.isfinite(v) for v in got["metrics"].values())):
         raise AssertionError(f"bad fake clouds: max norm {float(norms.max())}"
                              f", dropped share {dropped}")
-    if not (ok_plain and ok_cpu and no_further and ok_own):
-        raise AssertionError(f"the first gan_step disagrees: with the plain "
-                             f"versions {w_plain}, with the CPU copy {w_cpu}, "
-                             f"the plain versions with it {w_f32}, own "
-                             f"choices {shares}")
+    if not (ok_plain and ok_ref and ok_own):
+        raise AssertionError(f"the first {precision} gan_step disagrees: "
+                             f"{report}")
+    first_result = {"gen": got["gen"], "metrics": got["metrics"]}
+    del got, ref_plain, ref_cpu
 
     # (c) ten more steps: finite metrics; G, D and D's u move; the frozen
     # classifier does not
@@ -2115,7 +2421,7 @@ def phase_adapt(gen):
              if not k.endswith("num_batches_tracked") and v.numel() > 1}
     frozen = all(torch.equal(v, cls_before[k])
                  for k, v in cls_model.state_dict().items())
-    emit("adapt_steps", steps=10, metric_names=list(metrics),
+    emit(f"{tag}_steps", steps=10, metric_names=list(metrics),
          first=rows[0].tolist(), last=rows[-1].tolist(),
          unmoved=[k for k, m in moved.items() if not m],
          classifier_unchanged=frozen, step=state.step)
@@ -2129,8 +2435,8 @@ def phase_adapt(gen):
     if got_l != {k: 11 * v for k, v in want.items()}:
         raise AssertionError(f"launches over eleven steps {got_l}")
 
-    # (f) the epoch loop, then phase B on phase A's output: three classifier
-    # train steps on the returned fake dataset
+    # (f) the epoch loop; in f32 then phase B on phase A's output: three
+    # classifier train steps on the returned fake dataset
     t0 = time.perf_counter()
     state, fake_set, avg = train_gan_epoch(gan_step, state, batches, dev_gen,
                                            hardratio, cfg)
@@ -2139,24 +2445,25 @@ def phase_adapt(gen):
               and fake_set.x.shape == (TRAIN_BATCHES * B, N_GAN, 4)
               and bool(np.isfinite(fake_set.pointcloud).all())
               and all(np.isfinite(v) for v in avg.values()))
-    criterion, optimizer, lr_fn = build_train_tools(cfg, cls_model)
-    train_step = make_train_step(cls_model, optimizer, criterion, cfg)
-    cls_state = TrainState(cls_model, optimizer)
     losses = []
-    for i in range(3):
-        rows_ = slice(i * B, (i + 1) * B)
-        cls_state, loss, _ = train_step(
-            cls_state,
-            {"x": torch.from_numpy(fake_set.x[rows_]).to(DEV),
-             "y": torch.from_numpy(fake_set.label[rows_]).to(DEV)},
-            dev_gen, lr_fn(0))
-        losses.append(loss)
-    losses = torch.stack(losses).cpu().tolist()
+    if not bf16:
+        criterion, optimizer, lr_fn = build_train_tools(cfg, cls_model)
+        train_step = make_train_step(cls_model, optimizer, criterion, cfg)
+        cls_state = TrainState(cls_model, optimizer)
+        for i in range(3):
+            rows_ = slice(i * B, (i + 1) * B)
+            cls_state, loss, _ = train_step(
+                cls_state,
+                {"x": torch.from_numpy(fake_set.x[rows_]).to(DEV),
+                 "y": torch.from_numpy(fake_set.label[rows_]).to(DEV)},
+                dev_gen, lr_fn(0))
+            losses.append(loss)
+        losses = torch.stack(losses).cpu().tolist()
     launches = ops.launch_counts()  # this path's run ends here
-    emit("adapt_epoch", steps=TRAIN_BATCHES, seconds=epoch_s, averages=avg,
+    emit(f"{tag}_epoch", steps=TRAIN_BATCHES, seconds=epoch_s, averages=avg,
          fake_clouds=len(fake_set), phase_b_losses=losses, launches=launches)
     if not (ok_set and np.isfinite(losses).all()
-            and cls_state.step == 3):
+            and (bf16 or cls_state.step == 3)):
         raise AssertionError(f"train_gan_epoch / phase B: dataset ok "
                              f"{ok_set}, losses {losses}")
 
@@ -2194,27 +2501,32 @@ def phase_adapt(gen):
                 acc = own.setdefault(name, [0.0, 0.0])
                 acc[0] += e.count / reps
                 acc[1] += e.self_device_time_total / 1e3 / reps
-    emit("adapt_throughput", batch=B, points=N_GAN, ms_per_step=ms,
-         clouds_per_s=B * 1e3 / ms, host_enqueue_ms=enqueue_ms,
-         profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
-         device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-         kernels_per_step=sum(e.count for e in kernels) / reps,
-         peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
-         own_kernels_launches_and_ms=own,
-         own_kernels_ms=sum(v[1] for v in own.values()),
-         top_kernels_ms=[[e.key[:48], e.self_device_time_total / 1e3 / reps]
-                         for e in top])
-    return launches
+    timing = dict(
+        ms_per_step=ms, clouds_per_s=B * 1e3 / ms, host_enqueue_ms=enqueue_ms,
+        profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+        device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+        kernels_per_step=sum(e.count for e in kernels) / reps,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+        own_kernels_launches_and_ms=own,
+        own_kernels_ms=sum(v[1] for v in own.values()),
+        top_kernels_ms=[[e.key[:48], e.self_device_time_total / 1e3 / reps]
+                        for e in top])
+    emit(f"{tag}_throughput", batch=B, points=N_GAN, precision=precision,
+         **timing, f32_step=None if f32_run is None else {
+             k: f32_run["throughput"][k] for k in (
+                 "ms_per_step", "host_enqueue_ms", "device_busy_ms",
+                 "device_idle_share", "kernels_per_step", "peak_memory_gb")})
+    return launches, {"first": first_result, "throughput": timing}
 
 
 def main(argv=None) -> int:
     import argparse
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,serve,train,adapt",
-                    help="comma-separated subset of kernels,serve,train,adapt "
-                         "for a partial run, which prints no final result "
-                         "(default: all)")
+    ap.add_argument("--phases", default="kernels,serve,train,adapt,adapt_bf16",
+                    help="comma-separated subset of kernels,serve,train,adapt,"
+                         "adapt_bf16 for a partial run, which prints no final "
+                         "result (default: all)")
     phases = set(ap.parse_args(argv).phases.split(","))
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2248,9 +2560,16 @@ def main(argv=None) -> int:
         del models
     if "train" in phases:
         by_path["train"] = phase_train(gen)
-    if "adapt" in phases:
+    f32_run = None
+    if phases & {"adapt", "adapt_bf16"}:
         torch.cuda.empty_cache()
-        by_path["adapt"] = phase_adapt(gen)
+        ctx = adapt_setup(gen)
+        if "adapt" in phases:
+            by_path["adapt"], f32_run = phase_adapt(gen, ctx, "f32")
+        if "adapt_bf16" in phases:
+            torch.cuda.empty_cache()
+            by_path["adapt_bf16"], _ = phase_adapt(gen, ctx, "bf16", f32_run)
+        del ctx
     emit("done", seconds=time.perf_counter() - t_start)
     if rows is None or set(by_path) != set(PATH_KERNELS):
         print(f"partial run ({sorted(phases)}): no final result",
@@ -2273,7 +2592,9 @@ def main(argv=None) -> int:
                "gather_rows_bwd": ("gather.cu", pallas + "gather.py:144"),
                "mha": ("attention.cu", pallas + "attention.py:128"),
                "mha_bwd": ("attention.cu", pallas + "attention.py:158"),
-               "knn": ("knn.cu", pallas + "knn.py:107")}
+               "knn": ("knn.cu", pallas + "knn.py:107"),
+               "fpinterp": ("fpinterp.cu", pallas + "fpinterp.py:149"),
+               "fpinterp_bwd": ("fpinterp.cu", pallas + "fpinterp.py:178")}
     for path, names in PATH_KERNELS.items():
         never = [n for n in names if by_path[path][n] < 1]
         if never:
@@ -2294,7 +2615,8 @@ def main(argv=None) -> int:
             "library_ms": r.get("library_ms")})
         for extra in ("resample_shape", "feature_shape",
                       "gan_classifier_shapes", "gan_step_shapes", "shape",
-                      "ms_forward_only", "bound_parts_ms"):
+                      "ms_forward_only", "bound_parts_ms", "composite_ms",
+                      "ms_with_d_w", "bound_ms_with_d_w"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(smi, flush=True)

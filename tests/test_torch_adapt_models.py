@@ -368,7 +368,9 @@ def test_augmentor_default_route_equals_the_exact_route_in_jax(gen_pair,
 def check_augmentor_gradients(gen_pair, tol, seed=16, wseed=17, key=18):
     """The gradients of a weighted sum of the clouds for the augmentor's 68
     parameter tensors, each package's, within ``tol`` (``loss``,
-    ``grad_l2``). Returns the worst errors."""
+    ``grad_l2``; ``grad_floor``, default 1e-3, floors each tensor's scale at
+    that share of the whole gradient's norm). Returns the worst errors and
+    the whole gradient's relative 2-norm error."""
     jgen, variables, port = gen_pair
     _load_generator(port, variables)
     x = cloud(seed)
@@ -400,18 +402,21 @@ def check_augmentor_gradients(gen_pair, tol, seed=16, wseed=17, key=18):
     assert len(named) == 68  # the layout's 122 rows less 3 x 18 BN buffers
     total = float(np.sqrt(sum(float((v.numpy() ** 2).sum())
                               for k, v in ref.items() if k in named)))
-    worst = ("", 0.0)
+    worst, diff2 = ("", 0.0), 0.0
     for name, p in named.items():
         want = ref[name].numpy()
         assert p.grad is not None, name
+        diff2 += float(((p.grad.numpy() - want) ** 2).sum())
         # a gradient that cancels to nothing (a bias or beta the next
         # BatchNorm removes) has no scale of its own: floor each tensor's
-        # scale at a thousandth of the whole gradient's
+        # scale at a thousandth (grad_floor) of the whole gradient's
         rel = float(np.linalg.norm(p.grad.numpy() - want)
-                    / max(float(np.linalg.norm(want)), 1e-3 * total))
+                    / max(float(np.linalg.norm(want)),
+                          tol.get("grad_floor", 1e-3) * total))
         worst = max(worst, (name, rel), key=lambda t: t[1])
         assert rel <= tol["grad_l2"], (name, rel)
-    return {"loss": abs(loss.item() - float(ref_loss)), "grad_l2": worst}
+    return {"loss": abs(loss.item() - float(ref_loss)), "grad_l2": worst,
+            "whole": diff2 ** 0.5 / total}
 
 
 def test_augmentor_parameter_gradients_match_jax(gen_pair):

@@ -366,12 +366,22 @@ def test_fused_real_pass_changes_only_the_feedback_within_its_tolerance(
 
 
 def test_gan_precision_bf16_waits_for_its_slice(setup):
+    """``gan_precision: bf16`` builds a step, and an unset ``gan_precision``
+    selects the policy per device (the name is kept from when bf16 raised
+    ``NotImplementedError``)."""
     gen, dis, g_opt, d_opt, _ = build_gan(setup.pcfg, device="cpu", seed=0)
     cfg = EasyConfig()
     cfg.load(CFG, recursive=True)
+    # the slice is here: bf16 builds a step; unset, the precision follows
+    # the device (bf16 on the card, f32 on the CPU), as in the JAX package
     cfg.gan_precision = "bf16"
-    with pytest.raises(NotImplementedError, match="bf16"):
-        make_gan_step(gen, dis, g_opt, d_opt, setup.pcls, cfg)
+    assert callable(make_gan_step(gen, dis, g_opt, d_opt, setup.pcls, cfg))
+    assert adapt_trainer.gan_compute_dtype(cfg, "cpu") == torch.bfloat16
+    del cfg["gan_precision"]
+    assert adapt_trainer.gan_compute_dtype(cfg, "cpu") is None
+    assert adapt_trainer.gan_compute_dtype(cfg, "cuda") == torch.bfloat16
+    cfg.gan_precision = "f32"
+    assert adapt_trainer.gan_compute_dtype(cfg, "cuda") is None
     assert [g["lr"] for g in (g_opt.param_groups[0], d_opt.param_groups[0])] \
         == [LR_G, LR_D]
     assert g_opt.param_groups[0]["betas"] == (0.5, 0.999)

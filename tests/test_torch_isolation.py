@@ -18,7 +18,8 @@ import torch
 from adaptpoint_tpu_torch import ops, resolve_device
 from adaptpoint_tpu_torch.models import build_model_from_cfg
 from adaptpoint_tpu_torch.ops import (attention, ballgroup, ballgroup_max,
-                                      fpsample, gather, knn, saeval)
+                                      fpinterp, fpsample, gather, knn,
+                                      saeval)
 from adaptpoint_tpu_torch.serving import ServingModel, export_serving_artifact
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -192,6 +193,13 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
         saeval.sa_train_bwd_cuda(0.3, xyz, q, f, packed, idx,
                                  torch.zeros(1, 4, 7, dtype=torch.uint8),
                                  None, None, torch.zeros(1, 4, 7))
+    fb = torch.zeros(1, 16, 5, dtype=torch.bfloat16)
+    idx3 = torch.zeros(1, 4, 3, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        fpinterp.weighted_gather3_cuda(fb, idx3, torch.zeros(1, 4, 3))
+    with pytest.raises(ValueError):
+        fpinterp.weighted_gather3_bwd_cuda(fb, idx3, torch.zeros(1, 4, 3),
+                                           torch.zeros(1, 4, 5))
     # the dispatching ops take the plain versions on CPU tensors and never
     # count a launch, forward or backward
     ops.furthest_point_sample(xyz, 4)
@@ -205,6 +213,8 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
      + fused[2].sum() + ops.gather_rows(fg, q).sum()
      + ops.fps(fg, 4).sum() + ops.index_points(fg, idx).sum()
      + ops.three_interpolation(xyz, xyz[:, :8], fg[:, :8]).sum()
+     + ops.three_interpolation(xyz, xyz[:, :8],
+                               fg[:, :8].bfloat16()).sum()
      + ops.fused_self_attention(qg, qg, qg, 4.0).sum()).backward()
     ops.knn_point(3, xyz, xyz)
     assert fg.grad is not None and qg.grad is not None
@@ -212,7 +222,8 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
     assert set(before) == {"fps", "ball_group", "ball_group_bwd",
                            "ball_group_max", "ball_group_max_bwd", "sa_eval",
                            "sa_train", "sa_train_bwd", "gather_rows",
-                           "gather_rows_bwd", "mha", "mha_bwd", "knn"}
+                           "gather_rows_bwd", "mha", "mha_bwd", "knn",
+                           "fpinterp", "fpinterp_bwd"}
     assert not any(before.values())
 
 
