@@ -92,9 +92,14 @@ def _in_channels(cfg) -> int:
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-                    criterion: Callable, cfg) -> Callable:
+                    criterion: Callable, cfg,
+                    fused_train_bn: bool = False) -> Callable:
     """``train_step(state, batch, gen_or_cols, lr, dropout_mask=None) ->
     (state, loss, preds)``.
+
+    ``fused_train_bn`` sends the encoder's standard SA stages through the
+    fused train-BN op (``ops.sa_trainbn``; the JAX package's opt-in
+    ``ADAPTPOINT_TPU_TRAIN_FUSED=1``); the default is the unfused route.
 
     ``batch`` holds ``x (B, N, C)`` and ``y (B,)`` on the model's device.
     ``gen_or_cols`` goes to :func:`resample_points`; when it is a generator
@@ -119,7 +124,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         x = points[..., :in_channels].contiguous()
         gen = gen_or_cols if isinstance(gen_or_cols, torch.Generator) else None
         optimizer.zero_grad(set_to_none=True)
-        logits = model(pos, x, dropout_mask=dropout_mask, generator=gen)
+        logits = model(pos, x, dropout_mask=dropout_mask, generator=gen,
+                       fused_train_bn=fused_train_bn)
         loss = criterion(logits.float(), batch["y"])
         loss.backward()
         if clip is not None and clip > 0:

@@ -3,7 +3,8 @@
 Counterpart of ``adaptpoint_tpu/models/backbone/pointnext.py`` for the
 stages PointNeXt-S instantiates: the stem, the strided SetAbstraction
 stages (ball-group route or fused route, differentiable under autograd as
-the GAN step's fake pass needs it) and the group-all stage.
+the GAN step's fake pass needs it, and in training the opt-in fused
+train-BN route) and the group-all stage.
 ``InvResMLP`` depth blocks (``blocks[i] > 1``) wait for the PointNeXt-B
 slice and raise. Module names follow the reference openpoints layout
 (``encoder.{stage}.{block}.convs.{j}.{0|1}``, ``skipconv.0``).
@@ -160,6 +161,41 @@ class SetAbstraction(nn.Module):
             self._fused_cache = (key, (w1, b1, w2, b2), packed)
         return self._fused_cache[1], self._fused_cache[2]
 
+    def _fused_trainbn_ok(self) -> bool:
+        """The fused train-BN kernels cover training forwards of the standard
+        stage (``_fused_eval_ok``'s form, in train mode): the gate of the
+        JAX package's ``_fused_trainbn_ok``, without its platform test; the
+        tensors' device picks kernels or plain version."""
+        return (self.training and self.use_fused and self.layers == 2
+                and self.feature_type == "dp_fj"
+                and self.order == "conv-norm-act"
+                and norm_kind(self.norm_args) == "bn"
+                and (self.act_args or {}).get("act") == "relu")
+
+    def _fused_trainbn_stage(self, p, f, first_fps_idx=None):
+        """The train stage through ``ops.sa_trainbn``: ball group, conv,
+        BatchNorm on the batch's statistics, ReLU, conv, BatchNorm and max in
+        one op, whose statistics each BatchNorm then records as its train
+        forward would. The residual's skip conv and activation stay outside
+        it, as in :meth:`_fused_stage`."""
+        radius, nsample = self._radius_nsample()
+        idx = self._sample_idx(p, p.shape[1] // self.stride, first_fps_idx)
+        cb1, cb2 = self.convs
+        new_p, fi, out, mu1, var1, mu2, var2 = ops.sa_trainbn(
+            radius, nsample, p, idx, f, cb1.weight_matrix().t(),
+            cb1.bn.weight, cb1.bn.bias, cb2.weight_matrix().t(),
+            cb2.bn.weight, cb2.bn.bias,
+            relative=self.group_args.get("relative_xyz", True),
+            normalize_dp=self.group_args.get("normalize_dp", False),
+            eps=cb1.bn.eps)
+        cb1.bn.record_stats(mu1, var1)
+        cb2.bn.record_stats(mu2, var2)
+        if self.use_res:
+            identity = self.skipconv(fi) if self.skipconv is not None else fi
+            return new_p, self.act(out + identity)
+        # relu(max(x)) == max(relu(x)): relu is monotone
+        return new_p, self.act(out)
+
     def _radius_nsample(self):
         return (float(self.group_args.get("radius", 0.1)),
                 int(self.group_args.get("nsample", 16)))
@@ -188,16 +224,21 @@ class SetAbstraction(nn.Module):
 
     def forward(self, p: torch.Tensor, f: torch.Tensor,
                 fused_eval: bool = False,
-                first_fps_idx: Optional[torch.Tensor] = None):
+                first_fps_idx: Optional[torch.Tensor] = None,
+                fused_train_bn: bool = False):
         """``first_fps_idx`` (B, >= M): FPS indices of ``p`` the caller
         already has; a stage that would run FPS on ``p`` takes its prefix.
         ``fused_eval`` asks for the fused route where the stage's form allows
-        it, differentiable where autograd needs it (``_fused_stage``)."""
+        it, differentiable where autograd needs it (``_fused_stage``);
+        ``fused_train_bn`` for the fused train-BN stage in training
+        (``_fused_trainbn_stage``)."""
         if self.is_head:
             x = f
             for cb in self.convs:
                 x = cb(x)
             return p, x
+        if fused_train_bn and self._fused_trainbn_ok():
+            return self._fused_trainbn_stage(p, f, first_fps_idx)
         if self.use_fused and fused_eval and self._fused_eval_ok():
             return self._fused_stage(p, f, first_fps_idx)
         if self.use_fused:
@@ -324,28 +365,34 @@ class PointNextEncoder(nn.Module):
         return self.channel_list[-1]
 
     def forward_seg_feat(self, p0, f0=None, fused_eval: bool = False,
-                         first_fps_idx: Optional[torch.Tensor] = None):
+                         first_fps_idx: Optional[torch.Tensor] = None,
+                         fused_train_bn: bool = False):
         """``first_fps_idx``: FPS indices of ``p0`` computed by the caller;
         the first subsampling stage takes its prefix instead of running FPS
-        (the stages after it are in FPS order anyway)."""
+        (the stages after it are in FPS order anyway). ``fused_train_bn``:
+        training forwards take the fused train-BN stage where it fits."""
         p, f = p0, (p0 if f0 is None else f0)
         ps, fs = [p], [f]
         for stage in self.encoder:
             for blk in stage:
                 # only a stage that still sees the input cloud may use it
                 shared = first_fps_idx if p is p0 else None
-                p, f = blk(p, f, fused_eval, shared)
+                p, f = blk(p, f, fused_eval, shared, fused_train_bn)
             ps.append(p)
             fs.append(f)
         return ps, fs
 
     def forward_cls_feat(self, p0, f0=None, fused_eval: bool = False,
-                         first_fps_idx: Optional[torch.Tensor] = None):
-        ps, fs = self.forward_seg_feat(p0, f0, fused_eval, first_fps_idx)
+                         first_fps_idx: Optional[torch.Tensor] = None,
+                         fused_train_bn: bool = False):
+        ps, fs = self.forward_seg_feat(p0, f0, fused_eval, first_fps_idx,
+                                       fused_train_bn)
         f = fs[-1]
         # the group-all stage pools to (B, 1, C) (pointnext.py:441)
         return f.squeeze(1) if f.shape[1] == 1 else f.amax(dim=1)
 
     def forward(self, p0, f0=None, fused_eval: bool = False,
-                first_fps_idx: Optional[torch.Tensor] = None):
-        return self.forward_seg_feat(p0, f0, fused_eval, first_fps_idx)
+                first_fps_idx: Optional[torch.Tensor] = None,
+                fused_train_bn: bool = False):
+        return self.forward_seg_feat(p0, f0, fused_eval, first_fps_idx,
+                                     fused_train_bn)

@@ -100,12 +100,14 @@ class BaseCls(nn.Module):
     def forward(self, pos: torch.Tensor, x: Optional[torch.Tensor] = None,
                 fused_eval: bool = False, dropout_mask=None,
                 generator: Optional[torch.Generator] = None,
-                first_fps_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                first_fps_idx: Optional[torch.Tensor] = None,
+                fused_train_bn: bool = False) -> torch.Tensor:
         """``first_fps_idx`` (B, >= first stage's M): FPS indices of ``pos``
         the caller already has, shared with the encoder's first subsampling
-        stage."""
+        stage. ``fused_train_bn``: in training the encoder's standard SA
+        stages take the fused train-BN route (``ops.sa_trainbn``)."""
         feat = self.encoder.forward_cls_feat(pos, x, fused_eval,
-                                             first_fps_idx)
+                                             first_fps_idx, fused_train_bn)
         if self.prediction is None:
             return feat
         return self.prediction(feat, dropout_mask, generator)

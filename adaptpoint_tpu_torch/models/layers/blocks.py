@@ -9,7 +9,9 @@ pointwise matmul over the last axis, which is the same arithmetic.
 BatchNorm: eps 1e-5, momentum 0.1 (flax's momentum 0.9 is torch's 0.1; eval
 uses only the running statistics). In training :class:`BatchNorm` follows
 flax's ``nn.BatchNorm`` and keeps the *biased* batch variance in
-``running_var`` (``nn.BatchNorm1d`` would keep the unbiased one).
+``running_var`` (``nn.BatchNorm1d`` would keep the unbiased one). A fused SA
+stage that computes its BatchNorms itself records its statistics through
+:meth:`BatchNorm.record_stats`.
 
 The bf16 compute policy (``utils.precision``) rounds where flax's
 ``nn.Dense(dtype=bf16)`` and ``nn.BatchNorm(dtype=bf16)`` round:
@@ -94,16 +96,21 @@ def norm_kind(norm_args: Optional[dict]) -> Optional[str]:
 
 
 class BatchNorm(nn.BatchNorm1d):
-    """``nn.BatchNorm1d`` over (rows, C) whose training statistics equal the
+    """``nn.BatchNorm1d`` over (rows, C) whose training statistics follow the
     JAX package's (flax ``nn.BatchNorm``, momentum 0.9).
 
     Both normalise a training batch with its biased variance. They differ in
     what they remember: flax blends the *biased* variance into its running
     ``var``, ``nn.BatchNorm1d`` the unbiased one (n/(n-1) larger: 32/31 in the
-    head at a batch of 32). This module follows flax, so that after any
-    number of train steps ``running_mean``/``running_var`` equal flax's
-    ``batch_stats``. Parameter and buffer names, ``num_batches_tracked``
-    and the eval forward are ``nn.BatchNorm1d``'s.
+    head at a batch of 32). This module follows flax. Parameter and buffer
+    names, ``num_batches_tracked`` and the eval forward are
+    ``nn.BatchNorm1d``'s.
+
+    The variance is the two-pass one, not flax's ``max(0, E[x^2] -
+    E[x]^2)``: in f32 the two formulas part as the mean outgrows the spread,
+    but flax's own sums are then a few ulps from the exact ones, and any
+    other summation order of its formula lands as far from flax's value as
+    the two-pass variance does (``scripts/torch_bn_variance_vs_flax.py``).
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -117,18 +124,26 @@ class BatchNorm(nn.BatchNorm1d):
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or not self.track_running_stats:
             return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=0, correction=0)
+        self.record_stats(mean, var)
+        return torch.nn.functional.batch_norm(
+            x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    @torch.no_grad()
+    def record_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Blend a train batch's ``mean`` and biased ``var`` into the running
+        statistics and count the batch, as a train forward does. A fused SA
+        stage that normalises with statistics of its own records them here
+        (the counterpart of the JAX package's ``BNStatsHandle``)."""
         if self.momentum is None:
             raise NotImplementedError("cumulative-average BatchNorm "
                                       "(momentum=None) is not ported")
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=0, correction=0)
-            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
-                                    self.momentum)
-            self.running_var.lerp_(var.to(self.running_var.dtype),
-                                   self.momentum)
-            self.num_batches_tracked += 1
-        return torch.nn.functional.batch_norm(
-            x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        self.running_mean.lerp_(mean.detach().to(self.running_mean.dtype),
+                                self.momentum)
+        self.running_var.lerp_(var.detach().to(self.running_var.dtype),
+                               self.momentum)
+        self.num_batches_tracked += 1
 
 
 class Dropout(nn.Dropout):

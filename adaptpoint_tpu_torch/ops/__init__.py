@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from . import (attention, ballgroup, ballgroup_max, fpinterp, fpsample,
-               gather, knn, saeval)
+               gather, knn, saeval, satrainbn)
 from .ballgroup import ball_group_plain
 from .gather import gather_rows_plain
 from .geometry import (ball_query, fps_prefix_idx, square_distance,
@@ -19,7 +19,7 @@ from .geometry import (ball_query, fps_prefix_idx, square_distance,
 from .saeval import sa_eval_plain
 
 __all__ = ["furthest_point_sample", "ball_group", "ball_group_max", "sa_eval",
-           "sa_train", "gather_rows",
+           "sa_train", "sa_trainbn", "gather_rows",
            "fps", "ball_query", "index_points", "fps_prefix_idx",
            "square_distance", "knn_point", "three_nn", "three_interpolation",
            "fused_self_attention", "launch_counts", "reset_launch_counts",
@@ -40,7 +40,11 @@ KERNEL_MODULES = {"fps": (fpsample, "LAUNCHES"),
                   "mha_bwd": (attention, "LAUNCHES_BWD"),
                   "knn": (knn, "LAUNCHES"),
                   "fpinterp": (fpinterp, "LAUNCHES"),
-                  "fpinterp_bwd": (fpinterp, "LAUNCHES_BWD")}
+                  "fpinterp_bwd": (fpinterp, "LAUNCHES_BWD"),
+                  "sa_trainbn_stats": (satrainbn, "LAUNCHES_STATS"),
+                  "sa_trainbn_fwd": (satrainbn, "LAUNCHES_FWD"),
+                  "sa_trainbn_bwd_w2": (satrainbn, "LAUNCHES_BWD_W2"),
+                  "sa_trainbn_bwd_x": (satrainbn, "LAUNCHES_BWD_X")}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -146,6 +150,25 @@ def sa_train(radius: float, nsample: int, xyz, query_idx, feats, w1, b1, w2,
     return saeval.SaTrain.apply(xyz, query_idx, feats, w1, b1, w2, b2,
                                 float(radius), int(nsample), bool(relative),
                                 bool(normalize_dp), None, False)
+
+
+def sa_trainbn(radius: float, nsample: int, xyz, query_idx, feats, w1,
+               gamma1, beta1, w2, gamma2, beta2, relative: bool = True,
+               normalize_dp: bool = False, eps: float = 1e-5):
+    """The train-mode SA stage with BatchNorm on the batch's statistics:
+    ``(new_xyz, fi, out, mu1, var1, mu2, var2)``, differentiable in ``xyz``,
+    ``feats`` and the six parameters (``ops.satrainbn.SaTrainBN``): the four
+    kernels on CUDA, their plain versions on the CPU. ``w1 (3+C, mid)``,
+    ``w2 (mid, cout)``; bf16 features are taken as f32."""
+    feats = _f32_features(feats)
+    cuda = _on_cuda(xyz)
+    if cuda:
+        xyz, feats = xyz.contiguous(), feats.contiguous()
+        query_idx = query_idx.int().contiguous()
+    return satrainbn.SaTrainBN.apply(
+        xyz, query_idx, feats, w1, gamma1, beta1, w2, gamma2, beta2,
+        float(radius), int(nsample), bool(relative), bool(normalize_dp),
+        float(eps), cuda)
 
 
 def gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

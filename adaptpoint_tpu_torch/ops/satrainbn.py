@@ -1,0 +1,491 @@
+"""Fused train-mode SetAbstraction stage: the CUDA kernels and their plain versions.
+
+The stage is ``out = max_k BN2(relu(BN1([dp || fj] W1)) W2)`` over each
+ball, with BatchNorm on the current batch's statistics over all B*M*K slots
+(pad slots included) in flax's form ``var = E[x^2] - E[x]^2``, unclipped as
+the TPU kernel computes it. It returns ``(new_xyz, fi, out, mu1, var1, mu2,
+var2)`` and is differentiable in ``xyz``, ``feats`` and the six parameters;
+the statistics are for the running averages and take no gradient.
+
+Four CUDA passes (``csrc/satrainbn.cu``) replace the four calls of
+``adaptpoint_tpu/ops/pallas/satrainbn.py`` ``sa_trainbn_pallas``:
+
+* :func:`stats_cuda` -- ``_f1_kernel`` (:507): the ball query and the sums
+  ``Sv``, ``Svv`` of the gathered rows;
+* :func:`fwd_cuda` -- ``_f2_kernel`` (:526): the forward with BN1's batch
+  affine, per-(b, m, c) max and min of y2 with their first slots, and the
+  sums of y2 and y2^2;
+* :func:`bwd_w2_cuda` -- ``_bwd_kernel`` phase 1 (:637): dW2 and BN1's
+  cross-tile sums;
+* :func:`bwd_x_cuda` -- ``_bwd_kernel`` phase 2 (:657): dW1 and the gradient
+  of ``(xyz, feats)``.
+
+The per-channel algebra between the passes (BN1's and BN2's moments, the
+slopes, the pooled output, the dense BatchNorm backward's P and Q
+constants, d_gamma and d_beta) is plain PyTorch on either device, as it is
+plain JAX outside the TPU kernels (``_bn1``, ``_bn2``, ``_bwd_consts``).
+Each pass has a plain version of the same function (``*_plain``), and
+:class:`SaTrainBN` ties the passes into one differentiable op: the kernels
+for CUDA tensors, the plain passes for CPU tensors. :func:`sa_trainbn_plain`
+is the stage written out and differentiated by autograd, the reference the
+passes are held to.
+
+Bound on the H100: operations (the convs over B*M*K rows, recomputed in
+each backward pass); see the source's note.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from .ballgroup import _check_inputs, _cotangent
+from .geometry import ball_query, index_points, inv_radius, radius_sq
+
+__all__ = ["sa_trainbn_plain", "stats_plain", "fwd_plain", "bwd_w2_plain",
+           "bwd_x_plain", "stats_cuda", "fwd_cuda", "bwd_w2_cuda",
+           "bwd_x_cuda", "SaTrainBN", "LAUNCHES_STATS", "LAUNCHES_FWD",
+           "LAUNCHES_BWD_W2", "LAUNCHES_BWD_X"]
+
+LAUNCHES_STATS = 0   # kernel launches of stats_cuda
+LAUNCHES_FWD = 0     # kernel launches of fwd_cuda
+LAUNCHES_BWD_W2 = 0  # kernel launches of bwd_w2_cuda
+LAUNCHES_BWD_X = 0   # kernel launches of bwd_x_cuda
+
+
+def _dp_scale(radius: float, relative: bool, normalize_dp: bool) -> float:
+    return inv_radius(radius) if (relative and normalize_dp) else 1.0
+
+
+def _rows(radius, xyz, query_idx, feats, idx, relative, normalize_dp):
+    """The gathered rows ``v = [dp || fj]`` (B, M, K, 3+C), as the ball
+    group computes them."""
+    dp = index_points(xyz, idx)
+    if relative:
+        dp = dp - index_points(xyz, query_idx)[:, :, None, :]
+        if normalize_dp:
+            dp = dp * torch.tensor(inv_radius(radius), dtype=dp.dtype,
+                                   device=dp.device)
+    return torch.cat([dp, index_points(feats, idx)], dim=-1)
+
+
+def sa_trainbn_plain(radius: float, nsample: int, xyz, query_idx, feats,
+                     w1, gamma1, beta1, w2, gamma2, beta2,
+                     relative: bool = True, normalize_dp: bool = False,
+                     eps: float = 1e-5):
+    """The stage written out, differentiated by autograd: xyz (B,N,3),
+    query_idx (B,M), feats (B,N,C); w1 (3+C, mid), gamma1/beta1 (mid,),
+    w2 (mid, cout), gamma2/beta2 (cout,). Returns ``(new_xyz (B,M,3), fi
+    (B,M,C), out (B,M,cout), mu1, var1, mu2, var2)``.
+
+    The pooled value of a channel is ``a2 * y2 + c2`` at the first slot of
+    the max of y2 where BN2's slope ``a2 = gamma2 / sqrt(var2 + eps)`` is
+    positive and of the min otherwise (``a2 == 0`` included), the kernel's
+    rule; its gradient goes to that slot."""
+    new_xyz = index_points(xyz, query_idx)
+    fi = index_points(feats, query_idx)
+    idx = ball_query(radius, nsample, xyz, new_xyz)
+    v = _rows(radius, xyz, query_idx, feats, idx, relative, normalize_dp)
+    y1 = torch.matmul(v, w1)
+    mu1 = y1.mean(dim=(0, 1, 2))
+    var1 = (y1 * y1).mean(dim=(0, 1, 2)) - mu1 * mu1
+    a1 = gamma1 * torch.rsqrt(var1 + eps)
+    h = torch.relu(y1 * a1 + (beta1 - mu1 * a1))
+    y2 = torch.matmul(h, w2)
+    mu2 = y2.mean(dim=(0, 1, 2))
+    var2 = (y2 * y2).mean(dim=(0, 1, 2)) - mu2 * mu2
+    a2 = gamma2 * torch.rsqrt(var2 + eps)
+    slot = torch.where(a2 > 0, torch.argmax(y2, dim=2),
+                       torch.argmin(y2, dim=2))
+    ystar = torch.gather(y2, 2, slot[:, :, None, :]).squeeze(2)
+    out = a2 * ystar + (beta2 - mu2 * a2)
+    return (new_xyz, fi, out, mu1.detach(), var1.detach(), mu2.detach(),
+            var2.detach())
+
+
+# ---- the passes, plain ---------------------------------------------------
+
+def stats_plain(radius, nsample, xyz, query_idx, feats, relative=True,
+                normalize_dp=False):
+    """Pass 1: ``(idx (B,M,K) int32, sv (W,), svv (W, W))``."""
+    idx = ball_query(radius, nsample, xyz, index_points(xyz, query_idx))
+    v = _rows(radius, xyz, query_idx, feats, idx, relative, normalize_dp)
+    v = v.reshape(-1, v.shape[-1])
+    return idx, v.sum(dim=0), v.t() @ v
+
+
+def _through_y2(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2,
+                relative, normalize_dp):
+    v = _rows(radius, xyz, query_idx, feats, idx, relative, normalize_dp)
+    y1 = torch.matmul(v, w1)
+    y1p = y1 * a1 + nb1
+    h = torch.relu(y1p)
+    return v, y1, y1p, h, torch.matmul(h, w2)
+
+
+def fwd_plain(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2,
+              relative=True, normalize_dp=False):
+    """Pass 2: ``(new_xyz, fi, ymax, ymin, amax, amin, s2, q2)``: the max
+    and the min of y2 over each ball with their first slots (uint8), and
+    ``sum y2``, ``sum y2^2`` over all slots."""
+    y2 = _through_y2(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2,
+                     relative, normalize_dp)[4]
+    amax, amin = torch.argmax(y2, dim=2), torch.argmin(y2, dim=2)
+    ymax = torch.gather(y2, 2, amax[:, :, None, :]).squeeze(2)
+    ymin = torch.gather(y2, 2, amin[:, :, None, :]).squeeze(2)
+    return (index_points(xyz, query_idx), index_points(feats, query_idx),
+            ymax, ymin, amax.to(torch.uint8), amin.to(torch.uint8),
+            y2.sum(dim=(0, 1, 2)), (y2 * y2).sum(dim=(0, 1, 2)))
+
+
+def _g_h(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2, a2, p2, q2c,
+         slot, g_out, relative, normalize_dp):
+    v, y1, y1p, h, y2 = _through_y2(radius, xyz, query_idx, feats, idx, w1,
+                                    a1, nb1, w2, relative, normalize_dp)
+    K = idx.shape[-1]
+    win = slot.long()[:, :, None, :] == torch.arange(
+        K, device=xyz.device)[:, None]
+    g_y2 = a2 * torch.where(win, g_out[:, :, None, :], 0.0) + p2 + q2c * y2
+    g_y1p = torch.where(y1p > 0, torch.matmul(g_y2, w2.t()), 0.0)
+    return v, y1, h, g_y2, g_y1p
+
+
+def bwd_w2_plain(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2, mu1,
+                 r1, a2, p2, q2c, slot, g_out, relative=True,
+                 normalize_dp=False):
+    """Pass 3: ``(dw2 (mid, cout), sg1 (mid,), sgx1 (mid,))`` =
+    ``h^T g_y2``, ``sum g_y1'``, ``sum g_y1' xhat1``."""
+    _, y1, h, g_y2, g_y1p = _g_h(radius, xyz, query_idx, feats, idx, w1, a1,
+                                 nb1, w2, a2, p2, q2c, slot, g_out, relative,
+                                 normalize_dp)
+    dw2 = torch.einsum("bmkh,bmkc->hc", h, g_y2)
+    xhat1 = (y1 - mu1) * r1
+    return (dw2, g_y1p.sum(dim=(0, 1, 2)),
+            (g_y1p * xhat1).sum(dim=(0, 1, 2)))
+
+
+def bwd_x_plain(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2, a2, p2,
+                q2c, p1, q1c, slot, g_out, g_fi=None, g_new=None,
+                relative=True, normalize_dp=False):
+    """Pass 4: ``(g_xyz (B,N,3), g_feats (B,N,C), dw1 (W, mid))``. Each
+    slot's ``g_v`` goes to its neighbour row (a pad slot's and an empty
+    ball's to the row they repeat); ``g_new - sum_k g_dp`` (relative) and
+    ``g_fi`` to the center's row. ``g_fi`` and ``g_new`` may be ``None``."""
+    v, y1, _, _, g_y1p = _g_h(radius, xyz, query_idx, feats, idx, w1, a1,
+                              nb1, w2, a2, p2, q2c, slot, g_out, relative,
+                              normalize_dp)
+    g_y1 = a1 * g_y1p + p1 + q1c * y1
+    dw1 = torch.einsum("bmkw,bmkh->wh", v, g_y1)
+    g_v = torch.matmul(g_y1, w1.t())
+    g_dp = g_v[..., :3] * _dp_scale(radius, relative, normalize_dp)
+    B, M, K = idx.shape
+    C = feats.shape[-1]
+    rows = idx.long().reshape(B, -1, 1)
+    g_xyz = torch.zeros_like(xyz).scatter_add_(
+        1, rows.expand(-1, -1, 3), g_dp.reshape(B, -1, 3))
+    g_feats = torch.zeros_like(feats).scatter_add_(
+        1, rows.expand(-1, -1, C), g_v[..., 3:].reshape(B, -1, C))
+    q = query_idx.long()[..., None]
+    g_c = torch.zeros((B, M, 3), dtype=xyz.dtype, device=xyz.device) \
+        if g_new is None else g_new
+    if relative:
+        g_c = g_c - g_dp.sum(dim=2)
+    g_xyz.scatter_add_(1, q.expand(-1, -1, 3), g_c)
+    if g_fi is not None:
+        g_feats.scatter_add_(1, q.expand(-1, -1, C), g_fi)
+    return g_xyz, g_feats, dw1
+
+
+# ---- the per-channel algebra between the passes ---------------------------
+
+def _bn1(sv, svv, w1, gamma1, beta1, n, eps):
+    """BN1's moments from the row sums: ``(mu1, var1, r1, a1, nb1)``."""
+    mu1 = (sv @ w1) / n
+    ey1sq = torch.einsum("wm,wv,vm->m", w1, svv, w1) / n
+    var1 = ey1sq - mu1 * mu1
+    r1 = torch.rsqrt(var1 + eps)
+    a1 = gamma1 * r1
+    return mu1, var1, r1, a1, beta1 - mu1 * a1
+
+
+def _bn2(s2, q2, gamma2, beta2, n, eps):
+    """BN2's moments, slope and shift: ``(mu2, var2, r2, a2, c2)``."""
+    mu2 = s2 / n
+    var2 = q2 / n - mu2 * mu2
+    r2 = torch.rsqrt(var2 + eps)
+    a2 = gamma2 * r2
+    return mu2, var2, r2, a2, beta2 - mu2 * a2
+
+
+def _bwd_consts(s0, s1, a, mu, r):
+    """The dense BatchNorm backward ``dL/dx = a g + P + Q x`` from
+    ``s0 = mean(g)`` and ``s1 = mean(g xhat)``: ``(P, Q)``."""
+    return -a * s0 + a * s1 * mu * r, -a * s1 * r
+
+
+# ---- the kernels ---------------------------------------------------------
+
+@functools.cache
+def _lib():
+    lib = _build.load("satrainbn")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.sa_trainbn_plan.argtypes = [i, i, i, i, i, i, p, p]
+    lib.sa_trainbn_plan.restype = ctypes.c_int
+    lib.sa_trainbn_stats_launch.argtypes = [p, p, p, i, i, i, i, i, f, f, i,
+                                            i, i, p, p, p, p]
+    lib.sa_trainbn_stats_launch.restype = ctypes.c_int
+    lib.sa_trainbn_fwd_launch.argtypes = ([p, p, p, p, i, i, i, i, i, f, i,
+                                           p, p, p, p, i, i, i, i]
+                                          + [p] * 9)
+    lib.sa_trainbn_fwd_launch.restype = ctypes.c_int
+    lib.sa_trainbn_bwd_launch.argtypes = ([i, p, p, p, p, i, i, i, i, i, f,
+                                           i, p, p, p, p, p, p, i, i]
+                                          + [p] * 11 + [i, i] + [p] * 5)
+    lib.sa_trainbn_bwd_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(kind: int, B: int, M: int, K: int, C: int, mid: int):
+    """``(TM, G)``: centers a block, blocks a grid (see ``sa_trainbn_plan``)."""
+    lib = _lib()
+    tm, grid = ctypes.c_int(), ctypes.c_int()
+    _build.check(lib, lib.sa_trainbn_plan(kind, B, M, K, C, mid,
+                                          ctypes.byref(tm),
+                                          ctypes.byref(grid)),
+                 "sa_trainbn_plan")
+    return tm.value, grid.value
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _f32_rows(dev, *named):
+    """Per-channel vectors and weights as contiguous f32 on ``dev``."""
+    out = []
+    for name, t in named:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, the points on {dev}")
+        out.append(t.detach().float().contiguous())
+    return out
+
+
+def _check_idx(idx, B, M, dev):
+    if (idx.device != dev or idx.dtype != torch.int32 or idx.dim() != 3
+            or tuple(idx.shape[:2]) != (B, M) or not idx.is_contiguous()):
+        raise ValueError(f"idx must be a contiguous (B, M, K) int32 tensor "
+                         f"on {dev}, got {tuple(idx.shape)} {idx.dtype}")
+    return idx.shape[2]
+
+
+def stats_cuda(radius, nsample, xyz, query_idx, feats, relative=True,
+               normalize_dp=False):
+    """Pass 1 on CUDA tensors; same outputs as :func:`stats_plain`."""
+    global LAUNCHES_STATS
+    _check_inputs(xyz, query_idx, feats)
+    B, N, _ = xyz.shape
+    M, C, K = query_idx.shape[1], feats.shape[2], int(nsample)
+    W = C + 3
+    dev = xyz.device
+    tm, grid = _plan(0, B, M, K, C, 1)
+    idx = torch.empty((B, M, K), dtype=torch.int32, device=dev)
+    part = torch.empty((grid, W + W * W), dtype=torch.float32, device=dev)
+    out = torch.empty((W + W * W,), dtype=torch.float32, device=dev)
+    lib = _lib()
+    err = lib.sa_trainbn_stats_launch(
+        xyz.data_ptr(), query_idx.data_ptr(), feats.data_ptr(), B, N, M, C,
+        K, radius_sq(radius), _dp_scale(radius, relative, normalize_dp),
+        int(bool(relative)), tm, grid, idx.data_ptr(), part.data_ptr(),
+        out.data_ptr(), _stream(dev))
+    _build.check(lib, err, "sa_trainbn_stats")
+    LAUNCHES_STATS += 1
+    return idx, out[:W], out[W:].view(W, W)
+
+
+def fwd_cuda(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2,
+             relative=True, normalize_dp=False):
+    """Pass 2 on CUDA tensors; same outputs as :func:`fwd_plain`."""
+    global LAUNCHES_FWD
+    _check_inputs(xyz, query_idx, feats)
+    B, N, _ = xyz.shape
+    M, C = query_idx.shape[1], feats.shape[2]
+    dev = xyz.device
+    K = _check_idx(idx, B, M, dev)
+    w1, a1, nb1, w2 = _f32_rows(dev, ("w1", w1), ("a1", a1), ("nb1", nb1),
+                                ("w2", w2))
+    mid, cout = w2.shape
+    if w1.shape != (C + 3, mid):
+        raise ValueError(f"w1 {tuple(w1.shape)} does not chain with C={C} "
+                         f"and w2 {tuple(w2.shape)}")
+    tm, grid = _plan(1, B, M, K, C, mid)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    new_xyz, fi = empty(B, M, 3), empty(B, M, C)
+    ymax, ymin = empty(B, M, cout), empty(B, M, cout)
+    amax = empty(B, M, cout, dtype=torch.uint8)
+    amin = empty(B, M, cout, dtype=torch.uint8)
+    part, out = empty(grid, 2 * cout), empty(2 * cout)
+    lib = _lib()
+    err = lib.sa_trainbn_fwd_launch(
+        xyz.data_ptr(), query_idx.data_ptr(), feats.data_ptr(),
+        idx.data_ptr(), B, N, M, C, K,
+        _dp_scale(radius, relative, normalize_dp), int(bool(relative)),
+        w1.data_ptr(), a1.data_ptr(), nb1.data_ptr(), w2.data_ptr(), mid,
+        cout, tm, grid, new_xyz.data_ptr(), fi.data_ptr(), ymax.data_ptr(),
+        ymin.data_ptr(), amax.data_ptr(), amin.data_ptr(), part.data_ptr(),
+        out.data_ptr(), _stream(dev))
+    _build.check(lib, err, "sa_trainbn_fwd")
+    LAUNCHES_FWD += 1
+    return new_xyz, fi, ymax, ymin, amax, amin, out[:cout], out[cout:]
+
+
+def _bwd_cuda(phase_x, radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2,
+              mu1, r1, a2, p2, q2c, p1, q1c, slot, g_out, g_fi, g_new,
+              relative, normalize_dp):
+    _check_inputs(xyz, query_idx, feats)
+    B, N, _ = xyz.shape
+    M, C = query_idx.shape[1], feats.shape[2]
+    W = C + 3
+    dev = xyz.device
+    K = _check_idx(idx, B, M, dev)
+    w1, a1, nb1, w2, a2, p2, q2c = _f32_rows(
+        dev, ("w1", w1), ("a1", a1), ("nb1", nb1), ("w2", w2), ("a2", a2),
+        ("p2", p2), ("q2c", q2c))
+    mid, cout = w2.shape
+    if phase_x:
+        p1, q1c = _f32_rows(dev, ("p1", p1), ("q1c", q1c))
+    else:
+        mu1, r1 = _f32_rows(dev, ("mu1", mu1), ("r1", r1))
+    if (slot.dtype != torch.uint8 or tuple(slot.shape) != (B, M, cout)
+            or slot.device != dev):
+        raise ValueError(f"slot must be (B, M, cout) uint8 on {dev}")
+    slot = slot.contiguous()
+    g_out = _cotangent(g_out, (B, M, cout), "g_out", dev)
+    g_fi = _cotangent(g_fi, (B, M, C), "g_fi", dev)
+    g_new = _cotangent(g_new, (B, M, 3), "g_new", dev)
+    w2t, w1t = w2.t().contiguous(), w1.t().contiguous()
+    tm, grid = _plan(3 if phase_x else 2, B, M, K, C, mid)
+    E = W * mid if phase_x else mid * cout + 2 * mid
+    part = torch.empty((grid, E), dtype=torch.float32, device=dev)
+    out = torch.empty((E,), dtype=torch.float32, device=dev)
+    g_xyz = g_feats = None
+    if phase_x:
+        g_xyz = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
+        g_feats = torch.empty((B, N, C), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _lib()
+    err = lib.sa_trainbn_bwd_launch(
+        int(bool(phase_x)), xyz.data_ptr(), query_idx.data_ptr(),
+        feats.data_ptr(), idx.data_ptr(), B, N, M, C, K,
+        _dp_scale(radius, relative, normalize_dp), int(bool(relative)),
+        w1.data_ptr(), a1.data_ptr(), nb1.data_ptr(), w2.data_ptr(),
+        w2t.data_ptr(), w1t.data_ptr(), mid, cout, ptr(mu1), ptr(r1),
+        a2.data_ptr(), p2.data_ptr(), q2c.data_ptr(),
+        ptr(p1), ptr(q1c), slot.data_ptr(), g_out.data_ptr(), ptr(g_fi),
+        ptr(g_new), tm, grid, ptr(g_xyz), ptr(g_feats), part.data_ptr(),
+        out.data_ptr(), _stream(dev))
+    _build.check(lib, err, "sa_trainbn_bwd_x" if phase_x
+                 else "sa_trainbn_bwd_w2")
+    return out, g_xyz, g_feats, mid, cout, W
+
+
+def bwd_w2_cuda(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2, mu1,
+                r1, a2, p2, q2c, slot, g_out, relative=True,
+                normalize_dp=False):
+    """Pass 3 on CUDA tensors; same outputs as :func:`bwd_w2_plain`."""
+    global LAUNCHES_BWD_W2
+    out, _, _, mid, cout, _ = _bwd_cuda(
+        False, radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2, mu1, r1,
+        a2, p2, q2c, None, None, slot, g_out, None, None, relative,
+        normalize_dp)
+    LAUNCHES_BWD_W2 += 1
+    return (out[:mid * cout].view(mid, cout), out[mid * cout:mid * cout + mid],
+            out[mid * cout + mid:])
+
+
+def bwd_x_cuda(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2, a2, p2,
+               q2c, p1, q1c, slot, g_out, g_fi=None, g_new=None,
+               relative=True, normalize_dp=False):
+    """Pass 4 on CUDA tensors; same outputs as :func:`bwd_x_plain`."""
+    global LAUNCHES_BWD_X
+    out, g_xyz, g_feats, mid, _, W = _bwd_cuda(
+        True, radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2, None,
+        None, a2, p2, q2c, p1, q1c, slot, g_out, g_fi, g_new, relative,
+        normalize_dp)
+    LAUNCHES_BWD_X += 1
+    return g_xyz, g_feats, out.view(W, mid)
+
+
+class SaTrainBN(torch.autograd.Function):
+    """The stage as four passes: the kernels when ``use_kernels`` (CUDA
+    tensors), the plain passes otherwise (CPU tensors), with the same algebra
+    between them. Returns ``(new_xyz,
+    fi, out, mu1, var1, mu2, var2)``; the statistics take no gradient, nor
+    does ``query_idx``."""
+
+    @staticmethod
+    def forward(ctx, xyz, query_idx, feats, w1, gamma1, beta1, w2, gamma2,
+                beta2, radius, nsample, relative, normalize_dp, eps,
+                use_kernels):
+        stats, fwd = ((stats_cuda, fwd_cuda) if use_kernels
+                      else (stats_plain, fwd_plain))
+        B, M = query_idx.shape
+        n = B * M * int(nsample)
+        idx, sv, svv = stats(radius, nsample, xyz, query_idx, feats,
+                             relative, normalize_dp)
+        mu1, var1, r1, a1, nb1 = _bn1(sv, svv, w1, gamma1, beta1, n, eps)
+        new_xyz, fi, ymax, ymin, amax, amin, s2, q2 = fwd(
+            radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2, relative,
+            normalize_dp)
+        mu2, var2, r2, a2, c2 = _bn2(s2, q2, gamma2, beta2, n, eps)
+        pos = a2 > 0
+        ystar = torch.where(pos, ymax, ymin)
+        slot = torch.where(pos, amax, amin)
+        out = a2 * ystar + c2
+        ctx.save_for_backward(xyz, query_idx, feats, w1, gamma1, w2, idx,
+                              mu1, r1, a1, nb1, mu2, r2, a2, ystar, slot)
+        ctx.args = (radius, relative, normalize_dp, use_kernels, n)
+        ctx.mark_non_differentiable(mu1, var1, mu2, var2)
+        if not ctx.needs_input_grad[0]:
+            ctx.mark_non_differentiable(new_xyz)
+        ctx.set_materialize_grads(False)
+        return new_xyz, fi, out, mu1, var1, mu2, var2
+
+    @staticmethod
+    def backward(ctx, g_new, g_fi, g_out, *_g_stats):
+        (xyz, query_idx, feats, w1, gamma1, w2, idx, mu1, r1, a1, nb1, mu2,
+         r2, a2, ystar, slot) = ctx.saved_tensors
+        radius, relative, normalize_dp, use_kernels, n = ctx.args
+        bwd_w2, bwd_x = ((bwd_w2_cuda, bwd_x_cuda) if use_kernels
+                         else (bwd_w2_plain, bwd_x_plain))
+        if g_out is None:
+            g_out = torch.zeros_like(ystar)
+        # BN2's sums need only the pooled tensors: the cotangent of the
+        # slots is zero but at each output's winning slot
+        xhat2 = (ystar - mu2) * r2
+        d_beta2 = g_out.sum(dim=(0, 1))
+        d_gamma2 = (g_out * xhat2).sum(dim=(0, 1))
+        p2, q2c = _bwd_consts(d_beta2 / n, d_gamma2 / n, a2, mu2, r2)
+        dw2, sg1, sgx1 = bwd_w2(radius, xyz, query_idx, feats, idx, w1, a1,
+                                nb1, w2, mu1, r1, a2, p2, q2c, slot, g_out,
+                                relative, normalize_dp)
+        p1, q1c = _bwd_consts(sg1 / n, sgx1 / n, a1, mu1, r1)
+        need = ctx.needs_input_grad
+        g_xyz = g_feats = dw1 = None
+        if need[0] or need[2] or need[3]:
+            g_xyz, g_feats, dw1 = bwd_x(
+                radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2, a2, p2,
+                q2c, p1, q1c, slot, g_out, g_fi, g_new, relative,
+                normalize_dp)
+        grads = (g_xyz, None, g_feats, dw1, sgx1, sg1, dw2, d_gamma2,
+                 d_beta2)
+        return tuple(g if nd else None for g, nd in zip(grads, need[:9])) \
+            + (None,) * 6

@@ -34,7 +34,21 @@ Phases, one JSON object a line:
    same step on a CPU copy, the launches a step makes, a fixed batch's loss
    over 30 steps, the gradient through ``ops.fps``, and ms per step with
    the profiler's device-busy time.
-7. ``adapt``: phase A of the AdaptPoint protocol at full width
+7. ``train_fused``: the same train step on the fused train-BN route
+   (``make_train_step(..., fused_train_bn=True)``, what
+   ``ADAPTPOINT_TPU_TRAIN_FUSED=1`` selects): its first step against the
+   unfused step from the same weights, batch and draws, the launches a step
+   makes (FPS 2, row gather 1, each of the four train-BN passes 4, no ball
+   group), eight more steps, each pass against its plain version at the four
+   stages the step handed it (its own FPS picks), the unfused stage's
+   composite time, and ms per step on both routes in turns.
+8. ``cli``: ``python -m adaptpoint_tpu_torch.main --cfg
+   cfgs/scanobjectnn/pointnext-s.yaml`` in a child process on SyntheticCls
+   (2048 points, 15 classes) for two epochs under
+   ``ADAPTPOINT_TPU_TRAIN_FUSED=1``: the run directory's files, a finite
+   test OA, the child's launch counts, then ``mode=test`` on its best
+   checkpoint printing the same OA.
+9. ``adapt``: phase A of the AdaptPoint protocol at full width
    (``cfgs/scanobjectnn/pointnext-s_adaptpoint_1.yaml``, ``gan_precision:
    f32``) through ``build_gan`` / ``make_gan_step`` / ``train_gan_epoch``: the
    first ``gan_step`` against
@@ -45,7 +59,7 @@ Phases, one JSON object a line:
    differentiable fused SA 4 + 4 each, fused SA 4, no plain ball group), the
    epoch loop and three classifier train steps on the fake dataset it
    returns, and ms per step with the profiler's device-busy time.
-8. ``adapt_bf16``: the same under ``gan_precision: bf16``, the card's
+10. ``adapt_bf16``: the same under ``gan_precision: bf16``, the card's
    default: the first step from the same weights and draws against the same
    step through the plain versions on the card under the same policy (with
    and without the feedback term), its clouds and metrics against the f32
@@ -216,7 +230,11 @@ PATH_KERNELS = {
     "adapt_bf16": ("fps", "ball_group_max", "ball_group_max_bwd", "sa_eval",
                    "sa_train", "sa_train_bwd", "gather_rows",
                    "gather_rows_bwd", "mha", "mha_bwd", "knn", "fpinterp",
-                   "fpinterp_bwd")}
+                   "fpinterp_bwd"),
+    "train_fused": ("fps", "gather_rows", "sa_trainbn_stats",
+                    "sa_trainbn_fwd", "sa_trainbn_bwd_w2", "sa_trainbn_bwd_x"),
+    "cli": ("fps", "gather_rows", "ball_group", "sa_trainbn_stats",
+            "sa_trainbn_fwd", "sa_trainbn_bwd_w2", "sa_trainbn_bwd_x")}
 # names of the hand-written kernels as the profiler prints them
 OWN_KERNELS = ("fps_kernel", "ball_group_kernel", "ball_group_bwd_kernel",
                "ball_group_max_kernel", "ball_group_max_bwd_kernel",
@@ -246,6 +264,38 @@ GAN_CLS_STAGES = [(2048, 1024, 32, 32, 64, 0.15),
                   (512, 256, 128, 128, 256, 0.3375),
                   (256, 128, 256, 256, 512, 0.50625)]
 FAKE_DROPPED = 0.5
+# the fused train-BN stage (rows 16-19): per pass, |kernel - plain| <=
+# TOL_TRAINBN[pass] * max|plain| for each float output (both sum the same f32
+# products in other orders: the kernel in row order from shared memory,
+# the plain passes through cuBLAS; readings on the H100 were 1e-6-3e-6 of
+# each tensor's scale); indices, new_xyz and fi exact; the winning slots
+# exact but where the plain y2 of the two slots lie within the forward's
+# tolerance of each other (a near-tie between distinct rows).
+TOL_TRAINBN = {"stats": 2e-5, "fwd": 2e-5, "bwd_w2": 1e-4, "bwd_x": 1e-4}
+# the fused train step against the unfused one from the same weights, batch
+# and draws is held to TOL_STEP_CPU, the band the unfused step on the card is
+# held to against a float64 copy: both routes compute the same function in
+# f32, and this network's gradient moves by ~1e-2 a tensor when the
+# forward's roundings move max-pool winners and the head's 32-row batch
+# statistics. Beside it, each tensor's distance is reported as a multiple
+# of the unfused step's own spread when every train-mode BatchNorm takes
+# flax's variance formula E[x^2] - E[x]^2 instead of two passes (the JAX
+# package's test_trainbn_module_parity calibrates so, factor 8; on the
+# H100 the fused statistics move the forward more than that formula does,
+# and the worst gradient tensor read 12x), floored at TRAINBN_FLOOR of its
+# kind's largest entry. Gradients are compared by relative 2-norm, each
+# tensor's scale floored at a thousandth of the whole gradient's.
+TRAINBN_FLOOR = 1e-5
+# the CLI run: SyntheticCls at the scanobjectnn cfg's shapes, 30 steps an
+# epoch. On the H100 the val OA read 8.4 / 91.0 / 100.0 after epochs 1-3 at
+# this size (7.3 / 81.2 and 13.3 / 70.9 after epochs 1-2 in two other runs:
+# the scatters' atomics make each run its own) and 6.9 / 6.6 / 6.6 / 17.8 /
+# 71.3 after epochs 1-5 at 320 clouds, while the train OA (train-mode
+# BatchNorm) rose from the first epoch: eval waits for the running
+# statistics. The best checkpoint's test OA must reach CLI_MIN_OA, against
+# 6.7 for a model that learned nothing.
+CLI_SIZE, CLI_EPOCHS = 960, 3
+CLI_MIN_OA = 50.0
 
 
 def emit(phase: str, **kw) -> None:
@@ -2519,14 +2569,544 @@ def phase_adapt(gen, ctx, precision: str, f32_run=None):
     return launches, {"first": first_result, "throughput": timing}
 
 
+def check_sa_trainbn(gen, captured):
+    """The four train-BN passes (rows 16-19), each against its plain pass on
+    the same inputs, at the stages ``captured`` from the fused train step
+    (its own FPS picks, features and weights), with seeded cotangents.
+    Returns their rows, summed over the stages."""
+    import torch
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.ops import satrainbn as S
+
+    names = ("stats", "fwd", "bwd_w2", "bwd_x")
+    rows = {f"sa_trainbn_{p}": dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0,
+                                    t_o=0.0, t_b=0.0, library_ms=None)
+            for p in names}
+    composite = 0.0
+
+    def err(a, b, tol, name, errs):
+        d = float((a.float() - b.float()).abs().max())
+        scale = float(b.float().abs().max())
+        errs[name] = d
+        return d <= tol * max(scale, 1e-30)
+
+    for i, (xyz, qidx, feats, w1, g1, b1, w2, g2, b2, radius, rel,
+            norm_dp) in enumerate(captured):
+        Bq, n_pts, _ = xyz.shape
+        M, C, mid, cout = qidx.shape[1], feats.shape[2], w1.shape[1], \
+            w2.shape[1]
+        W, n = C + 3, Bq * M * K
+        ok = True
+        # pass 1
+        got = S.stats_cuda(radius, K, xyz, qidx, feats, rel, norm_dp)
+        ref = S.stats_plain(radius, K, xyz, qidx, feats, rel, norm_dp)
+        torch.cuda.synchronize()
+        e1 = {"idx": float((got[0] != ref[0]).sum())}
+        ok = e1["idx"] == 0
+        for name, a, b_ in (("sv", got[1], ref[1]), ("svv", got[2], ref[2])):
+            ok = err(a, b_, TOL_TRAINBN["stats"], name, e1) and ok
+        idx = got[0]
+        mu1, var1, r1, a1, nb1 = S._bn1(got[1], got[2], w1, g1, b1, n, 1e-5)
+        # pass 2
+        fargs = (radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, rel,
+                 norm_dp)
+        got2 = S.fwd_cuda(*fargs)
+        ref2 = S.fwd_plain(*fargs)
+        y2 = S._through_y2(radius, xyz, qidx, feats, idx, w1, a1, nb1, w2,
+                           rel, norm_dp)[4]
+        torch.cuda.synchronize()
+        e2 = {"new_xyz": float((got2[0] - ref2[0]).abs().max()),
+              "fi": float((got2[1] - ref2[1]).abs().max())}
+        ok2 = e2["new_xyz"] == 0 and e2["fi"] == 0
+        for j, name in ((2, "ymax"), (3, "ymin"), (6, "s2"), (7, "q2")):
+            ok2 = err(got2[j], ref2[j], TOL_TRAINBN["fwd"], name, e2) and ok2
+        ties, flips = 0, 0
+        for j, name in ((4, "amax"), (5, "amin")):
+            diff = got2[j] != ref2[j]
+            at_k = torch.gather(y2, 2, got2[j].long()[:, :, None, :])[:, :, 0]
+            at_p = torch.gather(y2, 2, ref2[j].long()[:, :, None, :])[:, :, 0]
+            near = (at_k - at_p).abs() <= TOL_TRAINBN["fwd"] * float(
+                y2.abs().max())
+            ties += int((diff & near).sum())
+            flips += int((diff & ~near).sum())
+        e2["slots_near_ties"], e2["slots_other"] = ties, flips
+        ok2 = ok2 and flips == 0
+        mu2, var2, r2, a2, c2 = S._bn2(got2[6], got2[7], g2, b2, n, 1e-5)
+        pos = a2 > 0
+        ystar = torch.where(pos, got2[2], got2[3])
+        slot = torch.where(pos, got2[4], got2[5])
+        g_out = torch.randn((Bq, M, cout), generator=gen, device=DEV)
+        g_fi = torch.randn((Bq, M, C), generator=gen, device=DEV)
+        g_new = torch.randn((Bq, M, 3), generator=gen, device=DEV)
+        xhat2 = (ystar - mu2) * r2
+        p2, q2c = S._bwd_consts(g_out.sum((0, 1)) / n,
+                                (g_out * xhat2).sum((0, 1)) / n, a2, mu2, r2)
+        # pass 3
+        bargs = (radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, mu1, r1,
+                 a2, p2, q2c, slot, g_out, rel, norm_dp)
+        got3 = S.bwd_w2_cuda(*bargs)
+        ref3 = S.bwd_w2_plain(*bargs)
+        torch.cuda.synchronize()
+        e3 = {}
+        ok3 = True
+        for a, b_, name in zip(got3, ref3, ("dw2", "sg1", "sgx1")):
+            ok3 = err(a, b_, TOL_TRAINBN["bwd_w2"], name, e3) and ok3
+        p1, q1c = S._bwd_consts(got3[1] / n, got3[2] / n, a1, mu1, r1)
+        # pass 4
+        xargs = (radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, a2, p2,
+                 q2c, p1, q1c, slot, g_out, g_fi, g_new, rel, norm_dp)
+        got4 = S.bwd_x_cuda(*xargs)
+        ref4 = S.bwd_x_plain(*xargs)
+        torch.cuda.synchronize()
+        e4 = {}
+        ok4 = True
+        for a, b_, name in zip(got4, ref4, ("g_xyz", "g_feats", "dw1")):
+            ok4 = err(a, b_, TOL_TRAINBN["bwd_x"], name, e4) and ok4
+        for name, e in zip(names, (e1, e2, e3, e4)):
+            emit("kernel", name=f"sa_trainbn_{name}",
+                 stage=[Bq, n_pts, M, C, mid, cout, K], max_abs_err=e,
+                 tolerance=f"indices, new_xyz, fi exact; slots exact but at "
+                           f"near-ties; each float output within "
+                           f"{TOL_TRAINBN[name]} * max|plain|")
+        if not (ok and ok2 and ok3 and ok4):
+            raise AssertionError(f"train-BN kernels disagree at stage "
+                                 f"{i + 1}: {e1} {e2} {e3} {e4}")
+        # times, and the operations each pass must do (bytes are far below);
+        # Σvvᵀ is symmetric, so the stats pass needs W(W+1)/2 products a row
+        flops = {"stats": n * W * (W + 1) + n * W,
+                 "fwd": 2 * n * (W * mid + mid * cout),
+                 "bwd_w2": 2 * n * (W * mid + 3 * mid * cout),
+                 "bwd_x": 2 * n * (3 * W * mid + 2 * mid * cout)}
+        nbytes = {"stats": Bq * n_pts * (3 + C) * 4 + Bq * M * 4
+                  + (W + W * W) * 4,
+                  "fwd": Bq * n_pts * (3 + C) * 4 + Bq * M * K * 4
+                  + (W * mid + mid * cout) * 4
+                  + Bq * M * (3 + C + 2 * cout) * 4 + Bq * M * cout * 2,
+                  "bwd_w2": Bq * n_pts * (3 + C) * 4 + Bq * M * K * 4
+                  + (W * mid + mid * cout) * 4 + Bq * M * cout * 5
+                  + mid * cout * 4,
+                  "bwd_x": Bq * n_pts * (3 + C) * 8 + Bq * M * K * 4
+                  + (W * mid + mid * cout) * 8
+                  + Bq * M * (cout * 5 + (3 + C) * 4)}
+        calls = {"stats": (lambda: S.stats_cuda(radius, K, xyz, qidx, feats,
+                                                rel, norm_dp),
+                           lambda: S.stats_plain(radius, K, xyz, qidx, feats,
+                                                 rel, norm_dp)),
+                 "fwd": (lambda: S.fwd_cuda(*fargs),
+                         lambda: S.fwd_plain(*fargs)),
+                 "bwd_w2": (lambda: S.bwd_w2_cuda(*bargs),
+                            lambda: S.bwd_w2_plain(*bargs)),
+                 "bwd_x": (lambda: S.bwd_x_cuda(*xargs),
+                           lambda: S.bwd_x_plain(*xargs))}
+        stage_row = {}
+        for name in names:
+            r = rows[f"sa_trainbn_{name}"]
+            ms = cuda_ms(calls[name][0], 100.0)
+            plain = cuda_ms(calls[name][1], 50.0)
+            r["ms"] += ms
+            r["plain_ms"] += plain
+            r["t_o"] += flops[name] / PEAK_F32
+            r["t_b"] += nbytes[name] / PEAK_BYTES
+            errs = {"stats": e1, "fwd": e2, "bwd_w2": e3, "bwd_x": e4}[name]
+            r["max_abs_err"] = max([r["max_abs_err"]] + [
+                v for k, v in errs.items() if not k.startswith("slots")])
+            stage_row[name] = {"ms": ms, "plain_ms": plain,
+                               "gflop": flops[name] / 1e9}
+
+        # the unfused stage it replaces: ball group, conv, BatchNorm, relu,
+        # conv, BatchNorm, max, forward and backward
+        leaves = [t.clone().requires_grad_() for t in (xyz, feats, w1, g1, b1,
+                                                        w2, g2, b2)]
+
+        def composite_step():
+            x_, f_, w1_, g1_, b1_, w2_, g2_, b2_ = leaves
+            _, fi_, dpfj, _ = ops.ball_group(radius, K, x_, qidx, f_, rel,
+                                             norm_dp)
+            y = torch.nn.functional.batch_norm(
+                (dpfj @ w1_).reshape(-1, mid), None, None, g1_, b1_, True)
+            y = torch.relu(y).reshape(Bq, K, M, mid) @ w2_
+            y = torch.nn.functional.batch_norm(
+                y.reshape(-1, cout), None, None, g2_, b2_, True)
+            out = y.reshape(Bq, K, M, cout).amax(dim=1)
+            torch.autograd.grad((out * g_out).sum() + (fi_ * g_fi).sum(),
+                                leaves)
+
+        stage_row["composite_ms"] = cuda_ms(composite_step, 100.0)
+        composite += stage_row["composite_ms"]
+        emit("stage_times", stage=i + 1, shape=[Bq, n_pts, M, C, mid, cout,
+                                                 K], sa_trainbn=stage_row)
+    for r in rows.values():
+        r.update(bound_row(r.pop("t_b"), r.pop("t_o")))
+        r["composite_ms"] = composite
+    return rows
+
+
+@contextlib.contextmanager
+def flax_formula_bn():
+    """Inside, every train-mode ``BatchNorm`` of the port normalises with
+    (and records) the variance ``max(0, E[x^2] - E[x]^2)``, differentiated
+    through: the unfused step in other roundings. Nothing of the port does
+    this."""
+    import torch
+    from adaptpoint_tpu_torch.models.layers import blocks
+    orig = blocks.BatchNorm._forward
+
+    def forward(self, x):
+        if not self.training or not self.track_running_stats:
+            return orig(self, x)
+        mean = x.mean(dim=0)
+        var = ((x * x).mean(dim=0) - mean * mean).clamp(min=0.0)
+        self.record_stats(mean.detach(), var.detach())
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight \
+            + self.bias
+
+    blocks.BatchNorm._forward = forward
+    try:
+        yield
+    finally:
+        blocks.BatchNorm._forward = orig
+
+
+@contextlib.contextmanager
+def captured_trainbn(log: list):
+    """Inside, every ``ops.sa_trainbn`` call appends its inputs to ``log``
+    (detached): the stages a train step hands the fused op. Nothing of the
+    port does this."""
+    from adaptpoint_tpu_torch import ops
+    orig = ops.sa_trainbn
+
+    def recording(radius, nsample, xyz, query_idx, feats, *params,
+                  relative=True, normalize_dp=False, eps=1e-5):
+        log.append((xyz.detach().contiguous(),
+                    query_idx.int().contiguous(),
+                    feats.detach().float().contiguous())
+                   + tuple(p.detach().float().contiguous() for p in params)
+                   + (float(radius), bool(relative), bool(normalize_dp)))
+        return orig(radius, nsample, xyz, query_idx, feats, *params,
+                    relative=relative, normalize_dp=normalize_dp, eps=eps)
+
+    ops.sa_trainbn = recording
+    try:
+        yield
+    finally:
+        ops.sa_trainbn = orig
+
+
+def step_readings(one_step, reps: int = 10):
+    """ms per step by CUDA events, the host's enqueue ms, and from the
+    profiler the device-busy ms, idle share and kernels a step, plus the
+    peak memory of one step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    ms = cuda_ms(one_step, 1000.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        one_step()
+    enqueue_ms = 1e3 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one_step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            one_step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+    kernels = device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"ms_per_step": ms, "clouds_per_s": B * 1e3 / ms,
+            "host_enqueue_ms": enqueue_ms, "profiled_wall_ms": wall_ms,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "kernels_per_step": sum(e.count for e in kernels) / reps,
+            "peak_memory_gb": peak / 1e9,
+            "top_kernels_ms": [[e.key[:48], e.self_device_time_total / 1e3
+                                / reps] for e in top]}
+
+
+def phase_train_fused(gen, rows):
+    """The classifier's train step at full width on the fused train-BN route
+    (``make_train_step(..., fused_train_bn=True)``), the path
+    ``ADAPTPOINT_TPU_TRAIN_FUSED=1`` selects: its first step against the
+    unfused step from the same weights, batch and draws (self-calibrated),
+    the four passes against their plain versions at the stages it captured
+    (added to ``rows`` when given), and ms per step beside the unfused
+    step's. Returns the launch counts of this path's run."""
+    import numpy as np
+    import torch
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.engine import (TrainState, build_train_tools,
+                                             make_train_step)
+    from adaptpoint_tpu_torch.models import build_model_from_cfg
+    from adaptpoint_tpu_torch.utils import EasyConfig
+
+    cfg = EasyConfig()
+    cfg.load(os.path.join(ROOT, "cfgs/scanobjectnn/pointnext-s.yaml"),
+             recursive=True)
+    lr = float(cfg.lr)
+    rng = np.random.default_rng(1)
+    axes = rng.uniform(0.15, 1.0, (CLASSES, 3)).astype(np.float32)
+    batches = blob_batches(rng, TRAIN_BATCHES, axes=axes)
+    base = build_model_from_cfg(cfg.model, seed=1)
+    host_gen = torch.Generator().manual_seed(2)
+    cols = torch.randperm(N_FPS, generator=host_gen)[:N0].to(DEV)
+    masks = [(torch.rand((B, w), generator=host_gen) >= 0.5).to(DEV)
+             for w in cfg.model.cls_args.mlps]
+    first = {k: torch.from_numpy(v).to(DEV) for k, v in batches[0].items()}
+
+    def one_step(fused, other_bn=False):
+        net = build_model_from_cfg(cfg.model)
+        net.load_state_dict(base.state_dict())
+        crit, opt, _ = build_train_tools(cfg, net)
+        step = make_train_step(net, opt, crit, cfg, fused_train_bn=fused)
+        seen = {}
+        hook = net.register_forward_hook(
+            lambda _m, _i, out: seen.__setitem__("logits", out.detach()))
+        with flax_formula_bn() if other_bn else contextlib.nullcontext():
+            _, loss, _ = step(TrainState(net, opt), first, cols, lr,
+                              dropout_mask=masks)
+        hook.remove()
+        got = {"loss": loss.double().cpu().reshape(1),
+               "logits": seen["logits"].double().cpu()}
+        got.update({"grad." + k: p.grad.double().cpu()
+                    for k, p in net.named_parameters()})
+        got.update({"buffer." + k: b_.double().cpu()
+                    for k, b_ in net.named_buffers()
+                    if not k.endswith("num_batches_tracked")})
+        return got, net, opt, step
+
+    captured = []
+    ops.reset_launch_counts()  # this path's run starts here
+    with captured_trainbn(captured):
+        fused, net, opt, fused_step = one_step(True)
+    torch.cuda.synchronize()
+    per_step = ops.launch_counts()
+    # the references launch kernels of their own; this path's count is read
+    unfused = one_step(False)[0]
+    unfused_other = one_step(False, other_bn=True)[0]
+    want = {**dict.fromkeys(ops.KERNEL_MODULES, 0), "fps": 2,
+            "gather_rows": 1, "sa_trainbn_stats": 4, "sa_trainbn_fwd": 4,
+            "sa_trainbn_bwd_w2": 4, "sa_trainbn_bwd_x": 4}
+    total = float(torch.cat([v.flatten() for k, v in unfused.items()
+                             if k.startswith("grad.")]).norm())
+
+    def distance(a, ref, k):
+        if k.startswith("grad."):
+            return float((a - ref).norm()) / max(float(ref.norm()),
+                                                 1e-3 * total)
+        return float((a - ref).abs().max())
+
+    scale = {kind: max(float(v.abs().max()) for k, v in unfused.items()
+                       if k.split(".")[0] == kind)
+             for kind in ("loss", "logits", "grad", "buffer")}
+    tol = TOL_STEP_CPU
+    worst, spread, bad = {}, {}, []
+    for k, ref in unfused.items():
+        kind = k.split(".")[0]
+        d = distance(fused[k], ref, k)
+        noise = max(distance(unfused_other[k], ref, k),
+                    TRAINBN_FLOOR * (1.0 if kind == "grad" else scale[kind]))
+        if d / noise > worst.get(kind, ("", 0.0))[1]:
+            worst[kind] = (k, d / noise, d)
+        spread[kind] = max(spread.get(kind, 0.0), noise)
+        if kind == "loss":
+            good = d <= tol["loss"] * abs(float(ref))
+        elif kind == "grad":
+            good = d <= tol["grad_l2"]
+        else:
+            rt, at = tol["logits" if kind == "logits" else "buffers"]
+            good = bool(torch.allclose(fused[k], ref, rtol=rt, atol=at))
+        if not good or not np.isfinite(d):
+            bad.append((k, d))
+    emit("train_fused_first_step", loss=float(fused["loss"]),
+         unfused_loss=float(unfused["loss"]),
+         worst_over_flax_formula_spread=worst, flax_formula_spread=spread,
+         launches=per_step, expected=want,
+         stages=[list(c[0].shape[:2]) + [c[1].shape[1], c[2].shape[2],
+                                         c[3].shape[1], c[6].shape[1]]
+                 for c in captured],
+         tolerance={"held": tol, "note": "loss relative; logits, buffers "
+                    "(rtol, atol); grad_l2 each gradient's relative 2-norm "
+                    "(scale floored at 1e-3 of the whole gradient's)"})
+    if per_step != want:
+        raise AssertionError(f"launches in one fused train step {per_step} "
+                             f"!= {want}")
+    if bad:
+        raise AssertionError(f"the fused train step disagrees with the "
+                             f"unfused one: {bad[:8]}")
+    if len(captured) != 4:
+        raise AssertionError(f"{len(captured)} fused stages, expected 4")
+
+    # more steps through the train loop's entry point on the fused route;
+    # the references' launches above are not this path's
+    dev_gen = torch.Generator(device=DEV).manual_seed(3)
+    before = ops.launch_counts()
+    state = TrainState(net, opt)
+    dev_batches = [{k: torch.from_numpy(v).to(DEV) for k, v in b_.items()}
+                   for b_ in batches]
+    losses = []
+    for b_ in dev_batches:
+        state, loss, _ = fused_step(state, b_, dev_gen, lr)
+        losses.append(loss)
+    losses = torch.stack(losses).cpu().tolist()
+    launches = {k: per_step[k] + v - before[k]  # this path's run ends here
+                for k, v in ops.launch_counts().items()}
+    emit("train_fused_steps", steps=len(losses), losses=losses,
+         launches=launches)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"fused train steps: loss {losses}")
+
+    checked = check_sa_trainbn(gen, captured)
+    if rows is not None:
+        rows.update(checked)
+    del captured
+
+    # ms per step on both routes, in turns
+    readings = {}
+    for route in ("unfused", "fused", "fused", "unfused"):
+        net_r = build_model_from_cfg(cfg.model)
+        net_r.load_state_dict(base.state_dict())
+        crit, opt_r, _ = build_train_tools(cfg, net_r)
+        step = make_train_step(net_r, opt_r, crit, cfg,
+                               fused_train_bn=route == "fused")
+        st = TrainState(net_r, opt_r)
+        it = [0]
+
+        def go():
+            step(st, dev_batches[it[0] % TRAIN_BATCHES], dev_gen, lr)
+            it[0] += 1
+
+        readings.setdefault(route, []).append(step_readings(go))
+        del net_r, opt_r, st
+        torch.cuda.empty_cache()
+    for route, runs in readings.items():
+        emit("train_fused_throughput", route=route, batch=B, points=N_TRAIN,
+             runs=runs)
+    return launches
+
+
+def phase_cli():
+    """The port's CLI in a child process, as a user starts it:
+    ``python -m adaptpoint_tpu_torch.main --cfg
+    cfgs/scanobjectnn/pointnext-s.yaml`` on SyntheticCls at the cfg's shapes
+    (2048 training points, 15 classes) for CLI_EPOCHS epochs under
+    ``ADAPTPOINT_TPU_TRAIN_FUSED=1``, then ``mode=test`` on its best
+    checkpoint. The run must learn: the best checkpoint's test OA at least
+    CLI_MIN_OA (chance is 6.7 %; 90 steps pass the first epochs, in which
+    the BatchNorm running statistics still remember their start), and
+    ``mode=test`` must evaluate exactly that checkpoint's tensors and print
+    the same OA. Returns the child's launch counts."""
+    import glob
+    import re
+    import numpy as np
+    root = os.path.join(ROOT, "build", "chip_smoke", "cli")
+    common = ["dataset.common.NAME=SyntheticCls",
+              "dataset.common.num_points=2048",
+              "dataset.common.num_classes=15",
+              f"dataset.common.size={CLI_SIZE}", "seed=1",
+              f"root_dir={root}"]
+    env = dict(os.environ, ADAPTPOINT_TPU_TRAIN_FUSED="1")
+
+    def run(extra):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "adaptpoint_tpu_torch.main", "--cfg",
+             "cfgs/scanobjectnn/pointnext-s.yaml"] + common + extra,
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"the CLI exited {out.returncode}:\n"
+                                 f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        counts = json.loads(out.stdout.strip().splitlines()[-1])
+        oas = [float(v) for v in re.findall(r"OA: ([0-9.]+)", out.stdout)]
+        return counts["launch_counts"], oas, seconds, out.stdout
+
+    counts, oas, seconds, log = run([f"epochs={CLI_EPOCHS}"])
+    runs = sorted(glob.glob(os.path.join(root, "scanobjectnn", "*")),
+                  key=os.path.getmtime)
+    run_dir = runs[-1]
+    name = os.path.basename(run_dir)
+    files = {f: os.path.exists(os.path.join(run_dir, f)) for f in (
+        "log.txt", "cfg.yaml", "scalars.jsonl",
+        f"checkpoint/{name}_ckpt_latest.pth",
+        f"checkpoint/{name}_ckpt_best.pth")}
+    epochs_s = [float(v) for v in re.findall(r"epoch_seconds ([0-9.]+)",
+                                             log)]
+    train_oas = [float(v) for v in re.findall(r"train_oa ([0-9.]+)", log)]
+    # mode=test in this process (a second child would pay the card's
+    # start-up again): the same entry point, the same printed OA; the root
+    # logger it sets up is put back after
+    import logging
+    import torch
+    from adaptpoint_tpu_torch.engine import cls_main
+    from adaptpoint_tpu_torch.main import main as cli_main
+    root_log = logging.getLogger()
+    saved = (root_log.level, list(root_log.handlers))
+    best = os.path.join(run_dir, "checkpoint", f"{name}_ckpt_best.pth")
+    out = io.StringIO()
+    evaluated = []
+    validate = cls_main.validate
+
+    def spy(eval_step, state, *args, **kwargs):
+        evaluated.append({k: v.detach().cpu().clone()
+                          for k, v in state.model.state_dict().items()})
+        return validate(eval_step, state, *args, **kwargs)
+
+    cls_main.validate = spy
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli_main(["--cfg", os.path.join(ROOT, "cfgs/scanobjectnn/"
+                                             "pointnext-s.yaml")] + common
+                     + ["mode=test", f"pretrained_path={best}"])
+    finally:
+        cls_main.validate = validate
+    test_seconds = time.perf_counter() - t0
+    best_state = torch.load(best, map_location="cpu",
+                            weights_only=True)["model"]
+    loaded = (len(evaluated) == 1 and set(evaluated[0]) == set(best_state)
+              and all(torch.equal(evaluated[0][k], v)
+                      for k, v in best_state.items()))
+    for handler in list(root_log.handlers):
+        root_log.removeHandler(handler)
+        handler.close()
+    root_log.setLevel(saved[0])
+    for handler in saved[1]:
+        root_log.addHandler(handler)
+    test_oas = [float(v) for v in re.findall(r"OA: ([0-9.]+)",
+                                             out.getvalue())]
+    emit("cli", seconds=seconds, epoch_seconds=epochs_s,
+         test_seconds=test_seconds, files=files, train_oa=train_oas,
+         oas=oas, test_oa=test_oas, min_oa=CLI_MIN_OA,
+         mode_test_evaluated_the_checkpoint=loaded, launches=counts,
+         run_dir=os.path.relpath(run_dir, ROOT))
+    if not all(files.values()):
+        raise AssertionError(f"the CLI's run directory lacks {files}")
+    if not oas or not all(np.isfinite(v) for v in oas) or not test_oas \
+            or test_oas[-1] != oas[-1] or oas[-1] < CLI_MIN_OA:
+        raise AssertionError(f"the CLI's OA: training run {oas}, mode=test "
+                             f"{test_oas}, at least {CLI_MIN_OA}")
+    if not loaded:
+        raise AssertionError("mode=test did not evaluate the best "
+                             "checkpoint's tensors")
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,serve,train,adapt,adapt_bf16",
-                    help="comma-separated subset of kernels,serve,train,adapt,"
-                         "adapt_bf16 for a partial run, which prints no final "
-                         "result (default: all)")
+    ap.add_argument("--phases",
+                    default="kernels,serve,train,train_fused,cli,adapt,"
+                            "adapt_bf16",
+                    help="comma-separated subset of kernels,serve,train,"
+                         "train_fused,cli,adapt,adapt_bf16 for a partial run, "
+                         "which prints no final result (default: all)")
     phases = set(ap.parse_args(argv).phases.split(","))
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2560,6 +3140,12 @@ def main(argv=None) -> int:
         del models
     if "train" in phases:
         by_path["train"] = phase_train(gen)
+    if "train_fused" in phases:
+        torch.cuda.empty_cache()
+        by_path["train_fused"] = phase_train_fused(gen, rows)
+    if "cli" in phases:
+        torch.cuda.empty_cache()
+        by_path["cli"] = phase_cli()
     f32_run = None
     if phases & {"adapt", "adapt_bf16"}:
         torch.cuda.empty_cache()
@@ -2594,7 +3180,14 @@ def main(argv=None) -> int:
                "mha_bwd": ("attention.cu", pallas + "attention.py:158"),
                "knn": ("knn.cu", pallas + "knn.py:107"),
                "fpinterp": ("fpinterp.cu", pallas + "fpinterp.py:149"),
-               "fpinterp_bwd": ("fpinterp.cu", pallas + "fpinterp.py:178")}
+               "fpinterp_bwd": ("fpinterp.cu", pallas + "fpinterp.py:178"),
+               "sa_trainbn_stats": ("satrainbn.cu",
+                                    pallas + "satrainbn.py:507"),
+               "sa_trainbn_fwd": ("satrainbn.cu", pallas + "satrainbn.py:526"),
+               "sa_trainbn_bwd_w2": ("satrainbn.cu",
+                                     pallas + "satrainbn.py:637"),
+               "sa_trainbn_bwd_x": ("satrainbn.cu",
+                                    pallas + "satrainbn.py:657")}
     for path, names in PATH_KERNELS.items():
         never = [n for n in names if by_path[path][n] < 1]
         if never:

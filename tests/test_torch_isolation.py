@@ -19,7 +19,7 @@ from adaptpoint_tpu_torch import ops, resolve_device
 from adaptpoint_tpu_torch.models import build_model_from_cfg
 from adaptpoint_tpu_torch.ops import (attention, ballgroup, ballgroup_max,
                                       fpinterp, fpsample, gather, knn,
-                                      saeval)
+                                      saeval, satrainbn)
 from adaptpoint_tpu_torch.serving import ServingModel, export_serving_artifact
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -94,6 +94,42 @@ def test_phase_a_modules_are_covered_and_import_without_a_toolchain():
                                  src)).read()
         assert "torch/" not in text
         assert 'extern "C"' in text or src.endswith(".cuh")
+
+
+SLICE3_MODULES = ["ops.satrainbn", "datasets", "datasets.build",
+                  "datasets.loader", "datasets.data_util",
+                  "datasets.scanobjectnn", "datasets.synthetic",
+                  "transforms", "transforms.transforms_factory",
+                  "transforms.point_transforms", "metricslog",
+                  "utils.logger", "utils.random", "utils.ckpt",
+                  "engine.cls_main", "main"]
+
+
+def test_mode_train_modules_are_covered_and_import_without_a_toolchain():
+    """The ``mode: train`` entry path's modules and the train-BN kernels'
+    are among the scanned files, import nothing forbidden, and import on the
+    CPU without ``nvcc`` or ``h5py`` (read only when a file is opened);
+    the kernel source has a plain C interface."""
+    scanned = {os.path.relpath(p, os.path.join(REPO, "adaptpoint_tpu_torch"))
+               for p in _port_files()[1:]}
+    for name in SLICE3_MODULES:
+        rel = name.replace(".", os.sep)
+        assert rel + ".py" in scanned or os.path.join(
+            rel, "__init__.py") in scanned, name
+        mod = importlib.import_module("adaptpoint_tpu_torch." + name)
+        for imported in _imported_modules(mod.__file__):
+            assert imported.split(".")[0] not in FORBIDDEN, (name, imported)
+    from adaptpoint_tpu_torch.ops import _build
+    assert "satrainbn" in _build.SOURCES
+    text = open(os.path.join(REPO, "adaptpoint_tpu_torch", "ops", "csrc",
+                             "satrainbn.cu")).read()
+    assert "torch/" not in text and 'extern "C"' in text
+    for name in ("datasets.data_util", "datasets.scanobjectnn"):
+        mod = importlib.import_module("adaptpoint_tpu_torch." + name)
+        tree = ast.parse(open(mod.__file__).read())
+        top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                      ast.ImportFrom))]
+        assert not any("h5py" in ast.unparse(n) for n in top), name
 
 
 def test_port_tests_leave_the_environment_as_they_found_it():
@@ -200,6 +236,22 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
     with pytest.raises(ValueError):
         fpinterp.weighted_gather3_bwd_cuda(fb, idx3, torch.zeros(1, 4, 3),
                                            torch.zeros(1, 4, 5))
+    sa_idx = torch.zeros(1, 4, 4, dtype=torch.int32)
+    vec6, vec7 = torch.zeros(6), torch.zeros(7)
+    with pytest.raises(ValueError):
+        satrainbn.stats_cuda(0.3, 4, xyz, q, f)
+    with pytest.raises(ValueError):
+        satrainbn.fwd_cuda(0.3, xyz, q, f, sa_idx, w1, vec6, vec6, w2)
+    with pytest.raises(ValueError):
+        satrainbn.bwd_w2_cuda(0.3, xyz, q, f, sa_idx, w1, vec6, vec6, w2,
+                              vec6, vec6, vec7, vec7, vec7,
+                              torch.zeros(1, 4, 7, dtype=torch.uint8),
+                              torch.zeros(1, 4, 7))
+    with pytest.raises(ValueError):
+        satrainbn.bwd_x_cuda(0.3, xyz, q, f, sa_idx, w1, vec6, vec6, w2,
+                             vec7, vec7, vec7, vec6, vec6,
+                             torch.zeros(1, 4, 7, dtype=torch.uint8),
+                             torch.zeros(1, 4, 7))
     # the dispatching ops take the plain versions on CPU tensors and never
     # count a launch, forward or backward
     ops.furthest_point_sample(xyz, 4)
@@ -208,9 +260,11 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
     out = ops.ball_group(0.3, 4, xyz, q, fg)
     pooled = ops.ball_group_max(0.3, 4, xyz, q, fg)
     fused = ops.sa_train(0.3, 4, xyz, q, fg, w1, b1, w2, b2)
+    trainbn = ops.sa_trainbn(0.3, 4, xyz, q, fg, w1, torch.ones(6), b1, w2,
+                             torch.ones(7), b2)
     qg = qkv.clone().requires_grad_()
     (out[1].sum() + out[2].sum() + pooled[2].sum() + pooled[3].sum()
-     + fused[2].sum() + ops.gather_rows(fg, q).sum()
+     + fused[2].sum() + trainbn[2].sum() + ops.gather_rows(fg, q).sum()
      + ops.fps(fg, 4).sum() + ops.index_points(fg, idx).sum()
      + ops.three_interpolation(xyz, xyz[:, :8], fg[:, :8]).sum()
      + ops.three_interpolation(xyz, xyz[:, :8],
@@ -223,7 +277,9 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
                            "ball_group_max", "ball_group_max_bwd", "sa_eval",
                            "sa_train", "sa_train_bwd", "gather_rows",
                            "gather_rows_bwd", "mha", "mha_bwd", "knn",
-                           "fpinterp", "fpinterp_bwd"}
+                           "fpinterp", "fpinterp_bwd", "sa_trainbn_stats",
+                           "sa_trainbn_fwd", "sa_trainbn_bwd_w2",
+                           "sa_trainbn_bwd_x"}
     assert not any(before.values())
 
 
@@ -253,3 +309,9 @@ def test_cuda_wrappers_refuse_to_drop_gradients():
         saeval.SaTrain.apply(xyz, q, f, torch.zeros(8, 6), torch.zeros(6),
                              torch.zeros(6, 7), torch.zeros(7), 0.3, 4, True,
                              False, None, True)
+    with pytest.raises(ValueError):
+        satrainbn.SaTrainBN.apply(xyz, q, f, torch.zeros(8, 6),
+                                  torch.ones(6), torch.zeros(6),
+                                  torch.zeros(6, 7), torch.ones(7),
+                                  torch.zeros(7), 0.3, 4, True, False, 1e-5,
+                                  True)
