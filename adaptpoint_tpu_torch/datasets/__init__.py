@@ -5,6 +5,9 @@ give the same batches bit for bit."""
 from . import scanobjectnn, synthetic  # noqa: F401  (register datasets)
 from .build import DATASETS, build_dataloader_from_cfg, build_dataset_from_cfg
 from .loader import NumpyLoader
+from .scanobjectnn import (CORRUPTIONS, DGCNN_OA_SCANOBJECTNN_C,
+                           ScanObjectNNC, eval_corrupt_wrapper)
 
 __all__ = ["DATASETS", "build_dataset_from_cfg", "build_dataloader_from_cfg",
-           "NumpyLoader"]
+           "NumpyLoader", "ScanObjectNNC", "CORRUPTIONS",
+           "DGCNN_OA_SCANOBJECTNN_C", "eval_corrupt_wrapper"]

@@ -236,11 +236,38 @@ def make_gan_step(generator: nn.Module, discriminator: nn.Module,
     return gan_step
 
 
+_METRICS = ("g_loss", "g_loss_raw", "d_loss", "feedback", "loss_fake",
+            "loss_real")
+
+
+def _dump_fake_batch(cfg, epoch, i, gen_host, raw_host, label_host):
+    """One batch's fake clouds, raw clouds and labels as
+    ``<run_dir>/fakedata/epoch<epoch>/minibatch<i>.h5`` (reference
+    train_autoaug.py:213-222). Needs ``h5py``."""
+    import os
+    import h5py
+    path = os.path.join(cfg.run_dir, "fakedata", f"epoch{epoch}")
+    os.makedirs(path, exist_ok=True)
+    with h5py.File(os.path.join(path, f"minibatch{i}.h5"), "w") as f:
+        f["pointcloud"] = gen_host
+        f["raw"] = raw_host
+        f["label"] = label_host
+
+
 def train_gan_epoch(gan_step: Callable, gan_state: GanState, loader: Iterable,
-                    rng: Optional[torch.Generator], hardratio: float, cfg):
+                    rng: Optional[torch.Generator], hardratio: float, cfg,
+                    summary=None, epoch: int = 0):
     """Phase A over ``loader``, any iterable of ``{"x", "y"}`` batches (numpy
     arrays or tensors). The fake clouds and the metrics stay on the device
     until the last batch is enqueued, then come back in one copy each.
+
+    With a ``summary`` (``metricslog.Summary``) each step's six metrics and
+    the hardratio go to ``train_G_iter/<name>`` at ``summary.train_iter_num``,
+    which counts on over the run. The log line gives the epoch's means and
+    how far the fake clouds moved from the real ones (mean |fake - real| of
+    the coordinates). With ``cfg.dump_fakedata`` (off by
+    default) and a ``run_dir``, steps 0, 10, ..., 100 also write their
+    batch to an h5 file (``_dump_fake_batch``; without ``h5py`` that raises).
 
     Returns ``(gan_state, fake, averages)``: ``fake`` is the
     ``FormDatasetCls`` of the epoch's fake clouds (``pointcloud``), labels
@@ -248,8 +275,11 @@ def train_gan_epoch(gan_step: Callable, gan_state: GanState, loader: Iterable,
     channels), ``averages`` the means of ``g_loss``, ``d_loss`` and
     ``feedback``."""
     device = gan_state.device
-    gens, labels, points, rows = [], [], [], []
-    for batch in loader:
+    dump = bool(cfg.get("dump_fakedata", False)) and bool(cfg.get("run_dir"))
+    if dump:
+        import h5py  # noqa: F401  (a requested dump needs it: fail first)
+    gens, labels, points, rows, raws = [], [], [], [], {}
+    for i, batch in enumerate(loader):
         dev_batch = _to_device(batch, device)
         gan_state, gen, metrics = gan_step(gan_state, dev_batch, rng,
                                            hardratio)
@@ -257,18 +287,37 @@ def train_gan_epoch(gan_step: Callable, gan_state: GanState, loader: Iterable,
         labels.append(dev_batch["y"])
         # fake xyz + the original extra channels
         points.append(torch.cat([gen, dev_batch["x"][..., 3:]], dim=-1))
-        rows.append(torch.stack([metrics[k] for k in
-                                 ("g_loss", "d_loss", "feedback")]))
-    meters = {k: AverageMeter() for k in ("g_loss", "d_loss", "feedback")}
+        # the metrics and how far the fake clouds moved from the real ones
+        moved = (gen - dev_batch["x"][..., :3]).abs().mean()
+        rows.append(torch.stack([metrics[k].float() for k in _METRICS]
+                                + [moved.float()]))
+        if dump and i % 10 == 0 and i < 110:
+            raws[i] = dev_batch["x"][..., :3]
     if not gens:
         raise ValueError("train_gan_epoch: the loader gave no batch")
-    for row in torch.stack(rows).cpu().tolist():
-        for k, v in zip(meters, row):
-            meters[k].update(v)
-    logging.info("GAN epoch: g_loss %.4f d_loss %.4f feedback %.4f",
-                 meters["g_loss"].avg, meters["d_loss"].avg,
-                 meters["feedback"].avg)
-    fake = FormDatasetCls([g.cpu().numpy() for g in gens],
-                          [y.cpu().numpy().astype(np.int64) for y in labels],
+    gens_host = [g.cpu().numpy() for g in gens]
+    labels_host = [y.cpu().numpy().astype(np.int64) for y in labels]
+    meters = {k: AverageMeter() for k in ("g_loss", "d_loss", "feedback")}
+    moved_meter = AverageMeter()
+    for i, row in enumerate(torch.stack(rows).cpu().tolist()):
+        values = dict(zip(_METRICS, row))
+        for k, meter in meters.items():
+            meter.update(values[k])
+        moved_meter.update(row[-1])
+        if summary is not None:
+            for k, v in values.items():
+                summary.add_scalar(f"train_G_iter/{k}", v,
+                                   summary.train_iter_num)
+            summary.add_scalar("train_G_iter/hardratio", float(hardratio),
+                               summary.train_iter_num)
+            summary.summary_train_iter_num_update()
+        if i in raws:
+            _dump_fake_batch(cfg, epoch, i, gens_host[i],
+                             raws[i].cpu().numpy(), labels_host[i])
+    logging.info("GAN epoch: g_loss %.4f d_loss %.4f feedback %.4f, "
+                 "mean |fake - real| %.6g", meters["g_loss"].avg,
+                 meters["d_loss"].avg, meters["feedback"].avg,
+                 moved_meter.avg)
+    fake = FormDatasetCls(gens_host, labels_host,
                           [p.cpu().numpy() for p in points])
     return gan_state, fake, {k: m.avg for k, m in meters.items()}

@@ -8,8 +8,11 @@ comes from the cfg's path and the overrides, the run directory is made (or,
 for ``mode=test``/``val`` with ``pretrained_path``, reused) and the cfg is
 dumped into it. Runs on the card unless ``--device cpu`` is given; without a
 card it raises. Modes ``train``, ``test`` and ``val`` run
-``engine.cls_main``; the others are not ported yet and raise. The last line
-printed is the run's kernel launch counts as one JSON object.
+``engine.cls_main``, ``adaptpoint`` runs ``engine.adapt_main`` (as the JAX
+package's ``examples/classification/main.py`` dispatches them, with
+``adaptpoint_modelnet``, which ``adapt_main`` refuses for now); the others
+are not ported yet and raise. The last line printed is the run's kernel
+launch counts as one JSON object.
 """
 from __future__ import annotations
 
@@ -26,8 +29,7 @@ from .utils.logger import (generate_exp_directory, resume_exp_directory,
 
 __all__ = ["main"]
 
-NOT_PORTED = ("resume", "finetune", "adaptpoint", "adaptpoint_modelnet",
-              "scanobjectnnc", "modelnetc", "pretrain")
+NOT_PORTED = ("resume", "finetune", "scanobjectnnc", "modelnetc", "pretrain")
 
 
 def main(argv=None):
@@ -44,7 +46,8 @@ def main(argv=None):
     mode = cfg.get("mode", "train")
     if mode in NOT_PORTED:
         raise NotImplementedError(f"mode {mode} is not ported yet")
-    if mode not in ("train", "test", "val"):
+    if mode not in ("train", "test", "val", "adaptpoint",
+                    "adaptpoint_modelnet"):
         raise ValueError(f"unknown mode {mode}")
     if cfg.get("seed") is None:
         cfg.seed = random.randint(1, 10000)
@@ -70,7 +73,10 @@ def main(argv=None):
     logging.info("run dir: %s", cfg.run_dir)
 
     from . import ops
-    from .engine.cls_main import main as run
+    if mode in ("adaptpoint", "adaptpoint_modelnet"):
+        from .engine.adapt_main import main as run
+    else:
+        from .engine.cls_main import main as run
     result = run(cfg, device=args.device)
     print(json.dumps({"launch_counts": ops.launch_counts()}), flush=True)
     return result

@@ -1,5 +1,7 @@
 """Scalar summaries of a run: ``scalars.jsonl`` in the run directory, and
 TensorBoard events as well where ``torch.utils.tensorboard`` imports.
+``train_iter_num`` counts the steps of phase A over the whole run, the step
+its per-iteration scalars are written at.
 
 Counterpart of ``adaptpoint_tpu/metricslog.py`` ``Summary`` (reference
 openpoints/utils/utils_summary.py:8-43).
@@ -17,6 +19,7 @@ __all__ = ["Summary"]
 class Summary:
     def __init__(self, log_dir: Optional[str]):
         self.log_dir = log_dir
+        self.train_iter_num = 0
         self._jsonl = None
         self._tb = None
         if log_dir:
@@ -27,6 +30,9 @@ class Summary:
                 self._tb = SummaryWriter(log_dir=log_dir)
             except Exception:  # tensorboard is optional
                 self._tb = None
+
+    def summary_train_iter_num_update(self) -> None:
+        self.train_iter_num += 1
 
     def add_scalar(self, tag: str, value, step: int) -> None:
         if self._jsonl is not None:

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from . import (attention, ballgroup, ballgroup_max, fpinterp, fpsample,
-               gather, knn, saeval, satrainbn)
+               gather, knn, saeval, satrainbn, window)
 from .ballgroup import ball_group_plain
 from .gather import gather_rows_plain
 from .geometry import (ball_query, fps_prefix_idx, square_distance,
@@ -18,7 +18,8 @@ from .geometry import (ball_query, fps_prefix_idx, square_distance,
                        index_points as index_points_plain)
 from .saeval import sa_eval_plain
 
-__all__ = ["furthest_point_sample", "ball_group", "ball_group_max", "sa_eval",
+__all__ = ["furthest_point_sample", "ball_group", "ball_group_max",
+           "ball_group_max_windowed", "sa_eval",
            "sa_train", "sa_trainbn", "gather_rows",
            "fps", "ball_query", "index_points", "fps_prefix_idx",
            "square_distance", "knn_point", "three_nn", "three_interpolation",
@@ -31,6 +32,8 @@ KERNEL_MODULES = {"fps": (fpsample, "LAUNCHES"),
                   "ball_group_bwd": (ballgroup, "LAUNCHES_BWD"),
                   "ball_group_max": (ballgroup_max, "LAUNCHES"),
                   "ball_group_max_bwd": (ballgroup_max, "LAUNCHES_BWD"),
+                  "ball_group_max_windowed": (window, "LAUNCHES"),
+                  "ball_group_max_windowed_bwd": (window, "LAUNCHES_BWD"),
                   "sa_eval": (saeval, "LAUNCHES"),
                   "sa_train": (saeval, "LAUNCHES_TRAIN"),
                   "sa_train_bwd": (saeval, "LAUNCHES_TRAIN_BWD"),
@@ -114,6 +117,29 @@ def ball_group_max(radius: float, nsample: int, xyz, query_idx, feats):
     if in_dt != torch.bfloat16:
         return out
     return (out[0],) + tuple(t.to(in_dt) for t in out[1:])
+
+
+def ball_group_max_windowed(radius: float, nsample: int, xyz, query_idx,
+                            feats, splits: int = 1, grad_splits: int = 1,
+                            tm: int = 256, w=None):
+    """The windowed max-pooled ball group (``ops.window``): ``(new_xyz
+    (B,M,3), fi, fmax, fmin (B,M,C))`` f32, each tile of ``tm`` key-sorted
+    centers scanning a window of ``w`` sorted points (``None``:
+    ``window.pick_window``). Equal to :func:`ball_group_max` at ``splits=1``
+    wherever ``window.window_prep(...)["ok"]``, which the caller checks, as
+    in the JAX package: the op does not. Differentiable in ``xyz`` and
+    ``feats``: the kernels on CUDA, the plain versions on the CPU."""
+    window._check_splits(splits, grad_splits)
+    if w is None:
+        w = window.pick_window(window._round_up(xyz.shape[1], 128), radius,
+                               query_idx.shape[1], tm)
+    cuda = _on_cuda(xyz)
+    if cuda:
+        xyz, feats = xyz.contiguous(), feats.contiguous()
+        query_idx = query_idx.int().contiguous()
+    return window.BallGroupMaxWindowed.apply(
+        xyz, query_idx, feats, float(radius), int(nsample), int(splits),
+        int(grad_splits), int(tm), int(w), cuda)
 
 
 def sa_eval(radius: float, nsample: int, xyz, query_idx, feats, w1, b1, w2,

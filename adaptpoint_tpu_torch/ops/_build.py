@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "adaptpoint_tpu_torch"
 SOURCES = ("fps", "ballgroup", "ballgroup_bwd", "ballgroup_max", "gather",
            "saeval", "sa_train_bwd", "attention", "knn", "fpinterp",
-           "satrainbn")
+           "satrainbn", "window")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v"]

@@ -66,6 +66,25 @@ Phases, one JSON object a line:
    step's, ten more steps, the launches a step makes (the weighted gather
    4 + 4, and four row gathers and four scatter-adds fewer than in f32),
    the epoch loop, and ms per step beside the f32 step's.
+11. ``window``: the windowed max-pooled ball group (``ops.ball_group_max_
+   windowed``, rows 20, 21), which no model calls, as
+   ``scripts/check_window.py`` drives its JAX twin: B=32, K=24, the
+   augmentor's four grouper shapes on clouds centred and normalised to the
+   unit sphere. Per stage the width, ``ok`` and the width the data needs;
+   both kernels against their plain versions (forward exact, backward
+   within the reordering bound), and where ``ok`` the forward against row
+   7's kernel (outputs, winning slots and slots equal), at the needed width
+   too where ``ok`` is False; CUDA-event times of the kernels, of
+   ``window_prep``, of the four un-permute gathers the JAX op makes, and of
+   the op forward and forward+backward beside row 7/8's op.
+12. ``adapt_cli``: ``python -m adaptpoint_tpu_torch.main --cfg
+   cfgs/scanobjectnn/pointnext-s_adaptpoint_1.yaml`` (``mode: adaptpoint``)
+   in a child process on SyntheticCls at the ``cli`` phase's sizes for
+   three epochs at the card's defaults: phase A and phase B each epoch
+   (every full batch of the 960 fake clouds), fake clouds that moved from
+   the real ones, ``model_gan.pth`` reloading into a fresh ``build_gan`` bit
+   for bit, the skipped ScanObjectNN-C sweep logged, a best val OA of at
+   least ADAPT_CLI_MIN_OA, and the child's launch counts (rows 1-15).
 
 Then the card's name and power limit as nvidia-smi prints them, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` as the
@@ -234,7 +253,12 @@ PATH_KERNELS = {
     "train_fused": ("fps", "gather_rows", "sa_trainbn_stats",
                     "sa_trainbn_fwd", "sa_trainbn_bwd_w2", "sa_trainbn_bwd_x"),
     "cli": ("fps", "gather_rows", "ball_group", "sa_trainbn_stats",
-            "sa_trainbn_fwd", "sa_trainbn_bwd_w2", "sa_trainbn_bwd_x")}
+            "sa_trainbn_fwd", "sa_trainbn_bwd_w2", "sa_trainbn_bwd_x"),
+    "window": ("ball_group_max_windowed", "ball_group_max_windowed_bwd"),
+    "adapt_cli": ("fps", "ball_group", "sa_eval", "ball_group_bwd",
+                  "sa_train", "sa_train_bwd", "ball_group_max",
+                  "ball_group_max_bwd", "mha", "mha_bwd", "knn", "fpinterp",
+                  "fpinterp_bwd", "gather_rows", "gather_rows_bwd")}
 # names of the hand-written kernels as the profiler prints them
 OWN_KERNELS = ("fps_kernel", "ball_group_kernel", "ball_group_bwd_kernel",
                "ball_group_max_kernel", "ball_group_max_bwd_kernel",
@@ -296,6 +320,10 @@ TRAINBN_FLOOR = 1e-5
 # 6.7 for a model that learned nothing.
 CLI_SIZE, CLI_EPOCHS = 960, 3
 CLI_MIN_OA = 50.0
+# the adaptpoint CLI run: the same data, phase A + phase B each epoch; its
+# best val OA must reach 3x chance on 15 classes
+ADAPT_CLI_EPOCHS = 3
+ADAPT_CLI_MIN_OA = 20.0
 
 
 def emit(phase: str, **kw) -> None:
@@ -2990,6 +3018,244 @@ def phase_train_fused(gen, rows):
     return launches
 
 
+def windowed_scanned(prep, idx, cnt, w, n):
+    """Window points each center's scan must look at: in original index
+    order up to its K-th in-ball point, or the whole window (below N) when
+    the ball holds fewer. ``idx``/``cnt`` in query order."""
+    import torch
+    Bq, M, Kq = idx.shape
+    tm = M // prep["win"].shape[1]
+    tile = prep["cinv"].long() // tm                        # query -> tile
+    ws = torch.gather(prep["win"].long(), 1, tile) * 128
+    pos = ws[..., None] + torch.arange(w, device=idx.device)
+    valid = pos < n
+    orig = torch.gather(prep["order"].long(), 1,
+                        pos.clamp(max=n - 1).reshape(Bq, -1)).reshape(pos.shape)
+    kth = idx[..., -1:].long()
+    upto = ((orig <= kth) & valid).sum(dim=-1)
+    return int(torch.where(cnt >= Kq, upto, valid.sum(dim=-1)).sum())
+
+
+def check_window_stage(gen, tag, xyz, qidx, feats, radius, tm, w):
+    """The windowed kernels (rows 20, 21) at one stage and width against
+    their plain versions (forward outputs and residuals exact, the backward
+    and the op's autograd within the reordering bound) and, where ``ok``,
+    against row 7's kernel (outputs, winning slots and slots equal).
+    Returns ``(ok, need, prep, forward outputs, backward arguments, the
+    forward's and the backward's largest error)``."""
+    import torch
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.ops import ballgroup_max as bgm
+    from adaptpoint_tpu_torch.ops import window as wnd
+
+    n, c = feats.shape[1], feats.shape[2]
+    m = qidx.shape[1]
+    prep = wnd.window_prep(xyz, qidx, radius, tm, w)
+    ok, need = bool(prep["ok"]), int(prep["need"])
+    args = (radius, K_GAN, xyz, qidx, feats, prep, w, tm)
+    got = wnd.ball_group_max_windowed_cuda(*args)
+    ref = wnd.ball_group_max_windowed_plain(*args)
+    torch.cuda.synchronize()
+    names = ("new_xyz", "fi", "fmax", "fmin", "amax", "amin", "cnt", "idx",
+             "qrow")
+    errs = {k: float((a.float() - b.float()).abs().max())
+            for k, a, b in zip(names, got, ref)}
+    del ref
+    _, _, _, _, amax, amin, cnt, idx, qrow = got
+    g_new = torch.randn((B, m, 3), generator=gen, device=DEV)
+    g_fi, g_fmax, g_fmin = (torch.randn((B, m, c), generator=gen, device=DEV)
+                            for _ in range(3))
+    bargs = (idx, cnt, qrow, amax, amin, g_new, g_fi, g_fmax, g_fmin, n)
+    back = wnd.ball_group_max_windowed_bwd_cuda(*bargs)
+    back_ref = wnd.ball_group_max_windowed_bwd_plain(*bargs)
+    x_req, f_req = xyz.clone().requires_grad_(), feats.clone().requires_grad_()
+    auto = torch.autograd.grad(
+        ops.ball_group_max_windowed(radius, K_GAN, x_req, qidx, f_req, 1, 1,
+                                    tm, w),
+        (x_req, f_req), (g_new, g_fi, g_fmax, g_fmin))
+    auto_ref = (back_ref[0], back_ref[1].clone())
+    auto_ref[1][:, 0] += wnd.empty_ball_grad(cnt, g_fmax, g_fmin)
+    ones3, ones = torch.ones_like(g_new), torch.ones_like(g_fi)
+    counts_x = wnd.ball_group_max_windowed_bwd_plain(
+        idx, cnt, qrow, amax, amin, ones3, None, None, None, n)[0]
+    counts_f = wnd.ball_group_max_windowed_bwd_plain(
+        idx, cnt, qrow, amax, amin, None, ones, ones, ones, n)[1]
+    counts_f[:, 0] += 2 * (cnt == 0).sum(dim=1)[:, None]  # the row-0 term
+    a_x, a_f = wnd.ball_group_max_windowed_bwd_plain(
+        idx, cnt, qrow, amax, amin, g_new.abs(), g_fi.abs(), g_fmax.abs(),
+        g_fmin.abs(), n)
+    a_f[:, 0] += wnd.empty_ball_grad(cnt, g_fmax.abs(), g_fmin.abs())
+    bounds = (scatter_bound(counts_x, a_x), scatter_bound(counts_f, a_f))
+    bwd_errs = {}
+    good = not any(errs.values())
+    for name, a, b_, bound in (("g_xyz", back[0], back_ref[0], bounds[0]),
+                               ("g_feats", back[1], back_ref[1], bounds[1]),
+                               ("autograd_g_xyz", auto[0], auto_ref[0],
+                                bounds[0]),
+                               ("autograd_g_feats", auto[1], auto_ref[1],
+                                bounds[1])):
+        d = (a - b_).abs()
+        bwd_errs[name] = float(d.max())
+        good = good and bool((d <= bound).all()) \
+            and bool(torch.isfinite(a).all())
+    full_n = {}
+    if ok:  # the full-N kernel (row 7) on the same inputs
+        row7 = bgm.ball_group_max_cuda(radius, K_GAN, xyz, qidx, feats)
+        torch.cuda.synchronize()
+        for k, a, b_ in zip(("new_xyz", "fi", "fmax", "fmin", "amax", "amin",
+                             "idx"), row7, (got[0], got[1], got[2], got[3],
+                                            amax, amin, idx)):
+            full_n[k] = float((a.float() - b_.float()).abs().max())
+        good = good and not any(full_n.values())
+    emit("kernel", name="ball_group_max_windowed", case=tag,
+         shape=[B, n, m, c, K_GAN], radius=radius, tm=tm, w=w,
+         w_over_n=w / n, ok=ok, need=need, max_abs_err=errs,
+         max_abs_err_bwd=bwd_errs, against_row7=full_n or None,
+         empty_balls=int((cnt == 0).sum()),
+         full_balls=float((cnt == K_GAN).float().mean()),
+         tolerance="forward outputs and residuals exact, against the plain "
+                   "version and (where ok) row 7's kernel; backward <= n * "
+                   "2^-23 * sum|addend| per element")
+    if not good:
+        raise AssertionError(f"windowed kernels disagree ({tag}, w={w}): "
+                             f"{errs} {bwd_errs} {full_n}")
+    return (ok, need, prep, got, bargs, max(errs.values()),
+            max(bwd_errs["g_xyz"], bwd_errs["g_feats"]))
+
+
+def phase_window(gen):
+    """Path A: the windowed max-pooled ball group (rows 20, 21), the op
+    itself at ``scripts/check_window.py``'s shapes: B=32, K=24, the
+    augmentor's four groupers on clouds centred and normalised to the unit
+    sphere, centers drawn without replacement. Per stage: the width, ``ok``
+    and the needed width; the kernels against their plain versions and
+    row 7 (also at the needed width where ``ok`` is False); then CUDA-event
+    times of the kernels, ``window_prep``, the four un-permute gathers the
+    JAX op makes (folded into this kernel's writes), the op forward and
+    forward+backward, and row 7/8's op at the same inputs. Returns the
+    launch counts of one forward+backward of the op at each stage (the
+    path), and the kernel rows."""
+    import torch
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.ops import gather as gth
+    from adaptpoint_tpu_torch.ops import window as wnd
+
+    cases = []
+    for n, m, c, r in GAN_STAGES:
+        pc = torch.randn((B, n, 3), generator=gen, device=DEV)
+        pc = pc - pc.mean(dim=1, keepdim=True)
+        pc = pc / pc.norm(dim=-1).amax(dim=1, keepdim=True)[..., None]
+        feats = torch.randn((B, n, c), generator=gen, device=DEV)
+        qidx = torch.argsort(torch.rand((B, n), generator=gen, device=DEV),
+                             dim=1)[:, :m].int().contiguous()
+        tm = 256 if m % 256 == 0 else 128
+        w = wnd.pick_window(wnd._round_up(n, 128), r, m, tm)
+        cases.append((n, m, c, r, tm, w, pc.contiguous(), qidx, feats))
+
+    # the path: the op forward and backward once at each stage
+    ops.reset_launch_counts()
+    for n, m, c, r, tm, w, xyz, qidx, feats in cases:
+        x_req = xyz.clone().requires_grad_()
+        f_req = feats.clone().requires_grad_()
+        out = ops.ball_group_max_windowed(r, K_GAN, x_req, qidx, f_req, 1, 1,
+                                          tm, w)
+        torch.autograd.grad(sum(o.sum() for o in out), (x_req, f_req))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+
+    fwd = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, t_b=0.0, t_o=0.0,
+               full_n_op_ms=0.0)
+    bwd = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, t_b=0.0, t_o=0.0,
+               full_n_op_ms=0.0)
+    stages = []
+    for i, (n, m, c, r, tm, w, xyz, qidx, feats) in enumerate(cases):
+        tag = f"grouper {i + 1}"
+        ok, need, prep, got, bargs, e_f, e_b = check_window_stage(
+            gen, tag, xyz, qidx, feats, r, tm, w)
+        emit("window", case=tag, n=n, w=w, w_over_n=w / n, ok=ok, need=need,
+             need_over_n=need / n)
+        w_run, picked_ms = w, None
+        if not ok:  # the exact comparison at the width the data needs
+            picked_ms = cuda_ms(lambda: wnd.ball_group_max_windowed_cuda(
+                r, K_GAN, xyz, qidx, feats, prep, w, tm))
+            w_run = need
+            ok, need, prep, got, bargs, e_f2, e_b2 = check_window_stage(
+                gen, tag + f" at w={need}", xyz, qidx, feats, r, tm, need)
+            e_f, e_b = max(e_f, e_f2), max(e_b, e_b2)
+        cnt, idx = got[6], got[7]
+        fargs = (r, K_GAN, xyz, qidx, feats, prep, w_run, tm)
+        scanned = windowed_scanned(prep, idx, cnt, w_run, n)
+        t_b_f = (B * n * 12 + B * n * c * 4 + B * n * 4 + B * prep["win"]
+                 .shape[1] * 4 + B * m * 8 + B * m * 12 + 3 * B * m * c * 4
+                 + 2 * B * m * c + B * m * 8 + B * m * K_GAN * 4) / PEAK_BYTES
+        t_o_f = (scanned * 9 + 2 * B * m * K_GAN * c) / PEAK_F32
+        t_b_b = (B * m * K_GAN * 4 + B * m * 8 + 2 * B * m * c
+                 + B * m * 12 + 3 * B * m * c * 4 + B * n * 12
+                 + B * n * c * 4) / PEAK_BYTES
+        t_o_b = 4 * B * m * c / PEAK_F32
+        f_ms = cuda_ms(lambda: wnd.ball_group_max_windowed_cuda(*fargs))
+        b_ms = cuda_ms(lambda: wnd.ball_group_max_windowed_bwd_cuda(*bargs))
+        f_plain = cuda_ms(lambda: wnd.ball_group_max_windowed_plain(*fargs),
+                          50.0)
+        b_plain = cuda_ms(
+            lambda: wnd.ball_group_max_windowed_bwd_plain(*bargs), 50.0)
+        prep_ms = cuda_ms(lambda: wnd.window_prep(xyz, qidx, r, tm, w_run,
+                                                  stats_only=True))
+        cinv = prep["cinv"]
+        outs4 = [got[0], got[1], got[2], got[3]]
+        unperm_ms = cuda_ms(lambda: [gth.gather_rows_cuda(o, cinv)
+                                     for o in outs4])
+        x_req = xyz.clone().requires_grad_()
+        f_req = feats.clone().requires_grad_()
+
+        def win_fb():
+            o = ops.ball_group_max_windowed(r, K_GAN, x_req, qidx, f_req, 1,
+                                            1, tm, w_run)
+            return torch.autograd.grad(o, (x_req, f_req), o)
+
+        def full_fb():
+            o = ops.ball_group_max(r, K_GAN, x_req, qidx, f_req)
+            return torch.autograd.grad(o, (x_req, f_req), o)
+
+        with torch.no_grad():
+            op_f = cuda_ms(lambda: ops.ball_group_max_windowed(
+                r, K_GAN, xyz, qidx, feats, 1, 1, tm, w_run))
+            full_f = cuda_ms(lambda: ops.ball_group_max(r, K_GAN, xyz, qidx,
+                                                        feats))
+        op_fb, full_fb_ms = cuda_ms(win_fb), cuda_ms(full_fb)
+        row = dict(case=tag, shape=[B, n, m, c, K_GAN], w=w_run, ok=ok,
+                   kernel_ms=f_ms, kernel_ms_at_picked_w=picked_ms, bwd_kernel_ms=b_ms, plain_ms=f_plain,
+                   bwd_plain_ms=b_plain, window_prep_ms=prep_ms,
+                   jax_unpermutes_ms=unperm_ms, op_fwd_ms=op_f,
+                   op_fwd_bwd_ms=op_fb, row7_op_fwd_ms=full_f,
+                   row78_op_fwd_bwd_ms=full_fb_ms, scanned=scanned,
+                   bound_fwd_ms=1e3 * max(t_b_f, t_o_f),
+                   bound_bwd_ms=1e3 * max(t_b_b, t_o_b))
+        emit("window_times", **row)
+        stages.append(row)
+        for acc, ms, pl, tb, to, full, e in (
+                (fwd, f_ms, f_plain, t_b_f, t_o_f, full_f, e_f),
+                (bwd, b_ms, b_plain, t_b_b, t_o_b, full_fb_ms - full_f,
+                 e_b)):
+            acc["max_abs_err"] = max(acc["max_abs_err"], e)
+            acc["ms"] += ms
+            acc["plain_ms"] += pl
+            acc["t_b"] += tb
+            acc["t_o"] += to
+            acc["full_n_op_ms"] += full
+    out = {}
+    for name, acc in (("ball_group_max_windowed", fwd),
+                      ("ball_group_max_windowed_bwd", bwd)):
+        out[name] = dict(max_abs_err=acc["max_abs_err"], ms=acc["ms"],
+                         plain_ms=acc["plain_ms"], library_ms=None,
+                         full_n_op_ms=acc["full_n_op_ms"],
+                         **bound_row(acc["t_b"], acc["t_o"]))
+    emit("window_summary", note="ms summed over the four groupers at B=32; "
+         "full_n_op_ms: row 7's op forward, and row 7/8's forward+backward "
+         "less its forward, on the same inputs", **out)
+    return launches, out, stages
+
+
 def phase_cli():
     """The port's CLI in a child process, as a user starts it:
     ``python -m adaptpoint_tpu_torch.main --cfg
@@ -3097,16 +3363,107 @@ def phase_cli():
     return counts
 
 
+def phase_adapt_cli():
+    """Path B: ``python -m adaptpoint_tpu_torch.main --cfg
+    cfgs/scanobjectnn/pointnext-s_adaptpoint_1.yaml`` in a child process, as
+    a user starts it, on SyntheticCls at the ``cli`` phase's sizes, B=32,
+    ADAPT_CLI_EPOCHS epochs, the card's defaults (bf16 GAN step, unfused
+    classifier routes). Each epoch must run phase A and phase B on every
+    full batch of the fake buffer; the fake clouds must differ from the
+    real ones (the mean |fake - real| the GAN epoch logs);
+    ``model_gan.pth`` must reload into
+    a fresh ``build_gan`` bit for bit; the missing ScanObjectNN-C tree must
+    be logged and skipped; the best val OA must reach ADAPT_CLI_MIN_OA.
+    Returns the child's launch counts."""
+    import glob
+    import re
+    import torch
+    from adaptpoint_tpu_torch.engine import build_gan
+    from adaptpoint_tpu_torch.utils import EasyConfig
+    cfg_path = "cfgs/scanobjectnn/pointnext-s_adaptpoint_1.yaml"
+    root = os.path.join(ROOT, "build", "chip_smoke", "adapt_cli")
+    opts = ["dataset.common.NAME=SyntheticCls",
+            "dataset.common.num_points=2048",
+            "dataset.common.num_classes=15",
+            f"dataset.common.size={CLI_SIZE}", "seed=1", "batch_size=32",
+            f"epochs={ADAPT_CLI_EPOCHS}", f"root_dir={root}"]
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "adaptpoint_tpu_torch.main", "--cfg",
+         cfg_path] + opts, cwd=ROOT, capture_output=True, text=True,
+        timeout=900)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"the CLI exited {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    counts = json.loads(out.stdout.strip().splitlines()[-1])["launch_counts"]
+    runs = sorted(glob.glob(os.path.join(root, "scanobjectnn", "*")),
+                  key=os.path.getmtime)
+    run_dir = runs[-1]
+    name = os.path.basename(run_dir)
+    log = open(os.path.join(run_dir, "log.txt")).read()
+    files = {f: os.path.exists(os.path.join(run_dir, f)) for f in (
+        "cfg.yaml", "scalars.jsonl", "model_gan.pth",
+        f"checkpoint/{name}_ckpt_latest.pth",
+        f"checkpoint/{name}_ckpt_best.pth")}
+    phases = [(float(a), float(b)) for a, b in re.findall(
+        r"phase_a_seconds ([0-9.]+) phase_b_seconds ([0-9.]+)", log)]
+    phase_b = [(int(nb), int(nf)) for nb, nf in re.findall(
+        r"phase B: (\d+) batches of (\d+) fake clouds", log)]
+    val_oas = [float(v) for v in re.findall(r"val_oa ([0-9.]+)", log)]
+    best = max(val_oas) if val_oas else float("nan")
+    skipped = log.count("skipping corruption eval")
+    moved = [float(v) for v in re.findall(
+        r"mean \|fake - real\| ([0-9.eE+-]+)", log)]
+    # the GAN pair reloads into a fresh build_gan, bit for bit
+    cfg = EasyConfig()
+    cfg.load(os.path.join(ROOT, cfg_path), recursive=True)
+    cfg.update_opts(opts)
+    saved = torch.load(os.path.join(run_dir, "model_gan.pth"),
+                       map_location="cpu", weights_only=True)
+    gen, dis, _, _, _ = build_gan(cfg, DEV, 1)
+    gen.load_state_dict(saved["generator"], strict=True)
+    dis.load_state_dict(saved["discriminator"], strict=True)
+    reloaded = all(torch.equal(v.cpu(), saved[part][k])
+                   for part, mod in (("generator", gen),
+                                     ("discriminator", dis))
+                   for k, v in mod.state_dict().items())
+    emit("adapt_cli", seconds=seconds, phase_seconds=phases,
+         phase_b_batches=phase_b, val_oa=val_oas, best_val_oa=best,
+         min_oa=ADAPT_CLI_MIN_OA, sweep_skipped=skipped, files=files,
+         fake_minus_real_mean_abs=moved, gan_pair_reloads=reloaded,
+         launches=counts, run_dir=os.path.relpath(run_dir, ROOT))
+    if not all(files.values()):
+        raise AssertionError(f"the CLI's run directory lacks {files}")
+    if len(phases) != ADAPT_CLI_EPOCHS or not all(a > 0 and b > 0
+                                                  for a, b in phases):
+        raise AssertionError(f"phase A and B each epoch: {phases}")
+    if len(phase_b) != ADAPT_CLI_EPOCHS or any(
+            nf != CLI_SIZE or nb != nf // B for nb, nf in phase_b):
+        raise AssertionError(f"phase B batches: {phase_b}")
+    if len(moved) != ADAPT_CLI_EPOCHS or min(moved) <= 0.0:
+        raise AssertionError(f"fake clouds equal to the real ones: {moved}")
+    if not reloaded:
+        raise AssertionError("model_gan.pth does not reload bit for bit")
+    if skipped < 2:
+        raise AssertionError("the missing ScanObjectNN-C sweep was not "
+                             "logged as skipped")
+    if not best >= ADAPT_CLI_MIN_OA:
+        raise AssertionError(f"best val OA {best} below {ADAPT_CLI_MIN_OA}")
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="kernels,serve,train,train_fused,cli,adapt,"
-                            "adapt_bf16",
+                            "adapt_bf16,window,adapt_cli",
                     help="comma-separated subset of kernels,serve,train,"
-                         "train_fused,cli,adapt,adapt_bf16 for a partial run, "
-                         "which prints no final result (default: all)")
+                         "train_fused,cli,adapt,adapt_bf16,window,adapt_cli "
+                         "for a partial run, which prints no final result "
+                         "(default: all)")
     phases = set(ap.parse_args(argv).phases.split(","))
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3156,6 +3513,14 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             by_path["adapt_bf16"], _ = phase_adapt(gen, ctx, "bf16", f32_run)
         del ctx
+    if "window" in phases:
+        torch.cuda.empty_cache()
+        by_path["window"], window_rows, _ = phase_window(gen)
+        if rows is not None:
+            rows.update(window_rows)
+    if "adapt_cli" in phases:
+        torch.cuda.empty_cache()
+        by_path["adapt_cli"] = phase_adapt_cli()
     emit("done", seconds=time.perf_counter() - t_start)
     if rows is None or set(by_path) != set(PATH_KERNELS):
         print(f"partial run ({sorted(phases)}): no final result",
@@ -3187,7 +3552,11 @@ def main(argv=None) -> int:
                "sa_trainbn_bwd_w2": ("satrainbn.cu",
                                      pallas + "satrainbn.py:637"),
                "sa_trainbn_bwd_x": ("satrainbn.cu",
-                                    pallas + "satrainbn.py:657")}
+                                    pallas + "satrainbn.py:657"),
+               "ball_group_max_windowed": ("window.cu",
+                                           pallas + "window.py:368"),
+               "ball_group_max_windowed_bwd": ("window.cu",
+                                               pallas + "window.py:450")}
     for path, names in PATH_KERNELS.items():
         never = [n for n in names if by_path[path][n] < 1]
         if never:
@@ -3209,7 +3578,7 @@ def main(argv=None) -> int:
         for extra in ("resample_shape", "feature_shape",
                       "gan_classifier_shapes", "gan_step_shapes", "shape",
                       "ms_forward_only", "bound_parts_ms", "composite_ms",
-                      "ms_with_d_w", "bound_ms_with_d_w"):
+                      "ms_with_d_w", "bound_ms_with_d_w", "full_n_op_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(smi, flush=True)

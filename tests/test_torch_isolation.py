@@ -19,7 +19,7 @@ from adaptpoint_tpu_torch import ops, resolve_device
 from adaptpoint_tpu_torch.models import build_model_from_cfg
 from adaptpoint_tpu_torch.ops import (attention, ballgroup, ballgroup_max,
                                       fpinterp, fpsample, gather, knn,
-                                      saeval, satrainbn)
+                                      saeval, satrainbn, window)
 from adaptpoint_tpu_torch.serving import ServingModel, export_serving_artifact
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -132,6 +132,40 @@ def test_mode_train_modules_are_covered_and_import_without_a_toolchain():
         assert not any("h5py" in ast.unparse(n) for n in top), name
 
 
+SLICE4_MODULES = ["ops.window", "engine.adapt_main", "engine.adapt_trainer",
+                  "datasets.scanobjectnn", "metricslog", "main"]
+
+
+def test_adaptpoint_modules_are_covered_and_import_without_a_toolchain():
+    """The windowed op's and the ``mode: adaptpoint`` entry path's modules
+    are among the scanned files, import nothing forbidden, and import on
+    the CPU without ``nvcc`` or ``h5py`` (the fake-cloud dumps and the
+    corruption splits import it when they write or read a file); the
+    windowed kernels' source has a plain C interface and is built."""
+    scanned = {os.path.relpath(p, os.path.join(REPO, "adaptpoint_tpu_torch"))
+               for p in _port_files()[1:]}
+    for name in SLICE4_MODULES:
+        rel = name.replace(".", os.sep)
+        assert rel + ".py" in scanned or os.path.join(
+            rel, "__init__.py") in scanned, name
+        mod = importlib.import_module("adaptpoint_tpu_torch." + name)
+        for imported in _imported_modules(mod.__file__):
+            assert imported.split(".")[0] not in FORBIDDEN, (name, imported)
+        tree = ast.parse(open(mod.__file__).read())
+        top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                      ast.ImportFrom))]
+        assert not any("h5py" in ast.unparse(n) for n in top), name
+    from adaptpoint_tpu_torch.ops import _build
+    assert "window" in _build.SOURCES
+    text = open(os.path.join(REPO, "adaptpoint_tpu_torch", "ops", "csrc",
+                             "window.cu")).read()
+    assert "torch/" not in text and 'extern "C"' in text
+    if shutil.which("nvcc") is None and not os.path.exists(
+            "/usr/local/cuda/bin/nvcc"):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            _build.load("window")
+
+
 def test_port_tests_leave_the_environment_as_they_found_it():
     """The JAX package reads ``ADAPTPOINT_TPU_*`` when it traces, and the
     whole suite may share one process: the port's tests set such a variable
@@ -236,6 +270,15 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
     with pytest.raises(ValueError):
         fpinterp.weighted_gather3_bwd_cuda(fb, idx3, torch.zeros(1, 4, 3),
                                            torch.zeros(1, 4, 5))
+    prep = window.window_prep(xyz, q, 0.3, 4, 128)
+    with pytest.raises(ValueError):
+        window.ball_group_max_windowed_cuda(0.3, 4, xyz, q, f, prep, 128, 4)
+    u8w = torch.zeros(1, 4, 5, dtype=torch.uint8)
+    cnt = torch.zeros(1, 4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        window.ball_group_max_windowed_bwd_cuda(idx, cnt, cnt, u8w, u8w, None,
+                                                None, torch.zeros(1, 4, 5),
+                                                None, 16)
     sa_idx = torch.zeros(1, 4, 4, dtype=torch.int32)
     vec6, vec7 = torch.zeros(6), torch.zeros(7)
     with pytest.raises(ValueError):
@@ -259,11 +302,13 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
     fg = f.clone().requires_grad_()
     out = ops.ball_group(0.3, 4, xyz, q, fg)
     pooled = ops.ball_group_max(0.3, 4, xyz, q, fg)
+    windowed = ops.ball_group_max_windowed(0.3, 4, xyz, q, fg, tm=4)
     fused = ops.sa_train(0.3, 4, xyz, q, fg, w1, b1, w2, b2)
     trainbn = ops.sa_trainbn(0.3, 4, xyz, q, fg, w1, torch.ones(6), b1, w2,
                              torch.ones(7), b2)
     qg = qkv.clone().requires_grad_()
     (out[1].sum() + out[2].sum() + pooled[2].sum() + pooled[3].sum()
+     + windowed[2].sum() + windowed[3].sum()
      + fused[2].sum() + trainbn[2].sum() + ops.gather_rows(fg, q).sum()
      + ops.fps(fg, 4).sum() + ops.index_points(fg, idx).sum()
      + ops.three_interpolation(xyz, xyz[:, :8], fg[:, :8]).sum()
@@ -274,7 +319,9 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
     assert fg.grad is not None and qg.grad is not None
     assert ops.launch_counts() == before
     assert set(before) == {"fps", "ball_group", "ball_group_bwd",
-                           "ball_group_max", "ball_group_max_bwd", "sa_eval",
+                           "ball_group_max", "ball_group_max_bwd",
+                           "ball_group_max_windowed",
+                           "ball_group_max_windowed_bwd", "sa_eval",
                            "sa_train", "sa_train_bwd", "gather_rows",
                            "gather_rows_bwd", "mha", "mha_bwd", "knn",
                            "fpinterp", "fpinterp_bwd", "sa_trainbn_stats",
@@ -305,6 +352,9 @@ def test_cuda_wrappers_refuse_to_drop_gradients():
         gather.GatherRows.apply(f, q)
     with pytest.raises(ValueError):
         ballgroup_max.BallGroupMax.apply(xyz, q, f, 0.3, 4, True)
+    with pytest.raises(ValueError):
+        window.BallGroupMaxWindowed.apply(xyz, q, f, 0.3, 4, 1, 1, 4, 128,
+                                          True)
     with pytest.raises(ValueError):
         saeval.SaTrain.apply(xyz, q, f, torch.zeros(8, 6), torch.zeros(6),
                              torch.zeros(6, 7), torch.zeros(7), 0.3, 4, True,
