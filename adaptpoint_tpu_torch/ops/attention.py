@@ -6,7 +6,7 @@ forward ``_mha_call`` (``_fwd_kernel``) and the flash-recompute backward
 ``_mha_bwd`` (``_bwd_kernel``), over flattened heads ``q, k, v (BH, N, d)``:
 
     S  = bf16(q) bf16(k)^T / scale          f32 accumulate
-    P  = softmax(S)                          f32, max-subtracted
+    P  = softmax(S)                          f32, max-subtracted, normalised
     out = bf16(P) bf16(v)                    f32
     dv = bf16(P)^T bf16(do);  dP = bf16(do) bf16(v)^T
     dS = P (dP - rowsum(dP * P)) / scale;  dq = bf16(dS) bf16(k)
@@ -15,8 +15,14 @@ forward ``_mha_call`` (``_fwd_kernel``) and the flash-recompute backward
 The operand rounding is part of the function. ``mha_plain`` /
 ``mha_bwd_plain`` spell it with f32 matmuls of bf16-rounded values (exact
 products, f32 sums) and hold the (N, N) logits in memory; the kernels keep
-them in registers. Bound on the H100 at (128, 2048, 16): the exp and f32
-softmax work, not bytes or tensor-core operations; see the source's note.
+them in registers. Bound on the H100 at (128, 2048, 16): the exps, 2 an
+element forward (P is normalised before it is rounded, so the forward makes
+a pass for the row sums and one for P) and 1 backward, and the instructions
+issued around them, not bytes or tensor-core operations; see the source's
+note. The forward is one kernel
+(after a cast to bf16 for f32 inputs); the backward is a pre-pass, one
+kernel over key blocks, and a sum of the key blocks' dq slices in a fixed
+order: no atomics, bit-reproducible.
 
 :class:`FusedSelfAttention` ties the kernels into one differentiable op for
 CUDA tensors; :class:`PlainSelfAttention` does the same with the plain
@@ -38,7 +44,7 @@ __all__ = ["mha_cuda", "mha_bwd_cuda", "mha_plain", "mha_bwd_plain",
            "LAUNCHES_BWD", "HEAD_DIMS"]
 
 LAUNCHES = 0      # launches of the forward kernel (mha_cuda)
-LAUNCHES_BWD = 0  # launches of the backward kernel pair (mha_bwd_cuda)
+LAUNCHES_BWD = 0  # launches of the backward kernels (mha_bwd_cuda)
 HEAD_DIMS = (16, 32, 64)
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -78,11 +84,13 @@ def mha_bwd_plain(q, k, v, scale: float, do: torch.Tensor):
 def _lib():
     lib = _build.load("attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mha_fwd_launch.argtypes = [p, p, p, i, i, i, i, f, p, p, p, p, p]
+    lib.mha_fwd_launch.argtypes = [p, p, p, i, p, i, i, i, f, p, p, p, p, p]
     lib.mha_fwd_launch.restype = ctypes.c_int
-    lib.mha_bwd_launch.argtypes = [p, p, p, i, p, p, p, p, i, i, i, f,
-                                   p, p, p, p, p]
+    lib.mha_bwd_launch.argtypes = [p, p, p, i, p, p, p, p, p, i, i, i, f,
+                                   p, p, p, p, p, p, p]
     lib.mha_bwd_launch.restype = ctypes.c_int
+    lib.mha_bwd_key_blocks.argtypes = [i, i]
+    lib.mha_bwd_key_blocks.restype = ctypes.c_int
     return lib
 
 
@@ -91,8 +99,9 @@ def _check(q, k, v):
         if t.device.type != "cuda":
             raise ValueError(f"the attention kernels need CUDA tensors, "
                              f"{name} is on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             f"aligned")
     if (q.dim() != 3 or q.dtype not in _DTYPES or q.shape[2] not in HEAD_DIMS
             or min(q.shape) < 1):
         raise ValueError(f"q must be (BH, N, d) float32 or bfloat16 with d "
@@ -103,53 +112,89 @@ def _check(q, k, v):
                              f"{q.dtype}), got {tuple(t.shape)} {t.dtype}")
 
 
+def _bf16_scratch(q):
+    """(3, BH, N, d) bf16 for the kernels' cast of f32 inputs, else None."""
+    if q.dtype == torch.bfloat16:
+        return None
+    return torch.empty((3, *q.shape), dtype=torch.bfloat16, device=q.device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def mha_cuda(q, k, v, scale: float, for_backward: bool = False):
     """The forward kernel: ``out (BH, N, d)`` f32, and with ``for_backward``
-    also what the backward kernels need, ``(o32, row_max, row_sum)``."""
+    also what the backward kernels need, ``(o32, row_off, row_inv)``: o32 =
+    P v with P to 16 bits, and per row ``row_off = -log2(e) max_j S_ij`` and
+    ``row_inv = 1 / sum_j exp(S_ij - max)``, from which the backward forms
+    the forward's P."""
     global LAUNCHES
     _check(q, k, v)
     BH, N, D = q.shape
     dev = q.device
     out = torch.empty((BH, N, D), dtype=torch.float32, device=dev)
-    row_max = torch.empty((BH, N), dtype=torch.float32, device=dev)
-    row_sum = torch.empty((BH, N), dtype=torch.float32, device=dev)
+    row_off = torch.empty((BH, N), dtype=torch.float32, device=dev)
+    row_inv = torch.empty((BH, N), dtype=torch.float32, device=dev)
     o32 = torch.empty_like(out) if for_backward else None
+    qkv16 = _bf16_scratch(q)
     lib = _lib()
     err = lib.mha_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        int(q.dtype == torch.bfloat16), BH, N, D, float(scale),
-        out.data_ptr(), None if o32 is None else o32.data_ptr(),
-        row_max.data_ptr(), row_sum.data_ptr(),
+        int(q.dtype == torch.bfloat16), _ptr(qkv16), BH, N, D,
+        float(scale), out.data_ptr(), _ptr(o32),
+        row_off.data_ptr(), row_inv.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "mha")
     LAUNCHES += 1
-    return (out, (o32, row_max, row_sum)) if for_backward else out
+    return (out, (o32, row_off, row_inv)) if for_backward else out
 
 
 def mha_bwd_cuda(q, k, v, scale: float, do: torch.Tensor, saved):
     """The backward kernels: ``(dq, dk, dv)`` in q's type. ``saved`` is the
-    ``(o32, row_max, row_sum)`` that ``mha_cuda(..., for_backward=True)``
+    ``(o32, row_off, row_inv)`` that ``mha_cuda(..., for_backward=True)``
     returned for the same q, k, v and scale."""
     global LAUNCHES_BWD
     _check(q, k, v)
     if (do.device != q.device or do.shape != q.shape
-            or do.dtype != torch.float32 or not do.is_contiguous()):
-        raise ValueError(f"do must be a contiguous float32 {tuple(q.shape)} "
-                         f"on {q.device}, got {tuple(do.shape)} {do.dtype}")
-    o32, row_max, row_sum = saved
+            or do.dtype != torch.float32 or not do.is_contiguous()
+            or do.data_ptr() % 16):
+        raise ValueError(f"do must be a contiguous, 16-byte aligned float32 "
+                         f"{tuple(q.shape)} on {q.device}, got "
+                         f"{tuple(do.shape)} {do.dtype}")
+    o32, row_off, row_inv = saved
     BH, N, D = q.shape
+    for name, t, shape in (("o32", o32, (BH, N, D)), ("row_off", row_off,
+                                                      (BH, N)),
+                           ("row_inv", row_inv, (BH, N))):
+        if (t is None or t.device != q.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"saved {name} must be a contiguous float32 "
+                             f"{shape} on {q.device}")
+    dev = q.device
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    delta = torch.empty_like(row_max)
     lib = _lib()
+    qkv16 = _bf16_scratch(q)
+    dob = torch.empty((BH, N, D), dtype=torch.bfloat16, device=dev)
+    stats = torch.empty((BH, N, 4), dtype=torch.float32, device=dev)
+    ws = torch.empty((BH, lib.mha_bwd_key_blocks(N, D), N, D),
+                     dtype=torch.float32, device=dev)
     err = lib.mha_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        int(q.dtype == torch.bfloat16), do.data_ptr(), o32.data_ptr(),
-        row_max.data_ptr(), row_sum.data_ptr(), BH, N, D, float(scale),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(q.dtype == torch.bfloat16), _ptr(qkv16), do.data_ptr(),
+        o32.data_ptr(), row_off.data_ptr(), row_inv.data_ptr(), BH, N, D,
+        float(scale), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dob.data_ptr(), stats.data_ptr(), ws.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "mha_bwd")
     LAUNCHES_BWD += 1
     return dq, dk, dv
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy where its data does not start on 16 bytes (the
+    kernels copy 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 class FusedSelfAttention(torch.autograd.Function):
@@ -159,6 +204,7 @@ class FusedSelfAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, scale):
         ctx.scale = float(scale)
         need = any(ctx.needs_input_grad[:3])
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
         got = mha_cuda(q, k, v, ctx.scale, for_backward=need)
         out, saved = got if need else (got, ())
         ctx.save_for_backward(q, k, v, *saved)
@@ -167,7 +213,8 @@ class FusedSelfAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, *saved = ctx.saved_tensors
-        dq, dk, dv = mha_bwd_cuda(q, k, v, ctx.scale, do.float().contiguous(),
+        dq, dk, dv = mha_bwd_cuda(q, k, v, ctx.scale,
+                                  _aligned(do.float().contiguous()),
                                   tuple(saved))
         return dq, dk, dv, None
 

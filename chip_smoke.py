@@ -17,11 +17,16 @@ Phases, one JSON object a line:
    fused SA forward and backward at the N=2048 stages of a ``gan_step``; the
    row gather and its scatter-add at the resampling shape, a feature shape
    and every gather of a ``gan_step``; the kNN at the five shapes of a
-   ``gan_step``; the flash attention forward and backward at (128, 2048, 16)
-   and at ragged and wider shapes; the 3-NN weighted gather forward and
-   backward at the four feature-propagation levels of a bf16 ``gan_step``,
-   with repeated neighbours and on a cloud with half its points at the
-   origin), with errors, tolerances, bounds and CUDA-event times.
+   ``gan_step``; the flash attention forward and backward, directly and
+   through autograd, for bf16 and f32 inputs, at (128, 2048, 16) and at
+   every head dim across the tiles' edges (N = 1, 40, 127, 128, 129, 2047),
+   two backward runs bit for bit equal, timed at (128, 2048, 16) for both
+   input types beside ``scaled_dot_product_attention``
+   (``--phases attention`` runs this part alone); the 3-NN weighted gather
+   forward and backward at the four feature-propagation levels of a bf16
+   ``gan_step``, with repeated neighbours and on a cloud with half its
+   points at the origin), with errors, tolerances, bounds and CUDA-event
+   times.
 4. ``serve``: full-width ``cfgs/scanobjectnn/pointnext-s.yaml`` with seeded
    weights, exported unfused and fused at buckets 1,8,32 and served by the
    port's HTTP server; /predict with n = 1, 8, 32, 40 must match the same
@@ -263,8 +268,9 @@ PATH_KERNELS = {
 OWN_KERNELS = ("fps_kernel", "ball_group_kernel", "ball_group_bwd_kernel",
                "ball_group_max_kernel", "ball_group_max_bwd_kernel",
                "sa_eval_kernel", "sa_train_bwd_kernel", "gather_rows_kernel",
-               "scatter_add_rows_kernel", "mha_fwd_kernel",
-               "mha_bwd_dq_kernel", "mha_bwd_dkv_kernel", "knn_kernel",
+               "scatter_add_rows_kernel", "mha_cast_bf16_kernel",
+               "mha_fwd_kernel", "mha_bwd_prep_kernel", "mha_bwd_kernel",
+               "mha_dq_reduce_kernel", "knn_kernel",
                "fpinterp_fwd_kernel", "fpinterp_bwd_kernel")
 # adapt phase: the augmentor's four groupers at N=2048: (N -> M, C, radius),
 # K_GAN neighbours (the max-pooled ball group); the mask head's attention
@@ -976,6 +982,140 @@ def check_sa_train(gen, stages, inputs):
     return fwd, bwd
 
 
+def check_attention(gen, rows) -> None:
+    """The flash attention kernels (rows 9, 10) against their plain versions
+    within TOL_MHA, directly and through autograd, at both input types:
+    every head dim at N = 1, below a tile (40), at the tiles' edges (127,
+    128, 129) and at 2047, the earlier ragged shapes, and the mask head's
+    (128, 2048, 16); two backward runs bit for bit equal (dq is summed over
+    the key blocks in a fixed order, no atomics). Times at the mask head's
+    shape for bf16 inputs, what the bf16 policy's ``AnchorSelfAttention``
+    passes and the row's ``ms``, and for f32 beside them, with
+    ``scaled_dot_product_attention`` on the same bf16 inputs in the same run.
+    Adds rows "mha" and "mha_bwd" to ``rows``."""
+    import torch
+    import torch.nn.functional as F
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.ops import attention
+
+    def mha_inputs(shape, dtype=torch.float32):
+        return [torch.randn(shape, generator=gen, device=DEV).to(dtype)
+                for _ in range(4)]
+
+    def mha_check(shape, scale, dtype=torch.float32):
+        q, k, v, do = mha_inputs(shape, dtype)
+        do = do.float()
+        out, saved = attention.mha_cuda(q, k, v, scale, for_backward=True)
+        grads = attention.mha_bwd_cuda(q, k, v, scale, do, saved)
+        again = attention.mha_bwd_cuda(q, k, v, scale, do, saved)
+        # through autograd, as the model calls it
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        auto = torch.autograd.grad(ops.fused_self_attention(*qkv, scale), qkv,
+                                   do)
+        ref = attention.mha_plain(q, k, v, scale)
+        ref_grads = attention.mha_bwd_plain(q, k, v, scale, do)
+        torch.cuda.synchronize()
+        errs, worst, ok = {}, 0.0, True
+        pairs = [("out", out, ref)]
+        for name, a, b_, c in zip(("dq", "dk", "dv"), grads, ref_grads, auto):
+            pairs += [(name, a, b_), ("autograd_" + name, c, b_)]
+        for name, a, b_ in pairs:
+            if a.dtype != b_.dtype or a.shape != b_.shape:
+                ok = False
+            a, b_ = a.float(), b_.float()
+            d = (a - b_).abs()
+            errs[name] = float(d.max())
+            scaled = float((d / (1.0 + b_.abs())).max())
+            worst = max(worst, scaled)
+            tol = TOL_MHA if dtype == torch.float32 or name == "out" \
+                else TOL_MHA + 2.0 ** -8  # a bf16 gradient: one more ulp
+            ok = ok and scaled <= tol and bool(torch.isfinite(a).all())
+        repeat = all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+        emit("kernel", name="mha", shape=list(shape), scale=scale,
+             dtype=str(dtype), max_abs_err=errs, max_scaled_err=worst,
+             out_absmax=float(ref.abs().max()), backward_repeats=repeat,
+             tolerance=f"|kernel - plain| <= {TOL_MHA} * (1 + |plain|) "
+                       f"(+ 2^-8 for gradients stored as bf16); two "
+                       f"backward runs bit for bit equal")
+        if not ok or not repeat:
+            raise AssertionError(f"attention kernels disagree at {shape} "
+                                 f"{dtype}: {errs}, backward repeats: "
+                                 f"{repeat}")
+        return errs
+
+    # a power-of-two scale folds the backward's division into the product;
+    # sqrt(32) takes the division
+    for dtype in (torch.float32, torch.bfloat16):
+        for d, scale in ((16, 4.0), (32, 32 ** 0.5), (64, 8.0)):
+            for n in (1, 40, 127, 128, 129, 2047):
+                mha_check((2, n, d), scale, dtype)
+        for shape, scale in (((3, 100, 32), 32 ** 0.5), ((2, 65, 64), 8.0),
+                             ((2, 520, 16), 4.0), ((4, 1024, 16), 3.0)):
+            mha_check(shape, scale, dtype)
+    errs = {dt: mha_check(MHA_SHAPE, MHA_SCALE, dt)
+            for dt in (torch.float32, torch.bfloat16)}
+    torch.cuda.empty_cache()  # the plain version's (BH, N, N) tensors
+
+    bh, n, d = MHA_SHAPE
+    q, k, v, do = mha_inputs(MHA_SHAPE)
+    qb, kb, vb = [t.to(torch.bfloat16) for t in (q, k, v)]
+    ql, kl, vl = [t.reshape(1, bh, n, d).requires_grad_()
+                  for t in (qb, kb, vb)]
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl,
+                                             scale=1.0 / MHA_SCALE)
+    dob = do.to(torch.bfloat16).reshape(1, bh, n, d)
+    _, saved = attention.mha_cuda(qb, kb, vb, MHA_SCALE, for_backward=True)
+    _, saved32 = attention.mha_cuda(q, k, v, MHA_SCALE, for_backward=True)
+
+    def fwd(a, b_, c, extras=True):
+        return lambda: attention.mha_cuda(a, b_, c, MHA_SCALE,
+                                          for_backward=extras)
+
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    attention.mha_bwd_cuda(qb, kb, vb, MHA_SCALE, do, saved)
+    bwd_peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+    t_bytes = 4 * bh * n * d * 4 / PEAK_BYTES
+    t_exp = bh * n * n / PEAK_EXP
+    rows["mha"] = dict(
+        shape=list(MHA_SHAPE), dtype="bfloat16",
+        max_abs_err=errs[torch.bfloat16]["out"],
+        max_abs_err_f32=errs[torch.float32]["out"],
+        ms=cuda_ms(fwd(qb, kb, vb)),
+        ms_forward_only=cuda_ms(fwd(qb, kb, vb, False)),
+        ms_f32=cuda_ms(fwd(q, k, v)),
+        ms_forward_only_f32=cuda_ms(fwd(q, k, v, False)),
+        plain_ms=cuda_ms(lambda: attention.mha_plain(qb, kb, vb, MHA_SCALE),
+                         50.0),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            ql, kl, vl, scale=1.0 / MHA_SCALE)),
+        **bound_row(t_bytes, max(4 * bh * n * n * d / PEAK_BF16, t_exp)),
+        bound_parts_ms={"bytes": 1e3 * t_bytes, "exp": 1e3 * t_exp,
+                        "tensor_core": 1e3 * 4 * bh * n * n * d / PEAK_BF16})
+    t_bytes = 7 * bh * n * d * 4 / PEAK_BYTES
+    rows["mha_bwd"] = dict(
+        shape=list(MHA_SHAPE), dtype="bfloat16",
+        max_abs_err=max(errs[torch.bfloat16][g] for g in ("dq", "dk", "dv")),
+        max_abs_err_f32=max(errs[torch.float32][g]
+                            for g in ("dq", "dk", "dv")),
+        ms=cuda_ms(lambda: attention.mha_bwd_cuda(qb, kb, vb, MHA_SCALE, do,
+                                                  saved)),
+        ms_f32=cuda_ms(lambda: attention.mha_bwd_cuda(q, k, v, MHA_SCALE, do,
+                                                      saved32)),
+        peak_scratch_gb=bwd_peak_gb,
+        plain_ms=cuda_ms(lambda: attention.mha_bwd_plain(qb, kb, vb,
+                                                         MHA_SCALE, do),
+                         50.0),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), dob, retain_graph=True)),
+        **bound_row(t_bytes, max(10 * bh * n * n * d / PEAK_BF16, t_exp)),
+        bound_parts_ms={"bytes": 1e3 * t_bytes, "exp": 1e3 * t_exp,
+                        "tensor_core": 1e3 * 10 * bh * n * n * d / PEAK_BF16})
+    emit("attention_times", mha=rows["mha"], mha_bwd=rows["mha_bwd"])
+    del q, k, v, do, qb, kb, vb, ql, kl, vl, dob, lib_out, saved, saved32
+    torch.cuda.empty_cache()
+
+
 def phase_adapt_kernels(gen, rows) -> None:
     """The kernels phase A adds, each against its plain version at the shapes
     the B=32, N=2048 ``gan_step`` gives it: the kNN (indices exact), the
@@ -987,9 +1127,8 @@ def phase_adapt_kernels(gen, rows) -> None:
     gathers and five scatter-adds at their own shapes and indices. Adds
     their rows to ``rows``."""
     import torch
-    import torch.nn.functional as F
     from adaptpoint_tpu_torch import ops
-    from adaptpoint_tpu_torch.ops import attention, knn
+    from adaptpoint_tpu_torch.ops import knn
     from adaptpoint_tpu_torch.ops import fpsample as fps
 
     cloud = torch.randn((B, N_GAN, 3), generator=gen, device=DEV)
@@ -1041,93 +1180,7 @@ def phase_adapt_kernels(gen, rows) -> None:
     acc.update(bound_row(acc.pop("t_b"), acc.pop("t_o")))
     rows["knn"] = acc
 
-    # ---- attention at the mask head's shape, then ragged N and wider heads
-    def mha_inputs(shape, dtype=torch.float32):
-        return [torch.randn(shape, generator=gen, device=DEV).to(dtype)
-                for _ in range(4)]
-
-    def mha_check(shape, scale, dtype=torch.float32):
-        q, k, v, do = mha_inputs(shape, dtype)
-        do = do.float()
-        out, saved = attention.mha_cuda(q, k, v, scale, for_backward=True)
-        grads = attention.mha_bwd_cuda(q, k, v, scale, do, saved)
-        # through autograd, as the model calls it
-        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
-        auto = torch.autograd.grad(ops.fused_self_attention(*qkv, scale), qkv,
-                                   do)
-        ref = attention.mha_plain(q, k, v, scale)
-        ref_grads = attention.mha_bwd_plain(q, k, v, scale, do)
-        torch.cuda.synchronize()
-        errs, worst, ok = {}, 0.0, True
-        pairs = [("out", out, ref)]
-        for name, a, b_, c in zip(("dq", "dk", "dv"), grads, ref_grads, auto):
-            pairs += [(name, a, b_), ("autograd_" + name, c, b_)]
-        for name, a, b_ in pairs:
-            if a.dtype != b_.dtype or a.shape != b_.shape:
-                ok = False
-            a, b_ = a.float(), b_.float()
-            d = (a - b_).abs()
-            errs[name] = float(d.max())
-            scaled = float((d / (1.0 + b_.abs())).max())
-            worst = max(worst, scaled)
-            tol = TOL_MHA if dtype == torch.float32 or name == "out" \
-                else TOL_MHA + 2.0 ** -8  # a bf16 gradient: one more ulp
-            ok = ok and scaled <= tol and bool(torch.isfinite(a).all())
-        emit("kernel", name="mha", shape=list(shape), scale=scale,
-             dtype=str(dtype), max_abs_err=errs, max_scaled_err=worst,
-             out_absmax=float(ref.abs().max()),
-             tolerance=f"|kernel - plain| <= {TOL_MHA} * (1 + |plain|) "
-                       f"(+ 2^-8 for gradients stored as bf16)")
-        if not ok:
-            raise AssertionError(f"attention kernels disagree at {shape} "
-                                 f"{dtype}: {errs}")
-        return errs
-
-    for shape, scale in (((3, 100, 32), 32 ** 0.5), ((2, 65, 64), 8.0),
-                         ((2, 1, 16), 4.0), ((2, 520, 16), 4.0)):
-        mha_check(shape, scale)
-    mha_check((4, 1024, 16), MHA_SCALE, torch.bfloat16)
-    errs = mha_check(MHA_SHAPE, MHA_SCALE)
-    torch.cuda.empty_cache()  # the plain version's (BH, N, N) tensors
-
-    bh, n, d = MHA_SHAPE
-    q, k, v, do = mha_inputs(MHA_SHAPE)
-    qb, kb, vb = [t.to(torch.bfloat16).reshape(1, bh, n, d).requires_grad_()
-                  for t in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(qb, kb, vb,
-                                             scale=1.0 / MHA_SCALE)
-    dob = do.to(torch.bfloat16).reshape(1, bh, n, d)
-    _, saved = attention.mha_cuda(q, k, v, MHA_SCALE, for_backward=True)
-    t_bytes = 4 * bh * n * d * 4 / PEAK_BYTES
-    t_exp = bh * n * n / PEAK_EXP
-    rows["mha"] = dict(
-        shape=list(MHA_SHAPE), max_abs_err=errs["out"],
-        ms=cuda_ms(lambda: attention.mha_cuda(q, k, v, MHA_SCALE,
-                                              for_backward=True)),
-        ms_forward_only=cuda_ms(lambda: attention.mha_cuda(q, k, v,
-                                                           MHA_SCALE)),
-        plain_ms=cuda_ms(lambda: attention.mha_plain(q, k, v, MHA_SCALE),
-                         50.0),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qb, kb, vb, scale=1.0 / MHA_SCALE)),
-        **bound_row(t_bytes, max(4 * bh * n * n * d / PEAK_BF16, t_exp)),
-        bound_parts_ms={"bytes": 1e3 * t_bytes, "exp": 1e3 * t_exp,
-                        "tensor_core": 1e3 * 4 * bh * n * n * d / PEAK_BF16})
-    t_bytes = 7 * bh * n * d * 4 / PEAK_BYTES
-    rows["mha_bwd"] = dict(
-        shape=list(MHA_SHAPE),
-        max_abs_err=max(errs["dq"], errs["dk"], errs["dv"]),
-        ms=cuda_ms(lambda: attention.mha_bwd_cuda(q, k, v, MHA_SCALE, do,
-                                                  saved)),
-        plain_ms=cuda_ms(lambda: attention.mha_bwd_plain(q, k, v, MHA_SCALE,
-                                                         do), 50.0),
-        library_ms=cuda_ms(lambda: torch.autograd.grad(
-            lib_out, (qb, kb, vb), dob, retain_graph=True)),
-        **bound_row(t_bytes, max(10 * bh * n * n * d / PEAK_BF16, t_exp)),
-        bound_parts_ms={"bytes": 1e3 * t_bytes, "exp": 1e3 * t_exp,
-                        "tensor_core": 1e3 * 10 * bh * n * n * d / PEAK_BF16})
-    del q, k, v, do, qb, kb, vb, dob, lib_out, saved
-    torch.cuda.empty_cache()
+    check_attention(gen, rows)
 
     # ---- the max-pooled ball group, forward and backward, at the four
     # grouper shapes, then on a cloud with half its points at the origin and
@@ -3463,7 +3516,8 @@ def main(argv=None) -> int:
                     help="comma-separated subset of kernels,serve,train,"
                          "train_fused,cli,adapt,adapt_bf16,window,adapt_cli "
                          "for a partial run, which prints no final result "
-                         "(default: all)")
+                         "(default: all); attention alone runs the kernel "
+                         "phase's attention checks and times")
     phases = set(ap.parse_args(argv).phases.split(","))
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3489,6 +3543,8 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows = phase_kernels(gen) if "kernels" in phases else None
+    if "attention" in phases and rows is None:
+        check_attention(gen, {})
     by_path = {}
     if "serve" in phases:
         out_dir = os.path.join(ROOT, "build", "chip_smoke")

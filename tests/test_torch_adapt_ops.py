@@ -204,6 +204,13 @@ def _mha_inputs(seed, shape):
     return [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
 
 
+def _bf16_ulp(x):
+    """The spacing of bf16 values at each entry of ``x`` (0 at 0)."""
+    mag = np.abs(np.asarray(x, np.float64))
+    exp = np.floor(np.log2(np.where(mag > 0, mag, 1.0)))
+    return np.where(mag > 0, 2.0 ** (exp - 7), 0.0)
+
+
 def _close(got, ref, what):
     got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
     err = np.abs(got - ref) / (1.0 + np.abs(ref))
@@ -233,6 +240,64 @@ def test_attention_forward_and_gradient_match_mha_pallas(shape, scale,
     for name, t, r in zip("qkv", (tq, tk, tv), ref_g):
         _close(t.grad.numpy(), r, "d" + name)
         assert np.abs(t.grad.numpy()).max() > 1e-2
+
+
+def test_attention_bf16_inputs_match_mha_pallas_at_the_mask_head_length(
+        monkeypatch):
+    """The main path's type: bf16 q, k, v at N = 2048, as the bf16 policy's
+    ``AnchorSelfAttention`` passes them, against the Pallas kernel in
+    interpret mode: forward and ``jax.grad`` of ``sum(sin(out))``.
+
+    Tolerance: ``TOL_MHA * (1 + |ref|)`` on the output and on dq. On dk and
+    dv that plus one bf16 rounding of the TPU kernel's first partial sum,
+    ``2^-8 * |partial|``, plus one bf16 ulp of ``ref``: at N = 2048 its
+    backward takes query tiles of 1024 (``_pick_tile``) and accumulates dk,
+    dv in their bf16 output blocks, so it rounds the sum over the first 1024
+    queries to bf16 before adding the second tile's; the port, like the JAX
+    package's XLA route, rounds once. The two f32 sums then differ by up to
+    ``2^-8 * |partial|`` and can round to adjacent bf16 values. The partial
+    is taken from the plain version's sum over those queries."""
+    monkeypatch.setenv("ADAPTPOINT_TPU_PALLAS_INTERPRET", "1")
+    shape, scale = (2, 2048, 16), 4.0
+    q, k, v = [np.asarray(jnp.asarray(a).astype(jnp.bfloat16)
+                          .astype(jnp.float32))
+               for a in _mha_inputs(15, shape)]
+    jq, jk, jv = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+
+    def f(q_, k_, v_):
+        return jnp.sum(jnp.sin(mha_pallas(q_, k_, v_, scale)))
+
+    ref = mha_pallas(jq, jk, jv, scale)
+    ref_g = jax.grad(f, argnums=(0, 1, 2))(jq, jk, jv)
+    assert all(g.dtype == jnp.bfloat16 for g in ref_g)
+    tq, tk, tv = [torch.tensor(a).bfloat16().requires_grad_()
+                  for a in (q, k, v)]
+    out = ops.fused_self_attention(tq, tk, tv, scale)
+    assert out.dtype == torch.float32
+    torch.sin(out).sum().backward()
+    _close(out.detach().numpy(), ref, "out")
+    assert tq.grad.dtype == tk.grad.dtype == tv.grad.dtype == torch.bfloat16
+    _close(tq.grad.float().numpy(), np.asarray(ref_g[0], np.float32), "dq")
+
+    # the plain version's partial sums over the first tile of 1024 queries
+    half = shape[1] // 2
+    xq, xk, xv = [torch.tensor(a) for a in (q, k, v)]
+    do = torch.cos(out.detach())
+    p = attention._softmax_plain(xq, xk, scale)
+    dp = torch.matmul(attention._b(do), xv.transpose(1, 2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) / scale
+    partial = {"k": torch.matmul(attention._b(ds)[:, :half].transpose(1, 2),
+                                 xq[:, :half]),
+               "v": torch.matmul(attention._b(p)[:, :half].transpose(1, 2),
+                                 attention._b(do)[:, :half])}
+    for name, t, r in (("k", tk, ref_g[1]), ("v", tv, ref_g[2])):
+        got, want = t.grad.float().numpy(), np.asarray(r, np.float32)
+        bound = (TOL_MHA * (1.0 + np.abs(want))
+                 + 2.0 ** -8 * np.abs(partial[name].numpy())
+                 + _bf16_ulp(want))
+        excess = np.abs(got - want) - bound
+        assert excess.max() <= 0.0, ("d" + name, float(excess.max()))
+        assert np.abs(got).max() > 1e-2
 
 
 def test_attention_forward_matches_the_xla_route():
