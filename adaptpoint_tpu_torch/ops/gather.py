@@ -5,7 +5,9 @@ Replaces ``adaptpoint_tpu/ops/pallas/gather.py`` ``gather_rows_pallas``
 ``out[b, m, :] = pts[b, idx[b, m], :]`` exactly, for float32 and bfloat16
 rows, and ``g_pts[b, idx[b, m], :] += g[b, m, :]`` with f32 sums cast to the
 primal type. Bound on the H100: bytes, and at the train step's resampling
-shape (about 1 MB) the launch itself; see the source's note.
+shape (about 1 MB) the launch itself; see the source's note. The wrappers'
+host path is one combined check, the allocation and the ctypes call, with
+the stream read as a raw handle.
 
 ``gather_rows`` is differentiable on both devices: a CUDA tensor goes through
 :class:`GatherRows` (both directions are kernels), a CPU tensor through
@@ -14,7 +16,6 @@ shape (about 1 MB) the launch itself; see the source's note.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -51,24 +52,38 @@ def gather_rows_bwd_plain(g: torch.Tensor, idx: torch.Tensor,
     return acc.to(g.dtype)
 
 
-@functools.cache
-def _lib():
+# the C entry points, bound at the first launch: a launch reads a module
+# global instead of building its function object and argument types again
+_fwd_entry = _bwd_entry = None
+
+
+def _bind():
+    global _fwd_entry, _bwd_entry
     lib = _build.load("gather")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gather_rows_launch.argtypes = [p, p, i, i, i, i, i, p, p]
     lib.gather_rows_launch.restype = ctypes.c_int
     lib.gather_rows_bwd_launch.argtypes = [p, p, i, i, i, i, i, p, p, p]
     lib.gather_rows_bwd_launch.restype = ctypes.c_int
-    return lib
+    _fwd_entry, _bwd_entry = lib.gather_rows_launch, lib.gather_rows_bwd_launch
+    return _fwd_entry, _bwd_entry
 
 
 def _check(rows: torch.Tensor, idx: torch.Tensor, what: str) -> None:
-    for name, t in ((what, rows), ("idx", idx)):
-        if t.device.type != "cuda":
-            raise ValueError(f"the gather kernels need CUDA tensors, {name} "
-                             f"is on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    """Device, type, shape and contiguity, as one test on the launch path;
+    the message is built only when it fails."""
+    if (rows.is_cuda and idx.is_cuda and rows.dtype in _DTYPES
+            and idx.dtype == torch.int32 and rows.dim() == 3
+            and idx.dim() == 2 and rows.is_contiguous()
+            and idx.is_contiguous() and rows.get_device() == idx.get_device()
+            and idx.shape[0] == rows.shape[0] and idx.shape[1] > 0
+            and rows.numel() > 0):
+        return
+    if not (rows.is_cuda and idx.is_cuda) \
+            or rows.get_device() != idx.get_device():
+        raise ValueError(f"the gather kernels need CUDA tensors on one "
+                         f"device, {what} is on {rows.device}, idx on "
+                         f"{idx.device}")
     if rows.dim() != 3 or rows.dtype not in _DTYPES:
         raise ValueError(f"{what} must be (B, *, C) float32 or bfloat16, got "
                          f"{tuple(rows.shape)} {rows.dtype}")
@@ -76,9 +91,10 @@ def _check(rows: torch.Tensor, idx: torch.Tensor, what: str) -> None:
             or idx.shape[0] != rows.shape[0]):
         raise ValueError(f"idx must be (B, M) int32, got {tuple(idx.shape)} "
                          f"{idx.dtype}")
-    if min(rows.shape) < 1 or idx.shape[1] < 1:
-        raise ValueError(f"empty gather: {tuple(rows.shape)} by "
-                         f"{tuple(idx.shape)}")
+    if not (rows.is_contiguous() and idx.is_contiguous()):
+        raise ValueError(f"{what} and idx must be contiguous")
+    raise ValueError(f"empty gather: {tuple(rows.shape)} by "
+                     f"{tuple(idx.shape)}")
 
 
 def gather_rows_cuda(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -90,11 +106,12 @@ def gather_rows_cuda(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     B, N, C = points.shape
     M = idx.shape[1]
     out = torch.empty((B, M, C), dtype=points.dtype, device=points.device)
-    lib = _lib()
-    err = lib.gather_rows_launch(
+    err = (_fwd_entry or _bind()[0])(
         points.data_ptr(), idx.data_ptr(), B, N, M, C, points.element_size(),
-        out.data_ptr(), torch.cuda.current_stream(points.device).cuda_stream)
-    _build.check(lib, err, "gather_rows")
+        out.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(points.get_device()))
+    if err:
+        _build.check(_build.load("gather"), err, "gather_rows")
     LAUNCHES += 1
     return out
 
@@ -112,12 +129,12 @@ def gather_rows_bwd_cuda(g: torch.Tensor, idx: torch.Tensor,
     acc = torch.empty((B, n, C), dtype=torch.float32, device=g.device)
     out = acc if g.dtype == torch.float32 else torch.empty(
         (B, n, C), dtype=g.dtype, device=g.device)
-    lib = _lib()
-    err = lib.gather_rows_bwd_launch(
+    err = (_bwd_entry or _bind()[1])(
         g.data_ptr(), idx.data_ptr(), B, n, M, C, g.element_size(),
         acc.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(g.device).cuda_stream)
-    _build.check(lib, err, "gather_rows_bwd")
+        torch._C._cuda_getCurrentRawStream(g.get_device()))
+    if err:
+        _build.check(_build.load("gather"), err, "gather_rows_bwd")
     LAUNCHES_BWD += 1
     return out
 

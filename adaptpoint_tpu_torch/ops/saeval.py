@@ -10,7 +10,10 @@ the features, and with ``param_grads`` for the folded weights, recomputed
 without the grouped tensor. Bound on the H100: operations -- the convs over
 B*M*K rows, about twice as many in the backward. The kernels stage the
 grouped rows of a tile of centers in shared memory as bf16 and run the
-convs on the tensor cores (wmma, f32 accumulate); see the sources' notes.
+convs on the tensor cores with f32 accumulation: the forward with wmma, the
+backward with mma.sync on weights streamed through a cp.async double
+buffer (:func:`_bwd_centers_per_block` picks its tile); see the sources'
+notes.
 
 The TPU kernel's rounding is part of the function (``splits=1``), and both
 versions here reproduce it: ``fi = bf16(f)``; gathered xyz is the two-split
@@ -177,7 +180,7 @@ def _lib_bwd():
                                         i, i, i, i, i, i, i, i, i, i,
                                         f, i, p, p, p, p, p, p, p]
     lib.sa_train_bwd_launch.restype = ctypes.c_int
-    lib.sa_train_bwd_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.sa_train_bwd_smem_bytes.argtypes = [i, i, i, i, i, i, i]
     lib.sa_train_bwd_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -242,10 +245,68 @@ def _centers_per_block(K: int, Wp: int, midp: int, coutp: int) -> int:
     return _tile_centers(_lib().sa_eval_smem_bytes, K, Wp, midp, coutp)
 
 
+# The backward's shared-memory layout (csrc/sa_train_bwd.cu ``layout``): a
+# double buffer of _BWD_KC weight rows a stage, rows padded by _BWD_PAD
+# bf16, passes of 16 warp tiles of 32 x 32 and at most 256 columns.
+_BWD_KC, _BWD_PAD = 64, 8
+# the most a block may use for two blocks to share an SM: (228 KB - 2 x 1 KB
+# the hardware keeps per block) / 2
+_SMEM_TWO_BLOCKS = 115712
+
+
+def _a128(x: int) -> int:
+    return (x + 127) // 128 * 128
+
+
+def _bwd_rows(tm: int, K: int) -> int:
+    """Rows of a backward block: ``tm`` centers' ``round16(K)`` each, padded
+    to a multiple of 32."""
+    return (tm * _round16(K) + 31) // 32 * 32
+
+
+def _bwd_smem_bytes(tm: int, K: int, Wp: int, midp: int, coutp: int, C: int,
+                    pg: bool) -> int:
+    """Shared memory of one backward block, as ``sa_train_bwd_smem_bytes``
+    computes it (the launch checks it again; ``chip_smoke.py`` holds the two
+    equal at the GAN step's stages)."""
+    rows = _bwd_rows(tm, K)
+    npass = min(256, 16 // (rows // 32) * 32)
+    np1, np3 = min(npass, midp), min(npass, _round16(C))
+    a = rows * (Wp + _BWD_PAD) * 2
+    gh = rows * (midp + _BWD_PAD) * 2
+    alias = not pg and midp <= npass
+    total = _a128(max(a, gh) if alias else a) + (0 if alias else _a128(gh))
+    # GO dense only with param_grads; the compact bf16(g_out) and slots
+    if pg:
+        total += _a128(rows * (coutp + _BWD_PAD) * 2)
+    total += _a128(tm * coutp * 2) + _a128(tm * coutp)
+    slot = _a128(2 * max(_BWD_KC * (np1 + _BWD_PAD),
+                         np1 * (_BWD_KC + _BWD_PAD),
+                         np3 * (_BWD_KC + _BWD_PAD)))
+    # after the schedule the ring's space holds w1's dp rows and the rows'
+    # dp values, then with param_grads hb and the wmma scratch
+    ring = max(2 * slot, _a128(3 * midp * 4) + _a128(rows * 16))
+    if pg:
+        ring = max(ring, _a128(gh) + 8 * 256 * 4)
+    return total + ring + _a128(rows * 4) + 2 * _a128(tm * 16)
+
+
 @functools.lru_cache(maxsize=64)
-def _bwd_centers_per_block(K: int, Wp: int, midp: int, coutp: int) -> int:
-    return _tile_centers(_lib_bwd().sa_train_bwd_smem_bytes, K, Wp, midp,
-                         coutp)
+def _bwd_centers_per_block(K: int, Wp: int, midp: int, coutp: int, C: int,
+                           pg: bool) -> int:
+    """Centers a backward block owns, at most 256 rows: centers whose rows
+    fill 256, 128, 64 or 32 exactly first (every warp gets the same share of
+    tiles), then any count; the most with which two blocks fit on an SM,
+    else the most with which one does."""
+    kp = _round16(K)
+    counts = [r // kp for r in (256, 128, 64, 32) if r % kp == 0]
+    counts += [t for t in range(256 // kp, 0, -1) if t not in counts]
+    for limit in (_SMEM_TWO_BLOCKS, _SMEM_LIMIT):
+        for tm in counts:
+            if _bwd_smem_bytes(tm, K, Wp, midp, coutp, C, pg) <= limit:
+                return tm
+    raise ValueError(f"SA stage too wide for one backward block: K={K} "
+                     f"Wp={Wp} mid={midp} cout={coutp}")
 
 
 def _forward_cuda(radius, nsample, xyz, query_idx, feats, packed, relative,
@@ -351,7 +412,7 @@ def sa_train_bwd_cuda(radius: float, xyz, query_idx, feats,
         g_out = torch.zeros((B, M, cout), dtype=torch.float32, device=dev)
     Wp, midp = packed.w1.shape
     coutp = packed.w2.shape[1]
-    tm = _bwd_centers_per_block(K, Wp, midp, coutp)
+    tm = _bwd_centers_per_block(K, Wp, midp, coutp, C, bool(param_grads))
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)

@@ -8,25 +8,28 @@ Phases, one JSON object a line:
 1. ``env``: the card (nvidia-smi name and power limit), torch and CUDA versions.
 2. ``build``: the CUDA sources of ``adaptpoint_tpu_torch/ops/csrc``
    compiled in parallel (one nvcc each), with the time it took.
-3. ``kernel``: each kernel against its plain PyTorch version on the card at
-   the shapes the B=32 PointNeXt-S forward, train step and adversarial step
-   give it (FPS 1024 -> 512 and 2048 -> 1200; the four SA stages at N=1024
-   for ball-group forward, backward and fused SA; the max-pooled ball group
-   forward and backward at the augmentor's four grouper shapes and on a
-   cloud with ties and an empty ball; the fused SA and the differentiable
-   fused SA forward and backward at the N=2048 stages of a ``gan_step``; the
-   row gather and its scatter-add at the resampling shape, a feature shape
-   and every gather of a ``gan_step``; the kNN at the five shapes of a
-   ``gan_step``; the flash attention forward and backward, directly and
-   through autograd, for bf16 and f32 inputs, at (128, 2048, 16) and at
-   every head dim across the tiles' edges (N = 1, 40, 127, 128, 129, 2047),
-   two backward runs bit for bit equal, timed at (128, 2048, 16) for both
-   input types beside ``scaled_dot_product_attention``
-   (``--phases attention`` runs this part alone); the 3-NN weighted gather
-   forward and backward at the four feature-propagation levels of a bf16
-   ``gan_step``, with repeated neighbours and on a cloud with half its
-   points at the origin), with errors, tolerances, bounds and CUDA-event
-   times.
+3. ``kernel``: each kernel against its plain PyTorch version on the card at the
+   shapes the B=32 PointNeXt-S forward, train step and adversarial step give it
+   (FPS 1024 -> 512 and 2048 -> 1200; the four SA stages at N=1024 for
+   ball-group forward, backward and fused SA; the max-pooled ball group forward
+   and backward at the augmentor's four grouper shapes and on a cloud with ties
+   and an empty ball; the fused SA and the differentiable fused SA forward and
+   backward at the N=2048 stages of a ``gan_step``, the backward also at four
+   shapes off them (odd C, K = 8, K = 48, C = 512); the row gather and its
+   scatter-add at the resampling shape, a feature shape and every gather of a
+   ``gan_step``; the kNN at the five shapes of a ``gan_step``; the flash
+   attention forward and backward, directly and through autograd, for bf16 and
+   f32 inputs, at (128, 2048, 16) and at every head dim across the tiles' edges
+   (N = 1, 40, 127, 128, 129, 2047), two backward runs bit for bit equal, timed
+   at (128, 2048, 16) for both input types beside
+   ``scaled_dot_product_attention`` (``--phases attention`` runs this part
+   alone); the 3-NN weighted gather forward and backward at the four
+   feature-propagation levels of a bf16 ``gan_step``, with repeated neighbours
+   and on a cloud with half its points at the origin), with errors, tolerances,
+   bounds and CUDA-event times; for the differentiable fused SA backward (per
+   stage) and the row gather and its scatter-add (per shape, beside
+   ``torch.gather`` and ``index_add_``) also the card's time of the call alone
+   from the profiler and the host's enqueue time a call.
 4. ``serve``: full-width ``cfgs/scanobjectnn/pointnext-s.yaml`` with seeded
    weights, exported unfused and fused at buckets 1,8,32 and served by the
    port's HTTP server; /predict with n = 1, 8, 32, 40 must match the same
@@ -364,6 +367,38 @@ def cuda_ms(fn, min_total_ms: float = 200.0) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_host(fn, reps: int = 10) -> dict:
+    """The card's time for one call of ``fn`` alone (``torch.profiler``: all
+    of the call's kernels and memsets, per call) and the host's enqueue time
+    per call (a host clock around calls that do not wait for the card), each
+    after a warm-up; beside ``cuda_ms``, whose eager loop can be host bound.
+    A profile that recorded no device activity (it happens) is taken again,
+    and the device time is None (not measured) if none of three did."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    device = None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            device = total / 1e3 / reps
+            break
+    t0 = time.perf_counter()
+    for _ in range(5 * reps):
+        fn()
+    host = (time.perf_counter() - t0) / (5 * reps) * 1e6
+    torch.cuda.synchronize()
+    return {"device_ms": device, "host_us": host}
+
+
 def stage_inputs(gen, stages=None, dropped: float = 0.0):
     """Per-stage (xyz, qidx, feats) as the B=32 forward gives them: the
     unit-sphere cloud (``dropped`` of its points moved to the origin, as the
@@ -699,25 +734,42 @@ def check_gather(gen, tag, n, c, idx, distinct=False,
         flat = (flat_idx.long() + torch.arange(B, device=DEV)[:, None] * n
                 ).reshape(-1)
         long_idx = flat_idx.long()[..., None].expand(-1, -1, c)
+
+        def fwd_fn():
+            return gather.gather_rows_cuda(pts, flat_idx)
+
+        def lib_fn():
+            return torch.gather(pts, 1, long_idx)
+
+        def bwd_fn():
+            return gather.gather_rows_bwd_cuda(g, flat_idx, n)
+
+        def add_fn():
+            return torch.zeros((B * n, c), device=DEV).index_add_(
+                0, flat, g.reshape(-1, c))
+
+        # the forward reads each row its indices name once (this run's
+        # data) and writes its output once
+        used = int((counts[..., 0] > 0).sum())
         f_row = dict(
             shape=[B, n, c, m], max_abs_err=e_fwd,
-            ms=cuda_ms(lambda: gather.gather_rows_cuda(pts, flat_idx),
-                       min_total_ms),
+            ms=cuda_ms(fwd_fn, min_total_ms),
             plain_ms=cuda_ms(lambda: gather.gather_rows_plain(pts, flat_idx),
                              min_total_ms),
-            library_ms=cuda_ms(lambda: torch.gather(pts, 1, long_idx),
-                               min_total_ms),
-            **bound_row((2 * B * m * c * 4 + B * m * 4) / PEAK_BYTES, 0.0))
+            library_ms=cuda_ms(lib_fn, min_total_ms),
+            **device_host(fwd_fn),
+            **{"library_" + k: v for k, v in device_host(lib_fn).items()},
+            **bound_row(((used + B * m) * c * 4 + B * m * 4) / PEAK_BYTES,
+                        0.0))
         b_row = dict(
             shape=[B, n, c, m], max_abs_err=float(d_back.max()),
-            ms=cuda_ms(lambda: gather.gather_rows_bwd_cuda(g, flat_idx, n),
-                       min_total_ms),
+            ms=cuda_ms(bwd_fn, min_total_ms),
             plain_ms=cuda_ms(
                 lambda: gather.gather_rows_bwd_plain(g, flat_idx, n),
                 min_total_ms),
-            library_ms=cuda_ms(
-                lambda: torch.zeros((B * n, c), device=DEV).index_add_(
-                    0, flat, g.reshape(-1, c)), min_total_ms),
+            library_ms=cuda_ms(add_fn, min_total_ms),
+            **device_host(bwd_fn),
+            **{"library_" + k: v for k, v in device_host(add_fn).items()},
             **bound_row((B * m * c * 4 + B * m * 4 + B * n * c * 4)
                         / PEAK_BYTES, B * m * c / PEAK_F32))
         out_rows = (f_row, b_row)
@@ -887,6 +939,17 @@ def check_sa_train(gen, stages, inputs):
         w2 = torch.randn((mid, cout), generator=gen, device=DEV) / mid ** 0.5
         b2 = torch.randn((cout,), generator=gen, device=DEV) * 0.1
         packed = saeval.pack_weights(w1, b1, w2, b2)
+        # the backward's tiling: the host's copy of the shared-memory layout
+        # against the kernel's own
+        wp, midp, coutp = packed.w1.shape + packed.w2.shape[1:]
+        for pg in (False, True):
+            tm = saeval._bwd_centers_per_block(K, wp, midp, coutp, c, pg)
+            host = saeval._bwd_smem_bytes(tm, K, wp, midp, coutp, c, pg)
+            dev = saeval._lib_bwd().sa_train_bwd_smem_bytes(
+                tm, K, wp, midp, coutp, c, int(pg))
+            if host != dev:
+                raise AssertionError(f"backward layout: host {host} bytes, "
+                                     f"kernel {dev} (stage {i + 1}, {pg=})")
         fargs = (r, K, xyz, qidx, feats)
         got = saeval.sa_train_cuda(*fargs, packed, True, True)
         ref = saeval.sa_train_plain(*fargs, w1, b1, w2, b2, True, True)
@@ -899,32 +962,47 @@ def check_sa_train(gen, stages, inputs):
         g_new = torch.randn((B, m, 3), generator=gen, device=DEV)
         g_fi = torch.randn((B, m, c), generator=gen, device=DEV)
         g_out = torch.randn((B, m, cout), generator=gen, device=DEV)
-        weights = i == len(stages) - 1
         bargs = (r, xyz, qidx, feats)
-        back = saeval.sa_train_bwd_cuda(*bargs, packed, got[4], got[3], g_new,
-                                        g_fi, g_out, True, True, weights)
         back_ref = saeval.sa_train_bwd_plain(*bargs, w1, b1, w2, b2, got[4],
                                              got[3], g_new, g_fi, g_out, True,
-                                             True, weights)
-        errs = {"g_xyz": rel_l2(back[0], back_ref[0]),
-                "g_feats": rel_l2(back[1], back_ref[1])}
-        if weights:
-            for name, a, b_ in zip(("g_w1", "g_b1", "g_w2", "g_b2"), back[2],
-                                   back_ref[2]):
-                errs[name] = rel_l2(a, b_)
-        # end to end, as the model calls it, each side on its own winners
-        ends = []
-        for plain in (False, True):
-            x_req = xyz.clone().requires_grad_()
-            f_req = feats.clone().requires_grad_()
-            ctx = plain_ops() if plain else contextlib.nullcontext()
-            with ctx:
-                out = ops.sa_train(r, K, x_req, qidx, f_req, w1, b1, w2, b2,
-                                   True, True, None if plain else packed)
-                ends.append(torch.autograd.grad(out, (x_req, f_req),
-                                                (g_new, g_fi, g_out)))
-        e2e = {"g_xyz": rel_l2(ends[0][0], ends[1][0]),
-               "g_feats": rel_l2(ends[0][1], ends[1][1])}
+                                             True, True)
+        # without the weight gradients (the GAN step's frozen classifier)
+        # and with them
+        errs = {}
+        for weights in (False, True):
+            back = saeval.sa_train_bwd_cuda(*bargs, packed, got[4], got[3],
+                                            g_new, g_fi, g_out, True, True,
+                                            weights)
+            tag = "_with_weights" if weights else ""
+            errs["g_xyz" + tag] = rel_l2(back[0], back_ref[0])
+            errs["g_feats" + tag] = rel_l2(back[1], back_ref[1])
+            if weights:
+                for name, a, b_ in zip(("g_w1", "g_b1", "g_w2", "g_b2"),
+                                       back[2], back_ref[2]):
+                    errs[name] = rel_l2(a, b_)
+        # end to end, as the model calls it, each side on its own winners,
+        # with the folded weights constant and taking a gradient
+        e2e = {}
+        for weights in (False, True):
+            ends = []
+            for plain in (False, True):
+                x_req = xyz.clone().requires_grad_()
+                f_req = feats.clone().requires_grad_()
+                ws = [t.clone().requires_grad_(weights)
+                      for t in (w1, b1, w2, b2)]
+                ctx = plain_ops() if plain else contextlib.nullcontext()
+                with ctx:
+                    out = ops.sa_train(r, K, x_req, qidx, f_req, *ws, True,
+                                       True, None if plain or weights
+                                       else packed)
+                    wrt = [x_req, f_req] + (ws if weights else [])
+                    ends.append(torch.autograd.grad(out, wrt,
+                                                    (g_new, g_fi, g_out)))
+            names = ["g_xyz", "g_feats"] + (
+                ["g_w1", "g_b1", "g_w2", "g_b2"] if weights else [])
+            for name, a, b_ in zip(names, *ends):
+                e2e[name + ("_with_weights" if weights else "")] = \
+                    rel_l2(a, b_)
         torch.cuda.synchronize()
         emit("kernel", name="sa_train", stage=[B, n, m, c, mid, cout, K],
              max_abs_err={"exact_outputs": e_exact,
@@ -935,7 +1013,8 @@ def check_sa_train(gen, stages, inputs):
              tolerance=f"new_xyz, fi, neighbours exact; |out - plain| <= "
                        f"{TOL_SA} * (1 + |plain|); backward on the kernel's "
                        f"winners <= {TOL_SA_BWD}, end to end <= {TOL_SA_E2E} "
-                       f"in relative 2-norm a gradient")
+                       f"in relative 2-norm a gradient, with and without "
+                       f"the weight gradients")
         if (e_exact or scaled > TOL_SA or max(errs.values()) > TOL_SA_BWD
                 or max(e2e.values()) > TOL_SA_E2E
                 or not all(bool(torch.isfinite(t).all())
@@ -954,10 +1033,12 @@ def check_sa_train(gen, stages, inputs):
                  + B * m * K * 4) / PEAK_BYTES,
             t_o=2 * B * m * K * ((3 + c) * mid + mid * cout) / PEAK_BF16
             + scanned_points(xyz, qidx, r) * 9 / PEAK_F32)
+        def bwd_fn():
+            return saeval.sa_train_bwd_cuda(*bargs, packed, got[4], got[3],
+                                            g_new, g_fi, g_out, True, True)
+
         bwd_row = dict(
-            ms=cuda_ms(lambda: saeval.sa_train_bwd_cuda(
-                *bargs, packed, got[4], got[3], g_new, g_fi, g_out, True,
-                True)),
+            ms=cuda_ms(bwd_fn), **device_host(bwd_fn),
             plain_ms=cuda_ms(lambda: saeval.sa_train_bwd_plain(
                 *bargs, w1, b1, w2, b2, got[4], got[3], g_new, g_fi, g_out,
                 True, True), 50.0),
@@ -970,16 +1051,87 @@ def check_sa_train(gen, stages, inputs):
         for acc, row in ((fwd, fwd_row), (bwd, bwd_row)):
             for key in ("ms", "plain_ms", "t_b", "t_o"):
                 acc[key] += row[key]
+        bwd["device_ms"] = (None if bwd_row["device_ms"] is None
+                            or bwd.get("device_ms", 0.0) is None
+                            else bwd.get("device_ms", 0.0)
+                            + bwd_row["device_ms"])
+        for key in ("ms", "device_ms", "host_us"):
+            bwd.setdefault("stages_" + key, []).append(bwd_row[key])
+        bwd.setdefault("stages_bound_ms", []).append(
+            1e3 * max(bwd_row["t_b"], bwd_row["t_o"]))
         fwd["max_abs_err"] = max(fwd["max_abs_err"], float(diff.max()))
         bwd["max_abs_err"] = max(bwd["max_abs_err"], float(
             (back[1] - back_ref[1]).abs().max()))
         emit("stage_times", stage=i + 1, shape=[B, n, m, c, mid, cout, K],
              sa_train=fwd_row, sa_train_bwd=bwd_row)
-        del got, ref, back, back_ref, ends
+        del got, ref, back, back_ref, ends, out
         torch.cuda.empty_cache()
     for acc in (fwd, bwd):
         acc.update(bound_row(acc.pop("t_b"), acc.pop("t_o")))
+    bwd["host_us"] = max(bwd["stages_host_us"])
     return fwd, bwd
+
+
+# the fused SA backward off the GAN step's shapes: (N, M, C, mid, cout, K,
+# radius) at B = 2 on clouds with half their points at the origin. C % 4 != 0
+# (scalar adds, no 16-byte feature loads); K = 8 (16 centers a block); K = 48
+# (rows padded to a multiple of 32); C = 512 (two passes over the hidden
+# columns and the features, GH apart from A)
+SA_BWD_SHAPES = [(256, 64, 35, 40, 72, 24, 0.3), (256, 64, 16, 16, 32, 8, 0.3),
+                 (512, 64, 64, 64, 128, 48, 0.4),
+                 (512, 64, 512, 512, 1024, 32, 0.4)]
+
+
+def check_sa_train_bwd_shapes(gen) -> None:
+    """Row 6 against its plain version (TOL_SA_BWD in relative 2-norm a
+    gradient, with and without the weight gradients) at SA_BWD_SHAPES, on
+    the forward kernel's own neighbours and winners: the host's tiling and
+    the kernel's paths the GAN step's stages do not take."""
+    import torch
+    from adaptpoint_tpu_torch.ops import saeval
+    b = 2
+    for n, m, c, mid, cout, k, r in SA_BWD_SHAPES:
+        xyz = torch.randn((b, n, 3), generator=gen, device=DEV)
+        xyz = xyz / xyz.norm(dim=-1).amax(dim=1, keepdim=True)[..., None]
+        xyz = (xyz * (torch.rand((b, n), generator=gen, device=DEV)
+                      >= FAKE_DROPPED)[..., None]).contiguous()
+        qidx = torch.stack([torch.randperm(n, generator=gen, device=DEV)[:m]
+                            for _ in range(b)]).int().contiguous()
+        feats = torch.randn((b, n, c), generator=gen, device=DEV)
+        w1 = torch.randn((3 + c, mid), generator=gen, device=DEV) \
+            / (3 + c) ** 0.5
+        b1 = torch.randn((mid,), generator=gen, device=DEV) * 0.1
+        w2 = torch.randn((mid, cout), generator=gen, device=DEV) / mid ** 0.5
+        b2 = torch.randn((cout,), generator=gen, device=DEV) * 0.1
+        packed = saeval.pack_weights(w1, b1, w2, b2)
+        got = saeval.sa_train_cuda(r, k, xyz, qidx, feats, packed, True, True)
+        cots = [torch.randn(shape, generator=gen, device=DEV)
+                for shape in ((b, m, 3), (b, m, c), (b, m, cout))]
+        bargs = (r, xyz, qidx, feats)
+        ref = saeval.sa_train_bwd_plain(*bargs, w1, b1, w2, b2, got[4],
+                                        got[3], *cots, True, True, True)
+        errs = {}
+        for weights in (False, True):
+            back = saeval.sa_train_bwd_cuda(*bargs, packed, got[4], got[3],
+                                            *cots, True, True, weights)
+            tag = "_with_weights" if weights else ""
+            errs["g_xyz" + tag] = rel_l2(back[0], ref[0])
+            errs["g_feats" + tag] = rel_l2(back[1], ref[1])
+            if weights:
+                for name, x, y in zip(("g_w1", "g_b1", "g_w2", "g_b2"),
+                                      back[2], ref[2]):
+                    errs[name] = rel_l2(x, y)
+        wp, midp, coutp = packed.w1.shape + packed.w2.shape[1:]
+        tms = [saeval._bwd_centers_per_block(k, wp, midp, coutp, c, pg)
+               for pg in (False, True)]
+        emit("kernel", name="sa_train_bwd", case="odd shape",
+             shape=[b, n, m, c, mid, cout, k], centers_a_block=tms,
+             grad_rel_l2=errs, tolerance=f"<= {TOL_SA_BWD} in relative "
+                                         f"2-norm a gradient")
+        if max(errs.values()) > TOL_SA_BWD or not all(
+                bool(torch.isfinite(t).all()) for t in back[:2]):
+            raise AssertionError(f"fused SA backward disagrees at "
+                                 f"{[n, m, c, mid, cout, k]}: {errs}")
 
 
 def check_attention(gen, rows) -> None:
@@ -1236,6 +1388,7 @@ def phase_adapt_kernels(gen, rows) -> None:
         for row in check_sa_train(gen, GAN_CLS_STAGES, fake))
     del real, fake
     torch.cuda.empty_cache()
+    check_sa_train_bwd_shapes(gen)
 
     # ---- the row gathers of one gan_step, with the indices the step's own
     # searches give: (case, launches a step, N, C, idx, source has a gradient)
@@ -1247,7 +1400,8 @@ def phase_adapt_kernels(gen, rows) -> None:
         idx3 = knn.knn_idx_cuda(3, levels[i + 1], levels[i])  # (B, N_i, 3)
         gathers += [(f"decode {m} -> {2 * m} xyz", 1, m, 3, idx3, False),
                     (f"decode {m} -> {2 * m} features", 1, m, c, idx3, True)]
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+            "library_device_ms")
     tot_f, tot_b = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
     n_f = n_b = 0
     for tag, launches, n, c, idx, has_grad in gathers:
@@ -1258,9 +1412,13 @@ def phase_adapt_kernels(gen, rows) -> None:
              gather_rows=f_row, gather_rows_bwd=b_row if has_grad else None)
         n_f += launches
         n_b += int(has_grad)
-        for key in keys:
-            tot_f[key] += launches * f_row[key]
-            tot_b[key] += b_row[key] if has_grad else 0.0
+        for key in keys:  # a time not measured leaves its sum None
+            if tot_f[key] is not None:
+                tot_f[key] = (None if f_row[key] is None
+                              else tot_f[key] + launches * f_row[key])
+            if has_grad and tot_b[key] is not None:
+                tot_b[key] = (None if b_row[key] is None
+                              else tot_b[key] + b_row[key])
         torch.cuda.empty_cache()
     rows["gather_rows"]["gan_step_shapes"] = dict(
         launches_a_step=n_f, bound_by="bytes", **tot_f)
@@ -3634,6 +3792,9 @@ def main(argv=None) -> int:
         for extra in ("resample_shape", "feature_shape",
                       "gan_classifier_shapes", "gan_step_shapes", "shape",
                       "ms_forward_only", "bound_parts_ms", "composite_ms",
+                      "device_ms", "host_us", "library_device_ms",
+                      "library_host_us", "stages_ms", "stages_device_ms",
+                      "stages_host_us", "stages_bound_ms",
                       "ms_with_d_w", "bound_ms_with_d_w", "full_n_op_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
