@@ -59,36 +59,18 @@
 // space); that path is not the GAN step's.
 //
 // The mask equals the forward's ReLU: conv1 is recomputed from the same
-// bf16 rows and weights with the same instruction (saeval.cu's wmma 16x16x16
-// lowers to HMMA.16816.F32.BF16) over the same k16 steps in the same order
-// from zero, and b1 is added the same way, so h_pre is the forward's bit for
-// bit.
+// bf16 rows and weights with the same instruction and code (sa_common.cuh
+// tiles_mma, mma.sync m16n8k16, HMMA.16816.F32.BF16) over the same k16 steps
+// in the same order from zero, and b1 is added the same way, so h_pre is the
+// forward's bit for bit.
 //
 // Determinism: the scatter's atomic adds land in no fixed order (the usual
 // f32 reordering error); everything before them is fixed.
 #include "sa_common.cuh"
 
-#include <cstdint>
-
 namespace {
 
 using namespace apt_sa;
-
-constexpr int kKc = 64;        // k rows a ring stage holds
-constexpr int kStages = 2;     // ring depth: a double buffer (3 stages
-                               // measured no faster on the H100)
-constexpr int kPad = 8;        // bf16 of padding per staged row
-constexpr int kPassTiles = 2 * kWarps;  // 32 x 32 tiles a pass: 2 a warp
-
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
-
-// Output columns one pass covers with R rows: 16 warp tiles, at most 256
-// columns (the double buffer's stages grow with them).
-__host__ __device__ inline int pass_cols(int R) {
-  const int n = (kPassTiles / (R / 32)) * 32;
-  return n < 256 ? n : 256;
-}
 
 // Rows of a block: its TM centers' round16(K) rows each, padded to a
 // multiple of 32 with rows that hold nothing.
@@ -173,182 +155,6 @@ __host__ __device__ inline Layout layout(int TM, int K, int Wp, int midp,
   return L;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros where !full.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-
-__device__ __forceinline__ void ldm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The accumulators of one warp: up to two 32 x 32 tiles, each 2 row tiles
-// of 16 by 4 column tiles of 8 in the m16n8 fragment layout (c[0], c[1] at
-// row g = lane / 4, columns 2q, 2q + 1, q = lane % 4; c[2], c[3] at row
-// g + 8).
-typedef float Acc[2][2][4][4];
-
-// The tiles of a pass: rows R, columns nw; tile t of the warp's two is
-// number warp + 8 t, at row group t % (R / 32) and column group t / (R / 32).
-struct Tiles {
-  int rg[2], cg[2], pairs[2];  // pairs: valid 16-column halves (0, 1, 2)
-};
-
-__device__ __forceinline__ Tiles tiles_of(int warp, int R, int nw) {
-  const int tr = R / 32;
-  const int total = tr * ((nw + 31) / 32);
-  Tiles t;
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int id = warp + kWarps * u;
-    t.rg[u] = id % tr;
-    t.cg[u] = id / tr;
-    t.pairs[u] = id < total ? imin(2, (nw - t.cg[u] * 32) / 16) : 0;
-  }
-  return t;
-}
-
-// g_h's A operand without a dense GO: the compact bf16(g_out) (gc) and
-// winning slots (ac) of the block's centers, coutp a center
-struct GoSrc {
-  const bf16* gc;
-  const unsigned char* ac;
-  int coutp, Kp, Rv;
-};
-
-// The m16n8k16 A fragment of GO for rows slot .. slot + 8 (this lane's row
-// g and g + 8) of center c, columns k, k + 1, k + 8, k + 9 (k = k0 + 2q):
-// bf16(g_out) where the column's winning slot is the row's, else 0.
-__device__ __forceinline__ void go_frag(uint32_t (&a)[4], const GoSrc& go,
-                                        int c, int slot, int k) {
-  const bf16* g = go.gc + (size_t)c * go.coutp + k;
-  const unsigned char* w = go.ac + (size_t)c * go.coutp + k;
-  const uint32_t gA = *reinterpret_cast<const uint32_t*>(g);
-  const uint32_t gB = *reinterpret_cast<const uint32_t*>(g + 8);
-  const uint32_t slots =
-      (uint32_t)*reinterpret_cast<const unsigned short*>(w) |
-      ((uint32_t)*reinterpret_cast<const unsigned short*>(w + 8) << 16);
-  const uint32_t lo = __vcmpeq4(slots, (uint32_t)slot * 0x01010101u);
-  const uint32_t hi = __vcmpeq4(slots, (uint32_t)(slot + 8) * 0x01010101u);
-  a[0] = gA & __byte_perm(lo, 0, 0x1100);
-  a[1] = gA & __byte_perm(hi, 0, 0x1100);
-  a[2] = gB & __byte_perm(lo, 0, 0x3322);
-  a[3] = gB & __byte_perm(hi, 0, 0x3322);
-}
-
-// acc[u] += A(rows of tile u, k0 .. k0 + 16 ksteps) . B for the warp's
-// tiles. A is row-major in shared memory (lda), its k0-th column at A + k0.
-// B is the ring stage: trans, [k][n] with n contiguous (ldb), else [n][k]
-// with k contiguous (ldb); its k origin is the stage's row or column 0 and
-// its n origin the pass's first column.
-template <bool kTrans, bool kBuiltA>
-__device__ __forceinline__ void tiles_mma(Acc& acc, const Tiles& t,
-                                          const bf16* A, int lda, int k0,
-                                          const bf16* Bs, int ldb, int ksteps,
-                                          int lane, GoSrc go = {}) {
-  const bool shared_rows = t.rg[1] == t.rg[0];
-  // with kBuiltA: each 16-row tile's center and its row g's slot (0xf0 for
-  // padding rows: no slot matches)
-  int gcen[2][2], gslot[2][2];
-  if (kBuiltA) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u)
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int row0 = t.rg[u] * 32 + mi * 16;
-        const int c = row0 / go.Kp;
-        gcen[u][mi] = row0 < go.Rv ? c : 0;
-        gslot[u][mi] = row0 < go.Rv ? row0 - c * go.Kp + (lane >> 2) : 0xf0;
-      }
-  }
-  for (int s = 0; s < ksteps; ++s) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      if (t.pairs[u] == 0) continue;
-      if (u == 0 || !shared_rows) {
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          if (kBuiltA)
-            go_frag(a[mi], go, gcen[u][mi], gslot[u][mi],
-                    k0 + s * 16 + 2 * (lane & 3));
-          else
-            ldm_x4(a[mi], A + (size_t)(t.rg[u] * 32 + mi * 16 +
-                                       (lane & 15)) * lda +
-                              k0 + s * 16 + (lane >> 4) * 8);
-        }
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        if (np >= t.pairs[u]) continue;
-        const int n0 = t.cg[u] * 32 + np * 16;
-        uint32_t b[4];
-        if (kTrans)
-          ldm_x4_t(b, Bs + (size_t)(s * 16 + (lane & 7) +
-                                    ((lane >> 3) & 1) * 8) * ldb +
-                          n0 + (lane >> 4) * 8);
-        else
-          ldm_x4(b, Bs + (size_t)(n0 + (lane & 7) + (lane >> 4) * 8) * ldb +
-                        s * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma16816(acc[u][mi][np * 2], a[mi], b[0], b[1]);
-          mma16816(acc[u][mi][np * 2 + 1], a[mi], b[2], b[3]);
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void zero_acc(Acc& acc) {
-#pragma unroll
-  for (int u = 0; u < 2; ++u)
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[u][mi][ni][e] = 0.0f;
-}
-
 // One 16 x 16 tile of a weight gradient, summed over the block's rows:
 // out[mt, ct] += A^T(mt) . Bm(ct), then atomicAdd into the (rows, ld)
 // gradient buffer.
@@ -368,8 +174,9 @@ __device__ void weight_grad_tile(const bf16* A, int lda, const bf16* Bm,
 }
 
 // One 16 x 16 tile of hb = bf16(relu(A . w1 + b1)), rows rt, columns ct,
-// as saeval.cu's conv1 computes it (the same wmma steps from zero, then
-// the bias), into H (ldh).
+// as saeval.cu's conv1 computes it (wmma's 16x16x16 step lowers to two
+// HMMA.16816.F32.BF16, over the same k16 steps from zero, then the bias),
+// into H (ldh).
 __device__ void hb_tile(const bf16* A, int lda, int KT, const bf16* w1,
                         int midp, const float* b1, bf16* H, int ldh, float* sc,
                         int rt, int ct, int lane) {
@@ -527,7 +334,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   __syncthreads();
 
   // 2. the gathered rows [dp || fj] as bf16, exactly as the forward stages
-  //    them (sa_common.cuh stage_rows); rows that hold no slot are zero.
+  //    them (saeval.cu); rows that hold no slot are zero.
   //    Flat over (row, piece of 4 features or 1), eight loads in flight a
   //    thread; with param_grads GO's winners, four a thread.
   if (tid < R) {

@@ -10,10 +10,9 @@ the features, and with ``param_grads`` for the folded weights, recomputed
 without the grouped tensor. Bound on the H100: operations -- the convs over
 B*M*K rows, about twice as many in the backward. The kernels stage the
 grouped rows of a tile of centers in shared memory as bf16 and run the
-convs on the tensor cores with f32 accumulation: the forward with wmma, the
-backward with mma.sync on weights streamed through a cp.async double
-buffer (:func:`_bwd_centers_per_block` picks its tile); see the sources'
-notes.
+convs on the tensor cores with f32 accumulation, mma.sync on weights
+streamed through a cp.async double buffer (:func:`_fwd_tiling` and
+:func:`_bwd_centers_per_block` pick their tiles); see the sources' notes.
 
 The TPU kernel's rounding is part of the function (``splits=1``), and both
 versions here reproduce it: ``fi = bf16(f)``; gathered xyz is the two-split
@@ -164,10 +163,10 @@ def _lib():
     lib = _build.load("saeval")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sa_eval_launch.argtypes = [p, p, p, p, p, p, p,
-                                   i, i, i, i, i, i, i, i, i, i,
+                                   i, i, i, i, i, i, i, i, i, i, i, i, i, i,
                                    f, f, i, p, p, p, p, p, p]
     lib.sa_eval_launch.restype = ctypes.c_int
-    lib.sa_eval_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.sa_eval_smem_bytes.argtypes = [i, i, i, i, i, i, i, i, i]
     lib.sa_eval_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -228,34 +227,110 @@ def pack_weights(w1, b1, w2, b2) -> PackedWeights:
                          _padded(b2, (coutp,), torch.float32), cin, mid, cout)
 
 
-def _tile_centers(smem_bytes, K: int, Wp: int, midp: int,
-                  coutp: int) -> int:
-    """128 rows of round16(K) a block, fewer if shared memory runs out."""
-    tm = 128 // _round16(K)
-    while tm > 1 and smem_bytes(tm, K, Wp, midp, coutp) > _SMEM_LIMIT:
-        tm //= 2
-    if smem_bytes(tm, K, Wp, midp, coutp) > _SMEM_LIMIT:
-        raise ValueError(f"SA stage too wide for one block: K={K} Wp={Wp} "
-                         f"mid={midp} cout={coutp}")
-    return tm
-
-
-@functools.lru_cache(maxsize=64)
-def _centers_per_block(K: int, Wp: int, midp: int, coutp: int) -> int:
-    return _tile_centers(_lib().sa_eval_smem_bytes, K, Wp, midp, coutp)
-
-
-# The backward's shared-memory layout (csrc/sa_train_bwd.cu ``layout``): a
-# double buffer of _BWD_KC weight rows a stage, rows padded by _BWD_PAD
-# bf16, passes of 16 warp tiles of 32 x 32 and at most 256 columns.
-_BWD_KC, _BWD_PAD = 64, 8
+# Both SA kernels' shared-memory layouts (csrc/saeval.cu and
+# csrc/sa_train_bwd.cu ``layout``): a double buffer of _KC weight rows a
+# stage, rows padded by _PAD bf16, passes of 16 warp tiles of 32 x 32 and at
+# most 256 columns (csrc/sa_common.cuh kKc, kPad, pass_cols).
+_KC, _PAD = 64, 8
 # the most a block may use for two blocks to share an SM: (228 KB - 2 x 1 KB
 # the hardware keeps per block) / 2
 _SMEM_TWO_BLOCKS = 115712
+_SMS = 132  # streaming multiprocessors of the H100 SXM
 
 
 def _a128(x: int) -> int:
     return (x + 127) // 128 * 128
+
+
+def _pass_cols(rows: int) -> int:
+    """Columns a pass of 16 warp tiles of 32 x 32 covers over ``rows`` (a
+    multiple of 32), at most 256 (csrc/sa_common.cuh ``pass_cols``)."""
+    return min(256, 16 // (rows // 32) * 32)
+
+
+def _strip_rows(K: int) -> int:
+    """Rows of a strip whose max the forward keeps one partial of: 32 where
+    a center's rows fill whole 32-row groups, else 16."""
+    return 32 if _round16(K) % 32 == 0 else 16
+
+
+def _fwd_smem_bytes(tm: int, K: int, Wp: int, midp: int, coutp: int,
+                    np_: int, kc: int, N: int, use_xs: bool) -> int:
+    """Shared memory of one forward block, as ``sa_eval_smem_bytes``
+    computes it (csrc/saeval.cu ``layout``; the launch checks it again and
+    ``chip_smoke.py`` holds the two equal): the rows A, H over A where one
+    pass covers the hidden columns, a pass's max partials (over A where H
+    is apart and they fit), the weight ring, the row table, the centers
+    and, with ``use_xs``, the cloud's N points."""
+    rows = tm * _round16(K)
+    alias = midp <= np_
+    a = rows * (Wp + _PAD) * 2
+    h = rows * (midp + _PAD) * 2
+    parts = rows // _strip_rows(K) * min(np_, coutp)  # a pass's partials
+    pv = _a128(parts * 4)
+    part = pv + _a128(parts)
+    total = _a128(max(a, h) if alias else a) + (0 if alias else _a128(h))
+    if alias or part > _a128(a):
+        total += part
+    total += 2 * _a128(kc * (max(min(np_, midp), min(np_, coutp))
+                             + _PAD) * 2)
+    total += _a128(rows * 4) + _a128(tm * 16)
+    return total + (_a128(N * 16) if use_xs else 0)
+
+
+class FwdTiling(NamedTuple):
+    """The forward's launch shape: ``tm`` centers a tile, ``np`` columns a
+    pass, ``kc`` weight rows a ring stage, ``tiles`` tiles of one cloud a
+    block walks, ``use_xs`` the cloud staged in shared memory, and the
+    ``blocks_per_sm`` the shared memory allows."""
+    tm: int
+    np: int
+    kc: int
+    tiles: int
+    use_xs: bool
+    blocks_per_sm: int
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_tiling(K: int, Wp: int, midp: int, coutp: int, N: int, B: int,
+                M: int) -> FwdTiling:
+    """The forward's tiling: centers whose rows fill 256, 128, 64 or 32
+    exactly first, then any count of at most 256 rows; the most rows with
+    which two blocks fit on an SM, else one; at widths where neither fits,
+    narrower passes and shorter weight stages. The cloud is staged where it
+    still fits the same limit. A block walks several tiles of its cloud
+    where the grid would otherwise exceed four waves of resident blocks.
+    Raises ValueError where nothing fits."""
+    kp = _round16(K)
+    counts = [r // kp for r in (256, 128, 64, 32) if r % kp == 0]
+    counts += [t for t in range(256 // kp, 0, -1) if t not in counts]
+
+    def rows32(tm):
+        return (tm * kp + 31) // 32 * 32
+
+    def pick():
+        for limit in (_SMEM_TWO_BLOCKS, _SMEM_LIMIT):
+            for tm in counts:
+                np_ = _pass_cols(rows32(tm))
+                if _fwd_smem_bytes(tm, K, Wp, midp, coutp, np_, _KC, N,
+                                   False) <= limit:
+                    return tm, np_, _KC, limit
+        for tm in counts:
+            for np_, kc in ((max(32, _pass_cols(rows32(tm)) // 2), 64),
+                            (64, 32), (32, 32)):
+                if _fwd_smem_bytes(tm, K, Wp, midp, coutp, np_, kc, N,
+                                   False) <= _SMEM_LIMIT:
+                    return tm, np_, kc, _SMEM_LIMIT
+        raise ValueError(f"SA stage too wide for one block: K={K} Wp={Wp} "
+                         f"mid={midp} cout={coutp}")
+
+    tm, np_, kc, limit = pick()
+    use_xs = _fwd_smem_bytes(tm, K, Wp, midp, coutp, np_, kc, N,
+                             True) <= limit
+    bps = 2 if limit == _SMEM_TWO_BLOCKS else 1
+    cloud_tiles = -(-M // tm)
+    tiles = max(1, min(cloud_tiles, B * cloud_tiles // (4 * _SMS * bps)))
+    return FwdTiling(tm, np_, kc, tiles, use_xs, bps)
 
 
 def _bwd_rows(tm: int, K: int) -> int:
@@ -272,17 +347,17 @@ def _bwd_smem_bytes(tm: int, K: int, Wp: int, midp: int, coutp: int, C: int,
     rows = _bwd_rows(tm, K)
     npass = min(256, 16 // (rows // 32) * 32)
     np1, np3 = min(npass, midp), min(npass, _round16(C))
-    a = rows * (Wp + _BWD_PAD) * 2
-    gh = rows * (midp + _BWD_PAD) * 2
+    a = rows * (Wp + _PAD) * 2
+    gh = rows * (midp + _PAD) * 2
     alias = not pg and midp <= npass
     total = _a128(max(a, gh) if alias else a) + (0 if alias else _a128(gh))
     # GO dense only with param_grads; the compact bf16(g_out) and slots
     if pg:
-        total += _a128(rows * (coutp + _BWD_PAD) * 2)
+        total += _a128(rows * (coutp + _PAD) * 2)
     total += _a128(tm * coutp * 2) + _a128(tm * coutp)
-    slot = _a128(2 * max(_BWD_KC * (np1 + _BWD_PAD),
-                         np1 * (_BWD_KC + _BWD_PAD),
-                         np3 * (_BWD_KC + _BWD_PAD)))
+    slot = _a128(2 * max(_KC * (np1 + _PAD),
+                         np1 * (_KC + _PAD),
+                         np3 * (_KC + _PAD)))
     # after the schedule the ring's space holds w1's dp rows and the rows'
     # dp values, then with param_grads hb and the wmma scratch
     ring = max(2 * slot, _a128(3 * midp * 4) + _a128(rows * 16))
@@ -327,7 +402,7 @@ def _forward_cuda(radius, nsample, xyz, query_idx, feats, packed, relative,
                          f"M >= 1, got M={M} K={K}")
     Wp, midp = packed.w1.shape
     coutp = packed.w2.shape[1]
-    tm = _centers_per_block(K, Wp, midp, coutp)
+    tl = _fwd_tiling(K, Wp, midp, coutp, N, B, M)
     dev = xyz.device
     new_xyz = torch.empty((B, M, 3), dtype=torch.float32, device=dev)
     fi = torch.empty((B, M, C), dtype=torch.float32, device=dev)
@@ -340,7 +415,8 @@ def _forward_cuda(radius, nsample, xyz, query_idx, feats, packed, relative,
     err = lib.sa_eval_launch(
         xyz.data_ptr(), query_idx.data_ptr(), feats.data_ptr(),
         packed.w1.data_ptr(), packed.b1.data_ptr(), packed.w2.data_ptr(),
-        packed.b2.data_ptr(), B, N, M, C, K, tm, Wp, midp, coutp, packed.cout,
+        packed.b2.data_ptr(), B, N, M, C, K, tl.tm, tl.np, tl.kc, tl.tiles,
+        int(tl.use_xs), Wp, midp, coutp, packed.cout,
         radius_sq(radius), _dp_scale(radius, relative, normalize_dp),
         int(bool(relative)), new_xyz.data_ptr(), fi.data_ptr(),
         out.data_ptr(), None if idx is None else idx.data_ptr(),

@@ -15,7 +15,10 @@ Phases, one JSON object a line:
    and backward at the augmentor's four grouper shapes and on a cloud with ties
    and an empty ball; the fused SA and the differentiable fused SA forward and
    backward at the N=2048 stages of a ``gan_step``, the backward also at four
-   shapes off them (odd C, K = 8, K = 48, C = 512); the row gather and its
+   shapes off them (odd C, K = 8, K = 48, C = 512), the forward at five edges
+   of its tiling (K = 8, 24, 48, 128, C = 35, a ragged last tile, B = 1,
+   empty balls, tied maxima), the host's copy of the forward's shared memory
+   against the kernel's at every stage and edge; the row gather and its
    scatter-add at the resampling shape, a feature shape and every gather of a
    ``gan_step``; the kNN at the five shapes of a ``gan_step``; the flash
    attention forward and backward, directly and through autograd, for bf16 and
@@ -495,6 +498,8 @@ def check_stages_forward(gen, stages, bg_inputs, sa_inputs):
             / mid ** 0.5
         b2 = torch.randn((cout,), generator=gen, device=DEV) * 0.1
         sargs = (r, K, xyz, qidx, feats, w1, b1, w2, b2, True, True)
+        tiling = check_fwd_layout(K, saeval.pack_weights(w1, b1, w2, b2), n,
+                                  B, m, f"stage {i + 1}")
         got = saeval.sa_eval_cuda(*sargs)
         ref = saeval.sa_eval_plain(*sargs)
         torch.cuda.synchronize()
@@ -504,6 +509,7 @@ def check_stages_forward(gen, stages, bg_inputs, sa_inputs):
         e_out = float(diff.max())
         rel = float((diff / (1.0 + ref[2].abs())).max())
         emit("kernel", name="sa_eval", stage=[B, n, m, c, mid, cout, K],
+             tiling=tiling,
              max_abs_err={"new_xyz": e_xyz, "fi": e_fi, "out": e_out},
              max_scaled_err=rel, out_absmax=float(ref[2].abs().max()),
              tolerance=f"new_xyz, fi exact; |out - plain| <= {TOL_SA} * "
@@ -913,6 +919,23 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / max(float(b.norm()), 1e-30))
 
 
+def check_fwd_layout(k, packed, n, b, m, where) -> dict:
+    """The forward's tiling at this shape: the host's copy of its shared
+    memory (``saeval._fwd_smem_bytes``) against the kernel's own
+    (``sa_eval_smem_bytes``); returns the tiling."""
+    from adaptpoint_tpu_torch.ops import saeval
+    wp, midp, coutp = packed.w1.shape + packed.w2.shape[1:]
+    tl = saeval._fwd_tiling(k, wp, midp, coutp, n, b, m)
+    host = saeval._fwd_smem_bytes(tl.tm, k, wp, midp, coutp, tl.np, tl.kc, n,
+                                  tl.use_xs)
+    dev = saeval._lib().sa_eval_smem_bytes(tl.tm, k, wp, midp, coutp, tl.np,
+                                           tl.kc, n, int(tl.use_xs))
+    if host != dev:
+        raise AssertionError(f"forward layout: host {host} bytes, kernel "
+                             f"{dev} ({where})")
+    return dict(tl._asdict(), smem_bytes=dev)
+
+
 def check_sa_train(gen, stages, inputs):
     """The differentiable fused SA stage (rows 5, 6) at ``stages`` (K
     neighbours, relative, dp normalised) on ``inputs``, against its plain
@@ -950,6 +973,7 @@ def check_sa_train(gen, stages, inputs):
             if host != dev:
                 raise AssertionError(f"backward layout: host {host} bytes, "
                                      f"kernel {dev} (stage {i + 1}, {pg=})")
+        check_fwd_layout(K, packed, n, B, m, f"stage {i + 1}")
         fargs = (r, K, xyz, qidx, feats)
         got = saeval.sa_train_cuda(*fargs, packed, True, True)
         ref = saeval.sa_train_plain(*fargs, w1, b1, w2, b2, True, True)
@@ -1132,6 +1156,86 @@ def check_sa_train_bwd_shapes(gen) -> None:
                 bool(torch.isfinite(t).all()) for t in back[:2]):
             raise AssertionError(f"fused SA backward disagrees at "
                                  f"{[n, m, c, mid, cout, k]}: {errs}")
+
+
+# the fused SA forward (rows 3, 5) at its tiling's edges: (B, N, M, C, mid,
+# cout, K, radius) on clouds with half their points at the origin (the pad
+# slots of a ball with fewer than K points repeat its first row: exact ties
+# in out). K = 24 with C = 35 and M = 37 (a ragged last tile of 8 centers);
+# K = 8 at B = 1 (16 centers of 16 rows, 16-row strips); K = 48 (5 centers,
+# 240 rows in 256-row tiles); K = 128 (2 centers); radius 0: every ball
+# empty (dp not normalised)
+SA_FWD_SHAPES = [(2, 256, 37, 35, 40, 72, 24, 0.3),
+                 (1, 512, 64, 64, 64, 128, 8, 0.3),
+                 (2, 512, 50, 64, 64, 128, 48, 0.4),
+                 (2, 256, 20, 32, 32, 64, 128, 0.5),
+                 (2, 256, 64, 32, 32, 64, 32, 0.0)]
+
+
+def check_sa_forward_shapes(gen) -> None:
+    """Rows 3 and 5 against their plain versions at SA_FWD_SHAPES: new_xyz,
+    fi and the neighbours exact, out within TOL_SA * (1 + |plain|), the
+    eval call's outputs equal to the train call's, and the winning slots
+    equal to the plain version's wherever the plain maximum stands more than
+    2 TOL_SA * (1 + |max|) above every value that differs from it (exact
+    ties, the repeated pad rows, go to the first slot on both sides); where
+    it does not, the kernel's slot holds a value within that margin of the
+    maximum."""
+    import torch
+    from adaptpoint_tpu_torch.ops import saeval
+    for b, n, m, c, mid, cout, k, r in SA_FWD_SHAPES:
+        xyz = torch.randn((b, n, 3), generator=gen, device=DEV)
+        xyz = xyz / xyz.norm(dim=-1).amax(dim=1, keepdim=True)[..., None]
+        xyz = (xyz * (torch.rand((b, n), generator=gen, device=DEV)
+                      >= FAKE_DROPPED)[..., None]).contiguous()
+        qidx = torch.stack([torch.randperm(n, generator=gen, device=DEV)[:m]
+                            for _ in range(b)]).int().contiguous()
+        feats = torch.randn((b, n, c), generator=gen, device=DEV)
+        w1 = torch.randn((3 + c, mid), generator=gen, device=DEV) \
+            / (3 + c) ** 0.5
+        b1 = torch.randn((mid,), generator=gen, device=DEV) * 0.1
+        w2 = torch.randn((mid, cout), generator=gen, device=DEV) / mid ** 0.5
+        b2 = torch.randn((cout,), generator=gen, device=DEV) * 0.1
+        packed = saeval.pack_weights(w1, b1, w2, b2)
+        norm = r > 0
+        tiling = check_fwd_layout(k, packed, n, b, m, f"K={k}, C={c}")
+        args = (r, k, xyz, qidx, feats)
+        got = saeval.sa_train_cuda(*args, packed, True, norm)
+        ev = saeval.sa_eval_cuda(*args, packed=packed, relative=True,
+                                 normalize_dp=norm)
+        ref = saeval.sa_train_plain(*args, w1, b1, w2, b2, True, norm)
+        o = saeval._slot_outputs(*args, w1, b1, w2, b2, True, norm)[2]
+        torch.cuda.synchronize()
+        e_exact = max(float((got[j].float() - ref[j].float()).abs().max())
+                      for j in (0, 1, 4))
+        scaled = float(((got[2] - ref[2]).abs()
+                        / (1.0 + ref[2].abs())).max())
+        same_eval = all(torch.equal(x, y) for x, y in zip(ev, got[:3]))
+        top = o.max(dim=2).values
+        margin = 2 * TOL_SA * (1.0 + top.abs())
+        other = torch.where(o == top[:, :, None], float("-inf"),
+                            o).max(dim=2).values
+        decisive = (top - other) > margin
+        arg_k, arg_p = got[3].long(), ref[3].long()
+        mismatched = int(((arg_k != arg_p) & decisive).sum())
+        picked = torch.gather(o, 2, arg_k[:, :, None]).squeeze(2)
+        far = int((picked < top - margin).sum())
+        ties = int(((o == top[:, :, None]).sum(dim=2) > 1).sum())
+        emit("kernel", name="sa_train", case="edge shape",
+             shape=[b, n, m, c, mid, cout, k], radius=r, tiling=tiling,
+             max_abs_err={"exact_outputs": e_exact}, max_scaled_err=scaled,
+             eval_equals_train=same_eval, tied_outputs=ties,
+             decisive_outputs=int(decisive.sum()),
+             winners_differ=int((arg_k != arg_p).sum()),
+             tolerance=f"new_xyz, fi, neighbours exact; |out - plain| <= "
+                       f"{TOL_SA} * (1 + |plain|); winners equal where the "
+                       f"maximum is decisive")
+        if (e_exact or scaled > TOL_SA or not same_eval or mismatched or far
+                or not torch.isfinite(got[2]).all()):
+            raise AssertionError(
+                f"fused SA forward disagrees at {[b, n, m, c, k, r]}: exact "
+                f"{e_exact}, out {scaled}, eval == train {same_eval}, "
+                f"winners {mismatched} decisive mismatched, {far} far")
 
 
 def check_attention(gen, rows) -> None:
@@ -1389,6 +1493,7 @@ def phase_adapt_kernels(gen, rows) -> None:
     del real, fake
     torch.cuda.empty_cache()
     check_sa_train_bwd_shapes(gen)
+    check_sa_forward_shapes(gen)
 
     # ---- the row gathers of one gan_step, with the indices the step's own
     # searches give: (case, launches a step, N, C, idx, source has a gradient)

@@ -14,7 +14,11 @@ one JSON line. Inputs are seeded and the same for every root:
   gradients) at the GAN step's fake pass, the frozen classifier's four
   stages from N=2048 at B=32, K=32, on clouds with half their points at the
   origin; row 3 (``sa_eval_cuda``) at the same stages on whole clouds (the
-  real pass);
+  real pass) and at the four serving stages (N=1024, B=32, the fused
+  serving forward); beside each forward time its bound (the larger of the
+  bytes over the memory rate and the products at the stage's unpadded
+  widths over the bf16 tensor rate plus the ball query's distances, 9
+  operations a point it must scan, over the f32 rate), with the parts;
 - row 14 (``gather_rows_cuda``) at the train step's resampling shape and
   the GAN step's twelve gathers (random indices into each source), with
   ``torch.gather`` beside it; row 15 (``gather_rows_bwd_cuda``) at the same
@@ -31,7 +35,7 @@ the most slots that name one point; and row 6 on a small wide stage (C =
 512, 128 centers) for six seeds against the plain version and a float64
 copy. Each kernel's registers and spill bytes from the build, and the
 tensor-core instructions of rows 3-6 (``cuobjdump -sass``, where the toolkit
-has it). The card's name and power limit (``nvidia-smi``) lead the output;
+has it: both kernels' conv1 lowers to HMMA.16816.F32.BF16). The card's name and power limit (``nvidia-smi``) lead the output;
 ``--out`` gets the same lines.
 
 Compare two checkouts only inside one run: hosts and clocks differ between
@@ -55,6 +59,10 @@ B, K, N_GAN, FAKE_DROPPED = 32, 32, 2048, 0.5
 # radius)
 STAGES = [(2048, 1024, 32, 32, 64, 0.15), (1024, 512, 64, 64, 128, 0.225),
           (512, 256, 128, 128, 256, 0.3375), (256, 128, 256, 256, 512, 0.50625)]
+# PointNeXt-S's stages in the fused serving forward (N = 1024)
+SERVE_STAGES = [(1024, 512, 32, 32, 64, 0.15), (512, 256, 64, 64, 128, 0.225),
+                (256, 128, 128, 128, 256, 0.3375),
+                (128, 64, 256, 256, 512, 0.50625)]
 # row gathers: (case, launches a GAN step, N, C, M); the resampling gather
 # is the train step's (1 a step)
 GATHERS = [("resample", 0, 2048, 4, 1024), ("anchors", 2, 2048, 3, 4),
@@ -71,7 +79,7 @@ GATHERS = [("resample", 0, 2048, 4, 1024), ("anchors", 2, 2048, 3, 4),
 SCATTERS = ("head pooling", "decode 1024 features", "decode 512 features",
             "decode 256 features", "decode 128 features")
 TOL_SA_BWD = 1e-3  # chip_smoke.py's bound on each gradient's 2-norm error
-PEAK_BYTES, PEAK_BF16 = 3.35e12, 989e12  # H100 SXM, dense
+PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12  # H100 SXM, dense
 
 
 def cuda_ms(fn, min_total_ms: float = 100.0) -> float:
@@ -161,19 +169,57 @@ def hmma_kinds(path) -> dict:
     return dict(collections.Counter(re.findall(r"HMMA\.[0-9A-Z.]+", out)))
 
 
-def clouds(gen, dropped: float):
-    """(B, N_GAN, 3) clouds in the unit ball, ``dropped`` of their points at
-    the origin, and each stage's (xyz, qidx, feats) as the classifier's
-    forward gives them: FPS to half at stage 1, then FPS-order prefixes."""
+def scanned_points(xyz, qidx, radius) -> int:
+    """Support points the ball query must look at: up to the K-th in-ball
+    point, or all N when the ball holds fewer (chip_smoke.py's count)."""
+    import torch
+    q = torch.gather(xyz, 1, qidx.long()[..., None].expand(-1, -1, 3))
+    d = q[:, :, None, :] - xyz[:, None, :, :]
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    cum = torch.cumsum((d2 < torch.tensor(radius, dtype=torch.float32) ** 2)
+                       .int(), dim=-1)
+    full = cum[..., -1] >= K
+    kth = torch.argmax((cum >= K).int(), dim=-1) + 1
+    return int(torch.where(full, kth, torch.full_like(kth, xyz.shape[1]))
+               .sum())
+
+
+def r16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def fwd_bound(stage, xyz, qidx) -> dict:
+    """The fused SA forward's bound at one stage (ms) and its parts: the
+    products at the unpadded widths (and, for comparison, at the kernel's
+    padded ones) over the bf16 rate, the ball query's distances over the
+    f32 rate, the bytes over the memory rate."""
+    n, m, c, mid, cout, r = stage
+    rows = B * m * K
+    t_mma = 2 * rows * ((3 + c) * mid + mid * cout) / PEAK_BF16
+    t_pad = 2 * rows * (r16(3 + c) * r16(mid) + r16(mid) * r16(cout)) \
+        / PEAK_BF16
+    t_scan = scanned_points(xyz, qidx, r) * 9 / PEAK_F32
+    t_bytes = (B * n * 12 + B * n * c * 4 + B * m * 4
+               + ((3 + c) * mid + mid * cout) * 2 + (mid + cout) * 4
+               + B * m * 12 + B * m * c * 4 + B * m * cout * 4) / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_bytes, t_mma + t_scan),
+            "products_ms": 1e3 * t_mma, "products_padded_ms": 1e3 * t_pad,
+            "ball_query_ms": 1e3 * t_scan, "bytes_ms": 1e3 * t_bytes}
+
+
+def clouds(gen, dropped: float, stages=STAGES):
+    """(B, N, 3) clouds in the unit ball, ``dropped`` of their points at the
+    origin, and each stage's (xyz, qidx, feats) as the classifier's forward
+    gives them: FPS to half at stage 1, then FPS-order prefixes."""
     import torch
     from adaptpoint_tpu_torch import ops
-    xyz = torch.randn((B, N_GAN, 3), generator=gen, device="cuda")
+    xyz = torch.randn((B, stages[0][0], 3), generator=gen, device="cuda")
     xyz = xyz / xyz.norm(dim=-1).amax(dim=1, keepdim=True)[..., None]
     if dropped:
         xyz = xyz * (torch.rand(xyz.shape[:2], generator=gen, device="cuda")
                      >= dropped)[..., None]
     out = []
-    for i, (n, m, c, _, _, _) in enumerate(STAGES):
+    for i, (n, m, c, _, _, _) in enumerate(stages):
         if i == 0:
             qidx = ops.fpsample.furthest_point_sample_cuda(xyz, m).int()
         else:
@@ -290,6 +336,8 @@ def child(root: str) -> dict:
         bwd_flops = 2 * rows * ((3 + c) * mid + cout * mid + mid * (3 + c))
         stage = {
             "shape": [B, n, m, c, mid, cout, K], "grad_rel_l2": errs,
+            "bound_fwd_real": fwd_bound((n, m, c, mid, cout, r), xr, qr),
+            "bound_fwd_fake": fwd_bound((n, m, c, mid, cout, r), xyz, qidx),
             "most_slots_on_one_point": int(counts.max()),
             "bound_ms_bwd": 1e3 * max(
                 bwd_flops / PEAK_BF16,
@@ -306,9 +354,34 @@ def child(root: str) -> dict:
         del back, ref
         torch.cuda.empty_cache()
     res["stages"] = stages
-    res["wide_stage_seeds"] = wide_stage_seeds(saeval)
     res["sums_device_ms"] = {k: total(s[k]["device_ms"] for s in stages)
                              for k in ("sa_train_bwd", "sa_train", "sa_eval")}
+    res["sums_bound_ms"] = {
+        k: sum(s[k]["bound_ms"] for s in stages)
+        for k in ("bound_fwd_real", "bound_fwd_fake")}
+    # row 3 at the serving stages (whole clouds from N = 1024)
+    serving = []
+    for (n, m, c, mid, cout, r), (xr, qr, fr) in zip(
+            SERVE_STAGES, clouds(gen, 0.0, SERVE_STAGES)):
+        w = [torch.randn((3 + c, mid), generator=gen, device="cuda")
+             / (3 + c) ** 0.5,
+             torch.randn((mid,), generator=gen, device="cuda") * 0.1,
+             torch.randn((mid, cout), generator=gen, device="cuda")
+             / mid ** 0.5,
+             torch.randn((cout,), generator=gen, device="cuda") * 0.1]
+        packed = saeval.pack_weights(*w)
+        serving.append({
+            "shape": [B, n, m, c, mid, cout, K],
+            "bound": fwd_bound((n, m, c, mid, cout, r), xr, qr),
+            "sa_eval": timings(lambda: saeval.sa_eval_cuda(
+                r, K, xr, qr, fr, packed=packed, relative=True,
+                normalize_dp=True))})
+    res["serving_stages"] = serving
+    res["serving_sums"] = {
+        "sa_eval_device_ms": total(s["sa_eval"]["device_ms"]
+                                   for s in serving),
+        "bound_ms": sum(s["bound"]["bound_ms"] for s in serving)}
+    res["wide_stage_seeds"] = wide_stage_seeds(saeval)
 
     # odd widths and both types: every access width and lane group
     for c in (1, 2, 3, 5, 8, 12, 33, 64, 130, 1024):
