@@ -6,16 +6,39 @@
 // running min-distance starts at 1e10, and each step takes the first index of
 // the maximum.
 //
-// Design: one block per cloud. The cloud sits in shared memory as three
-// planes x[N], y[N], z[N] (12 KB at N=1024); each thread keeps the running
-// min of its P = ceil(N / 512) points in registers. Every one of the
-// npoint-1 steps updates those minima and reduces (value, -index) over the
-// block: a shuffle reduction in each warp, then one over the 16 warp results.
+// What bounds it: the latency of the dependent chain, not bytes or
+// operations. Each of the npoint - 1 steps needs the last step's winner, and
+// a step's work (N distances, a few hundred operations a thread at most) is
+// small beside the latency of a block-wide argmax. Only B of the card's 132
+// SMs have work (one block a cloud).
 //
-// What bounds it: latency, not bytes or operations. The steps depend on each
-// other, each is a block-wide reduction with two barriers, and only B of the
-// card's 132 SMs have work (B=32 on the serving path). Making it faster
-// (several clouds per SM, fewer barriers per step) is later work.
+// Design: one block a cloud, T = 512 threads up to N = 2048, else 1024 (the
+// wrapper picks T and P by N, ops/fpsample.py fps_tiling). Thread t owns
+// the P consecutive points tP .. tP + P - 1, their coordinates in registers
+// (in shared memory for P > 4, N up to 16384) and their running minima in
+// registers. Because a lower lane, and a lower warp, owns lower indices, the
+// first index of a maximum is the maximum held by the lowest lane (warp)
+// that holds it. A step is:
+//   1. each thread updates its minima against the last winner (q) and keeps
+//      its first maximum with that point's coordinates;
+//   2. each warp takes the max of the values' bits with redux.sync (every
+//      minimum is >= +0, so the bits order like the values), and the lowest
+//      lane holding it (ballot) writes (value, index, x, y, z) to the warp's
+//      slot of a partial array chosen by step parity;
+//   3. one __syncthreads;
+//   4. every warp reads all the partials and reduces them the same way, and
+//      takes the winner's coordinates from the winning partial by shuffle:
+//      the next step starts without a shared-memory load of the winner.
+// Two partial arrays by parity make one barrier a step enough: a warp
+// writes step j + 2's partial only after the barrier of step j + 1, which
+// every warp passes after reading step j's.
+//
+// Alternatives timed during development on the H100 and not kept: points
+// strided over the threads (a second redux.sync a level for the index) was
+// slower a step, and a 64-bit shared atomicMax of (value, ~index) in place
+// of the partials was no faster. The block size barely moves a step: the
+// SM's instruction rate on the distance work and the fixed chain of the
+// reduction, not the threads, set it.
 //
 // Arithmetic: d = (dx*dx + dy*dy) + dz*dz with every product and sum rounded
 // on its own (__fmul_rn/__fadd_rn, and the file builds with -fmad=false), so
@@ -25,102 +48,111 @@
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxPerThread = 16;
+constexpr int kMaxRegPerThread = 4;  // coordinates in registers up to here
 
-__device__ __forceinline__ void better(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
-}
-
-template <int P>
-__global__ void __launch_bounds__(kThreads)
+template <int T, int P>
+__global__ void __launch_bounds__(T)
 fps_kernel(const float* __restrict__ xyz, int N, int npoint,
            int* __restrict__ idx) {
-  extern __shared__ float planes[];  // x[N] | y[N] | z[N]
-  __shared__ float red_v[kWarps];
-  __shared__ int red_i[kWarps];
-  __shared__ int sel;
-  float* xs = planes;
-  float* ys = planes + N;
-  float* zs = planes + 2 * N;
+  constexpr int W = T / 32;
+  constexpr bool kSmem = P > kMaxRegPerThread;
+  constexpr int PR = kSmem ? 1 : P;  // coordinates held in registers
+  // kSmem: planes x | y | z of T * P, point tid * P + t at t * T + tid
+  // (conflict-free reads)
+  extern __shared__ float planes[];
+  __shared__ float4 part[2][W];  // (value, index, x, y) of each warp
+  __shared__ float part_z[2][W];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const float* p = xyz + (size_t)blockIdx.x * N * 3;
-  for (int i = threadIdx.x; i < N; i += kThreads) {
-    xs[i] = p[3 * i];
-    ys[i] = p[3 * i + 1];
-    zs[i] = p[3 * i + 2];
-  }
-  float mind[P];
+  float px[PR], py[PR], pz[PR], mind[P];
 #pragma unroll
-  for (int t = 0; t < P; ++t) mind[t] = 1e10f;
+  for (int t = 0; t < P; ++t) {
+    const int i = tid * P + t;
+    const float x = i < N ? p[3 * i] : 0.0f;
+    const float y = i < N ? p[3 * i + 1] : 0.0f;
+    const float z = i < N ? p[3 * i + 2] : 0.0f;
+    mind[t] = i < N ? 1e10f : -1.0f;  // a slot past N stays at -1
+    if (kSmem) {
+      planes[t * T + tid] = x;
+      planes[(P + t) * T + tid] = y;
+      planes[(2 * P + t) * T + tid] = z;
+    } else {
+      px[t % PR] = x;
+      py[t % PR] = y;
+      pz[t % PR] = z;
+    }
+  }
   int* out = idx + (size_t)blockIdx.x * npoint;
-  if (threadIdx.x == 0) out[0] = 0;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int last = 0;
-  __syncthreads();
+  if (tid == 0) out[0] = 0;
+  float qx = p[0], qy = p[1], qz = p[2];
+  if (kSmem) __syncthreads();
 
   for (int j = 1; j < npoint; ++j) {
-    const float qx = xs[last], qy = ys[last], qz = zs[last];
-    float bv = -1.0f;
-    int bi = INT_MAX;
+    float bv = -1.0f, bx = 0.0f, by = 0.0f, bz = 0.0f;
+    int bi = 0;
 #pragma unroll
-    for (int t = 0; t < P; ++t) {
-      const int i = threadIdx.x + t * kThreads;  // increasing in t
-      if (i < N) {
-        const float dx = __fsub_rn(xs[i], qx);
-        const float dy = __fsub_rn(ys[i], qy);
-        const float dz = __fsub_rn(zs[i], qz);
-        const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                  __fmul_rn(dz, dz));
-        const float m = fminf(mind[t], d);
-        mind[t] = m;
-        if (m > bv) {  // strict: the first index of a tie stays
-          bv = m;
-          bi = i;
-        }
+    for (int t = 0; t < P; ++t) {  // increasing index
+      const float x = kSmem ? planes[t * T + tid] : px[t % PR];
+      const float y = kSmem ? planes[(P + t) * T + tid] : py[t % PR];
+      const float z = kSmem ? planes[(2 * P + t) * T + tid] : pz[t % PR];
+      const float dx = __fsub_rn(x, qx);
+      const float dy = __fsub_rn(y, qy);
+      const float dz = __fsub_rn(z, qz);
+      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                __fmul_rn(dz, dz));
+      const float m = fminf(mind[t], d);  // -1 past N
+      mind[t] = m;
+      if (m > bv) {  // strict: the first index of a tie stays
+        bv = m;
+        bi = tid * P + t;
+        bx = x;
+        by = y;
+        bz = z;
       }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      better(bv, bi, ov, oi);
-    }
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
+    // the warp's winner: the lowest lane holding the max of the value bits
+    // (+0 for a thread without points: it comes after every lane with one)
+    const unsigned vb = bv < 0.0f ? 0u : __float_as_uint(bv);
+    const unsigned wmax = __reduce_max_sync(kFull, vb);
+    const unsigned won = __ballot_sync(kFull, vb == wmax);
+    if (lane == __ffs(won) - 1) {
+      part[j & 1][warp] =
+          make_float4(__uint_as_float(wmax), __int_as_float(bi), bx, by);
+      part_z[j & 1][warp] = bz;
     }
     __syncthreads();
-    if (warp == 0) {
-      bv = lane < kWarps ? red_v[lane] : -1.0f;
-      bi = lane < kWarps ? red_i[lane] : INT_MAX;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        better(bv, bi, ov, oi);
-      }
-      if (lane == 0) {
-        sel = bi;
-        out[j] = bi;
-      }
+    // every warp: the block's winner, the lowest warp holding the max
+    float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float az = 0.0f;
+    if (lane < W) {
+      a = part[j & 1][lane];
+      az = part_z[j & 1][lane];
     }
-    __syncthreads();
-    last = sel;
+    const unsigned v = lane < W ? __float_as_uint(a.x) : 0u;
+    const unsigned gmax = __reduce_max_sync(kFull, v);
+    const int gl = __ffs(__ballot_sync(kFull, lane < W && v == gmax)) - 1;
+    qx = __shfl_sync(kFull, a.z, gl);
+    qy = __shfl_sync(kFull, a.w, gl);
+    qz = __shfl_sync(kFull, az, gl);
+    const float gi = __shfl_sync(kFull, a.y, gl);
+    if (tid == 0) out[j] = __float_as_int(gi);
   }
 }
 
-template <int P>
+template <int T, int P>
 cudaError_t launch(const float* xyz, int B, int N, int npoint, int* idx,
                    cudaStream_t stream) {
-  const size_t smem = (size_t)3 * N * sizeof(float);
+  const size_t smem =
+      P > kMaxRegPerThread ? (size_t)3 * T * P * sizeof(float) : 0;
   cudaError_t e = cudaFuncSetAttribute(
-      fps_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fps_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  fps_kernel<P><<<B, kThreads, smem, stream>>>(xyz, N, npoint, idx);
+  fps_kernel<T, P><<<B, T, smem, stream>>>(xyz, N, npoint, idx);
   return cudaGetLastError();
 }
 
@@ -128,21 +160,26 @@ cudaError_t launch(const float* xyz, int B, int N, int npoint, int* idx,
 
 extern "C" {
 
-// Largest N the kernel takes (P = 32 points a thread, 192 KB of planes).
-int fps_max_points() { return 32 * kThreads; }
+// Largest N the kernel takes (16 points a thread of 1024, 192 KB of planes).
+int fps_max_points() { return kMaxPerThread * kMaxThreads; }
 
-// xyz (B, N, 3) f32 contiguous -> idx (B, npoint) i32. Returns cudaError_t.
-int fps_launch(const float* xyz, int B, int N, int npoint, int* idx,
-               cudaStream_t stream) {
-  if (B <= 0 || N <= 0 || npoint <= 0) return cudaErrorInvalidValue;
-  const int P = (N + kThreads - 1) / kThreads;
-  if (P <= 1) return launch<1>(xyz, B, N, npoint, idx, stream);
-  if (P <= 2) return launch<2>(xyz, B, N, npoint, idx, stream);
-  if (P <= 4) return launch<4>(xyz, B, N, npoint, idx, stream);
-  if (P <= 8) return launch<8>(xyz, B, N, npoint, idx, stream);
-  if (P <= 16) return launch<16>(xyz, B, N, npoint, idx, stream);
-  if (P <= 32) return launch<32>(xyz, B, N, npoint, idx, stream);
-  return cudaErrorInvalidValue;
+// xyz (B, N, 3) f32 contiguous -> idx (B, npoint) i32 with T threads a cloud
+// and P points a thread, T * P >= N: the instances fps_tiling picks, 512
+// threads of 1, 2 or 4 points (N <= 2048) and 1024 of 4, 8 or 16.
+// Returns cudaError_t.
+int fps_launch(const float* xyz, int B, int N, int npoint, int T, int P,
+               int* idx, cudaStream_t stream) {
+  if (B <= 0 || N <= 0 || npoint <= 0 || (long long)T * P < N)
+    return cudaErrorInvalidValue;
+  switch (T * 100 + P) {
+    case 51201: return launch<512, 1>(xyz, B, N, npoint, idx, stream);
+    case 51202: return launch<512, 2>(xyz, B, N, npoint, idx, stream);
+    case 51204: return launch<512, 4>(xyz, B, N, npoint, idx, stream);
+    case 102404: return launch<1024, 4>(xyz, B, N, npoint, idx, stream);
+    case 102408: return launch<1024, 8>(xyz, B, N, npoint, idx, stream);
+    case 102416: return launch<1024, 16>(xyz, B, N, npoint, idx, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 const char* apt_error_string(int e) {

@@ -5,8 +5,10 @@ Replaces ``adaptpoint_tpu/ops/pallas/knn.py`` ``knn_pallas``
 nearest first, ties to the lowest index; when ``k > N`` the remaining slots
 repeat the nearest. Both versions return indices only; ``ops.knn_point``
 recomputes the distances differentiably from the gathered rows, as the JAX
-package does around its kernel. Bound on the H100: operations (the k
-selection passes over M x N distances), see the source's note.
+package does around its kernel. Bound on the H100: operations (M x N
+distances, one pass over the support a query with a sorted list of the
+nearest in registers); :func:`knn_variant` picks a thread or a warp a query
+by (k, N, C). See the source's note.
 
 The distance is the expanded form ``(|q|^2 + |x|^2) - 2 q.x`` of
 ``geometry.square_distance``, here written out with one elementwise op per
@@ -18,16 +20,48 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 __all__ = ["knn_idx_cuda", "knn_idx_plain", "expanded_sq_dist", "LAUNCHES",
-           "MAX_K"]
+           "MAX_K", "knn_max_points", "knn_variant", "KnnVariant"]
 
 LAUNCHES = 0  # kernel launches of knn_idx_cuda
 MAX_K = 32
+_MAX_SMEM = 227 * 1024  # csrc/knn.cu kMaxSmem
+_THREAD_MAX_K = 8  # the thread-a-query variant's longest list
+
+
+def knn_max_points(c: int) -> int:
+    """Largest support the kernel takes at ``c`` channels: N * (c + 1)
+    floats of shared memory (csrc/knn.cu ``knn_max_points``)."""
+    return _MAX_SMEM // ((c + 1) * 4)
+
+
+class KnnVariant(NamedTuple):
+    """``thread`` (a thread a query) or ``warp`` (a warp a query), and the
+    length of the sorted list each thread keeps."""
+    kind: str
+    list_len: int
+
+
+def knn_variant(k: int, n: int, c: int) -> KnnVariant:
+    """The kernel's variant for ``k`` neighbours among ``n`` support points
+    of ``c`` channels: a thread a query with a list of k (1-4) or 8 at C = 3
+    and k <= 8; else a warp a query, each lane's list min(k, ceil(n / 32))
+    rounded up to a power of two. Raises ValueError outside 1 <= k <= MAX_K,
+    c >= 1 and 1 <= n <= knn_max_points(c)."""
+    if not 1 <= k <= MAX_K or c < 1 or not 1 <= n <= knn_max_points(c):
+        raise ValueError(f"the kNN kernel takes 1 <= k <= {MAX_K}, C >= 1 "
+                         f"and 1 <= N <= knn_max_points(C), got k={k} N={n} "
+                         f"C={c}")
+    if c == 3 and k <= _THREAD_MAX_K:
+        return KnnVariant("thread", k if k <= 4 else 8)
+    need = min(k, -(-n // 32))
+    return KnnVariant("warp", 1 << (need - 1).bit_length())
 
 
 def _sum_sq(x: torch.Tensor) -> torch.Tensor:
@@ -73,7 +107,7 @@ def knn_idx_plain(k: int, xyz: torch.Tensor,
 def _lib():
     lib = _build.load("knn")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.knn_launch.argtypes = [p, p, i, i, i, i, i, p, p]
+    lib.knn_launch.argtypes = [p, p, i, i, i, i, i, i, i, p, p]
     lib.knn_launch.restype = ctypes.c_int
     lib.knn_max_points.argtypes = [i]
     lib.knn_max_points.restype = ctypes.c_int
@@ -97,16 +131,14 @@ def knn_idx_cuda(k: int, xyz: torch.Tensor,
     if query.shape[0] != B or query.shape[2] != C:
         raise ValueError(f"query {tuple(query.shape)} does not match xyz "
                          f"{tuple(xyz.shape)}")
-    if not 1 <= k <= MAX_K or min(B, N, M, C) < 1:
-        raise ValueError(f"the kNN kernel takes 1 <= k <= {MAX_K} and "
-                         f"non-empty clouds, got k={k} B={B} N={N} M={M} "
-                         f"C={C}")
+    if min(B, M) < 1:
+        raise ValueError(f"the kNN kernel takes non-empty clouds, got B={B} "
+                         f"M={M}")
+    var = knn_variant(k, N, C)
     lib = _lib()
-    if N > lib.knn_max_points(C):
-        raise ValueError(f"N={N} exceeds the kNN kernel's "
-                         f"{lib.knn_max_points(C)} points at C={C}")
     idx = torch.empty((B, M, k), dtype=torch.int32, device=xyz.device)
     err = lib.knn_launch(xyz.data_ptr(), query.data_ptr(), B, N, M, C, k,
+                         int(var.kind == "warp"), var.list_len,
                          idx.data_ptr(),
                          torch.cuda.current_stream(xyz.device).cuda_stream)
     _build.check(lib, err, "knn")

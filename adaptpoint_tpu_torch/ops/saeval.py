@@ -12,7 +12,9 @@ B*M*K rows, about twice as many in the backward. The kernels stage the
 grouped rows of a tile of centers in shared memory as bf16 and run the
 convs on the tensor cores with f32 accumulation, mma.sync on weights
 streamed through a cp.async double buffer (:func:`_fwd_tiling` and
-:func:`_bwd_centers_per_block` pick their tiles); see the sources' notes.
+:func:`_bwd_tiling` pick their tiles; the backward holds GH, the block's
+rows by the hidden columns, whole or a group of columns at a time where it
+does not fit); see the sources' notes.
 
 The TPU kernel's rounding is part of the function (``splits=1``), and both
 versions here reproduce it: ``fi = bf16(f)``; gathered xyz is the two-split
@@ -116,12 +118,15 @@ def sa_train_plain(radius: float, nsample: int, xyz, query_idx, feats,
 
 def sa_train_bwd_plain(radius: float, xyz, query_idx, feats, w1, b1, w2, b2,
                        idx, arg, g_new, g_fi, g_out, relative: bool = True,
-                       normalize_dp: bool = False, param_grads: bool = False):
+                       normalize_dp: bool = False, param_grads: bool = False,
+                       relu=None):
     """VJP of :func:`sa_train_plain` with the forward's ``idx`` and ``arg``
     (see the module's note). ``g_new`` and ``g_fi`` may be ``None`` (zero).
-    Returns ``(g_xyz (B,N,3), g_feats (B,N,C), weight_grads)``,
-    ``weight_grads`` ``(gw1, gb1, gw2, gb2)`` with ``param_grads``, else
-    ``None``."""
+    ``relu`` (B, M, K, >= mid), nonzero where h_pre > 0, replaces this
+    version's own ReLU mask (a kernel run's, to hold the kernel to its own
+    decisions at entries within rounding of zero). Returns ``(g_xyz
+    (B,N,3), g_feats (B,N,C), weight_grads)``, ``weight_grads`` ``(gw1, gb1,
+    gw2, gb2)`` with ``param_grads``, else ``None``."""
     B, N, _ = xyz.shape
     C = feats.shape[-1]
     K = idx.shape[-1]
@@ -132,7 +137,8 @@ def sa_train_bwd_plain(radius: float, xyz, query_idx, feats, w1, b1, w2, b2,
                                                     )[:, None]
     g_o = torch.where(win, g_out[:, :, None, :], 0.0)  # (B, M, K, cout)
     g_ob = _bf16(g_o)
-    g_h = torch.where(h_pre > 0, torch.matmul(g_ob, _bf16(w2).t()), 0.0)
+    on = h_pre > 0 if relu is None else relu[..., :h_pre.shape[-1]] != 0
+    g_h = torch.where(on, torch.matmul(g_ob, _bf16(w2).t()), 0.0)
     g_hb = _bf16(g_h)
     g_v = torch.matmul(g_hb, _bf16(w1).t())  # (B, M, K, 3+C)
     g_dp = g_v[..., :3] * _dp_scale(radius, relative, normalize_dp)
@@ -176,10 +182,10 @@ def _lib_bwd():
     lib = _build.load("sa_train_bwd")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sa_train_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
-                                        i, i, i, i, i, i, i, i, i, i,
-                                        f, i, p, p, p, p, p, p, p]
+                                        i, i, i, i, i, i, i, i, i, i, i,
+                                        f, i, p, p, p, p, p, p, p, p]
     lib.sa_train_bwd_launch.restype = ctypes.c_int
-    lib.sa_train_bwd_smem_bytes.argtypes = [i, i, i, i, i, i, i]
+    lib.sa_train_bwd_smem_bytes.argtypes = [i, i, i, i, i, i, i, i]
     lib.sa_train_bwd_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -340,11 +346,14 @@ def _bwd_rows(tm: int, K: int) -> int:
 
 
 def _bwd_smem_bytes(tm: int, K: int, Wp: int, midp: int, coutp: int, C: int,
-                    pg: bool) -> int:
+                    pg: bool, np_: int = 0) -> int:
     """Shared memory of one backward block, as ``sa_train_bwd_smem_bytes``
     computes it (the launch checks it again; ``chip_smoke.py`` holds the two
-    equal at the GAN step's stages)."""
+    equal at the GAN step's stages and the grouped shapes). ``np_ = 0``: GH
+    whole; else the grouped layout, GH ``np_`` hidden columns at a time."""
     rows = _bwd_rows(tm, K)
+    if np_:
+        return _bwd_grouped_smem_bytes(tm, rows, Wp, midp, coutp, C, pg, np_)
     npass = min(256, 16 // (rows // 32) * 32)
     np1, np3 = min(npass, midp), min(npass, _round16(C))
     a = rows * (Wp + _PAD) * 2
@@ -366,22 +375,70 @@ def _bwd_smem_bytes(tm: int, K: int, Wp: int, midp: int, coutp: int, C: int,
     return total + ring + _a128(rows * 4) + 2 * _a128(tm * 16)
 
 
+def _bwd_grouped_smem_bytes(tm, rows, Wp, midp, coutp, C, pg, np_):
+    """The grouped layout (csrc/sa_train_bwd.cu ``layout_grouped``): A, GH's
+    group of ``np_`` columns, with param_grads the group's hb and a slice of
+    GO as wide, the compact cotangents, the ring of passes ``np_`` wide, the
+    wmma scratch with param_grads, the rows' dp values, the row table and
+    the centers."""
+    np1, np3 = min(np_, midp), min(np_, _round16(C))
+    group = _a128(rows * (np_ + _PAD) * 2)
+    slot = _a128(2 * max(_KC * (np1 + _PAD), np1 * (_KC + _PAD),
+                         np3 * (_KC + _PAD)))
+    return (_a128(rows * (Wp + _PAD) * 2) + (3 if pg else 1) * group
+            + _a128(tm * coutp * 2) + _a128(tm * coutp) + 2 * slot
+            + (8 * 256 * 4 if pg else 0) + _a128(rows * 16)
+            + _a128(rows * 4) + 2 * _a128(tm * 16))
+
+
+class BwdTiling(NamedTuple):
+    """The backward's launch shape: ``tm`` centers a block; ``np`` 0 where
+    GH (the block's rows by all hidden columns) fits whole in shared memory,
+    else the hidden columns of a group in the grouped layout; the
+    ``blocks_per_sm`` the shared memory allows."""
+    tm: int
+    np: int
+    blocks_per_sm: int
+
+
 @functools.lru_cache(maxsize=64)
-def _bwd_centers_per_block(K: int, Wp: int, midp: int, coutp: int, C: int,
-                           pg: bool) -> int:
+def _bwd_tiling(K: int, Wp: int, midp: int, coutp: int, C: int,
+                pg: bool) -> BwdTiling:
     """Centers a backward block owns, at most 256 rows: centers whose rows
     fill 256, 128, 64 or 32 exactly first (every warp gets the same share of
     tiles), then any count; the most with which two blocks fit on an SM,
-    else the most with which one does."""
+    else the most with which one does, GH whole. Where GH does not fit
+    whole with even one center, the grouped layout, one block an SM: of
+    the centers and groups (the pass width, 128, 64 or 32 columns) that
+    fit, the pair that keeps the most warp tiles busy, then the most rows,
+    then the widest group. Raises ValueError where nothing fits."""
     kp = _round16(K)
     counts = [r // kp for r in (256, 128, 64, 32) if r % kp == 0]
     counts += [t for t in range(256 // kp, 0, -1) if t not in counts]
-    for limit in (_SMEM_TWO_BLOCKS, _SMEM_LIMIT):
+    for limit, bps in ((_SMEM_TWO_BLOCKS, 2), (_SMEM_LIMIT, 1)):
         for tm in counts:
             if _bwd_smem_bytes(tm, K, Wp, midp, coutp, C, pg) <= limit:
-                return tm
+                return BwdTiling(tm, 0, bps)
+    fits = []
+    for tm in counts:
+        rows = _bwd_rows(tm, K)
+        widest = _pass_cols(rows)
+        for np_ in [widest] + [w for w in (128, 64, 32) if w < widest]:
+            if _bwd_smem_bytes(tm, K, Wp, midp, coutp, C, pg,
+                               np_) <= _SMEM_LIMIT:
+                tiles = min(16, rows // 32 * -(-min(np_, midp) // 32))
+                fits.append(((tiles, rows, np_), tm, np_))
+    if fits:
+        _, tm, np_ = max(fits)
+        return BwdTiling(tm, np_, 1)
     raise ValueError(f"SA stage too wide for one backward block: K={K} "
                      f"Wp={Wp} mid={midp} cout={coutp}")
+
+
+def _bwd_centers_per_block(K: int, Wp: int, midp: int, coutp: int, C: int,
+                           pg: bool) -> int:
+    """Centers a backward block owns (:func:`_bwd_tiling`)."""
+    return _bwd_tiling(K, Wp, midp, coutp, C, pg).tm
 
 
 def _forward_cuda(radius, nsample, xyz, query_idx, feats, packed, relative,
@@ -462,10 +519,16 @@ def sa_train_bwd_cuda(radius: float, xyz, query_idx, feats,
                       packed: PackedWeights, idx, arg, g_new, g_fi, g_out,
                       relative: bool = True, normalize_dp: bool = False,
                       param_grads: bool = False, need_xyz: bool = True,
-                      need_feats: bool = True):
+                      need_feats: bool = True,
+                      tiling: Optional[BwdTiling] = None,
+                      relu: Optional[torch.Tensor] = None):
     """The backward kernel; same outputs as :func:`sa_train_bwd_plain` (the
     weight gradients unpadded, ``None`` for a gradient not asked for).
-    Cotangents may be ``None`` (zero) or non-contiguous."""
+    Cotangents may be ``None`` (zero) or non-contiguous. For checks:
+    ``tiling`` forces a launch shape other than :func:`_bwd_tiling`'s (the
+    grouped layout against GH whole), and ``relu``, a contiguous uint8
+    ``(B, M, K, midp)`` tensor, gets the kernel's ReLU mask (the forward's
+    bit for bit), which :func:`sa_train_bwd_plain` can take."""
     global LAUNCHES_TRAIN_BWD
     _check_inputs(xyz, query_idx, feats)
     B, N, _ = xyz.shape
@@ -488,7 +551,7 @@ def sa_train_bwd_cuda(radius: float, xyz, query_idx, feats,
         g_out = torch.zeros((B, M, cout), dtype=torch.float32, device=dev)
     Wp, midp = packed.w1.shape
     coutp = packed.w2.shape[1]
-    tm = _bwd_centers_per_block(K, Wp, midp, coutp, C, bool(param_grads))
+    tl = tiling or _bwd_tiling(K, Wp, midp, coutp, C, bool(param_grads))
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -501,14 +564,20 @@ def sa_train_bwd_cuda(radius: float, xyz, query_idx, feats,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    if relu is not None and (relu.dtype != torch.uint8 or relu.device != dev
+                             or not relu.is_contiguous()
+                             or tuple(relu.shape) != (B, M, K, midp)):
+        raise ValueError(f"relu must be a contiguous uint8 {(B, M, K, midp)} "
+                         f"tensor on {dev}")
     lib = _lib_bwd()
     err = lib.sa_train_bwd_launch(
         xyz.data_ptr(), query_idx.data_ptr(), feats.data_ptr(),
         idx.data_ptr(), arg.data_ptr(), packed.w1.data_ptr(),
         packed.b1.data_ptr(), packed.w2.data_ptr(), g_out.data_ptr(),
-        ptr(g_new), ptr(g_fi), B, N, M, C, K, tm, Wp, midp, coutp, cout,
+        ptr(g_new), ptr(g_fi), B, N, M, C, K, tl.tm, tl.np, Wp, midp, coutp,
+        cout,
         _dp_scale(radius, relative, normalize_dp), int(bool(relative)),
-        ptr(g_xyz), ptr(g_feats), *(ptr(t) for t in wg),
+        ptr(g_xyz), ptr(g_feats), *(ptr(t) for t in wg), ptr(relu),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "sa_train_bwd")
     LAUNCHES_TRAIN_BWD += 1

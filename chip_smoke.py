@@ -10,17 +10,24 @@ Phases, one JSON object a line:
    compiled in parallel (one nvcc each), with the time it took.
 3. ``kernel``: each kernel against its plain PyTorch version on the card at the
    shapes the B=32 PointNeXt-S forward, train step and adversarial step give it
-   (FPS 1024 -> 512 and 2048 -> 1200; the four SA stages at N=1024 for
-   ball-group forward, backward and fused SA; the max-pooled ball group forward
+   (FPS 1024 -> 512, 2048 -> 1200 and 2048 -> 1024, each timed with ns a step,
+   and at seven edges: B = 1, N = 1000 and 4097 with npoint = N, npoint = 1,
+   half the points at the origin, N = 300, N = 16384; the four SA stages at
+   N=1024 for ball-group forward, backward and fused SA; the max-pooled ball
+   group forward
    and backward at the augmentor's four grouper shapes and on a cloud with ties
    and an empty ball; the fused SA and the differentiable fused SA forward and
-   backward at the N=2048 stages of a ``gan_step``, the backward also at four
-   shapes off them (odd C, K = 8, K = 48, C = 512), the forward at five edges
+   backward at the N=2048 stages of a ``gan_step``, the backward also at six
+   shapes off them (odd C, K = 8, K = 48, C = 512, and where GH does not fit
+   whole, (256, 512, 512) at K = 48 and (512, 1024, 1024) at K = 64, 128
+   centers, with and without the weight gradients), the forward at five edges
    of its tiling (K = 8, 24, 48, 128, C = 35, a ragged last tile, B = 1,
    empty balls, tied maxima), the host's copy of the forward's shared memory
    against the kernel's at every stage and edge; the row gather and its
    scatter-add at the resampling shape, a feature shape and every gather of a
-   ``gan_step``; the kNN at the five shapes of a ``gan_step``; the flash
+   ``gan_step``; the kNN at the five shapes of a ``gan_step``, beside the
+   stand-in ``torch.topk(torch.cdist(q, x))``, and at twelve edges (C = 35,
+   k = 32, ragged query counts, B = 1, ties, k > N, both variants); the flash
    attention forward and backward, directly and through autograd, for bf16 and
    f32 inputs, at (128, 2048, 16) and at every head dim across the tiles' edges
    (N = 1, 40, 127, 128, 129, 2047), two backward runs bit for bit equal, timed
@@ -29,8 +36,8 @@ Phases, one JSON object a line:
    alone); the 3-NN weighted gather forward and backward at the four
    feature-propagation levels of a bf16 ``gan_step``, with repeated neighbours
    and on a cloud with half its points at the origin), with errors, tolerances,
-   bounds and CUDA-event times; for the differentiable fused SA backward (per
-   stage) and the row gather and its scatter-add (per shape, beside
+   bounds and CUDA-event times; for FPS, the kNN, the differentiable fused SA
+   backward (per stage) and the row gather and its scatter-add (per shape, beside
    ``torch.gather`` and ``index_add_``) also the card's time of the call alone
    from the profiler and the host's enqueue time a call.
 4. ``serve``: full-width ``cfgs/scanobjectnn/pointnext-s.yaml`` with seeded
@@ -132,6 +139,12 @@ TOL_SA = 2e-2  # fused SA: |kernel - plain| <= TOL_SA * (1 + |plain|)
 # flip single bf16 roundings), and end to end, each side on its own winners
 # (a near-tie of two distinct rows may pick another slot)
 TOL_SA_BWD, TOL_SA_E2E = 1e-3, 5e-2
+# row 6's grouped layout against GH whole on the same inputs (forced where GH
+# fits), the largest relative 2-norm over the gradients: the same sums in the
+# same order, only the atomic adds land in another order (the readings, in
+# this script's output and PERF.md, sit orders of magnitude below); the ReLU
+# masks are equal bit for bit
+TOL_GROUPED = 1e-5
 TOL_UNFUSED = (1e-3, 1e-4)  # (rtol, atol) serve logits, f32 route vs CPU
 EPS32 = 2.0 ** -23  # f32 machine epsilon
 # train phase: batches of (B, N_TRAIN, 4) resampled FPS N_TRAIN -> N_FPS, then
@@ -276,7 +289,7 @@ OWN_KERNELS = ("fps_kernel", "ball_group_kernel", "ball_group_bwd_kernel",
                "sa_eval_kernel", "sa_train_bwd_kernel", "gather_rows_kernel",
                "scatter_add_rows_kernel", "mha_cast_bf16_kernel",
                "mha_fwd_kernel", "mha_bwd_prep_kernel", "mha_bwd_kernel",
-               "mha_dq_reduce_kernel", "knn_kernel",
+               "mha_dq_reduce_kernel", "knn_thread_kernel", "knn_warp_kernel",
                "fpinterp_fwd_kernel", "fpinterp_bwd_kernel")
 # adapt phase: the augmentor's four groupers at N=2048: (N -> M, C, radius),
 # K_GAN neighbours (the max-pooled ball group); the mask head's attention
@@ -604,6 +617,92 @@ def check_stages_backward(gen, stages, inputs):
     return bwd
 
 
+# FPS edge cases, each exact against the plain version: (B, N, npoint, share
+# of points moved to the origin); every instance of the kernel
+# (fpsample.FPS_INSTANCES) and the shared-memory planes (N > 4096)
+FPS_EDGES = [(1, 1024, 512, 0.0), (2, 1000, 1000, 0.0), (2, 4097, 4097, 0.0),
+             (4, 2048, 1, 0.0), (4, 2048, 1024, 0.5), (2, 300, 300, 0.0),
+             (2, 4096, 2048, 0.0), (2, 16384, 4096, 0.0)]
+
+
+def check_fps_edges(gen) -> None:
+    """The FPS kernel at FPS_EDGES against its plain version, index for
+    index: B = 1, N = 1000 and 4097 with npoint = N, npoint = 1, a cloud
+    with half its points at the origin (ties), N = 300 (threads without
+    points), N = 4096 (1024 threads of 4 points) and N = 16384 (the
+    kernel's largest); together every instance of the kernel."""
+    import torch
+    from adaptpoint_tpu_torch.ops import fpsample as fps
+    if fps._lib().fps_max_points() != fps.FPS_MAX_POINTS:
+        raise AssertionError("the FPS kernel's largest N differs from the "
+                             "wrapper's FPS_MAX_POINTS")
+    if {tuple(fps.fps_tiling(n)) for _, n, _, _ in FPS_EDGES} \
+            != set(fps.FPS_INSTANCES):
+        raise AssertionError("FPS_EDGES miss an instance of the FPS kernel")
+    for b, n, npoint, dropped in FPS_EDGES:
+        xyz = torch.randn((b, n, 3), generator=gen, device=DEV)
+        if dropped:
+            xyz = xyz * (torch.rand((b, n), generator=gen, device=DEV)
+                         >= dropped)[..., None]
+        xyz = xyz.contiguous()
+        got = fps.furthest_point_sample_cuda(xyz, npoint)
+        ref = fps.furthest_point_sample_plain(xyz, npoint)
+        mism = int((got != ref).sum())
+        emit("kernel", name="fps", case="edge", shape=[b, n, npoint],
+             dropped_share=dropped, tiling=list(fps.fps_tiling(n)),
+             mismatches=mism, tolerance="exact")
+        if mism:
+            raise AssertionError(f"FPS kernel disagrees at {mism} indices "
+                                 f"({b}, {n} -> {npoint}, {dropped=})")
+
+
+def check_knn_edges(gen) -> None:
+    """The kNN kernel against its plain version, index for index, off the
+    GAN step's shapes: C = 35 (the generic-channel warp variant), k = 32,
+    query counts that are not multiples of a block's (128 or 8), B = 1,
+    ties (every point twice, a quarter of them at the origin) and k > N,
+    on both variants."""
+    import torch
+    from adaptpoint_tpu_torch.ops import knn
+    for c in (1, 3, 35, 512):
+        if knn._lib().knn_max_points(c) != knn.knn_max_points(c):
+            raise AssertionError(f"the kNN kernel's largest N at C={c} "
+                                 f"differs from the wrapper's")
+
+    def case(tag, k, support, query):
+        got = knn.knn_idx_cuda(k, support, query)
+        ref = knn.knn_idx_plain(k, support, query)
+        mism = int((got != ref).sum())
+        b, n, c = support.shape
+        emit("kernel", name="knn", case=tag,
+             shape=[b, n, query.shape[1], c, k],
+             variant=list(knn.knn_variant(k, n, c)), mismatches=mism,
+             tolerance="exact")
+        if mism:
+            raise AssertionError(f"kNN kernel disagrees at {mism} indices "
+                                 f"({tag}, N={n}, k={k}, C={c})")
+
+    def pts(b, n, c=3):
+        return torch.randn((b, n, c), generator=gen, device=DEV)
+
+    case("C = 35", 8, pts(2, 300, 35), pts(2, 77, 35))
+    case("C = 35, k = 32", 32, pts(2, 700, 35), pts(2, 20, 35))
+    case("k = 32", 32, pts(4, 1024), pts(4, 100))
+    case("M = 129, thread a query", 3, pts(3, 500), pts(3, 129))
+    case("M = 13, warp a query", 24, pts(3, 500), pts(3, 13))
+    case("B = 1", 3, pts(1, 2048), pts(1, 1000))
+    twice = pts(2, 64).repeat(1, 2, 1)
+    twice[:, ::4] = 0.0
+    twice = twice.contiguous()
+    case("ties, thread a query", 5, twice, pts(2, 50))
+    case("ties, warp a query", 20, twice, pts(2, 50))
+    case("ties, C = 35", 12, pts(2, 40, 35).repeat(1, 3, 1).contiguous(),
+         pts(2, 9, 35))
+    case("k > N, thread a query", 8, pts(2, 5), pts(2, 33))
+    case("k > N, warp a query", 32, pts(2, 20), pts(2, 33))
+    case("k > N, C = 35", 16, pts(2, 7, 35), pts(2, 10, 35))
+
+
 def phase_kernels(gen):
     import torch
     from adaptpoint_tpu_torch.ops import fpsample as fps
@@ -631,6 +730,10 @@ def phase_kernels(gen):
         bound_ms=1e3 * max(bytes_f / PEAK_BYTES, ops_f / PEAK_F32),
         bound_by="bytes" if bytes_f / PEAK_BYTES > ops_f / PEAK_F32
         else "operations", max_abs_err=err)
+    rows["fps"].update(
+        ns_a_step=rows["fps"]["ms"] * 1e6 / 511,
+        **device_host(lambda: fps.furthest_point_sample_cuda(xyz, 512)))
+    check_fps_edges(gen)
 
     rows["ball_group"], rows["sa_eval"] = check_stages_forward(
         gen, STAGES, inputs, inputs)
@@ -804,11 +907,12 @@ def phase_train_kernels(gen, inputs, rows) -> None:
                              f"(2048 -> 1200)")
     ops_f = (N_FPS - 1) * B * N_TRAIN * 10
     bytes_f = B * N_TRAIN * 12 + B * N_FPS * 4
+    ms = cuda_ms(lambda: fps.furthest_point_sample_cuda(cloud, N_FPS))
     rows["fps"]["resample_shape"] = dict(
-        shape=[B, N_TRAIN, N_FPS],
-        ms=cuda_ms(lambda: fps.furthest_point_sample_cuda(cloud, N_FPS)),
+        shape=[B, N_TRAIN, N_FPS], ms=ms, ns_a_step=ms * 1e6 / (N_FPS - 1),
         plain_ms=cuda_ms(
             lambda: fps.furthest_point_sample_plain(cloud, N_FPS), 50.0),
+        **device_host(lambda: fps.furthest_point_sample_cuda(cloud, N_FPS)),
         **bound_row(bytes_f / PEAK_BYTES, ops_f / PEAK_F32))
 
     # ball-group backward at the four stage shapes
@@ -936,6 +1040,19 @@ def check_fwd_layout(k, packed, n, b, m, where) -> dict:
     return dict(tl._asdict(), smem_bytes=dev)
 
 
+def check_bwd_layout(k, wp, midp, coutp, c, pg, where) -> None:
+    """The host's copy of row 6's shared-memory layout against the kernel's
+    own, at the tiling the wrapper picks (GH whole or grouped)."""
+    from adaptpoint_tpu_torch.ops import saeval
+    tl = saeval._bwd_tiling(k, wp, midp, coutp, c, pg)
+    host = saeval._bwd_smem_bytes(tl.tm, k, wp, midp, coutp, c, pg, tl.np)
+    dev = saeval._lib_bwd().sa_train_bwd_smem_bytes(
+        tl.tm, k, wp, midp, coutp, c, int(pg), tl.np)
+    if host != dev:
+        raise AssertionError(f"backward layout: host {host} bytes, kernel "
+                             f"{dev} ({where}, {pg=}, {tl})")
+
+
 def check_sa_train(gen, stages, inputs):
     """The differentiable fused SA stage (rows 5, 6) at ``stages`` (K
     neighbours, relative, dp normalised) on ``inputs``, against its plain
@@ -966,13 +1083,7 @@ def check_sa_train(gen, stages, inputs):
         # against the kernel's own
         wp, midp, coutp = packed.w1.shape + packed.w2.shape[1:]
         for pg in (False, True):
-            tm = saeval._bwd_centers_per_block(K, wp, midp, coutp, c, pg)
-            host = saeval._bwd_smem_bytes(tm, K, wp, midp, coutp, c, pg)
-            dev = saeval._lib_bwd().sa_train_bwd_smem_bytes(
-                tm, K, wp, midp, coutp, c, int(pg))
-            if host != dev:
-                raise AssertionError(f"backward layout: host {host} bytes, "
-                                     f"kernel {dev} (stage {i + 1}, {pg=})")
+            check_bwd_layout(K, wp, midp, coutp, c, pg, f"stage {i + 1}")
         check_fwd_layout(K, packed, n, B, m, f"stage {i + 1}")
         fargs = (r, K, xyz, qidx, feats)
         got = saeval.sa_train_cuda(*fargs, packed, True, True)
@@ -1100,17 +1211,55 @@ def check_sa_train(gen, stages, inputs):
 # radius) at B = 2 on clouds with half their points at the origin. C % 4 != 0
 # (scalar adds, no 16-byte feature loads); K = 8 (16 centers a block); K = 48
 # (rows padded to a multiple of 32); C = 512 (two passes over the hidden
-# columns and the features, GH apart from A)
+# columns and the features, GH apart from A); the grouped layout, where GH
+# does not fit whole: (256, 512, 512) at K = 48 (grouped with the weight
+# gradients only) and (512, 1024, 1024) at K = 64 (grouped with and without
+# them), 2 clouds of 64 centers
 SA_BWD_SHAPES = [(256, 64, 35, 40, 72, 24, 0.3), (256, 64, 16, 16, 32, 8, 0.3),
                  (512, 64, 64, 64, 128, 48, 0.4),
-                 (512, 64, 512, 512, 1024, 32, 0.4)]
+                 (512, 64, 512, 512, 1024, 32, 0.4),
+                 (1024, 64, 256, 512, 512, 48, 0.4),
+                 (1024, 64, 512, 1024, 1024, 64, 0.4)]
+
+
+def relu_flips(r, k, xyz, qidx, feats, w1, b1, idx, relu) -> dict:
+    """Where row 6's ReLU mask (its forward's, bit for bit) differs from the
+    plain version's own h_pre > 0: the count of entries, and the largest
+    |h_pre| (float64) there over the f32 reordering bound of its 3 + C + 1
+    addends, n 2^-23 sum|addend| (the products bf16(gg) bf16(w1) are exact):
+    at most 1 where the two masks differ only because two orders of the same
+    f32 sum fall on either side of zero."""
+    import torch
+    from adaptpoint_tpu_torch.ops import saeval
+    _, _, _, gg = saeval._grouped_rows(r, k, xyz, qidx, feats, True, True,
+                                       idx)
+    w = saeval._bf16(w1)
+    g64, w64 = gg.double(), w.double()
+    h64 = torch.matmul(g64, w64) + b1.double()
+    bound = (gg.shape[-1] + 1) * EPS32 * (torch.matmul(g64.abs(), w64.abs())
+                                          + b1.double().abs())
+    flips = (relu[..., :w1.shape[1]] != 0) != (torch.matmul(gg, w) + b1 > 0)
+    n = int(flips.sum())
+    return {"flips": n, "worst_over_bound": float(
+        (h64.abs() / bound)[flips].max()) if n else 0.0}
 
 
 def check_sa_train_bwd_shapes(gen) -> None:
     """Row 6 against its plain version (TOL_SA_BWD in relative 2-norm a
     gradient, with and without the weight gradients) at SA_BWD_SHAPES, on
     the forward kernel's own neighbours and winners: the host's tiling and
-    the kernel's paths the GAN step's stages do not take."""
+    the kernel's paths the GAN step's stages do not take. The kernel also
+    reports its ReLU mask: where it differs from the plain version's, the
+    entry must lie within the f32 reordering bound of zero
+    (:func:`relu_flips`), and the gradients must be within TOL_SA_BWD of the
+    plain version on the kernel's mask. They must also be within TOL_SA_BWD
+    of the plain version on its own mask wherever GH is whole, and at the
+    grouped shapes wherever the two masks are equal; where a flip was
+    observed there, that distance is reported only: with few centers a
+    single near-zero entry whose mask two sum orders decide differently
+    moves a gradient by ~1e-3 in relative 2-norm (PERF.md, ROADMAP C.3).
+    With GH whole the grouped layout, forced, must be within TOL_GROUPED of
+    GH whole with the same ReLU mask bit for bit."""
     import torch
     from adaptpoint_tpu_torch.ops import saeval
     b = 2
@@ -1132,30 +1281,72 @@ def check_sa_train_bwd_shapes(gen) -> None:
         cots = [torch.randn(shape, generator=gen, device=DEV)
                 for shape in ((b, m, 3), (b, m, c), (b, m, cout))]
         bargs = (r, xyz, qidx, feats)
-        ref = saeval.sa_train_bwd_plain(*bargs, w1, b1, w2, b2, got[4],
-                                        got[3], *cots, True, True, True)
-        errs = {}
-        for weights in (False, True):
-            back = saeval.sa_train_bwd_cuda(*bargs, packed, got[4], got[3],
-                                            *cots, True, True, weights)
-            tag = "_with_weights" if weights else ""
-            errs["g_xyz" + tag] = rel_l2(back[0], ref[0])
-            errs["g_feats" + tag] = rel_l2(back[1], ref[1])
-            if weights:
-                for name, x, y in zip(("g_w1", "g_b1", "g_w2", "g_b2"),
-                                      back[2], ref[2]):
-                    errs[name] = rel_l2(x, y)
         wp, midp, coutp = packed.w1.shape + packed.w2.shape[1:]
-        tms = [saeval._bwd_centers_per_block(k, wp, midp, coutp, c, pg)
-               for pg in (False, True)]
+        relu = torch.zeros((b, m, k, midp), dtype=torch.uint8, device=DEV)
+        backs = [saeval.sa_train_bwd_cuda(*bargs, packed, got[4], got[3],
+                                          *cots, True, True, weights,
+                                          relu=relu)
+                 for weights in (False, True)]
+        errs = {}
+        for mask, ref in (("", saeval.sa_train_bwd_plain(
+                *bargs, w1, b1, w2, b2, got[4], got[3], *cots, True, True,
+                True)), ("kernel_mask_", saeval.sa_train_bwd_plain(
+                *bargs, w1, b1, w2, b2, got[4], got[3], *cots, True, True,
+                True, relu=relu))):
+            for back, tag in zip(backs, ("", "_with_weights")):
+                errs[mask + "g_xyz" + tag] = rel_l2(back[0], ref[0])
+                errs[mask + "g_feats" + tag] = rel_l2(back[1], ref[1])
+            for name, x, y in zip(("g_w1", "g_b1", "g_w2", "g_b2"),
+                                  backs[1][2], ref[2]):
+                errs[mask + name] = rel_l2(x, y)
+        tilings = []
+        for pg in (False, True):
+            check_bwd_layout(k, wp, midp, coutp, c, pg, f"{[n, m, c, k]}")
+            tilings.append(list(saeval._bwd_tiling(k, wp, midp, coutp, c,
+                                                   pg)))
+        grouped = any(tl[1] for tl in tilings)
+        flips = relu_flips(r, k, xyz, qidx, feats, w1, b1, got[4], relu)
+        if not grouped:  # the grouped instance forced where GH fits whole
+            for pg, back in zip((False, True), backs):
+                tm = tilings[pg][0]
+                ng = max(w for w in (32, 64, 128, 256)
+                         if w <= saeval._pass_cols(saeval._bwd_rows(tm, k))
+                         and saeval._bwd_smem_bytes(tm, k, wp, midp, coutp, c,
+                                                    pg, w)
+                         <= saeval._SMEM_LIMIT)
+                relu_g = torch.zeros_like(relu)
+                forced = saeval.sa_train_bwd_cuda(
+                    *bargs, packed, got[4], got[3], *cots, True, True, pg,
+                    tiling=saeval.BwdTiling(tm, ng, 1), relu=relu_g)
+                tag = f"grouped_{ng}_vs_whole" + ("_with_weights" if pg
+                                                  else "")
+                errs[tag] = max(rel_l2(x, y) for x, y in zip(
+                    forced[:2] + (forced[2] or ()),
+                    back[:2] + (back[2] or ())))
+                if errs[tag] > TOL_GROUPED or not torch.equal(relu_g, relu):
+                    raise AssertionError(f"the grouped layout disagrees with "
+                                         f"GH whole at {[n, m, c, k]}: "
+                                         f"{errs[tag]}, masks equal "
+                                         f"{torch.equal(relu_g, relu)}")
+        own_mask_gated = not grouped or flips["flips"] == 0
+        gated = [v for key, v in errs.items()
+                 if key.startswith("kernel_mask_")
+                 or (own_mask_gated and not key.startswith("grouped_"))]
         emit("kernel", name="sa_train_bwd", case="odd shape",
-             shape=[b, n, m, c, mid, cout, k], centers_a_block=tms,
-             grad_rel_l2=errs, tolerance=f"<= {TOL_SA_BWD} in relative "
-                                         f"2-norm a gradient")
-        if max(errs.values()) > TOL_SA_BWD or not all(
-                bool(torch.isfinite(t).all()) for t in back[:2]):
+             shape=[b, n, m, c, mid, cout, k],
+             tiling_without_and_with_weights=tilings, grad_rel_l2=errs,
+             relu_mask_against_plain=flips, own_mask_gated=own_mask_gated,
+             tolerance=f"<= {TOL_SA_BWD} in relative 2-norm a gradient, on "
+                       f"the kernel's ReLU mask" + (" and on the plain's"
+                                                    if own_mask_gated else "")
+                       + "; masks differ only within the f32 reordering "
+                         "bound of zero")
+        if max(gated) > TOL_SA_BWD or flips["worst_over_bound"] > 1.0 \
+                or not all(bool(torch.isfinite(t).all())
+                           for back in backs for t in back[:2]):
             raise AssertionError(f"fused SA backward disagrees at "
-                                 f"{[n, m, c, mid, cout, k]}: {errs}")
+                                 f"{[n, m, c, mid, cout, k]}: {errs} "
+                                 f"{flips}")
 
 
 # the fused SA forward (rows 3, 5) at its tiling's edges: (B, N, M, C, mid,
@@ -1391,13 +1582,29 @@ def phase_adapt_kernels(gen, rows) -> None:
     cloud = cloud / cloud.norm(dim=-1).amax(dim=1, keepdim=True)[..., None]
     # the decode's levels: the cloud, its FPS half, then FPS-order prefixes
     order = fps.furthest_point_sample_cuda(cloud, N_GAN // 2)
+    ref = fps.furthest_point_sample_plain(cloud, N_GAN // 2)
+    mism = int((order != ref).sum())
+    emit("kernel", name="fps", shape=[B, N_GAN, N_GAN // 2], mismatches=mism,
+         tolerance="exact")
+    if mism:
+        raise AssertionError(f"FPS kernel disagrees at {mism} indices "
+                             f"(2048 -> 1024)")
+    ms = cuda_ms(lambda: fps.furthest_point_sample_cuda(cloud, N_GAN // 2))
+    rows["fps"]["gan_step_shape"] = dict(
+        shape=[B, N_GAN, N_GAN // 2], ms=ms,
+        ns_a_step=ms * 1e6 / (N_GAN // 2 - 1),
+        **device_host(lambda: fps.furthest_point_sample_cuda(
+            cloud, N_GAN // 2)),
+        **bound_row((B * N_GAN * 12 + B * N_GAN // 2 * 4) / PEAK_BYTES,
+                    (N_GAN // 2 - 1) * B * N_GAN * 10 / PEAK_F32))
     levels = [cloud, ops.index_points(cloud, order).contiguous()]
     for _, m, _, _ in GAN_STAGES[1:]:
         levels.append(levels[1][:, :m].contiguous())
 
     # ---- kNN: k=3 at the four FP-decode levels, k=24 for the 4 anchors;
     # then ties (repeated points) and k > N
-    acc = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, t_b=0.0, t_o=0.0)
+    acc = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, t_b=0.0, t_o=0.0,
+               stand_in_ms=0.0, device_ms=0.0, host_us=0.0)
     cases = [(3, levels[i + 1], levels[i]) for i in range(4)]
     cases.append((24, levels[4], levels[0][:, :4].contiguous()))
     for k, support, query in cases:
@@ -1416,12 +1623,21 @@ def phase_adapt_kernels(gen, rows) -> None:
         row = dict(ms=cuda_ms(lambda: knn.knn_idx_cuda(k, support, query)),
                    plain_ms=cuda_ms(
                        lambda: knn.knn_idx_plain(k, support, query), 50.0),
+                   variant=list(knn.knn_variant(k, n, 3)),
+                   **device_host(lambda: knn.knn_idx_cuda(k, support, query)),
                    **bound_row(t_b, t_o))
+        # a stand-in, not a library call for the same function: other
+        # arithmetic (cdist) and its own tie rule
+        row["stand_in_ms"] = cuda_ms(lambda: torch.topk(
+            torch.cdist(query, support), k, dim=-1, largest=False))
         emit("stage_times", knn=row, shape=[B, n, m, 3, k])
-        acc["ms"] += row["ms"]
-        acc["plain_ms"] += row["plain_ms"]
+        for key in ("ms", "plain_ms", "stand_in_ms"):
+            acc[key] += row[key]
         acc["t_b"] += t_b
         acc["t_o"] += t_o
+        for key in ("device_ms", "host_us"):  # None: not measured
+            acc[key] = (None if acc[key] is None or row[key] is None
+                        else acc[key] + row[key])
     tied = levels[3][:, :64].repeat(1, 2, 1).contiguous()  # every point twice
     for k, support, query in ((5, tied, levels[4]), (24, levels[4][:, :8]
                                                      .contiguous(), tied)):
@@ -1433,6 +1649,7 @@ def phase_adapt_kernels(gen, rows) -> None:
              mismatches=mism, tolerance="exact")
         if mism:
             raise AssertionError(f"kNN kernel disagrees ({k=}): {mism}")
+    check_knn_edges(gen)
     acc.update(bound_row(acc.pop("t_b"), acc.pop("t_o")))
     rows["knn"] = acc
 
@@ -3900,7 +4117,8 @@ def main(argv=None) -> int:
                       "device_ms", "host_us", "library_device_ms",
                       "library_host_us", "stages_ms", "stages_device_ms",
                       "stages_host_us", "stages_bound_ms",
-                      "ms_with_d_w", "bound_ms_with_d_w", "full_n_op_ms"):
+                      "ms_with_d_w", "bound_ms_with_d_w", "full_n_op_ms",
+                      "ns_a_step", "gan_step_shape", "stand_in_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(smi, flush=True)

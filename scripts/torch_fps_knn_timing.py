@@ -1,0 +1,259 @@
+#!/usr/bin/env python3
+"""Time the FPS kernel (kernel row 1) and the exact kNN kernel (row 11) of one
+or more checkouts of the PyTorch port on one NVIDIA GPU, in turns.
+
+    python3 scripts/torch_fps_knn_timing.py                # this checkout
+    python3 scripts/torch_fps_knn_timing.py --roots OLD . . OLD
+
+Each root is a directory that holds ``adaptpoint_tpu_torch``; each runs in a
+child process of its own, which builds that checkout's two kernels and
+prints one JSON line. Inputs are seeded and the same for every root:
+
+- FPS (``furthest_point_sample_cuda``) at the main paths' shapes, B = 32:
+  1024 -> 512 (the serving forward), 2048 -> 1200 (the train step's
+  resampling) and 2048 -> 1024 (each of the GAN step's two calls), on
+  clouds in the unit ball;
+- kNN (``knn_idx_cuda``) at the GAN step's five calls, B = 32, C = 3: k = 3
+  at the four FP-decode levels (support N = 1024, 512, 256, 128 from the FPS
+  half of a 2048-point cloud and its prefixes, queries the level above) and
+  k = 24 for the deformation head (N = 128, 4 queries), with
+  ``torch.topk(torch.cdist(q, x), k, largest=False)`` beside it: a stand-in
+  that computes other arithmetic and breaks ties its own way, not a library
+  call for the same function.
+
+For each: the device time of the call alone (``torch.profiler``, per call),
+the host's enqueue time per call (a host clock around calls that do not wait
+for the card) and the mean of a CUDA-event loop; for FPS also ns a step
+(the event time over npoint - 1). Every kernel result is held against its
+plain version on the card, index for index. Each kernel's registers and
+spill bytes from the build. The card's name and power limit (``nvidia-smi``)
+lead the output; ``--out`` gets the same lines.
+
+Compare two checkouts only inside one run: hosts and clocks differ between
+machines. Needs a GPU; exits with 2 without one.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+B = 32
+# (N, npoint, launches on the paths): serving forward, train step, GAN step
+FPS_SHAPES = [(1024, 512, "1 / fused serving forward"),
+              (2048, 1200, "1 / train step"),
+              (2048, 1024, "2 / GAN step")]
+# the GAN step's kNN calls: (support N, queries M, k, caller)
+KNN_SHAPES = [(1024, 2048, 3, "FP decode"), (512, 1024, 3, "FP decode"),
+              (256, 512, 3, "FP decode"), (128, 256, 3, "FP decode"),
+              (128, 4, 24, "deformation head")]
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12  # H100 SXM, dense
+
+
+def cuda_ms(fn, min_total_ms: float = 100.0) -> float:
+    """Mean ms of ``fn()`` by CUDA events after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    one = max(start.elapsed_time(end), 1e-3)
+    reps = int(min(200, max(5, min_total_ms / one)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int = 100) -> float:
+    """Microseconds of host time per call of ``fn`` that does not wait for
+    the card (the enqueue)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def device_ms(fn, reps: int = 20):
+    """Device time per call by ``torch.profiler`` (all of the call's
+    kernels); None (not measured) if three profiles recorded no device
+    activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / reps
+    return None
+
+
+def timings(fn, min_total_ms: float = 100.0) -> dict:
+    return {"device_ms": device_ms(fn), "host_us": host_us(fn),
+            "event_ms": cuda_ms(fn, min_total_ms)}
+
+
+def ptxas_rows(log: str) -> dict:
+    names = re.findall(r"entry function '(\w+)'", log)
+    regs = re.findall(r"Used (\d+) registers", log)
+    spills = re.findall(r"(\d+) bytes spill stores", log)
+    return {n[-60:]: [int(r), int(sp)] for n, r, sp in zip(names, regs, spills)}
+
+
+def unit_clouds(gen, n: int):
+    import torch
+    xyz = torch.randn((B, n, 3), generator=gen, device="cuda")
+    return (xyz / xyz.norm(dim=-1).amax(dim=1, keepdim=True)[..., None]
+            ).contiguous()
+
+
+def fps_rows(fps, gen) -> list:
+    import torch
+    rows = []
+    for n, npoint, launches in FPS_SHAPES:
+        xyz = unit_clouds(gen, n)
+        got = fps.furthest_point_sample_cuda(xyz, npoint)
+        ref = fps.furthest_point_sample_plain(xyz, npoint)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"FPS disagrees with its plain version at "
+                                 f"{n} -> {npoint}: "
+                                 f"{int((got != ref).sum())} indices")
+        row = {"shape": [B, n, npoint], "launches": launches,
+               "bound_ms": 1e3 * max((npoint - 1) * B * n * 10 / PEAK_F32,
+                                     (B * n * 12 + B * npoint * 4)
+                                     / PEAK_BYTES),
+               "fps": timings(lambda: fps.furthest_point_sample_cuda(
+                   xyz, npoint))}
+        row["ns_a_step"] = row["fps"]["event_ms"] * 1e6 / (npoint - 1)
+        rows.append(row)
+    return rows
+
+
+def knn_rows(fps, knn, gen) -> list:
+    import torch
+    cloud = unit_clouds(gen, 2048)
+    order = fps.furthest_point_sample_cuda(cloud, 1024)
+    half = torch.gather(cloud, 1, order.long()[..., None].expand(-1, -1, 3))
+    levels = [cloud, half.contiguous()] + [half[:, :m].contiguous()
+                                          for m in (512, 256, 128)]
+    rows = []
+    for i, (n, m, k, caller) in enumerate(KNN_SHAPES):
+        support = levels[i + 1] if i < 4 else levels[4]
+        query = levels[i] if i < 4 else cloud[:, :m].contiguous()
+        assert support.shape[1] == n and query.shape[1] == m
+        got = knn.knn_idx_cuda(k, support, query)
+        ref = knn.knn_idx_plain(k, support, query)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"kNN disagrees with its plain version at "
+                                 f"N={n} M={m} k={k}: "
+                                 f"{int((got != ref).sum())} indices")
+        row = {"shape": [B, n, m, 3, k], "caller": caller,
+               "bound_ms": 1e3 * max(B * m * n * 9 / PEAK_F32,
+                                     (B * (n + m) * 12 + B * m * k * 4)
+                                     / PEAK_BYTES),
+               "knn": timings(lambda: knn.knn_idx_cuda(k, support, query),
+                              30.0),
+               "stand_in_cdist_topk": timings(lambda: torch.topk(
+                   torch.cdist(query, support), k, dim=-1, largest=False),
+                   30.0)}
+        if hasattr(knn, "knn_variant"):
+            row["variant"] = list(knn.knn_variant(k, n, 3))
+        rows.append(row)
+    return rows
+
+
+def total(values):
+    values = list(values)
+    return None if any(v is None for v in values) else sum(values)
+
+
+def child(root: str) -> dict:
+    import torch
+    sys.path.insert(0, os.path.abspath(root))
+    from adaptpoint_tpu_torch.ops import _build, fpsample, knn
+
+    names = ["fps", "knn"]
+    for n in names:  # built here, so that the build log reports them
+        _build._lib_path(n).unlink(missing_ok=True)
+    _build.build_all(names)
+    res = {"root": os.path.abspath(root),
+           "device": torch.cuda.get_device_name(0),
+           "registers_spills": {n: ptxas_rows(_build.build_logs.get(n, ""))
+                                for n in names}}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res["fps"] = fps_rows(fpsample, gen)
+    res["knn"] = knn_rows(fpsample, knn, gen)
+    gan = res["fps"][2]
+    res["fps_gan_step_device_ms"] = (None if gan["fps"]["device_ms"] is None
+                                     else 2 * gan["fps"]["device_ms"])
+    res["knn_gan_step_sums"] = {
+        key: total(r[key]["device_ms"] for r in res["knn"])
+        for key in ("knn", "stand_in_cdist_topk")}
+    res["knn_gan_step_sums"]["knn_event_ms"] = sum(
+        r["knn"]["event_ms"] for r in res["knn"])
+    res["knn_gan_step_sums"]["bound_ms"] = sum(r["bound_ms"]
+                                               for r in res["knn"])
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--roots", nargs="+", default=[REPO],
+                    help="checkouts to time, in this order (default: this "
+                         "one)")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=os.path.join(
+        REPO, "build", "fps_knn_timing.jsonl"))
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    if args.child:
+        print(json.dumps(child(args.child)), flush=True)
+        return 0
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    lines = [json.dumps({"nvidia_smi": smi})]
+    print(lines[0], flush=True)
+    for root in args.roots:
+        got = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--child", root], capture_output=True,
+                             text=True)
+        if got.returncode != 0:
+            sys.stderr.write(got.stdout + got.stderr)
+            return got.returncode
+        lines.append(got.stdout.strip().splitlines()[-1])
+        print(lines[-1], flush=True)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

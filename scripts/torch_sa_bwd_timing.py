@@ -33,7 +33,18 @@ CUDA-event loop. Row 6 is also held against its plain version on the card
 both types (also at odd widths) and, per stage, the scatter's contention:
 the most slots that name one point; and row 6 on a small wide stage (C =
 512, 128 centers) for six seeds against the plain version and a float64
-copy. Each kernel's registers and spill bytes from the build, and the
+copy, and beside each seed the h_pre entries within the f32 reordering
+bound of zero (whose mask another sum order can flip), the entries whose
+mask does differ (the plain version's against float64; where the checkout
+reports it, the kernel's against both) and the distance from the plain
+version on the kernel's own mask. Where the checkout's row-6 wrapper
+can force a launch shape, also: row 6's grouped layout forced at the GAN
+stages (timed beside GH whole, held within 1e-5 of it), and row 6 at the
+grouped layout's own shapes (C = 256, mid 512, K = 48 with weight
+gradients; C = 512, mid 1024, K = 64 with and without) for six seeds,
+each gradient's distance from the plain version on its own mask and on
+the kernel's, with the mask counts above. Each kernel's
+registers and spill bytes from the build, and the
 tensor-core instructions of rows 3-6 (``cuobjdump -sass``, where the toolkit
 has it: both kernels' conv1 lowers to HMMA.16816.F32.BF16). The card's name and power limit (``nvidia-smi``) lead the output;
 ``--out`` gets the same lines.
@@ -45,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import inspect
 import json
 import os
 import re
@@ -79,6 +91,7 @@ GATHERS = [("resample", 0, 2048, 4, 1024), ("anchors", 2, 2048, 3, 4),
 SCATTERS = ("head pooling", "decode 1024 features", "decode 512 features",
             "decode 256 features", "decode 128 features")
 TOL_SA_BWD = 1e-3  # chip_smoke.py's bound on each gradient's 2-norm error
+TOL_GROUPED = 1e-5  # chip_smoke.py's bound on the grouped layout vs GH whole
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12  # H100 SXM, dense
 
 
@@ -236,6 +249,27 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / max(float(b.norm()), 1e-30))
 
 
+def small_stage(saeval, gen, b, n, m, c, mid, cout):
+    """Row 6's inputs on a small stage: ``b`` clouds of ``n`` points in the
+    unit ball, half of them at the origin, ``m`` random centers each, and
+    the stage's weights, packed too."""
+    import torch
+    xyz = torch.randn((b, n, 3), generator=gen, device="cuda")
+    xyz = xyz / xyz.norm(dim=-1).amax(dim=1, keepdim=True)[..., None]
+    xyz = (xyz * (torch.rand((b, n), generator=gen, device="cuda")
+                  >= FAKE_DROPPED)[..., None]).contiguous()
+    qidx = torch.stack([torch.randperm(n, generator=gen, device="cuda")[:m]
+                        for _ in range(b)]).int().contiguous()
+    feats = torch.randn((b, n, c), generator=gen, device="cuda")
+    w1 = torch.randn((3 + c, mid), generator=gen, device="cuda") \
+        / (3 + c) ** 0.5
+    b1 = torch.randn((mid,), generator=gen, device="cuda") * 0.1
+    w2 = torch.randn((mid, cout), generator=gen, device="cuda") / mid ** 0.5
+    b2 = torch.randn((cout,), generator=gen, device="cuda") * 0.1
+    return xyz, qidx, feats, (w1, b1, w2, b2), saeval.pack_weights(
+        w1, b1, w2, b2)
+
+
 def wide_stage_seeds(saeval, seeds: int = 6) -> list:
     """Row 6 on a small wide stage (C = 512, 2 clouds of 64 centers, half
     their points at the origin) for several seeds: its relative 2-norm
@@ -248,26 +282,22 @@ def wide_stage_seeds(saeval, seeds: int = 6) -> list:
     rows = []
     for seed in range(seeds):
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        xyz = torch.randn((b, n, 3), generator=gen, device="cuda")
-        xyz = xyz / xyz.norm(dim=-1).amax(dim=1, keepdim=True)[..., None]
-        xyz = (xyz * (torch.rand((b, n), generator=gen, device="cuda")
-                      >= FAKE_DROPPED)[..., None]).contiguous()
-        qidx = torch.stack([torch.randperm(n, generator=gen, device="cuda")
-                            [:m] for _ in range(b)]).int().contiguous()
-        feats = torch.randn((b, n, c), generator=gen, device="cuda")
-        w1 = torch.randn((3 + c, mid), generator=gen, device="cuda") \
-            / (3 + c) ** 0.5
-        b1 = torch.randn((mid,), generator=gen, device="cuda") * 0.1
-        w2 = torch.randn((mid, cout), generator=gen, device="cuda") \
-            / mid ** 0.5
-        b2 = torch.randn((cout,), generator=gen, device="cuda") * 0.1
-        packed = saeval.pack_weights(w1, b1, w2, b2)
+        xyz, qidx, feats, (w1, b1, w2, b2), packed = small_stage(
+            saeval, gen, b, n, m, c, mid, cout)
         _, _, _, arg, idx = saeval.sa_train_cuda(r, k, xyz, qidx, feats,
                                                  packed, True, True)
         cots = [torch.randn(shape, generator=gen, device="cuda")
                 for shape in ((b, m, 3), (b, m, c), (b, m, cout))]
-        got = saeval.sa_train_bwd_cuda(r, xyz, qidx, feats, packed, idx, arg,
-                                       *cots, True, True)
+        # the kernel's own ReLU mask, where the checkout's wrapper reports it
+        relu = None
+        if "relu" in inspect.signature(saeval.sa_train_bwd_cuda).parameters:
+            relu = torch.zeros((b, m, k, packed.w1.shape[1]),
+                               dtype=torch.uint8, device="cuda")
+            got = saeval.sa_train_bwd_cuda(r, xyz, qidx, feats, packed, idx,
+                                           arg, *cots, True, True, relu=relu)
+        else:
+            got = saeval.sa_train_bwd_cuda(r, xyz, qidx, feats, packed, idx,
+                                           arg, *cots, True, True)
         ref = saeval.sa_train_bwd_plain(r, xyz, qidx, feats, w1, b1, w2, b2,
                                         idx, arg, *cots, True, True)
         ref64 = saeval.sa_train_bwd_plain(
@@ -278,8 +308,112 @@ def wide_stage_seeds(saeval, seeds: int = 6) -> list:
                      "g_xyz": rel_l2(got[0], ref[0]),
                      "g_feats": rel_l2(got[1], ref[1]),
                      "g_xyz_vs_f64": rel_l2(got[0], ref64[0]),
-                     "plain_g_xyz_vs_f64": rel_l2(ref[0], ref64[0])})
+                     "plain_g_xyz_vs_f64": rel_l2(ref[0], ref64[0]),
+                     **near_zero_h_pre(saeval, r, k, xyz, qidx, feats, w1,
+                                       b1, idx, arg, relu)})
+        if relu is not None:
+            refk = saeval.sa_train_bwd_plain(r, xyz, qidx, feats, w1, b1, w2,
+                                             b2, idx, arg, *cots, True, True,
+                                             relu=relu)
+            rows[-1]["g_xyz_on_kernel_mask"] = rel_l2(got[0], refk[0])
+            rows[-1]["g_feats_on_kernel_mask"] = rel_l2(got[1], refk[1])
     return rows
+
+
+# the grouped layout's shapes (chip_smoke.py SA_BWD_SHAPES): (N, M, C, mid,
+# cout, K, radius, with weight gradients), 2 clouds of 64 centers
+GROUPED_SHAPES = [(1024, 64, 256, 512, 512, 48, 0.4, True),
+                  (1024, 64, 512, 1024, 1024, 64, 0.4, False),
+                  (1024, 64, 512, 1024, 1024, 64, 0.4, True)]
+
+
+def grouped_stage_seeds(saeval, seeds: int = 6) -> list:
+    """Row 6 at GROUPED_SHAPES for several seeds (each seed's draw as
+    :func:`wide_stage_seeds` makes it): the largest relative 2-norm
+    distance of a gradient from the plain version on the plain version's
+    own ReLU mask and on the kernel's, and the mask counts of
+    :func:`near_zero_h_pre`."""
+    import torch
+    b, out = 2, []
+    for n, m, c, mid, cout, k, r, pg in GROUPED_SHAPES:
+        for seed in range(seeds):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            xyz, qidx, feats, w, packed = small_stage(saeval, gen, b, n, m,
+                                                      c, mid, cout)
+            _, _, _, arg, idx = saeval.sa_train_cuda(r, k, xyz, qidx, feats,
+                                                     packed, True, True)
+            cots = [torch.randn(shape, generator=gen, device="cuda")
+                    for shape in ((b, m, 3), (b, m, c), (b, m, cout))]
+            tl = saeval._bwd_tiling(k, *packed.w1.shape, packed.w2.shape[1],
+                                    c, pg)
+            relu = torch.zeros((b, m, k, packed.w1.shape[1]),
+                               dtype=torch.uint8, device="cuda")
+            got = saeval.sa_train_bwd_cuda(r, xyz, qidx, feats, packed, idx,
+                                           arg, *cots, True, True, pg,
+                                           relu=relu)
+            got = got[:2] + (got[2] or ())
+            row = {"shape": [b, n, m, c, mid, cout, k], "weights": pg,
+                   "seed": seed, "tiling": list(tl)}
+            for tag, mask in (("own_mask", None), ("kernel_mask", relu)):
+                ref = saeval.sa_train_bwd_plain(
+                    r, xyz, qidx, feats, *w, idx, arg, *cots, True, True, pg,
+                    relu=mask)
+                ref = ref[:2] + (ref[2] or ())
+                row[tag] = max(rel_l2(x, y) for x, y in zip(got, ref))
+            row.update(near_zero_h_pre(saeval, r, k, xyz, qidx, feats, w[0],
+                                       w[1], idx, arg, relu))
+            out.append(row)
+    return out
+
+
+def grouped_forced(saeval, tm: int, k: int, packed, c: int, pg: bool):
+    """The grouped layout forced at ``tm`` centers a block (one block an
+    SM), its group the widest of 32-256 hidden columns that fits: the
+    shape ``chip_smoke.py`` holds against GH whole."""
+    wp, midp = packed.w1.shape
+    coutp = packed.w2.shape[1]
+    ng = max(w for w in (32, 64, 128, 256)
+             if w <= saeval._pass_cols(saeval._bwd_rows(tm, k))
+             and saeval._bwd_smem_bytes(tm, k, wp, midp, coutp, c, pg, w)
+             <= saeval._SMEM_LIMIT)
+    return saeval.BwdTiling(tm, ng, 1)
+
+
+def near_zero_h_pre(saeval, r, k, xyz, qidx, feats, w1, b1, idx, arg,
+                    relu=None) -> dict:
+    """The h_pre entries whose ReLU mask two f32 sum orders can disagree
+    on: |h_pre| (in float64) within the reordering bound of its n = 3 + C + 1
+    addends, n 2^-23 sum|addend| (the products bf16(gg) bf16(w1) are exact
+    in f32, b1 the last addend). All of them, and those in rows that win at
+    least one output (the only rows whose g_h is not zero). Then the entries
+    whose mask does differ: the plain f32 version's against float64 and,
+    with the kernel's mask ``relu``, the kernel's against the plain
+    version's and against float64 (in winning rows)."""
+    import torch
+    _, _, _, gg = saeval._grouped_rows(r, k, xyz, qidx, feats, True, True,
+                                       idx)
+    g64 = gg.double()
+    w64 = w1.to(torch.bfloat16).double()
+    h = torch.einsum("bmkc,cd->bmkd", g64, w64) + b1.double()
+    absum = torch.einsum("bmkc,cd->bmkd", g64.abs(), w64.abs()) \
+        + b1.double().abs()
+    near = h.abs() <= (gg.shape[-1] + 1) * 2.0 ** -23 * absum
+    won = torch.zeros(idx.shape, dtype=torch.bool, device=idx.device)
+    won.scatter_(2, arg.long(), True)
+    won = won[..., None]
+    plain = torch.matmul(gg, w1.to(torch.bfloat16).float()) + b1 > 0
+    out = {"h_pre_entries": h.numel(),
+           "h_pre_near_zero": int(near.sum()),
+           "h_pre_near_zero_in_winning_rows": int((near & won).sum()),
+           "plain_mask_flips_vs_f64_in_winning_rows":
+               int(((plain != (h > 0)) & won).sum())}
+    if relu is not None:
+        mine = relu[..., :h.shape[-1]] != 0
+        out["kernel_mask_flips_vs_plain_in_winning_rows"] = int(
+            ((mine != plain) & won).sum())
+        out["kernel_mask_flips_vs_f64_in_winning_rows"] = int(
+            ((mine != (h > 0)) & won).sum())
+    return out
 
 
 def child(root: str) -> dict:
@@ -296,6 +430,9 @@ def child(root: str) -> dict:
                                 for n in names[1:]},
            "hmma": {n: hmma_kinds(_build._lib_path(n))
                     for n in ("saeval", "sa_train_bwd")}}
+    # the grouped layout, where the checkout's wrapper can force it
+    grouped = "tiling" in inspect.signature(
+        saeval.sa_train_bwd_cuda).parameters
     gen = torch.Generator(device="cuda").manual_seed(0)
     real, fake = clouds(gen, 0.0), clouds(gen, FAKE_DROPPED)
     stages = []
@@ -319,6 +456,20 @@ def child(root: str) -> dict:
                                         g_new, g_fi, g_out, True, True)
         errs = {"g_xyz": rel_l2(back[0], ref[0]),
                 "g_feats": rel_l2(back[1], ref[1])}
+        forced = None
+        if grouped:  # the grouped layout forced, against GH whole
+            tl = saeval._bwd_tiling(K, *packed.w1.shape, packed.w2.shape[1],
+                                    c, False)
+            forced = grouped_forced(saeval, tl.tm, K, packed, c, False)
+            got = saeval.sa_train_bwd_cuda(*bargs, packed, idx, arg, g_new,
+                                           g_fi, g_out, True, True,
+                                           tiling=forced)
+            errs["grouped_vs_whole"] = max(rel_l2(x, y) for x, y in
+                                           zip(got[:2], back[:2]))
+            if errs["grouped_vs_whole"] > TOL_GROUPED:
+                raise AssertionError(f"the grouped layout disagrees with GH "
+                                     f"whole at stage ({n}, {m}, {c}): "
+                                     f"{errs['grouped_vs_whole']}")
         back = saeval.sa_train_bwd_cuda(*bargs, packed, idx, arg, g_new,
                                         g_fi, g_out, True, True, True)
         ref = saeval.sa_train_bwd_plain(*bargs, w1, b1, w2, b2, idx, arg,
@@ -345,6 +496,11 @@ def child(root: str) -> dict:
                  + c * 4 + cout * 5)) / PEAK_BYTES),
             "sa_train_bwd": timings(lambda: saeval.sa_train_bwd_cuda(
                 *bargs, packed, idx, arg, g_new, g_fi, g_out, True, True)),
+            "sa_train_bwd_grouped": None if forced is None else {
+                "tiling": list(forced), **timings(
+                    lambda: saeval.sa_train_bwd_cuda(
+                        *bargs, packed, idx, arg, g_new, g_fi, g_out, True,
+                        True, tiling=forced))},
             "sa_train": timings(lambda: saeval.sa_train_cuda(
                 *fargs, packed, True, True)),
             "sa_eval": timings(lambda: saeval.sa_eval_cuda(
@@ -356,6 +512,9 @@ def child(root: str) -> dict:
     res["stages"] = stages
     res["sums_device_ms"] = {k: total(s[k]["device_ms"] for s in stages)
                              for k in ("sa_train_bwd", "sa_train", "sa_eval")}
+    if grouped:
+        res["sums_device_ms"]["sa_train_bwd_grouped"] = total(
+            s["sa_train_bwd_grouped"]["device_ms"] for s in stages)
     res["sums_bound_ms"] = {
         k: sum(s[k]["bound_ms"] for s in stages)
         for k in ("bound_fwd_real", "bound_fwd_fake")}
@@ -382,6 +541,8 @@ def child(root: str) -> dict:
                                    for s in serving),
         "bound_ms": sum(s["bound"]["bound_ms"] for s in serving)}
     res["wide_stage_seeds"] = wide_stage_seeds(saeval)
+    if grouped:
+        res["grouped_stage_seeds"] = grouped_stage_seeds(saeval)
 
     # odd widths and both types: every access width and lane group
     for c in (1, 2, 3, 5, 8, 12, 33, 64, 130, 1024):

@@ -18,9 +18,12 @@ the host-side tiling of the CUDA backward.
   the kernel), f32 and bf16, with repeated indices: the forward bit for
   bit; the backward bit for bit in bf16 (values in eighths: every sum is
   exact) and within 1e-6 * (1 + |ref|) in f32 (another order of the sum).
-- ``saeval._bwd_centers_per_block``: the centers a block owns at the four
-  stages of the GAN step's classifier, with and without the weight
-  gradients, and that every choice fits the shared memory it claims.
+- ``saeval._bwd_centers_per_block`` / ``_bwd_tiling``: the centers a block
+  owns at the four stages of the GAN step's classifier, with and without
+  the weight gradients (GH whole, as before the grouped layout existed),
+  that every choice fits the shared memory it claims, and that the
+  backward takes every stage with K <= 64 the forward (``_fwd_tiling``)
+  takes, the grouped layout where GH does not fit whole.
 """
 import numpy as np
 import pytest
@@ -152,6 +155,8 @@ def test_bwd_tiling_at_the_gan_stages(param_grads):
         tm = saeval._bwd_centers_per_block(32, wp, midp, coutp, c,
                                            param_grads)
         got.append(tm)
+        assert saeval._bwd_tiling(32, wp, midp, coutp, c,
+                                  param_grads).np == 0  # GH whole
         rows = saeval._bwd_rows(tm, 32)
         assert rows % 32 == 0 and rows <= 256
         smem = saeval._bwd_smem_bytes(tm, 32, wp, midp, coutp, c,
@@ -170,10 +175,93 @@ def test_bwd_tiling_fits_or_raises(k):
         wp, midp, coutp = (saeval._round16(v) for v in (c + 3, mid, cout))
         for pg in (False, True):
             try:
-                tm = saeval._bwd_centers_per_block(k, wp, midp, coutp, c, pg)
+                tl = saeval._bwd_tiling(k, wp, midp, coutp, c, pg)
             except ValueError:
                 assert c >= 256 and k > 32, (k, c, pg)
                 continue
-            assert saeval._bwd_rows(tm, k) <= 256
-            assert saeval._bwd_smem_bytes(tm, k, wp, midp, coutp, c,
-                                          pg) <= saeval._SMEM_LIMIT
+            assert saeval._bwd_rows(tl.tm, k) <= 256
+            assert saeval._bwd_smem_bytes(tl.tm, k, wp, midp, coutp, c, pg,
+                                          tl.np) <= saeval._SMEM_LIMIT
+
+
+# (C in, mid, C out) of stages the forward tiles and the backward refused
+# before its grouped layout: (256, 512, 512) with the weight gradients at
+# K = 40-64, (512, 1024, 1024) with them at K = 32-64 and without at 40-64;
+# then the forward tiling test's grid of widths
+WIDE_WIDTHS = [(256, 512, 512), (512, 1024, 1024), (512, 896, 2048)]
+FWD_GRID = [(c, mid, cout) for c in (3, 32, 35, 64, 128, 256, 384, 448, 512)
+            for mid in (16, 40, 128, 256, 464, 512, 896)
+            for cout in (mid, 2 * mid, 1024, 2048)]
+
+
+@pytest.mark.parametrize("param_grads", [False, True])
+@pytest.mark.parametrize("k", [33, 40, 48, 64])
+def test_bwd_tiles_every_stage_the_forward_tiles(k, param_grads):
+    """Wherever ``_fwd_tiling`` picks a tiling at K <= 64, so does
+    ``_bwd_tiling``: GH whole (np 0) wherever that fits, as before, else
+    the grouped layout, one block an SM, groups of a multiple of 32 columns
+    at most a pass wide; every choice within the shared memory it claims,
+    at most 256 rows a block."""
+    grouped = 0
+    for c, mid, cout in WIDE_WIDTHS + FWD_GRID:
+        wp, midp, coutp = (saeval._round16(v) for v in (c + 3, mid, cout))
+        try:
+            saeval._fwd_tiling(k, wp, midp, coutp, 2048, 32, 1024)
+        except ValueError:
+            continue
+        tl = saeval._bwd_tiling(k, wp, midp, coutp, c, param_grads)
+        rows = saeval._bwd_rows(tl.tm, k)
+        assert rows % 32 == 0 and rows <= 256
+        whole = saeval._bwd_smem_bytes(1, k, wp, midp, coutp, c,
+                                       param_grads)
+        if tl.np == 0:
+            limit = (saeval._SMEM_TWO_BLOCKS if tl.blocks_per_sm == 2
+                     else saeval._SMEM_LIMIT)
+            assert saeval._bwd_smem_bytes(tl.tm, k, wp, midp, coutp, c,
+                                          param_grads) <= limit
+        else:
+            grouped += 1
+            assert whole > saeval._SMEM_LIMIT, (c, mid, cout)
+            assert tl.blocks_per_sm == 1
+            assert tl.np % 32 == 0 and tl.np <= saeval._pass_cols(rows)
+            assert saeval._bwd_smem_bytes(tl.tm, k, wp, midp, coutp, c,
+                                          param_grads,
+                                          tl.np) <= saeval._SMEM_LIMIT
+    assert grouped > 0  # the repaired shapes take the grouped layout
+    for c, mid, cout in WIDE_WIDTHS[:2]:
+        wp, midp, coutp = (saeval._round16(v) for v in (c + 3, mid, cout))
+        saeval._bwd_centers_per_block(k, wp, midp, coutp, c, param_grads)
+
+
+def test_plain_bwd_takes_a_given_relu_mask():
+    """``sa_train_bwd_plain(..., relu=...)`` (a kernel run's ReLU mask, which
+    ``chip_smoke.py`` holds row 6 to) equals the default where the mask is
+    its own, and moves only the gradients an entry's flip reaches."""
+    b, n, m, c, mid, cout, k, r = 2, 64, 8, 5, 24, 40, 8, 0.4
+    rng, xyz, feats = _fake_clouds(7, b, n, c)
+    q = np.stack([rng.permutation(n)[:m] for _ in range(b)]).astype(np.int32)
+    w1 = rng.standard_normal((3 + c, mid)).astype(np.float32) / 3
+    b1 = (rng.standard_normal(mid) * 0.1).astype(np.float32)
+    w2 = rng.standard_normal((mid, cout)).astype(np.float32) / 5
+    b2 = (rng.standard_normal(cout) * 0.1).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (xyz, q, feats, w1, b1, w2, b2)]
+    _, _, _, arg, idx = saeval.sa_train_plain(r, k, *t, True, True)
+    cots = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((b, m, 3), (b, m, c), (b, m, cout))]
+    args = (r, t[0], t[1], t[2], *t[3:], idx, arg, *cots, True, True, True)
+    own = saeval.sa_train_bwd_plain(*args)
+    _, _, _, gg = saeval._grouped_rows(r, k, t[0], t[1], t[2], True, True,
+                                       idx)
+    mask = (torch.matmul(gg, saeval._bf16(t[3])) + t[4] > 0).to(torch.uint8)
+    padded = torch.zeros((b, m, k, saeval._round16(mid)), dtype=torch.uint8)
+    padded[..., :mid] = mask
+    same = saeval.sa_train_bwd_plain(*args, relu=padded)
+    for x, y in zip(own[:2] + own[2], same[:2] + same[2]):
+        assert torch.equal(x, y)
+    # flip one entry of a row that wins an output: g_b1 moves at its column
+    bi, mi, ki = 0, 0, int(arg[0, 0, 0])
+    col = int(torch.nonzero(mask[bi, mi, ki])[0])
+    padded[bi, mi, ki, col] ^= 1
+    moved = saeval.sa_train_bwd_plain(*args, relu=padded)
+    diff = (moved[2][1] - own[2][1]).abs()
+    assert diff[col] > 0 and int((diff > 0).sum()) == 1
