@@ -102,21 +102,16 @@ def ball_group_max(radius: float, nsample: int, xyz, query_idx, feats):
     grouped tensor never formed. Differentiable in ``xyz`` and ``feats``,
     each max / min cotangent to its first winning slot: the kernels on CUDA,
     the plain versions on the CPU (``ops.ballgroup_max``). bf16 features
-    give ``fi``, ``fmax`` and ``fmin`` in bf16 (the same values) and their
-    cotangent in bf16, as under the JAX package's bf16 policy."""
-    in_dt = feats.dtype
-    feats = _f32_features(feats)
+    (the bf16 policy's) go through as they are: ``fi``, ``fmax``, ``fmin``
+    and the feature gradient come back in bf16, the values the JAX package
+    gives by casting up and back under its bf16 policy, with no cast."""
     if _on_cuda(xyz):
-        out = ballgroup_max.BallGroupMax.apply(
+        return ballgroup_max.BallGroupMax.apply(
             xyz.contiguous(), query_idx.int().contiguous(),
             feats.contiguous(), float(radius), int(nsample), True)
-    else:
-        out = ballgroup_max.BallGroupMax.apply(xyz, query_idx, feats,
-                                               float(radius), int(nsample),
-                                               False)
-    if in_dt != torch.bfloat16:
-        return out
-    return (out[0],) + tuple(t.to(in_dt) for t in out[1:])
+    return ballgroup_max.BallGroupMax.apply(xyz, query_idx, feats,
+                                            float(radius), int(nsample),
+                                            False)
 
 
 def ball_group_max_windowed(radius: float, nsample: int, xyz, query_idx,

@@ -113,7 +113,7 @@ def _lib_bwd():
     return lib
 
 
-def _check_inputs(xyz, query_idx, feats):
+def _check_inputs(xyz, query_idx, feats, feat_dtypes=(torch.float32,)):
     for name, t in (("xyz", xyz), ("query_idx", query_idx), ("feats", feats)):
         if t.device.type != "cuda":
             raise ValueError(f"the kernel needs CUDA tensors, {name} is on "
@@ -124,9 +124,9 @@ def _check_inputs(xyz, query_idx, feats):
         raise ValueError(f"xyz must be (B, N, 3) float32, got "
                          f"{tuple(xyz.shape)} {xyz.dtype}")
     B, N, _ = xyz.shape
-    if (feats.dtype != torch.float32 or feats.dim() != 3
+    if (feats.dtype not in feat_dtypes or feats.dim() != 3
             or feats.shape[:2] != (B, N)):
-        raise ValueError(f"feats must be (B, N, C) float32, got "
+        raise ValueError(f"feats must be (B, N, C) of {feat_dtypes}, got "
                          f"{tuple(feats.shape)} {feats.dtype}")
     if (query_idx.dtype != torch.int32 or query_idx.dim() != 2
             or query_idx.shape[0] != B):

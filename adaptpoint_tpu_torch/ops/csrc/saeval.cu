@@ -73,10 +73,13 @@
 // another order than the plain f32 matmul, which can flip one bf16 rounding
 // (the tolerance in chip_smoke.py and the tests says so).
 #include "sa_common.cuh"
+#include "ball_query.cuh"
 
 namespace {
 
 using namespace apt_sa;
+using apt_bq::ball_scan;
+using apt_bq::stage_points;
 
 struct Params {
   const float* xyz;
@@ -143,43 +146,6 @@ __host__ __device__ inline Layout layout(int TM, int K, int Wp, int midp,
   if (use_xs) o += align128((size_t)N * 16);
   L.total = o;
   return L;
-}
-
-// The ball query of one center qc by one warp: the first K points j (in
-// index order) with d2 < r2, into nb[0 ..]; returns how many were in the
-// ball (at least that many were scanned). Four chunks of 32 points an
-// iteration: their loads, distances and ballots first, then the ranks in
-// index order (a chunk with no point in the ball skips that).
-template <typename Point>
-__device__ __forceinline__ int ball_scan(const Point& point, float3 qc,
-                                         float r2, int N, int K, int* nb,
-                                         int lane) {
-  const unsigned below = (1u << lane) - 1u;
-  int cnt = 0;
-  for (int base = 0; base < N && cnt < K; base += 128) {
-    float3 x[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) x[u] = point(imin(base + 32 * u + lane, N - 1));
-    unsigned mask[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float dx = __fsub_rn(qc.x, x[u].x);
-      const float dy = __fsub_rn(qc.y, x[u].y);
-      const float dz = __fsub_rn(qc.z, x[u].z);
-      const float d2 = __fadd_rn(
-          __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-      mask[u] = __ballot_sync(0xffffffffu,
-                              base + 32 * u + lane < N && d2 < r2);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      if (!mask[u]) continue;
-      const int rank = cnt + __popc(mask[u] & below);
-      if ((mask[u] >> lane & 1u) && rank < K) nb[rank] = base + 32 * u + lane;
-      cnt += __popc(mask[u]);
-    }
-  }
-  return cnt;
 }
 
 __device__ __forceinline__ void take_better(float& v, int& s, float ov,
@@ -318,25 +284,7 @@ __global__ void __launch_bounds__(kThreads, 2) sa_eval_kernel(Params p) {
   float4* xs = nullptr;
   if (p.use_xs) {
     xs = reinterpret_cast<float4*>(smem + L.xs);
-    if ((p.N & 3) == 0 && (reinterpret_cast<uintptr_t>(Xg) & 15) == 0) {
-      // 16-byte loads of the flat (N, 3) array; the fourth component of a
-      // staged point is never read
-      float* xf = reinterpret_cast<float*>(xs);
-      const float4* x4 = reinterpret_cast<const float4*>(Xg);
-      for (int e = tid; e < p.N * 3 / 4; e += kThreads) {
-        const float4 v = x4[e];
-        const float c4[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int f = 4 * e + u;
-          const int j = f / 3;
-          xf[4 * j + f - 3 * j] = c4[u];
-        }
-      }
-    } else {
-      for (int e = tid; e < p.N; e += kThreads)
-        xs[e] = make_float4(Xg[3 * e], Xg[3 * e + 1], Xg[3 * e + 2], 0.0f);
-    }
+    stage_points(xs, Xg, p.N, tid, kThreads);
   }
   auto staged = [&](int j) {
     const float4 v = xs[j];

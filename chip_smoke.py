@@ -14,9 +14,11 @@ Phases, one JSON object a line:
    and at seven edges: B = 1, N = 1000 and 4097 with npoint = N, npoint = 1,
    half the points at the origin, N = 300, N = 16384; the four SA stages at
    N=1024 for ball-group forward, backward and fused SA; the max-pooled ball
-   group forward
-   and backward at the augmentor's four grouper shapes and on a cloud with ties
-   and an empty ball; the fused SA and the differentiable fused SA forward and
+   group forward and backward at the augmentor's four grouper shapes and on a
+   cloud with ties and an empty ball, each with f32 and with bf16 features,
+   the host's copies of their shared memory against the kernel's at those
+   shapes and at their launch shapes' edges, and the op's launches on bf16
+   features (one forward kernel, one backward kernel, no cast); the fused SA and the differentiable fused SA forward and
    backward at the N=2048 stages of a ``gan_step``, the backward also at six
    shapes off them (odd C, K = 8, K = 48, C = 512, and where GH does not fit
    whole, (256, 512, 512) at K = 48 and (512, 1024, 1024) at K = 64, 128
@@ -933,16 +935,20 @@ def phase_train_kernels(gen, inputs, rows) -> None:
 
 def check_ball_group_max(gen, tag, xyz, qidx, feats, radius, timed=True):
     """The max-pooled ball-group kernels (rows 7, 8) at one shape against
-    their plain versions: forward outputs and winning slots equal, the
-    backward (directly and through autograd) within the reordering bound.
-    Returns the forward and backward rows (times, bounds' parts) when
-    ``timed``."""
+    their plain versions, on ``feats`` of either type the kernels take (f32,
+    or the bf16 policy's as they are): forward outputs and winning slots
+    equal, the backward (directly and through autograd) within the
+    reordering bound, plus one bf16 ulp of the value for a bf16 gradient
+    (both sum in f32 and round once). Returns the forward and backward rows
+    (times, bounds' parts at the features' width) when ``timed``."""
     import torch
     from adaptpoint_tpu_torch import ops
     from adaptpoint_tpu_torch.ops import ballgroup_max as bgm
 
     n, c = feats.shape[1], feats.shape[2]
     m = qidx.shape[1]
+    dt = feats.dtype
+    bf16 = dt == torch.bfloat16
     args = (radius, K_GAN, xyz, qidx, feats)
     got = bgm.ball_group_max_cuda(*args)
     ref = bgm.ball_group_max_plain(*args)
@@ -950,29 +956,36 @@ def check_ball_group_max(gen, tag, xyz, qidx, feats, radius, timed=True):
     names = ("new_xyz", "fi", "fmax", "fmin", "amax", "amin", "idx")
     errs = {k: float((a.float() - b.float()).abs().max())
             for k, a, b in zip(names, got, ref)}
+    errs["types"] = float(any(a.dtype != b.dtype for a, b in zip(got, ref)))
     del ref
     idx, amax, amin = got[6], got[4], got[5]
     g_new = torch.randn((B, m, 3), generator=gen, device=DEV)
-    g_fi, g_fmax, g_fmin = (torch.randn((B, m, c), generator=gen, device=DEV)
+    g_fi, g_fmax, g_fmin = (torch.randn((B, m, c), generator=gen,
+                                        device=DEV).to(dt)
                             for _ in range(3))
     bargs = (idx, qidx, amax, amin, g_new, g_fi, g_fmax, g_fmin, n)
-    back = bgm.ball_group_max_bwd_cuda(*bargs)
+    back = bgm.ball_group_max_bwd_cuda(*bargs, feat_dtype=dt)
     back_ref = bgm.ball_group_max_bwd_plain(*bargs)
     x_req, f_req = xyz.clone().requires_grad_(), feats.clone().requires_grad_()
     auto = torch.autograd.grad(ops.ball_group_max(radius, K_GAN, x_req, qidx,
                                                   f_req),
                                (x_req, f_req), (g_new, g_fi, g_fmax, g_fmin))
     # both sides add the same addends (the same bf16 roundings of the same
-    # cotangents) in another order: count them per element and bound
-    ones3, ones = torch.ones_like(g_new), torch.ones_like(g_fi)
+    # cotangents) in another order: count them per element and bound; a
+    # bf16 gradient is that f32 sum rounded once, which can then fall one
+    # bf16 ulp apart
+    ones3, ones = torch.ones_like(g_new), torch.ones((B, m, c), device=DEV)
     counts_x = bgm.ball_group_max_bwd_plain(idx, qidx, amax, amin, ones3,
                                             None, None, None, n)[0]
     counts_f = bgm.ball_group_max_bwd_plain(idx, qidx, amax, amin, None, ones,
                                             ones, ones, n)[1]
-    a_x, a_f = bgm.ball_group_max_bwd_plain(idx, qidx, amax, amin,
-                                            g_new.abs(), g_fi.abs(),
-                                            g_fmax.abs(), g_fmin.abs(), n)
-    bounds = (scatter_bound(counts_x, a_x), scatter_bound(counts_f, a_f))
+    a_x, a_f = bgm.ball_group_max_bwd_plain(
+        idx, qidx, amax, amin, g_new.abs(), *(g.float().abs() for g in (
+            g_fi, g_fmax, g_fmin)), n)
+    bounds = [scatter_bound(counts_x, a_x), scatter_bound(counts_f, a_f)]
+    if bf16:
+        bounds[1] = bounds[1] + 2.0 ** -7 * (back_ref[1].float().abs()
+                                             + bounds[1])
     torch.cuda.synchronize()
     ok = not any(errs.values())
     for name, a, b_, bound in (("g_xyz", back[0], back_ref[0], bounds[0]),
@@ -981,40 +994,120 @@ def check_ball_group_max(gen, tag, xyz, qidx, feats, radius, timed=True):
                                 bounds[0]),
                                ("autograd_g_feats", auto[1], back_ref[1],
                                 bounds[1])):
-        d = (a - b_).abs()
+        d = (a.float() - b_.float()).abs()
         errs[name] = float(d.max())
-        ok = ok and bool((d <= bound).all()) and bool(torch.isfinite(a).all())
+        ok = (ok and bool((d <= bound).all()) and bool(torch.isfinite(a).all())
+              and a.dtype == b_.dtype)
     full = float((idx[..., -1] != idx[..., 0]).float().mean())
     emit("kernel", name="ball_group_max", case=tag, shape=[B, n, m, c, K_GAN],
-         radius=radius, max_abs_err=errs, full_balls=full,
+         dtype=str(dt), radius=radius, max_abs_err=errs, full_balls=full,
          distinct_winners=float((amax != amin).float().mean()),
-         tolerance="forward outputs and winning slots exact; backward <= n * "
-                   "2^-23 * sum|addend| per element (n addends meet there; "
-                   "atomic adds land in no fixed order)")
+         tiling={"forward": list(bgm.fwd_tiling(B, n, m, c, K_GAN, dt)),
+                 "backward": list(bgm.bwd_tiling(n, c))},
+         tolerance="forward outputs, their types and winning slots exact; "
+                   "backward <= n * 2^-23 * sum|addend| per element (n "
+                   "addends meet there; atomic adds land in no fixed order), "
+                   "+ 2^-7 of the value for a bf16 gradient")
     if not ok:
         raise AssertionError(f"max-pooled ball-group kernels disagree "
-                             f"({tag}): {errs}")
+                             f"({tag}, {dt}): {errs}")
     if not timed:
         return None
+    w = feats.element_size()  # features, values and cotangents
     f_row = dict(
         max_abs_err=max(errs[k] for k in names),
         ms=cuda_ms(lambda: bgm.ball_group_max_cuda(*args)),
         plain_ms=cuda_ms(lambda: bgm.ball_group_max_plain(*args), 50.0),
-        t_b=(B * n * 12 + B * n * c * 4 + B * m * 4 + B * m * 12
-             + 3 * B * m * c * 4 + 2 * B * m * c + B * m * K_GAN * 4)
+        t_b=(B * n * 12 + B * n * c * w + B * m * 4 + B * m * 12
+             + 3 * B * m * c * w + 2 * B * m * c + B * m * K_GAN * 4)
         / PEAK_BYTES,
         t_o=(scanned_points(xyz, qidx, radius, K_GAN) * 9
              + 2 * B * m * K_GAN * c) / PEAK_F32)
     b_row = dict(
         max_abs_err=max(errs["g_xyz"], errs["g_feats"]),
-        ms=cuda_ms(lambda: bgm.ball_group_max_bwd_cuda(*bargs)),
+        ms=cuda_ms(lambda: bgm.ball_group_max_bwd_cuda(*bargs,
+                                                       feat_dtype=dt)),
         plain_ms=cuda_ms(lambda: bgm.ball_group_max_bwd_plain(*bargs), 50.0),
-        t_b=(B * m * K_GAN * 4 + B * m * 4 + B * m * 12 + 3 * B * m * c * 4
-             + 2 * B * m * c + B * n * 12 + B * n * c * 4) / PEAK_BYTES,
+        t_b=(B * m * K_GAN * 4 + B * m * 4 + B * m * 12 + 3 * B * m * c * w
+             + 2 * B * m * c + B * n * 12 + B * n * c * w) / PEAK_BYTES,
         t_o=4 * B * m * c / PEAK_F32)
-    emit("stage_times", case=tag, shape=[B, n, m, c, K_GAN],
+    emit("stage_times", case=tag, shape=[B, n, m, c, K_GAN], dtype=str(dt),
          ball_group_max=f_row, ball_group_max_bwd=b_row)
     return f_row, b_row
+
+
+def check_bgmax_layout(n, m, c, k, where) -> dict:
+    """Rows 7, 8's launch shapes at this shape (f32 and bf16 features): the
+    host's copies of their shared memory (``ballgroup_max.fwd_smem_bytes``,
+    ``bwd_smem_bytes``) against the kernel's own; each within the card's
+    opt-in."""
+    import torch
+    from adaptpoint_tpu_torch.ops import ballgroup_max as bgm
+    lib = bgm._lib()
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tl = bgm.fwd_tiling(B, n, m, c, k, dt)
+        host = bgm.fwd_smem_bytes(tl.tm, k, n, tl.use_xs)
+        dev = lib.ball_group_max_smem_bytes(tl.tm, k, n, int(tl.use_xs))
+        out[str(dt)] = dict(tl._asdict(), smem_bytes=dev)
+        if host != dev or dev > bgm._SMEM_LIMIT:
+            raise AssertionError(f"max-pooled ball group forward layout: "
+                                 f"host {host} bytes, kernel {dev} ({where}, "
+                                 f"{dt}, {tl})")
+    tl = bgm.bwd_tiling(n, c)
+    host = bgm.bwd_smem_bytes(tl.s, tl.r)
+    dev = lib.ball_group_max_bwd_smem_bytes(tl.s, tl.r)
+    out["backward"] = dict(tl._asdict(), smem_bytes=dev)
+    if host != dev or dev > bgm._SMEM_LIMIT:
+        raise AssertionError(f"max-pooled ball group backward layout: host "
+                             f"{host} bytes, kernel {dev} ({where}, {tl})")
+    return out
+
+
+def bgmax_op_launches(gen, xyz, qidx, n, c, radius) -> dict:
+    """What one call of ``ops.ball_group_max`` on bf16 features puts on the
+    card, from the profiler: the forward, then the backward through
+    autograd, each by name. The bf16 route must be one forward kernel, one
+    backward kernel and at most one memset: no cast around them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from adaptpoint_tpu_torch import ops
+    x_req = xyz.clone().requires_grad_()
+    f_req = torch.randn((B, n, c), generator=gen, device=DEV).to(
+        torch.bfloat16).requires_grad_()
+    m = qidx.shape[1]
+    gs = (torch.randn((B, m, 3), generator=gen, device=DEV),
+          *(torch.randn((B, m, c), generator=gen, device=DEV).to(
+              torch.bfloat16) for _ in range(3)))
+    for _ in range(2):  # the second call is the one counted
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p_fwd:
+            out = ops.ball_group_max(radius, K_GAN, x_req, qidx, f_req)
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p_bwd:
+            grads = torch.autograd.grad(out, (x_req, f_req), gs)
+            torch.cuda.synchronize()
+    found = {}
+    for phase, prof in (("forward", p_fwd), ("backward", p_bwd)):
+        found[phase] = {e.key[:60]: e.count for e in device_kernels(prof)}
+    fwd, bwd = found["forward"], found["backward"]
+    memsets = sum(v for k, v in bwd.items() if "emset" in k)
+    ok = (list(fwd.values()) == [1]
+          and "ball_group_max_kernel<" in next(iter(fwd))
+          and sum(v for k, v in bwd.items()
+                  if "ball_group_max_bwd_kernel<" in k) == 1
+          and sum(bwd.values()) - memsets == 1 and memsets <= 1
+          and out[1].dtype == grads[1].dtype == torch.bfloat16)
+    emit("ball_group_max_op_launches", features="bfloat16",
+         shape=[B, n, m, c, K_GAN], forward=fwd, backward=bwd,
+         expected="forward: the kernel alone; backward: the kernel and at "
+                  "most one memset; no cast")
+    if not ok:
+        raise AssertionError(f"ops.ball_group_max on bf16 features launches "
+                             f"{found}")
+    return {"forward": sum(fwd.values()), "backward": sum(bwd.values())}
 
 
 def rel_l2(a, b) -> float:
@@ -1656,35 +1749,57 @@ def phase_adapt_kernels(gen, rows) -> None:
     check_attention(gen, rows)
 
     # ---- the max-pooled ball group, forward and backward, at the four
-    # grouper shapes, then on a cloud with half its points at the origin and
-    # an empty ball
-    fwd = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, t_b=0.0, t_o=0.0)
-    bwd = dict(fwd)
+    # grouper shapes with f32 and with bf16 features (the bf16 policy's, as
+    # the kernels take them), its launch shapes there and at their edges,
+    # the op's launches on bf16 features, then a cloud with half its points
+    # at the origin and an empty ball
+    acc = {dt: (dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, t_b=0.0,
+                     t_o=0.0), dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0,
+                                    t_b=0.0, t_o=0.0))
+           for dt in (torch.float32, torch.bfloat16)}
+    layouts = {}
     for i, (n, m, c, r) in enumerate(GAN_STAGES):
         qidx = (order if i == 0 else ops.fps_prefix_idx(B, m, DEV)) \
             .int().contiguous()
-        feats = torch.randn((B, n, c), generator=gen, device=DEV)
-        f_row, b_row = check_ball_group_max(gen, f"grouper {i + 1}",
-                                            levels[i], qidx, feats, r)
-        for acc, row in ((fwd, f_row), (bwd, b_row)):
-            for key in ("ms", "plain_ms", "t_b", "t_o"):
-                acc[key] += row[key]
-            acc["max_abs_err"] = max(acc["max_abs_err"], row["max_abs_err"])
-        del feats
+        layouts[f"grouper {i + 1}"] = check_bgmax_layout(n, m, c, K_GAN,
+                                                         f"grouper {i + 1}")
+        for dt in acc:
+            feats = torch.randn((B, n, c), generator=gen, device=DEV).to(dt)
+            rows_i = check_ball_group_max(gen, f"grouper {i + 1}", levels[i],
+                                          qidx, feats, r)
+            for a, row in zip(acc[dt], rows_i):
+                for key in ("ms", "plain_ms", "t_b", "t_o"):
+                    a[key] += row[key]
+                a["max_abs_err"] = max(a["max_abs_err"], row["max_abs_err"])
+            del feats
+        if i == 0:
+            op_launches = bgmax_op_launches(gen, levels[0], qidx, n, c, r)
         torch.cuda.empty_cache()
+    # the launch shapes' edges: K = 1 and 255, C off the 16-byte vector, M
+    # off the tile, N too large to stage
+    for n, m, c, k in ((300, 37, 35, 1), (300, 37, 36, 255),
+                       (16384, 100, 16, K_GAN), (2048, 1000, 130, K_GAN)):
+        layouts[f"N={n} M={m} C={c} K={k}"] = check_bgmax_layout(
+            n, m, c, k, "edge")
+    emit("ball_group_max_layouts", layouts=layouts)
     n, m, c, r = GAN_STAGES[0]
     tied = stage_inputs(gen, [(n, m, c, 0, 0, r)], FAKE_DROPPED)[0]
     xyz, qidx, _ = tied
     xyz[1, 7] = 5.0  # far outside the unit sphere: its ball is empty
     qidx[1, 0] = 7
-    check_ball_group_max(gen, "ties and an empty ball", xyz, qidx,
-                         torch.randn((B, n, c), generator=gen, device=DEV),
-                         r, timed=False)
+    for dt in acc:
+        check_ball_group_max(gen, "ties and an empty ball", xyz, qidx,
+                             torch.randn((B, n, c), generator=gen,
+                                         device=DEV).to(dt), r, timed=False)
     del tied, xyz, qidx
-    for name, acc in (("ball_group_max", fwd), ("ball_group_max_bwd", bwd)):
-        acc.update(bound_row(acc.pop("t_b"), acc.pop("t_o")))
+    for name, j in (("ball_group_max", 0), ("ball_group_max_bwd", 1)):
+        row16 = acc[torch.bfloat16][j]
+        row16.update(bound_row(row16.pop("t_b"), row16.pop("t_o")))
+        row = acc[torch.float32][j]
+        row.update(bound_row(row.pop("t_b"), row.pop("t_o")))
         rows[name] = dict(shape=[B, N_GAN, K_GAN, "the four groupers, C "
-                                 "128-1024"], library_ms=None, **acc)
+                                 "128-1024, f32 features"], library_ms=None,
+                          bf16=row16, op_launches_bf16=op_launches, **row)
 
     # ---- the frozen classifier's four stages at N_GAN points: the fused SA
     # kernel on whole clouds (the real pass), the differentiable fused SA
@@ -4118,7 +4233,8 @@ def main(argv=None) -> int:
                       "library_host_us", "stages_ms", "stages_device_ms",
                       "stages_host_us", "stages_bound_ms",
                       "ms_with_d_w", "bound_ms_with_d_w", "full_n_op_ms",
-                      "ns_a_step", "gan_step_shape", "stand_in_ms"):
+                      "ns_a_step", "gan_step_shape", "stand_in_ms", "bf16",
+                      "op_launches_bf16"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(smi, flush=True)
