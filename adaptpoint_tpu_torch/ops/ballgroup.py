@@ -3,17 +3,25 @@
 Forward (``csrc/ballgroup.cu``) replaces
 ``adaptpoint_tpu/ops/pallas/ballgroup.py`` ``_ball_group_call``
 (``_fwd_kernel``, the forward of ``ball_group_pallas``). Bound on the H100:
-bytes -- the (B, K, M, 3+C) grouped output dominates. The kernel gives one
-warp to each query center, finds its neighbours with ``__ballot_sync`` and
-``__popc`` ranks, stops at the K-th, and writes each neighbour's row once,
-coalesced over channels; see the source's note.
+bytes -- the (B, K, M, 3+C) grouped output dominates. A block owns a tile of
+centers of one cloud (the cloud staged in shared memory, a warp a center for
+the ball query); then a warp a slot assembles the tile's rows of that slot,
+one contiguous span of the output, in shared memory and streams it out in
+16-byte stores.
 
 Backward (``csrc/ballgroup_bwd.cu``) replaces ``_ball_group_bwd``
 (``_bwd_kernel``), the VJP: the scatter-add of the cotangents of ``new_xyz``,
 ``fi`` and ``dpfj`` onto the support points, exact f32. Bound: bytes again
-(``g_dpfj`` is read once), plus atomic contention; see that source's note.
-:class:`BallGroup` ties the two into one differentiable op; ``idx`` is
-marked non-differentiable and ``query_idx`` gets no gradient.
+(``g_dpfj`` is read once), and the L2's reductions. A warp a center reads
+its slots' rows once, sums runs of equal neighbour index in registers and
+sends each run out as 16-byte vector reductions (one coalesced warp
+reduction where C <= 32); its two outputs are zeroed by two memsets first.
+
+:func:`fwd_tiling` picks the forward's launch shape on the host;
+:func:`fwd_smem_bytes` and :func:`bwd_smem_bytes` are the host's copies of
+the kernels' shared memory. :class:`BallGroup` ties the two
+kernels into one differentiable op; ``idx`` is marked non-differentiable and
+``query_idx`` gets no gradient.
 
 Outputs keep the JAX package's layout: ``new_xyz (B,M,3)``, ``fi (B,M,C)``,
 ``dpfj (B,K,M,3+C)`` = ``[dp || fj]`` and ``idx (B,M,K)`` int32.
@@ -22,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -29,10 +38,24 @@ from . import _build
 from .geometry import ball_query, index_points, inv_radius, radius_sq
 
 __all__ = ["ball_group_cuda", "ball_group_plain", "ball_group_bwd_cuda",
-           "ball_group_bwd_plain", "BallGroup", "LAUNCHES", "LAUNCHES_BWD"]
+           "ball_group_bwd_plain", "BallGroup", "FwdTiling", "fwd_tiling",
+           "fwd_smem_bytes", "bwd_smem_bytes",
+           "LAUNCHES", "LAUNCHES_BWD"]
 
 LAUNCHES = 0      # kernel launches of ball_group_cuda
 LAUNCHES_BWD = 0  # kernel launches of ball_group_bwd_cuda
+
+_SMS = 132  # streaming multiprocessors of the H100 SXM
+_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+# the most a block may use for two blocks to share an SM: (228 KB - 2 x 1 KB
+# the hardware keeps per block) / 2
+_SMEM_TWO_BLOCKS = 115712
+_FWD_WARPS = 8  # warps of a forward block, each with its span buffer
+_FWD_TILES = (32, 16, 8, 4)  # centers a forward block, most first
+_CAP_MAX = 3072  # floats of a span buffer at most (12 KB)
+# floats of a slot span a forward block aims at: longer spans (more centers
+# a block) lengthen a block's ball query before its first store
+_SPAN = 1100
 
 
 def ball_group_plain(radius: float, nsample: int, xyz: torch.Tensor,
@@ -93,23 +116,89 @@ def ball_group_bwd_plain(radius: float, idx: torch.Tensor,
     return g_xyz, g_feats
 
 
+def _a128(x: int) -> int:
+    return (x + 127) // 128 * 128
+
+
+def fwd_smem_bytes(tm: int, K: int, N: int, use_xs: bool, cap: int) -> int:
+    """Shared memory of one forward block, as ``ball_group_smem_bytes``
+    computes it (csrc/ballgroup.cu ``fwd_layout``; ``chip_smoke.py`` holds
+    the two equal): the tile's slot table, each center's coordinates, with
+    ``use_xs`` the cloud's N points, 16 bytes each, and a span buffer of
+    ``cap`` floats for each of the 8 warps."""
+    return (_a128(tm * K * 4) + _a128(tm * 16)
+            + (_a128(N * 16) if use_xs else 0) + _FWD_WARPS * _a128(cap * 4))
+
+
+def bwd_smem_bytes(K: int) -> int:
+    """Shared memory of one backward block, as ``ball_group_bwd_smem_bytes``
+    computes it (csrc/ballgroup_bwd.cu ``bwd_smem``): each of its 8 warps'
+    K neighbour indices, then each warp's buffer of 128 channels."""
+    return (8 * K * 4 + 15) // 16 * 16 + 8 * 128 * 4
+
+
+class FwdTiling(NamedTuple):
+    """The forward's launch shape: ``tm`` centers a block, ``use_xs`` the
+    cloud staged in shared memory, ``cap`` floats a warp's span buffer (a
+    slot's ``tm (3 + C)`` floats and the alignment pad, or less: then the
+    span goes through it in windows), ``vec`` channels a lane loads at once
+    (4, or 1)."""
+    tm: int
+    use_xs: bool
+    cap: int
+    vec: int
+
+
+@functools.lru_cache(maxsize=64)
+def fwd_tiling(B: int, N: int, M: int, C: int, K: int,
+               aligned: bool = True) -> FwdTiling:
+    """The forward's tiling: the most centers a block (32 down to 4) whose
+    slot span stays within _SPAN floats and that still give two blocks an SM
+    of work, fewer where the slot table and the span buffers would not fit a
+    block; the cloud staged where two blocks still fit an SM. Raises
+    ValueError on a shape the kernel does not take."""
+    if min(B, N, M, K) < 1 or C < 0:
+        raise ValueError(f"the ball group takes B, N, M, K >= 1 and C >= 0; "
+                         f"got B={B} N={N} M={M} C={C} K={K}")
+
+    def cap(tm):
+        return min((tm * (C + 3) + 3 + 3) // 4 * 4, _CAP_MAX)
+
+    tm = next((t for t in _FWD_TILES if t * (C + 3) <= _SPAN
+               and B * -(-M // t) >= 2 * _SMS), 4)
+    while fwd_smem_bytes(tm, K, N, False, cap(tm)) > _SMEM_LIMIT:
+        if tm == 1:
+            raise ValueError(f"K={K} slots do not fit a block's shared "
+                             f"memory")
+        tm //= 2
+    use_xs = fwd_smem_bytes(tm, K, N, True, cap(tm)) <= _SMEM_TWO_BLOCKS
+    return FwdTiling(tm, use_xs, cap(tm),
+                     4 if aligned and C % 4 == 0 and C > 0 else 1)
+
+
 @functools.cache
 def _lib():
     lib = _build.load("ballgroup")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong
     lib.ball_group_launch.argtypes = [p, p, p, i, i, i, i, i, f, f, i,
-                                      p, p, p, p, p]
-    lib.ball_group_launch.restype = ctypes.c_int
+                                      i, i, i, i, p, p, p, p, p]
+    lib.ball_group_launch.restype = i
+    lib.ball_group_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.ball_group_smem_bytes.restype = ll
     return lib
 
 
 @functools.cache
 def _lib_bwd():
     lib = _build.load("ballgroup_bwd")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong
     lib.ball_group_bwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i,
                                           p, p, p]
-    lib.ball_group_bwd_launch.restype = ctypes.c_int
+    lib.ball_group_bwd_launch.restype = i
+    lib.ball_group_bwd_smem_bytes.argtypes = [i]
+    lib.ball_group_bwd_smem_bytes.restype = ll
     return lib
 
 
@@ -149,6 +238,7 @@ def ball_group_cuda(radius: float, nsample: int, xyz: torch.Tensor,
     K = int(nsample)
     if K < 1 or M < 1:
         raise ValueError(f"empty ball group: M={M} K={K}")
+    tl = fwd_tiling(B, N, M, C, K, feats.data_ptr() % 16 == 0)
     dev = xyz.device
     new_xyz = torch.empty((B, M, 3), dtype=torch.float32, device=dev)
     fi = torch.empty((B, M, C), dtype=torch.float32, device=dev)
@@ -158,9 +248,9 @@ def ball_group_cuda(radius: float, nsample: int, xyz: torch.Tensor,
     lib = _lib()
     err = lib.ball_group_launch(
         xyz.data_ptr(), query_idx.data_ptr(), feats.data_ptr(), B, N, M, C, K,
-        radius_sq(radius), scale, int(bool(relative)), new_xyz.data_ptr(),
-        fi.data_ptr(), dpfj.data_ptr(), idx.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        radius_sq(radius), scale, int(bool(relative)), tl.tm, int(tl.use_xs),
+        tl.cap, tl.vec, new_xyz.data_ptr(), fi.data_ptr(), dpfj.data_ptr(),
+        idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "ball_group")
     LAUNCHES += 1
     return new_xyz, fi, dpfj, idx
@@ -210,10 +300,14 @@ def ball_group_bwd_cuda(radius: float, idx: torch.Tensor,
     g_new = _cotangent(g_new, (B, M, 3), "g_new", dev)
     g_fi = _cotangent(g_fi, (B, M, C), "g_fi", dev)
     g_dpfj = _cotangent(g_dpfj, (B, K, M, 3 + C), "g_dpfj", dev)
+    if n < 1:
+        raise ValueError(f"no support points: n={n}")
     g_xyz = torch.empty((B, n, 3), dtype=torch.float32, device=dev) \
         if need_xyz else None
     g_feats = torch.empty((B, n, C), dtype=torch.float32, device=dev) \
         if need_feats else None
+    if not need_xyz and not (need_feats and C):  # nothing to sum
+        return g_xyz, g_feats
     scale = inv_radius(radius) if (relative and normalize_dp) else 1.0
 
     def ptr(t):

@@ -41,7 +41,8 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .ballgroup import _check_inputs
+from .ballgroup import (_SMEM_LIMIT, _SMEM_TWO_BLOCKS, _SMS, _a128,
+                        _check_inputs)
 from .geometry import ball_query, index_points, radius_sq
 from .saeval import _bf16
 
@@ -56,11 +57,6 @@ LAUNCHES_BWD = 0  # kernel launches of ball_group_max_bwd_cuda
 
 # the feature types the kernels take, by the code the C entry points read
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMS = 132  # streaming multiprocessors of the H100 SXM
-_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
-# the most a block may use for two blocks to share an SM: (228 KB - 2 x 1 KB
-# the hardware keeps per block) / 2
-_SMEM_TWO_BLOCKS = 115712
 # channels a backward block may sum, widest first
 _BWD_SLICES = (32, 16, 8, 4)
 
@@ -110,10 +106,6 @@ def ball_group_max_bwd_plain(idx, query_idx, amax, amin, g_new, g_fi, g_fmax,
     if g_new is not None:
         g_xyz.scatter_add_(1, q.expand(-1, -1, 3), g_new)
     return g_xyz, g_feats.to(dt)
-
-
-def _a128(x: int) -> int:
-    return (x + 127) // 128 * 128
 
 
 def _vec(dtype: torch.dtype, C: int, aligned: bool) -> int:

@@ -13,7 +13,12 @@ Phases, one JSON object a line:
    (FPS 1024 -> 512, 2048 -> 1200 and 2048 -> 1024, each timed with ns a step,
    and at seven edges: B = 1, N = 1000 and 4097 with npoint = N, npoint = 1,
    half the points at the origin, N = 300, N = 16384; the four SA stages at
-   N=1024 for ball-group forward, backward and fused SA; the max-pooled ball
+   N=1024 for ball-group forward, backward and fused SA, the ball group's
+   forward and backward also at seven edges (M off the tile, N % 4 with
+   K = 33 and C = 3, N too large to stage, K = 1 with C = 0, K = 128, C
+   wider than a span buffer, misaligned features), the host's copies of
+   their shared memory against the kernels' at the stages and edges, and
+   ``ops.ball_group``'s launches each way; the max-pooled ball
    group forward and backward at the augmentor's four grouper shapes and on a
    cloud with ties and an empty ball, each with f32 and with bf16 features,
    the host's copies of their shared memory against the kernel's at those
@@ -468,6 +473,7 @@ def check_stages_forward(gen, stages, bg_inputs, sa_inputs):
     bg = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0, t_b=0.0,
               t_o=0.0)
     sa = dict(bg)
+    bg.update(stand_in_ms=0.0, device_ms=0.0, host_us=0.0)
 
     def add(acc, ms, plain_ms, t_b, t_o):
         """Sum one stage into a kernel's totals; returns the stage's row."""
@@ -503,6 +509,18 @@ def check_stages_forward(gen, stages, bg_inputs, sa_inputs):
             bg_row = add(bg, cuda_ms(lambda: ballgroup.ball_group_cuda(*args)),
                          cuda_ms(lambda: ballgroup.ball_group_plain(*args)),
                          b_bytes / PEAK_BYTES, b_ops / PEAK_F32)
+            # a stand-in, not the same function: the neighbour rows of
+            # [xyz || feats] by the kernel's idx, no ball query, no dp
+            cat = torch.cat([xyz, feats], -1)
+            rows_of = got[3].long().reshape(B, m * K, 1).expand(-1, -1, 3 + c)
+            bg_row.update(stand_in_ms=cuda_ms(
+                lambda: torch.gather(cat, 1, rows_of)),
+                **device_host(lambda: ballgroup.ball_group_cuda(*args)),
+                tiling=list(ballgroup.fwd_tiling(B, n, m, c, K)))
+            for key in ("stand_in_ms", "device_ms", "host_us"):
+                bg[key] = (None if bg[key] is None or bg_row[key] is None
+                           else bg[key] + bg_row[key])
+            del cat, rows_of
 
         xyz, qidx, feats = sa_inputs[i]
         scanned = scanned_points(xyz, qidx, r)
@@ -549,66 +567,114 @@ def check_stages_forward(gen, stages, bg_inputs, sa_inputs):
     return bg, sa
 
 
-def check_stages_backward(gen, stages, inputs):
-    """The ball-group backward kernel at ``stages`` (K neighbours, relative,
-    dp normalised), directly and through autograd, against its plain version.
-    Returns its row, summed over the stages."""
+def check_bg_backward(gen, tag, r, k, xyz, qidx, feats) -> dict:
+    """The ball-group backward kernel at one shape (k neighbours, relative,
+    dp normalised) against its plain version within
+    ``ball_group_bwd_bound``: called directly with all three cotangents and
+    with ``g_new`` and ``g_fi`` absent; through autograd with a strided
+    ``g_dpfj``, with only ``feats`` and with only ``xyz`` asking for a
+    gradient. Returns the direct call's arguments and the errors."""
     import torch
     from adaptpoint_tpu_torch import ops
     from adaptpoint_tpu_torch.ops import ballgroup
 
-    bwd = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, t_b=0.0, t_o=0.0)
+    b, n, c = feats.shape
+    m = qidx.shape[1]
+    idx = ballgroup.ball_group_cuda(r, k, xyz, qidx, feats, True, True)[3]
+    g_new = torch.randn((b, m, 3), generator=gen, device=DEV)
+    g_fi = torch.randn((b, m, c), generator=gen, device=DEV)
+    g_dpfj = torch.randn((b, k, m, 3 + c), generator=gen, device=DEV)
+    args = (r, idx, qidx, g_new, g_fi, g_dpfj, n, True, True)
+    got = ballgroup.ball_group_bwd_cuda(*args)
+    ref = ballgroup.ball_group_bwd_plain(*args)
+    bounds = ball_group_bwd_bound(r, idx, qidx, g_new, g_fi, g_dpfj, n)
+    only = ballgroup.ball_group_bwd_cuda(r, idx, qidx, None, None, g_dpfj, n,
+                                         True, True)
+    only_ref = ballgroup.ball_group_bwd_plain(r, idx, qidx, None, None,
+                                              g_dpfj, n, True, True)
+    zero3, zero = torch.zeros_like(g_new), torch.zeros_like(g_fi)
+    only_bounds = ball_group_bwd_bound(r, idx, qidx, zero3, zero, g_dpfj, n)
+    # through autograd, with a strided g_dpfj and new_xyz left unused
+    x_req = xyz.clone().requires_grad_()
+    f_req = feats.clone().requires_grad_()
+    out = ops.ball_group(r, k, x_req, qidx, f_req, True, True)
+    strided = g_dpfj.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+    auto = torch.autograd.grad(out[:3], (x_req, f_req),
+                               (g_new, g_fi, strided))
+    f_only = torch.autograd.grad(
+        ops.ball_group(r, k, xyz, qidx, f_req, True, True)[1:3], f_req,
+        (g_fi, g_dpfj))[0]
+    out = ops.ball_group(r, k, x_req, qidx, feats, True, True)
+    x_only = torch.autograd.grad((out[0], out[2]), x_req, (g_new, g_dpfj))[0]
+    torch.cuda.synchronize()
+    errs, ok = {}, True
+    for name, a, b_, bound in (("g_xyz", got[0], ref[0], bounds[0]),
+                               ("g_feats", got[1], ref[1], bounds[1]),
+                               ("absent_g_new_g_fi_xyz", only[0],
+                                only_ref[0], only_bounds[0]),
+                               ("absent_g_new_g_fi_feats", only[1],
+                                only_ref[1], only_bounds[1]),
+                               ("autograd_g_xyz", auto[0], ref[0],
+                                bounds[0]),
+                               ("autograd_g_feats", auto[1], ref[1],
+                                bounds[1]),
+                               ("autograd_feats_only", f_only, ref[1],
+                                bounds[1]),
+                               ("autograd_xyz_only", x_only, ref[0],
+                                bounds[0])):
+        d = (a - b_).abs()
+        errs[name] = float(d.max()) if d.numel() else 0.0
+        ok = ok and bool((d <= bound).all()) and bool(
+            torch.isfinite(a).all())
+    emit("kernel", name="ball_group_bwd", case=tag, stage=[b, n, m, c, k],
+         max_abs_err=errs, out_absmax=float(ref[1].abs().max())
+         if ref[1].numel() else 0.0,
+         bound_max=[float(b_.max()) if b_.numel() else 0.0
+                    for b_ in bounds],
+         tolerance="|kernel - plain| <= n * 2^-23 * sum|addend| per "
+                   "element (n addends meet there; atomic adds land in "
+                   "no fixed order)")
+    if not ok:
+        raise AssertionError(f"ball-group backward disagrees ({tag}): "
+                             f"{errs}")
+    return dict(args=args, errs=errs)
+
+
+def check_stages_backward(gen, stages, inputs):
+    """The ball-group backward kernel at ``stages`` (K neighbours, relative,
+    dp normalised), directly and through autograd, against its plain version
+    (``check_bg_backward``). Returns its row, summed over the stages."""
+    import torch
+    from adaptpoint_tpu_torch.ops import ballgroup
+
+    bwd = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, t_b=0.0, t_o=0.0,
+               stand_in_ms=0.0, device_ms=0.0, host_us=0.0)
     for i, ((n, m, c, _, _, r), (xyz, qidx, feats)) in enumerate(
             zip(stages, inputs)):
-        idx = ballgroup.ball_group_cuda(r, K, xyz, qidx, feats, True, True)[3]
-        g_new = torch.randn((B, m, 3), generator=gen, device=DEV)
-        g_fi = torch.randn((B, m, c), generator=gen, device=DEV)
-        g_dpfj = torch.randn((B, K, m, 3 + c), generator=gen, device=DEV)
-        args = (r, idx, qidx, g_new, g_fi, g_dpfj, n, True, True)
-        got = ballgroup.ball_group_bwd_cuda(*args)
-        ref = ballgroup.ball_group_bwd_plain(*args)
-        bounds = ball_group_bwd_bound(r, idx, qidx, g_new, g_fi, g_dpfj, n)
-        # through autograd, with a strided g_dpfj and new_xyz left unused
-        x_req = xyz.clone().requires_grad_()
-        f_req = feats.clone().requires_grad_()
-        out = ops.ball_group(r, K, x_req, qidx, f_req, True, True)
-        strided = g_dpfj.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
-        auto = torch.autograd.grad(out[:3], (x_req, f_req),
-                                   (g_new, g_fi, strided))
-        f_only = torch.autograd.grad(
-            ops.ball_group(r, K, xyz, qidx, f_req, True, True)[1:3], f_req,
-            (g_fi, g_dpfj))[0]
-        torch.cuda.synchronize()
-        errs, ok = {}, True
-        for name, a, b_, bound in (("g_xyz", got[0], ref[0], bounds[0]),
-                                   ("g_feats", got[1], ref[1], bounds[1]),
-                                   ("autograd_g_xyz", auto[0], ref[0],
-                                    bounds[0]),
-                                   ("autograd_g_feats", auto[1], ref[1],
-                                    bounds[1]),
-                                   ("autograd_feats_only", f_only, ref[1],
-                                    bounds[1])):
-            d = (a - b_).abs()
-            errs[name] = float(d.max())
-            ok = ok and bool((d <= bound).all()) and bool(
-                torch.isfinite(a).all())
-        emit("kernel", name="ball_group_bwd", stage=[B, n, m, c, K],
-             max_abs_err=errs, out_absmax=float(ref[1].abs().max()),
-             bound_max=[float(b_.max()) for b_ in bounds],
-             tolerance="|kernel - plain| <= n * 2^-23 * sum|addend| per "
-                       "element (n addends meet there; atomic adds land in "
-                       "no fixed order)")
-        if not ok:
-            raise AssertionError(f"ball-group backward disagrees: {errs}")
+        got = check_bg_backward(gen, f"stage {i + 1}", r, K, xyz, qidx, feats)
+        args, errs = got["args"], got["errs"]
+        idx, g_dpfj = args[1], args[5]
         b_bytes = (B * m * K * 4 + B * m * 4 + B * m * 12 + B * m * c * 4
                    + B * K * m * (3 + c) * 4 + B * n * (3 + c) * 4)
         b_ops = B * K * m * (3 + c) + B * K * m * 6 + B * m * (3 + c)
+        # a stand-in, not the same function: index_add_ of g_dpfj's feature
+        # columns onto zeros (no dp columns, no centers' terms)
+        flat = (idx.long().permute(0, 2, 1).reshape(-1)
+                + torch.arange(B, device=DEV).repeat_interleave(K * m) * n)
+        g_f = g_dpfj[..., 3:].reshape(-1, c)
         row = dict(ms=cuda_ms(lambda: ballgroup.ball_group_bwd_cuda(*args)),
                    plain_ms=cuda_ms(
                        lambda: ballgroup.ball_group_bwd_plain(*args)),
-                   bound_ms=1e3 * max(b_bytes / PEAK_BYTES, b_ops / PEAK_F32))
-        bwd["ms"] += row["ms"]
-        bwd["plain_ms"] += row["plain_ms"]
+                   bound_ms=1e3 * max(b_bytes / PEAK_BYTES, b_ops / PEAK_F32),
+                   stand_in_ms=cuda_ms(
+                       lambda: torch.zeros((B * n, c), device=DEV)
+                       .index_add_(0, flat, g_f)),
+                   **device_host(
+                       lambda: ballgroup.ball_group_bwd_cuda(*args)))
+        del flat, g_f
+        for key in ("ms", "plain_ms", "stand_in_ms", "device_ms", "host_us"):
+            bwd[key] = (None if bwd[key] is None or row[key] is None
+                        else bwd[key] + row[key])
         bwd["t_b"] += b_bytes / PEAK_BYTES
         bwd["t_o"] += b_ops / PEAK_F32
         bwd["max_abs_err"] = max(bwd["max_abs_err"], errs["g_feats"],
@@ -617,6 +683,126 @@ def check_stages_backward(gen, stages, inputs):
              ball_group_bwd=row)
     bwd.update(bound_row(bwd.pop("t_b"), bwd.pop("t_o")))
     return bwd
+
+
+# the ball group's edges, each forward exact and each backward within its
+# bound: (B, N, M, C, K, radius, features 16-byte aligned)
+BG_EDGES = [(3, 500, 77, 24, 32, 0.3, True),    # M off the tile
+            (2, 1001, 37, 3, 33, 0.4, True),    # N % 4, C = 3, K = 33
+            (2, 16384, 100, 16, 32, 0.1, True),  # N too large to stage
+            (2, 300, 37, 0, 1, 0.3, True),      # K = 1, C = 0
+            (4, 257, 100, 36, 128, 0.9, True),  # K = 128
+            (2, 100, 30, 5000, 8, 0.5, True),   # C wider than a span buffer
+            (4, 1024, 512, 32, 32, 0.15, False)]  # misaligned features
+
+
+def check_ball_group_edges(gen) -> dict:
+    """Rows 2 and 4 at BG_EDGES against their plain versions: the forward
+    bit for bit with dp relative and normalised, relative only and absolute,
+    on a cloud whose first center lies far out (a ball holding only it); the
+    backward as at the stages (``check_bg_backward``). Returns each edge's
+    forward tiling."""
+    import torch
+    from adaptpoint_tpu_torch.ops import ballgroup
+
+    tilings = {}
+    for b, n, m, c, k, r, aligned in BG_EDGES:
+        xyz = torch.randn((b, n, 3), generator=gen, device=DEV)
+        xyz = xyz / xyz.norm(dim=-1).amax(dim=1, keepdim=True)[..., None]
+        qidx = torch.stack([torch.randperm(n, generator=gen, device=DEV)[:m]
+                            for _ in range(b)]).int().contiguous()
+        xyz[0, qidx[0, 0]] = 5.0
+        xyz = xyz.contiguous()
+        if aligned:
+            feats = torch.randn((b, n, c), generator=gen, device=DEV)
+        else:  # a view one float into its storage
+            feats = torch.randn(b * n * c + 1, generator=gen,
+                                device=DEV)[1:].view(b, n, c)
+        tag = f"B={b} N={n} M={m} C={c} K={k}" + ("" if aligned else
+                                                   " misaligned")
+        tl = ballgroup.fwd_tiling(b, n, m, c, k, feats.data_ptr() % 16 == 0)
+        tilings[tag] = list(tl)
+        for rel, norm in ((True, True), (True, False), (False, False)):
+            args = (r, k, xyz, qidx, feats, rel, norm)
+            got = ballgroup.ball_group_cuda(*args)
+            ref = ballgroup.ball_group_plain(*args)
+            torch.cuda.synchronize()
+            errs = [float((a.float() - b_.float()).abs().max())
+                    if a.numel() else 0.0 for a, b_ in zip(got, ref)]
+            emit("kernel", name="ball_group", case=tag, relative=rel,
+                 normalize_dp=norm, tiling=list(tl),
+                 max_abs_err={"new_xyz": errs[0], "fi": errs[1],
+                              "dpfj": errs[2], "idx": errs[3]},
+                 tolerance="exact")
+            if any(errs) or not all(torch.equal(a, b_)
+                                    for a, b_ in zip(got, ref)):
+                raise AssertionError(f"ball-group kernel disagrees ({tag}, "
+                                     f"{rel=}, {norm=}): {errs}")
+        check_bg_backward(gen, tag, r, k, xyz, qidx, feats.contiguous())
+        del xyz, feats
+    return tilings
+
+
+def check_bg_layout(b, n, m, c, k) -> dict:
+    """Rows 2, 4's launch shapes at this shape: the host's copies of their
+    shared memory (``ballgroup.fwd_smem_bytes``, ``bwd_smem_bytes``)
+    against the kernels' own, each within the card's opt-in."""
+    from adaptpoint_tpu_torch.ops import ballgroup
+    tl = ballgroup.fwd_tiling(b, n, m, c, k)
+    host = ballgroup.fwd_smem_bytes(tl.tm, k, n, tl.use_xs, tl.cap)
+    dev = ballgroup._lib().ball_group_smem_bytes(tl.tm, k, n, int(tl.use_xs),
+                                                 tl.cap)
+    host_b = ballgroup.bwd_smem_bytes(k)
+    dev_b = ballgroup._lib_bwd().ball_group_bwd_smem_bytes(k)
+    if host != dev or dev > ballgroup._SMEM_LIMIT or host_b != dev_b \
+            or dev_b > ballgroup._SMEM_LIMIT:
+        raise AssertionError(f"ball group layouts at {[b, n, m, c, k]}: "
+                             f"forward host {host} kernel {dev} ({tl}), "
+                             f"backward host {host_b} kernel {dev_b}")
+    return dict(forward=dict(tl._asdict(), smem_bytes=dev),
+                backward=dict(smem_bytes=dev_b))
+
+
+def bg_op_launches(gen, xyz, qidx, feats, radius) -> dict:
+    """What one call of ``ops.ball_group`` puts on the card, from the
+    profiler: the forward, then the backward through autograd, each by
+    name. It must be the forward kernel alone, then the backward kernel
+    and the memsets of its two outputs (ballgroup_bwd.cu's reductions need
+    zeros to add to), nothing else."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from adaptpoint_tpu_torch import ops
+    x_req = xyz.clone().requires_grad_()
+    f_req = feats.clone().requires_grad_()
+    b, m, c = qidx.shape[0], qidx.shape[1], feats.shape[2]
+    gs = (torch.randn((b, m, 3), generator=gen, device=DEV),
+          torch.randn((b, m, c), generator=gen, device=DEV),
+          torch.randn((b, K, m, 3 + c), generator=gen, device=DEV))
+    for _ in range(2):  # the second call is the one counted
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p_fwd:
+            out = ops.ball_group(radius, K, x_req, qidx, f_req, True, True)
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p_bwd:
+            torch.autograd.grad(out[:3], (x_req, f_req), gs)
+            torch.cuda.synchronize()
+    found = {phase: {e.key[:60]: e.count for e in device_kernels(prof)}
+             for phase, prof in (("forward", p_fwd), ("backward", p_bwd))}
+    fwd, bwd = found["forward"], found["backward"]
+    memsets = sum(v for k, v in bwd.items() if "emset" in k)
+    ok = (list(fwd.values()) == [1] and "ball_group_kernel<" in next(iter(fwd))
+          and sum(v for k, v in bwd.items()
+                  if "ball_group_bwd_kernel" in k) == 1
+          and sum(bwd.values()) - memsets == 1 and memsets == 2)
+    emit("ball_group_op_launches", shape=[b, xyz.shape[1], m, c, K],
+         forward=fwd, backward=bwd,
+         expected="forward: the kernel alone; backward: the kernel and the "
+                  "memsets of its two outputs")
+    if not ok:
+        raise AssertionError(f"ops.ball_group launches {found}")
+    return {"forward": sum(fwd.values()), "backward": sum(bwd.values())}
 
 
 # FPS edge cases, each exact against the plain version: (B, N, npoint, share
@@ -917,8 +1103,20 @@ def phase_train_kernels(gen, inputs, rows) -> None:
         **device_host(lambda: fps.furthest_point_sample_cuda(cloud, N_FPS)),
         **bound_row(bytes_f / PEAK_BYTES, ops_f / PEAK_F32))
 
-    # ball-group backward at the four stage shapes
+    # ball-group backward at the four stage shapes; both ball-group kernels
+    # at their edges, their shared memory against the host's copies, and
+    # what ops.ball_group launches each way
     rows["ball_group_bwd"] = check_stages_backward(gen, STAGES, inputs)
+    layouts = {f"stage {i + 1}": check_bg_layout(B, n, m, c, K)
+               for i, (n, m, c, _, _, _) in enumerate(STAGES)}
+    edge_tilings = check_ball_group_edges(gen)
+    for b, n, m, c, k, _, _ in BG_EDGES:
+        layouts[f"B={b} N={n} M={m} C={c} K={k}"] = check_bg_layout(
+            b, n, m, c, k)
+    emit("ball_group_layouts", layouts=layouts, edge_tilings=edge_tilings)
+    xyz, qidx, feats = inputs[0]
+    rows["ball_group"]["op_launches"] = rows["ball_group_bwd"][
+        "op_launches"] = bg_op_launches(gen, xyz, qidx, feats, STAGES[0][5])
 
     # row gather and its scatter-add: the resampling shape (distinct rows)
     # and a feature shape whose indices repeat
@@ -4234,7 +4432,7 @@ def main(argv=None) -> int:
                       "stages_host_us", "stages_bound_ms",
                       "ms_with_d_w", "bound_ms_with_d_w", "full_n_op_ms",
                       "ns_a_step", "gan_step_shape", "stand_in_ms", "bf16",
-                      "op_launches_bf16"):
+                      "op_launches_bf16", "op_launches"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(smi, flush=True)
