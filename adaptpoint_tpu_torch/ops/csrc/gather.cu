@@ -19,21 +19,28 @@
 // by M once (32 bits); a grid of at most 8 blocks an SM walks the rows with
 // a grid stride. The launch function picks the access width and the group.
 //
-// Backward design: one thread per element, flat over (b, m, c), so that
-// neighbouring threads read and write neighbouring channels of a row and
-// then neighbouring rows. It adds with atomicAdd into an f32 buffer the
-// launch function zeroes on the stream first: g_pts itself for f32, a
-// scratch buffer of the caller for bf16, which a second small kernel rounds
-// to bf16.
+// Backward design: scatter_rows.cuh's destination-ordered block with an op
+// whose slots are idx's entries and whose addends are g's rows as they are
+// (every duplicate added): a block owns a tile of one cloud's output rows
+// and a channel slice, builds its rows' slot lists in shared memory in
+// ascending slot order, and a group of lanes sums a row's list in f32 with
+// 16-byte loads (8 bf16 or 4 f32 channels a lane where C and the pointers
+// allow, one channel otherwise) and writes it once, bf16 rounded once for
+// bf16. One launch, no memset, no scratch; rows no index names are zeros.
+// Its launch shape comes from ops/scatter_rows.py choose, which takes the
+// L2-reduction design ("l2red": a memset, the kernel and, for bf16, a
+// rounding pass) for small scatters.
 //
 // What bounds them: bytes (every input read once, every output written
 // once); at the train step's shape, (32, 2048, 4) -> 1024 rows, about 1 MB,
-// the launch. The order of the atomic adds is not fixed, so where indices
-// repeat the f32 sum can differ in its last bits from run to run; with
-// distinct indices (the resampling gather) it is exact.
+// the launch. The backward sums each row in ascending slot order: the same
+// bits from run to run, exact where indices are distinct (the resampling
+// gather).
 //
 // Indices must lie in [0, N): the kernels do not check (the one-hot TPU
 // kernel yields a zero row there; the model never passes one).
+#include "scatter_rows.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -78,34 +85,84 @@ cudaError_t launch_gather(const void* pts, const int* idx, int rows, int N,
   return cudaGetLastError();
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
+// Row 15's op: slot s of cloud b names row idx[b, s] and adds g[b, s, :]
+// as it is.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-scatter_add_rows_kernel(const T* __restrict__ g, const int* __restrict__ idx,
-                        long long total, int N, int M, int C,
-                        float* __restrict__ acc) {
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= total) return;
-  const long long bm = e / C;
-  const int c = (int)(e - bm * C);
-  const long long b = bm / M;
-  const int j = idx[bm];
-  atomicAdd(acc + ((size_t)b * N + j) * C + c, to_f32(g[e]));
+struct RowsOp {
+  typedef T In;
+  static constexpr bool kAux = false;
+  static constexpr int kUnroll = 8;
+  const T* g;
+  const int* idx;
+  int S, C;
+  __device__ void stage(int b, int k0, int n, int r0, int rows, short* dest,
+                        unsigned*) const {
+    apt_scatter::stage_rows(idx + (size_t)b * S + k0, n, r0, rows, dest);
+  }
+  __device__ bool slot(int b, int s, int& r, unsigned& a) const {
+    r = __ldg(idx + (size_t)b * S + s);
+    a = 0;
+    return true;
+  }
+  __device__ static int src_rel(int s) { return s; }
+  __device__ const T* row(int b, int k0, int rel) const {
+    return g + ((size_t)b * S + k0 + rel) * C;
+  }
+  __device__ float addend(float x, unsigned) const { return x; }
+};
+
+template <typename T, int V>
+__global__ void __launch_bounds__(apt_scatter::kThreads)
+gather_rows_bwd_kernel(RowsOp<T> op, T* __restrict__ out, int S, int M,
+                       int C, apt_scatter::Tiling t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  apt_scatter::ordered_block<RowsOp<T>, T, V>(op, out, S, M, C, t, smem);
 }
 
-__global__ void __launch_bounds__(kThreads)
-round_to_bf16_kernel(const float* __restrict__ acc, long long total,
-                     __nv_bfloat16* __restrict__ out) {
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e < total) out[e] = __float2bfloat16_rn(acc[e]);
+template <typename T, int V>
+__global__ void __launch_bounds__(apt_scatter::kThreads)
+gather_rows_bwd_l2red_kernel(RowsOp<T> op, float* __restrict__ acc, int S,
+                             int M, int C, long long items) {
+  apt_scatter::l2red_thread<RowsOp<T>, V>(op, acc, S, M, C, items);
 }
 
-inline int blocks_for(long long total) {
-  return (int)((total + kThreads - 1) / kThreads);
+// g (B, S, C) of T onto out (B, M, C) of T by idx (B, S); scratch is the
+// f32 buffer of "l2red" for bf16.
+template <typename T>
+cudaError_t launch_bwd(const T* g, const int* idx, int B, int M, int S,
+                       int C, float* scratch, T* out,
+                       const apt_scatter::Tiling& t, cudaStream_t stream) {
+  using namespace apt_scatter;
+  if (!valid(t, C) || t.design == kStaged) return cudaErrorInvalidValue;
+  const RowsOp<T> op{g, idx, S, C};
+  if (t.design == kOrdered) {
+    const size_t smem = smem_bytes(t, S, false, 0);
+    const dim3 grid = block_grid(t, B, M, C);
+    if (t.vec == 1)
+      return launch(gather_rows_bwd_kernel<T, 1>, grid, smem, stream, op,
+                    out, S, M, C, t);
+    if (t.vec == 4)
+      return launch(gather_rows_bwd_kernel<T, 4>, grid, smem, stream, op,
+                    out, S, M, C, t);
+    if constexpr (sizeof(T) == 2)
+      return launch(gather_rows_bwd_kernel<T, 8>, grid, smem, stream, op,
+                    out, S, M, C, t);
+    return cudaErrorInvalidValue;
+  }
+  float* acc = sizeof(T) == 4 ? reinterpret_cast<float*>(out) : scratch;
+  const long long total = (long long)B * M * C;
+  if (acc == nullptr) return cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)total * 4, stream);
+  if (e != cudaSuccess) return e;
+  const long long items = (long long)B * S * (C / t.vec);
+  const dim3 grid((unsigned)((items + 255) / 256));
+  e = t.vec == 4 ? launch(gather_rows_bwd_l2red_kernel<T, 4>, grid, 0, stream,
+                          op, acc, S, M, C, items)
+                 : launch(gather_rows_bwd_l2red_kernel<T, 1>, grid, 0, stream,
+                          op, acc, S, M, C, items);
+  if (e != cudaSuccess || sizeof(T) == 4) return e;
+  return launch(round_to_bf16_kernel, dim3((unsigned)((total + 255) / 256)),
+                0, stream, acc, total, reinterpret_cast<__nv_bfloat16*>(out));
 }
 
 }  // namespace
@@ -137,35 +194,33 @@ int gather_rows_launch(const void* pts, const int* idx, int B, int N, int M,
                                  out);
 }
 
-// g (B,M,C) f32 or bf16, idx (B,M) i32 -> g_pts (B,N,C) of the same type.
-// acc is the f32 accumulator (B,N,C): g_pts itself for f32 (acc == g_pts),
-// a scratch buffer for bf16. It is zeroed here, on the stream.
+// g (B,M,C) f32 or bf16, idx (B,M) i32 -> g_pts (B,N,C) of the same type,
+// all contiguous, B * N below 2^31; the launch shape (design, vec, lshift,
+// rows, chunk) from ops/scatter_rows.py choose. scratch: the (B,N,C) f32
+// buffer "l2red" needs for bf16, else unused. Returns cudaError_t.
 int gather_rows_bwd_launch(const void* g, const int* idx, int B, int N, int M,
-                           int C, int elem_bytes, float* acc, void* g_pts,
-                           cudaStream_t stream) {
-  if (B <= 0 || N <= 0 || M <= 0 || C <= 0) return cudaErrorInvalidValue;
-  const long long total = (long long)B * M * C;
-  const long long total_out = (long long)B * N * C;
-  cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)total_out * sizeof(float),
-                                  stream);
-  if (e != cudaSuccess) return e;
-  if (elem_bytes == 4) {
-    if ((void*)acc != g_pts) return cudaErrorInvalidValue;
-    scatter_add_rows_kernel<float>
-        <<<blocks_for(total), kThreads, 0, stream>>>(
-            (const float*)g, idx, total, N, M, C, acc);
-  } else if (elem_bytes == 2) {
-    scatter_add_rows_kernel<__nv_bfloat16>
-        <<<blocks_for(total), kThreads, 0, stream>>>(
-            (const __nv_bfloat16*)g, idx, total, N, M, C, acc);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    round_to_bf16_kernel<<<blocks_for(total_out), kThreads, 0, stream>>>(
-        acc, total_out, (__nv_bfloat16*)g_pts);
-  } else {
+                           int C, int elem_bytes, float* scratch, void* g_pts,
+                           int design, int vec, int lshift, int rows,
+                           int chunk, cudaStream_t stream) {
+  if (B <= 0 || N <= 0 || M <= 0 || C <= 0 ||
+      (long long)B * N > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  const apt_scatter::Tiling t{design, vec, lshift, rows, chunk};
+  if (elem_bytes == 4)
+    return launch_bwd((const float*)g, idx, B, N, M, C, scratch,
+                      (float*)g_pts, t, stream);
+  if (elem_bytes == 2)
+    return launch_bwd((const __nv_bfloat16*)g, idx, B, N, M, C, scratch,
+                      (__nv_bfloat16*)g_pts, t, stream);
+  return cudaErrorInvalidValue;
+}
+
+// Shared memory of one backward block at this launch shape and M slots a
+// cloud (scatter_rows.cuh smem_bytes; ops/scatter_rows.py holds a copy).
+long long gather_rows_bwd_smem_bytes(int design, int vec, int lshift,
+                                     int rows, int chunk, int M) {
+  const apt_scatter::Tiling t{design, vec, lshift, rows, chunk};
+  return (long long)apt_scatter::smem_bytes(t, M, false, 0);
 }
 
 const char* apt_error_string(int e) {

@@ -22,6 +22,14 @@ reproduce it:
   ``d_feat`` to bf16 once at the end; ``d_w[n, j] = sum_c gb[n, c]
   feat[idx_j, c]``, the whole sum for a duplicate slot too.
 
+The backward kernel's d_feat is one launch of ``csrc/scatter_rows.cuh``'s
+scatter (launch shape from ``ops.scatter_rows.choose``): each row's f32 sum
+taken from 0 in ascending source-row order, the same bits from run to run;
+:func:`weighted_gather3_bwd_ordered` is the plain function of that order.
+Small scatters take the L2-reduction design instead (a memset, the kernel
+and a rounding pass; no fixed order). ``d_w``, when asked for, is a second
+launch.
+
 :class:`WeightedGather3` ties the two into one differentiable op whatever the
 device: the kernels for CUDA tensors, the plain versions otherwise. ``d_w``
 is computed only where the weights ask for a gradient.
@@ -33,12 +41,13 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, scatter_rows
 from .geometry import index_points
 
 __all__ = ["weighted_gather3_cuda", "weighted_gather3_plain",
            "weighted_gather3_bwd_cuda", "weighted_gather3_bwd_plain",
-           "WeightedGather3", "LAUNCHES", "LAUNCHES_BWD"]
+           "weighted_gather3_bwd_ordered", "WeightedGather3", "LAUNCHES",
+           "LAUNCHES_BWD"]
 
 LAUNCHES = 0      # kernel launches of weighted_gather3_cuda
 LAUNCHES_BWD = 0  # kernel launches of weighted_gather3_bwd_cuda
@@ -98,6 +107,26 @@ def weighted_gather3_bwd_plain(feat: torch.Tensor, idx: torch.Tensor,
     return d_feat, d_w
 
 
+def weighted_gather3_bwd_ordered(idx: torch.Tensor, w: torch.Tensor,
+                                 g: torch.Tensor, m: int) -> torch.Tensor:
+    """``d_feat`` of :func:`weighted_gather3_bwd_plain` with each row's f32
+    sum taken from 0 in ascending source-row order (a row names each
+    distinct neighbour in one slot), the kernel's order: it equals the
+    kernel bit for bit. For checks; the port does not call it."""
+    B, N, _ = idx.shape
+    hi, lo = _split_weights(idx, w)
+    gb = g.to(torch.bfloat16).float()
+    terms = (hi[..., None] * gb[:, :, None, :]
+             + lo[..., None] * gb[:, :, None, :])
+    i0, i1, i2 = idx.long().unbind(-1)
+    drop = torch.full_like(i0, -1)  # a slot repeating an earlier one
+    dest = torch.stack([i0, torch.where(i1 == i0, drop, i1),
+                        torch.where((i2 == i0) | (i2 == i1), drop, i2)], -1)
+    return scatter_rows.scatter_rows_ordered(
+        terms.reshape(B, N * 3, -1), dest.reshape(B, N * 3), m
+    ).to(torch.bfloat16)
+
+
 @functools.cache
 def _lib():
     lib = _build.load("fpinterp")
@@ -105,8 +134,10 @@ def _lib():
     lib.weighted_gather3_launch.argtypes = [p, p, p, i, i, i, i, p, p]
     lib.weighted_gather3_launch.restype = ctypes.c_int
     lib.weighted_gather3_bwd_launch.argtypes = [p, p, p, p, i, i, i, i,
-                                                p, p, p, p]
+                                                p, p, p, i, i, i, i, i, p]
     lib.weighted_gather3_bwd_launch.restype = ctypes.c_int
+    lib.weighted_gather3_bwd_smem_bytes.argtypes = [i, i, i, i, i, i]
+    lib.weighted_gather3_bwd_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -160,10 +191,12 @@ def weighted_gather3_bwd_cuda(feat: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"g must be ({B}, {N}, {C}) on {feat.device}, got "
                          f"{tuple(g.shape)} on {g.device}")
     dev = feat.device
-    acc = d_feat = d_w = None
+    scratch = d_feat = d_w = None
+    tl = scatter_rows.choose(B, 3 * N, M, C, True, 4, g.data_ptr() % 16 == 0)
     if need_feat:
-        acc = torch.empty((B, M, C), dtype=torch.float32, device=dev)
         d_feat = torch.empty((B, M, C), dtype=torch.bfloat16, device=dev)
+        if tl.design == scatter_rows.L2RED:
+            scratch = torch.empty((B, M, C), dtype=torch.float32, device=dev)
     if need_w:
         d_w = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
 
@@ -173,9 +206,10 @@ def weighted_gather3_bwd_cuda(feat: torch.Tensor, idx: torch.Tensor,
     lib = _lib()
     err = lib.weighted_gather3_bwd_launch(
         feat.data_ptr(), idx.data_ptr(), w.data_ptr(), g.data_ptr(), B, M, N,
-        C, ptr(acc), ptr(d_feat), ptr(d_w),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "weighted_gather3_bwd")
+        C, ptr(scratch), ptr(d_feat), ptr(d_w), *tl,
+        torch._C._cuda_getCurrentRawStream(feat.get_device()))
+    if err:
+        _build.check(lib, err, "weighted_gather3_bwd")
     LAUNCHES_BWD += 1
     return d_feat, d_w
 

@@ -7,7 +7,13 @@ rows, and ``g_pts[b, idx[b, m], :] += g[b, m, :]`` with f32 sums cast to the
 primal type. Bound on the H100: bytes, and at the train step's resampling
 shape (about 1 MB) the launch itself; see the source's note. The wrappers'
 host path is one combined check, the allocation and the ctypes call, with
-the stream read as a raw handle.
+the stream read as a raw handle. The backward is one launch of
+``csrc/scatter_rows.cuh``'s scatter at the launch shape
+``ops.scatter_rows.choose`` gives: each row summed in ascending slot order,
+the same bits from run to run; :func:`gather_rows_bwd_ordered` is the plain
+function of that order. Small scatters (the resampling shape) take the
+L2-reduction design instead: a memset, the kernel and, for bf16, a rounding
+pass, with no fixed order where indices repeat.
 
 ``gather_rows`` is differentiable on both devices: a CUDA tensor goes through
 :class:`GatherRows` (both directions are kernels), a CPU tensor through
@@ -19,11 +25,12 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, scatter_rows
 from .geometry import index_points
 
 __all__ = ["gather_rows_cuda", "gather_rows_bwd_cuda", "gather_rows_plain",
-           "gather_rows_bwd_plain", "GatherRows", "LAUNCHES", "LAUNCHES_BWD"]
+           "gather_rows_bwd_plain", "gather_rows_bwd_ordered", "GatherRows",
+           "LAUNCHES", "LAUNCHES_BWD"]
 
 LAUNCHES = 0      # kernel launches of gather_rows_cuda
 LAUNCHES_BWD = 0  # kernel launches of gather_rows_bwd_cuda
@@ -52,6 +59,14 @@ def gather_rows_bwd_plain(g: torch.Tensor, idx: torch.Tensor,
     return acc.to(g.dtype)
 
 
+def gather_rows_bwd_ordered(g: torch.Tensor, idx: torch.Tensor,
+                            n: int) -> torch.Tensor:
+    """:func:`gather_rows_bwd_plain` with each row's f32 sum taken from 0 in
+    ascending slot order, the kernel's order: it equals the kernel bit for
+    bit. For checks; the port does not call it."""
+    return scatter_rows.scatter_rows_ordered(g.float(), idx, n).to(g.dtype)
+
+
 # the C entry points, bound at the first launch: a launch reads a module
 # global instead of building its function object and argument types again
 _fwd_entry = _bwd_entry = None
@@ -63,8 +78,11 @@ def _bind():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gather_rows_launch.argtypes = [p, p, i, i, i, i, i, p, p]
     lib.gather_rows_launch.restype = ctypes.c_int
-    lib.gather_rows_bwd_launch.argtypes = [p, p, i, i, i, i, i, p, p, p]
+    lib.gather_rows_bwd_launch.argtypes = [p, p, i, i, i, i, i, p, p, i, i,
+                                           i, i, i, p]
     lib.gather_rows_bwd_launch.restype = ctypes.c_int
+    lib.gather_rows_bwd_smem_bytes.argtypes = [i, i, i, i, i, i]
+    lib.gather_rows_bwd_smem_bytes.restype = ctypes.c_longlong
     _fwd_entry, _bwd_entry = lib.gather_rows_launch, lib.gather_rows_bwd_launch
     return _fwd_entry, _bwd_entry
 
@@ -126,12 +144,16 @@ def gather_rows_bwd_cuda(g: torch.Tensor, idx: torch.Tensor,
     if idx.shape[1] != M or n < 1:
         raise ValueError(f"g {tuple(g.shape)} does not match idx "
                          f"{tuple(idx.shape)} or n={n}")
-    acc = torch.empty((B, n, C), dtype=torch.float32, device=g.device)
-    out = acc if g.dtype == torch.float32 else torch.empty(
-        (B, n, C), dtype=g.dtype, device=g.device)
+    out = torch.empty((B, n, C), dtype=g.dtype, device=g.device)
+    tl = scatter_rows.choose(B, M, n, C, False, g.element_size(),
+                             g.data_ptr() % 16 == 0)
+    scratch = None  # the f32 buffer of the L2RED design's bf16 instance
+    if tl.design == scatter_rows.L2RED and g.dtype != torch.float32:
+        scratch = torch.empty((B, n, C), dtype=torch.float32,
+                              device=g.device).data_ptr()
     err = (_bwd_entry or _bind()[1])(
         g.data_ptr(), idx.data_ptr(), B, n, M, C, g.element_size(),
-        acc.data_ptr(), out.data_ptr(),
+        scratch, out.data_ptr(), *tl,
         torch._C._cuda_getCurrentRawStream(g.get_device()))
     if err:
         _build.check(_build.load("gather"), err, "gather_rows_bwd")

@@ -294,10 +294,12 @@ PATH_KERNELS = {
 OWN_KERNELS = ("fps_kernel", "ball_group_kernel", "ball_group_bwd_kernel",
                "ball_group_max_kernel", "ball_group_max_bwd_kernel",
                "sa_eval_kernel", "sa_train_bwd_kernel", "gather_rows_kernel",
-               "scatter_add_rows_kernel", "mha_cast_bf16_kernel",
-               "mha_fwd_kernel", "mha_bwd_prep_kernel", "mha_bwd_kernel",
+               "gather_rows_bwd_kernel", "gather_rows_bwd_l2red_kernel",
+               "mha_cast_bf16_kernel", "mha_fwd_kernel",
+               "mha_bwd_prep_kernel", "mha_bwd_kernel",
                "mha_dq_reduce_kernel", "knn_thread_kernel", "knn_warp_kernel",
-               "fpinterp_fwd_kernel", "fpinterp_bwd_kernel")
+               "fpinterp_fwd_kernel", "fpinterp_bwd_scatter_kernel",
+               "fpinterp_bwd_staged_kernel", "fpinterp_bwd_dw_kernel")
 # adapt phase: the augmentor's four groupers at N=2048: (N -> M, C, radius),
 # K_GAN neighbours (the max-pooled ball group); the mask head's attention
 # (BH, N, d)
@@ -975,11 +977,14 @@ def check_gather(gen, tag, n, c, idx, distinct=False,
     """The row gather and its scatter-add on seeded (B, n, c) points and
     ``idx`` (B, ...) of any rank >= 2, against their plain versions: the
     kernels called directly on the flattened index, and ``ops.index_points``
-    with its autograd on ``idx`` as it is. Returns the f32 rows (forward,
-    backward) with times."""
+    with its autograd on ``idx`` as it is. Where the scatter takes a design
+    with a fixed sum order (``scatter_rows``: not L2RED), it also equals the
+    ordered plain function bit for bit and two launches agree bit for bit;
+    rows no index names are zero in every design. Returns the f32 rows
+    (forward, backward) with times."""
     import torch
     from adaptpoint_tpu_torch import ops
-    from adaptpoint_tpu_torch.ops import gather
+    from adaptpoint_tpu_torch.ops import gather, scatter_rows
     from adaptpoint_tpu_torch.ops.geometry import index_points as plain_index
 
     flat_idx = idx.reshape(B, -1).int().contiguous()
@@ -1010,22 +1015,38 @@ def check_gather(gen, tag, n, c, idx, distinct=False,
             bound = torch.zeros_like(bound)
         d_back = (back.float() - back_ref.float()).abs()
         d_auto = (auto.float() - back_ref.float()).abs()
+        tl = scatter_rows.choose(B, m, n, c, False, g_t.element_size(),
+                                 g_t.data_ptr() % 16 == 0)
+        fixed = tl.design != scatter_rows.L2RED  # a fixed sum order
+        again = gather.gather_rows_bwd_cuda(g_t, flat_idx, n)
+        unnamed = counts[..., 0] == 0
+        checks = {"design": tl.design,
+                  "equals_ordered_plain": bool(torch.equal(
+                      back, gather.gather_rows_bwd_ordered(g_t, flat_idx, n))),
+                  "two_launches_equal": bool(torch.equal(back, again)),
+                  "unnamed_rows": int(unnamed.sum()),
+                  "unnamed_rows_zero": not bool(back[unnamed].any())}
         emit("kernel", name="gather_rows", case=tag,
              shape=[B, n, c, list(idx.shape[1:])],
              dtype=str(dtype), repeated_indices=not distinct,
              max_repeat=int(counts.max()),
              max_abs_err={"forward": e_fwd, "backward": float(d_back.max()),
-                          "autograd": float(d_auto.max())},
+                          "autograd": float(d_auto.max())}, **checks,
              tolerance="forward exact; backward exact for distinct "
                        "rows, else <= n * 2^-23 * sum|addend| per element "
-                       "(+ one bf16 ulp for bf16)")
+                       "(+ one bf16 ulp for bf16); with a fixed sum order "
+                       "the ordered plain function's bits, the same bits "
+                       "each launch; unnamed rows exactly zero")
         if (e_fwd or not bool((d_back <= bound).all())
                 or not bool((d_auto <= bound).all())
                 or back.dtype != dtype or fwd.dtype != dtype
-                or via_ops.shape != tuple(idx.shape) + (c,)):
+                or via_ops.shape != tuple(idx.shape) + (c,)
+                or not checks["unnamed_rows_zero"]
+                or (fixed and not (checks["equals_ordered_plain"]
+                                   and checks["two_launches_equal"]))):
             raise AssertionError(
                 f"row gather disagrees ({tag}, {dtype}): forward {e_fwd} "
-                f"backward {float(d_back.max())}")
+                f"backward {float(d_back.max())}, {checks}")
         if dtype != torch.float32:
             continue
         flat = (flat_idx.long() + torch.arange(B, device=DEV)[:, None] * n
@@ -2062,6 +2083,100 @@ def phase_adapt_kernels(gen, rows) -> None:
 
     # ---- the 3-NN weighted gather of the bf16 step's decode
     check_fpinterp(gen, levels, rows)
+    rows["fpinterp_bwd"]["op_launches"], \
+        rows["gather_rows_bwd"]["op_launches"] = scatter_op_launches(gen,
+                                                                     levels)
+
+
+def scatter_op_launches(gen, levels):
+    """What one call of rows 13 and 15 puts on the card at the GAN step's
+    shapes, from the profiler, by name: row 13 without d_w (as the step
+    calls it) at the four decode levels, row 15 in f32 and bf16 at the head
+    pooling and the four decode levels, on the step's own kNN indices. Each
+    must be the one kernel (no memset, no rounding pass: ``scatter_rows``
+    takes ORDERED or STAGED at these shapes). Row 15's result must equal
+    its ordered plain function and a second launch bit for bit, with the
+    rows no index names zero (``check_gather`` holds the f32 calls to the
+    plain version too; row 13 is held in ``check_fpinterp``). Also each
+    launch shape's shared memory, the host's copy
+    (``scatter_rows.smem_bytes``) against the kernel's own, within the
+    card's opt-in. Returns the device ops a call of each kernel, by
+    shape."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from adaptpoint_tpu_torch.ops import _build, knn
+    from adaptpoint_tpu_torch.ops import fpinterp as fpi
+    from adaptpoint_tpu_torch.ops import gather
+    from adaptpoint_tpu_torch.ops import scatter_rows as sr
+
+    def one_call(fn):
+        for _ in range(2):  # the second call is the one counted
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        return {e.key[:60]: e.count for e in device_kernels(prof)}
+
+    gather._bind()
+    glib, flib = _build.load("gather"), fpi._lib()
+    r13, r15, layouts = {}, {}, {}
+    cases = [("head pooling", 128, 1024,
+              knn.knn_idx_cuda(24, levels[4], levels[0][:, :4].contiguous()))]
+    for i, (_, m, c, _) in enumerate(GAN_STAGES):
+        idx3 = knn.knn_idx_cuda(3, levels[i + 1], levels[i]).int()
+        n = idx3.shape[1]
+        cases.append((f"decode {m} -> {n}", m, c, idx3))
+        w = torch.rand((B, n, 3), generator=gen, device=DEV) + 0.1
+        feat = torch.randn((B, m, c), generator=gen, device=DEV).to(
+            torch.bfloat16)
+        g = torch.randn((B, n, c), generator=gen, device=DEV)
+        r13[f"decode {m} -> {n}"] = one_call(
+            lambda: fpi.weighted_gather3_bwd_cuda(feat, idx3, w, g,
+                                                  need_w=False))
+        tl = sr.choose(B, 3 * n, m, c, True, 4, True)
+        layouts[f"row 13 decode {m} -> {n}"] = [
+            list(tl), sr.smem_bytes(tl, 3 * n, True, n),
+            flib.weighted_gather3_bwd_smem_bytes(*tl, n)]
+        del w, feat, g
+    exact = {}
+    for tag, rows_out, c, idx in cases:
+        flat = idx.reshape(B, -1).int().contiguous()
+        s = flat.shape[1]
+        named = torch.zeros((B, rows_out), device=DEV).scatter_add_(
+            1, flat.long(), torch.ones((B, s), device=DEV)) > 0
+        for dt in (torch.float32, torch.bfloat16):
+            g = torch.randn((B, s, c), generator=gen, device=DEV).to(dt)
+            r15[f"{tag} {str(dt)[6:]}"] = one_call(
+                lambda: gather.gather_rows_bwd_cuda(g, flat, rows_out))
+            out = gather.gather_rows_bwd_cuda(g, flat, rows_out)
+            exact[f"{tag} {str(dt)[6:]}"] = (
+                torch.equal(out, gather.gather_rows_bwd_ordered(g, flat,
+                                                                rows_out))
+                and torch.equal(out, gather.gather_rows_bwd_cuda(g, flat,
+                                                                 rows_out))
+                and not bool(out[~named].any()))
+            del out
+            tl = sr.choose(B, s, rows_out, c, False, g.element_size(), True)
+            layouts[f"row 15 {tag} {str(dt)[6:]}"] = [
+                list(tl), sr.smem_bytes(tl, s, False),
+                glib.gather_rows_bwd_smem_bytes(*tl, s)]
+            del g
+    emit("scatter_op_launches", row_13=r13, row_15=r15, layouts=layouts,
+         row_15_equals_ordered_plain=exact,
+         expected="one kernel a call, no memset; row 15 the ordered plain "
+                  "function's bits and a second launch's, unnamed rows "
+                  "zero; host and kernel shared memory equal, within the "
+                  "opt-in")
+    bad = [k for k, v in {**r13, **r15}.items() if sum(v.values()) != 1
+           or "emset" in "".join(v)]
+    bad += [k for k, ok in exact.items() if not ok]
+    bad += [k for k, (_, host, dev) in layouts.items()
+            if host != dev or dev > sr._SMEM_LIMIT]
+    if bad:
+        raise AssertionError(f"rows 13 and 15: {bad}")
+    return ({k: sum(v.values()) for k, v in r13.items()},
+            {k: sum(v.values()) for k, v in r15.items()})
 
 
 def check_fpinterp(gen, levels, rows) -> None:
@@ -2072,11 +2187,14 @@ def check_fpinterp(gen, levels, rows) -> None:
     on a fake-like cloud with FAKE_DROPPED of its points at the origin
     (exact distance ties). Forward bit for bit; ``d_feat`` within the
     reordering bound of its f32 sums plus one bf16 ulp (entries beyond the
-    bound counted); ``d_w`` within C * 2^-23 * sum|addend|; both directly and
+    bound counted), equal bit for bit to the ordered plain function (the
+    kernel's sum order) and to a second launch, rows no slot names exactly
+    zero; ``d_w`` within C * 2^-23 * sum|addend|; both directly and
     through autograd. Adds the rows ``fpinterp`` and ``fpinterp_bwd``."""
     import torch
     from adaptpoint_tpu_torch import ops
     from adaptpoint_tpu_torch.ops import fpinterp as fpi
+    from adaptpoint_tpu_torch.ops import scatter_rows
 
     fake = stage_inputs(gen, [(N_GAN, N_GAN // 2, 3, 0, 0, 0.1)],
                         FAKE_DROPPED)[0]
@@ -2108,6 +2226,22 @@ def check_fpinterp(gen, levels, rows) -> None:
             d_feat, d_w = fpi.weighted_gather3_bwd_cuda(feat, idx, w, g)
             d_feat_ref, d_w_ref = fpi.weighted_gather3_bwd_plain(feat, idx,
                                                                  w, g)
+            # the kernel's own order (every design these shapes take):
+            # the ordered plain function's bits, each launch the same
+            again = fpi.weighted_gather3_bwd_cuda(feat, idx, w, g,
+                                                  need_w=False)[0]
+            named = torch.zeros((B, m), device=DEV).scatter_add_(
+                1, idx.long().reshape(B, -1),
+                torch.ones((B, n * 3), device=DEV))
+            checks = {
+                "design": scatter_rows.choose(B, 3 * n, m, c, True, 4,
+                                              g.data_ptr() % 16 == 0).design,
+                "equals_ordered_plain": bool(torch.equal(
+                    d_feat, fpi.weighted_gather3_bwd_ordered(idx, w, g, m))),
+                "two_launches_equal": bool(torch.equal(d_feat, again)),
+                "unnamed_rows": int((named == 0).sum()),
+                "unnamed_rows_zero": not bool(d_feat[named == 0].any())}
+            del again, named
             # through autograd, as ops.three_interpolation calls it
             f_req, w_req = feat.clone().requires_grad_(), \
                 w.clone().requires_grad_()
@@ -2143,7 +2277,10 @@ def check_fpinterp(gen, levels, rows) -> None:
                   and bool((e_w <= dw_bound).all())
                   and bool((e_wa <= dw_bound).all())
                   and d_feat.dtype == torch.bfloat16
-                  and bool(torch.isfinite(out).all()))
+                  and bool(torch.isfinite(out).all())
+                  and checks["equals_ordered_plain"]
+                  and checks["two_launches_equal"]
+                  and checks["unnamed_rows_zero"])
             errs = {"forward": float((out - out_ref).abs().max()),
                     "d_feat": float(e_f.max()),
                     "d_feat_autograd": float(e_fa.max()),
@@ -2151,19 +2288,21 @@ def check_fpinterp(gen, levels, rows) -> None:
             for k in worst:
                 worst[k] = max(worst[k], errs[k])
             emit("kernel", name="fpinterp", case=case, shape=[B, n, m, c],
-                 forward_mismatches=mism, max_abs_err=errs,
+                 forward_mismatches=mism, max_abs_err=errs, **checks,
                  d_feat_entries_beyond_reordering_bound=beyond,
                  of=d_feat.numel(),
                  repeated_rows=int((idx[..., 1] == idx[..., 0]).sum()
                                    + (idx[..., 2] == idx[..., 1]).sum()),
                  tolerance="forward bit for bit; d_feat <= n * 2^-23 * "
                            "sum|addend| + one bf16 ulp (the f32 sum may sit "
-                           "on a rounding boundary); d_w <= C * 2^-23 * "
+                           "on a rounding boundary) and the ordered plain "
+                           "function's bits, the same bits each launch, "
+                           "unnamed rows exactly zero; d_w <= C * 2^-23 * "
                            "sum|addend|")
             if not ok:
                 raise AssertionError(f"weighted-gather kernels disagree "
                                      f"({case}, level {i}): {errs}, "
-                                     f"{mism} forward mismatches")
+                                     f"{mism} forward mismatches, {checks}")
             if case != "repeated neighbours":
                 continue
             # times on the path's inputs: the composite (gather, f32
