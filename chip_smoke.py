@@ -135,6 +135,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12  # dense; f32-grade work on it takes 3 products (3xTF32)
 
 B, N0, K = 32, 1024, 32
 # PointNeXt-S SA stages at N=1024: (N -> M, C in, mid, C out, radius)
@@ -330,6 +331,14 @@ FAKE_DROPPED = 0.5
 # exact but where the plain y2 of the two slots lie within the forward's
 # tolerance of each other (a near-tie between distinct rows).
 TOL_TRAINBN = {"stats": 2e-5, "fwd": 2e-5, "bwd_w2": 1e-4, "bwd_x": 1e-4}
+# the fused train-BN stage at the shapes of its tiling's edges (rows 18 and
+# 19 tile B*M*K rows, 128 / 64 / 32 a block, whatever K is): (B, N, M, C, mid,
+# cout, K, radius, relative, normalize_dp, with g_fi and g_new)
+TRAINBN_EDGES = [(2, 96, 24, 5, 33, 77, 24, 0.35, True, True, True),
+                 (2, 64, 40, 0, 16, 24, 1, 0.3, True, False, False),
+                 (1, 300, 3, 13, 40, 8, 255, 0.9, False, False, True),
+                 (3, 128, 16, 64, 258, 72, 64, 0.5, True, True, True),
+                 (2, 256, 64, 700, 8, 16, 8, 0.4, True, False, True)]
 # the fused train step against the unfused one from the same weights, batch
 # and draws is held to TOL_STEP_CPU, the band the unfused step on the card is
 # held to against a float64 copy: both routes compute the same function in
@@ -3582,129 +3591,194 @@ def phase_adapt(gen, ctx, precision: str, f32_run=None):
     return launches, {"first": first_result, "throughput": timing}
 
 
+def trainbn_mask_flips(S, radius, xyz, qidx, feats, idx, w1, a1, nb1, rel,
+                       norm_dp, mask) -> dict:
+    """Where the forward kernel's ReLU mask differs from the plain forward's
+    own ``a1 y1 + nb1 > 0``: the count of entries, and the largest |y1p|
+    (float64) there over the f32 reordering bound of its W + 2 addends,
+    (W + 2) 2^-23 (|a1| sum |v w1| + |nb1|): at most 1 where the two masks
+    differ only because two orders of the same f32 sum fall on either side
+    of zero."""
+    v = S._rows(radius, xyz, qidx, feats, idx, rel, norm_dp).double()
+    w = w1.double()
+    y1p = (v @ w) * a1.double() + nb1.double()
+    bound = (w.shape[0] + 2) * EPS32 * ((v.abs() @ w.abs())
+                                        * a1.double().abs()
+                                        + nb1.double().abs()) + 1e-30
+    mid = w1.shape[1]
+    plain = S._through_y2(radius, xyz, qidx, feats, idx, w1, a1, nb1,
+                          w1.new_zeros((mid, 1)), rel, norm_dp)[2] > 0
+    flips = S.unpack_mask(mask, mid) != plain
+    n = int(flips.sum())
+    return {"flips": n, "worst_over_bound": float(
+        (y1p.abs() / bound)[flips].max()) if n else 0.0}
+
+
+def trainbn_passes(gen, S, xyz, qidx, feats, w1, g1, b1, w2, g2, b2, radius,
+                   rel, norm_dp, k, with_centers=True):
+    """The four passes, kernels and plain versions, on one stage's inputs
+    with seeded cotangents (pass 4 of both on the kernel's pass 3 outputs):
+    ``(errs, ok, inputs)``, errs each output's max |kernel - plain| by pass
+    plus the ReLU mask checks."""
+    import torch
+    Bq = xyz.shape[0]
+    M, C, mid, cout = qidx.shape[1], feats.shape[2], w1.shape[1], w2.shape[1]
+    n = Bq * M * k
+
+    def err(a, b, tol, name, errs):
+        d = float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+        scale = float(b.float().abs().max()) if b.numel() else 0.0
+        errs[name] = d
+        return d <= tol * max(scale, 1e-30)
+
+    got = S.stats_cuda(radius, k, xyz, qidx, feats, rel, norm_dp)
+    ref = S.stats_plain(radius, k, xyz, qidx, feats, rel, norm_dp)
+    torch.cuda.synchronize()
+    e1 = {"idx": float((got[0] != ref[0]).sum())}
+    ok = e1["idx"] == 0
+    for name, a, b_ in (("sv", got[1], ref[1]), ("svv", got[2], ref[2])):
+        ok = err(a, b_, TOL_TRAINBN["stats"], name, e1) and ok
+    idx = got[0]
+    mu1, var1, r1, a1, nb1 = S._bn1(got[1], got[2], w1, g1, b1, n, 1e-5)
+    fargs = (radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, rel, norm_dp)
+    got2 = S.fwd_cuda(*fargs)
+    ref2 = S.fwd_plain(*fargs)
+    y2 = S._through_y2(radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, rel,
+                       norm_dp)[4]
+    torch.cuda.synchronize()
+    e2 = {"new_xyz": float((got2[0] - ref2[0]).abs().max()),
+          "fi": float((got2[1] - ref2[1]).abs().max()) if C else 0.0}
+    ok2 = e2["new_xyz"] == 0 and e2["fi"] == 0
+    for j, name in ((2, "ymax"), (3, "ymin"), (6, "s2"), (7, "q2")):
+        ok2 = err(got2[j], ref2[j], TOL_TRAINBN["fwd"], name, e2) and ok2
+    ties, flips = 0, 0
+    for j, name in ((4, "amax"), (5, "amin")):
+        diff = got2[j] != ref2[j]
+        at_k = torch.gather(y2, 2, got2[j].long()[:, :, None, :])[:, :, 0]
+        at_p = torch.gather(y2, 2, ref2[j].long()[:, :, None, :])[:, :, 0]
+        near = (at_k - at_p).abs() <= TOL_TRAINBN["fwd"] * float(
+            y2.abs().max())
+        ties += int((diff & near).sum())
+        flips += int((diff & ~near).sum())
+    e2["slots_near_ties"], e2["slots_other"] = ties, flips
+    # the forward kernel's ReLU mask (which rows 18 and 19 read) against the
+    # plain forward's own: every difference inside the reordering bound
+    relu = trainbn_mask_flips(S, radius, xyz, qidx, feats, idx, w1, a1, nb1,
+                              rel, norm_dp, got2[8])
+    e2["relu_flips"], e2["relu_worst_over_bound"] = (relu["flips"],
+                                                    relu["worst_over_bound"])
+    ok2 = ok2 and flips == 0 and relu["worst_over_bound"] <= 1.0
+    mask = got2[8]
+    mu2, var2, r2, a2, c2 = S._bn2(got2[6], got2[7], g2, b2, n, 1e-5)
+    pos = a2 > 0
+    ystar = torch.where(pos, got2[2], got2[3])
+    slot = torch.where(pos, got2[4], got2[5])
+    g_out = torch.randn((Bq, M, cout), generator=gen, device=DEV)
+    g_fi = torch.randn((Bq, M, C), generator=gen, device=DEV) \
+        if with_centers else None
+    g_new = torch.randn((Bq, M, 3), generator=gen, device=DEV) \
+        if with_centers else None
+    xhat2 = (ystar - mu2) * r2
+    p2, q2c = S._bwd_consts(g_out.sum((0, 1)) / n,
+                            (g_out * xhat2).sum((0, 1)) / n, a2, mu2, r2)
+    # pass 3, both on the forward kernel's mask
+    bargs = (radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, mu1, r1, a2, p2,
+             q2c, slot, g_out, mask, rel, norm_dp)
+    got3 = S.bwd_w2_cuda(*bargs)
+    ref3 = S.bwd_w2_plain(*bargs)
+    torch.cuda.synchronize()
+    e3 = {}
+    ok3 = True
+    for a, b_, name in zip(got3, ref3, ("dw2", "sg1", "sgx1", "g_y1p",
+                                        "y1")):
+        ok3 = err(a, b_, TOL_TRAINBN["bwd_w2"], name, e3) and ok3
+    # the backward's ReLU is the forward's: g_y1' is zero wherever the
+    # forward's bit is clear
+    off = ~S.unpack_mask(mask, mid)
+    e3["g_y1p_nonzero_where_mask_clear"] = int((got3[3][off] != 0).sum())
+    ok3 = ok3 and e3["g_y1p_nonzero_where_mask_clear"] == 0
+    p1, q1c = S._bwd_consts(got3[1] / n, got3[2] / n, a1, mu1, r1)
+    # pass 4 of both on the kernel's hand-over
+    xargs = (radius, xyz, qidx, feats, idx, w1, got3[4], got3[3], a1, p1,
+             q1c, g_fi, g_new, rel, norm_dp)
+    got4 = S.bwd_x_cuda(*xargs)
+    ref4 = S.bwd_x_plain(*xargs)
+    torch.cuda.synchronize()
+    e4 = {}
+    ok4 = True
+    for a, b_, name in zip(got4, ref4, ("g_xyz", "g_feats", "dw1")):
+        ok4 = err(a, b_, TOL_TRAINBN["bwd_x"], name, e4) and ok4
+    inputs = {"fargs": fargs, "bargs": bargs, "xargs": xargs,
+              "stats": (radius, k, xyz, qidx, feats, rel, norm_dp)}
+    return (e1, e2, e3, e4), (ok, ok2, ok3, ok4), inputs
+
+
+def trainbn_work(Bq, n_pts, M, C, mid, cout, k, mask_words=None):
+    """The flops and the bytes each pass must move at a stage (inputs read
+    once, outputs written once; the hand-over y1 and g_y1', n x mid f32
+    each, written by pass 3 and read by pass 4; g_y2 inside pass 3 not
+    counted), and each pass's operation bound in seconds: 3 flops at the
+    dense TF32 rate, the least time for f32-grade products (3xTF32)."""
+    W, n = C + 3, Bq * M * k
+    nw = (mid + 31) // 32
+    rows = Bq * n_pts * (3 + C) * 4 + Bq * M * 4 + n * 4  # points, qidx, idx
+    flops = {"stats": n * W * (W + 1) + n * W,
+             "fwd": 2 * n * (W * mid + mid * cout),
+             "bwd_w2": 2 * n * (W * mid + 3 * mid * cout),
+             "bwd_x": 2 * n * 2 * W * mid}
+    nbytes = {"stats": rows + (W + W * W) * 4,
+              "fwd": rows + (W * mid + 2 * mid + mid * cout) * 4
+              + Bq * M * (3 + C + 2 * cout) * 4 + Bq * M * cout * 2
+              + n * nw * 4 + 2 * cout * 4,
+              "bwd_w2": rows + (W * mid + mid * cout + 4 * mid + 3 * cout) * 4
+              + n * nw * 4 + Bq * M * cout * 5 + mid * cout * 4
+              + 2 * n * mid * 4 + 2 * mid * 4,
+              "bwd_x": rows + (W * mid + 3 * mid) * 4 + 2 * n * mid * 4
+              + Bq * M * (3 + C) * 4 + Bq * n_pts * (3 + C) * 4
+              + W * mid * 4}
+    return flops, nbytes, {p: 3 * f / PEAK_TF32 for p, f in flops.items()}
+
+
 def check_sa_trainbn(gen, captured):
     """The four train-BN passes (rows 16-19), each against its plain pass on
     the same inputs, at the stages ``captured`` from the fused train step
     (its own FPS picks, features and weights), with seeded cotangents.
-    Returns their rows, summed over the stages."""
+    Returns their rows, summed over the stages. The operation bound of every
+    pass is 3 flops / PEAK_TF32 (the f32-grade 3xTF32 rate, the least time
+    the card could take for f32-grade work); the f32 CUDA cores' figure,
+    flops / PEAK_F32, is reported beside it (``bound_ms_f32_cores``)."""
     import torch
     from adaptpoint_tpu_torch import ops
     from adaptpoint_tpu_torch.ops import satrainbn as S
 
     names = ("stats", "fwd", "bwd_w2", "bwd_x")
     rows = {f"sa_trainbn_{p}": dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0,
-                                    t_o=0.0, t_b=0.0, library_ms=None)
+                                    t_o=0.0, t_b=0.0, bound_ms_f32_cores=0.0,
+                                    library_ms=None)
             for p in names}
     composite = 0.0
-
-    def err(a, b, tol, name, errs):
-        d = float((a.float() - b.float()).abs().max())
-        scale = float(b.float().abs().max())
-        errs[name] = d
-        return d <= tol * max(scale, 1e-30)
-
     for i, (xyz, qidx, feats, w1, g1, b1, w2, g2, b2, radius, rel,
             norm_dp) in enumerate(captured):
         Bq, n_pts, _ = xyz.shape
         M, C, mid, cout = qidx.shape[1], feats.shape[2], w1.shape[1], \
             w2.shape[1]
-        W, n = C + 3, Bq * M * K
-        ok = True
-        # pass 1
-        got = S.stats_cuda(radius, K, xyz, qidx, feats, rel, norm_dp)
-        ref = S.stats_plain(radius, K, xyz, qidx, feats, rel, norm_dp)
-        torch.cuda.synchronize()
-        e1 = {"idx": float((got[0] != ref[0]).sum())}
-        ok = e1["idx"] == 0
-        for name, a, b_ in (("sv", got[1], ref[1]), ("svv", got[2], ref[2])):
-            ok = err(a, b_, TOL_TRAINBN["stats"], name, e1) and ok
-        idx = got[0]
-        mu1, var1, r1, a1, nb1 = S._bn1(got[1], got[2], w1, g1, b1, n, 1e-5)
-        # pass 2
-        fargs = (radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, rel,
-                 norm_dp)
-        got2 = S.fwd_cuda(*fargs)
-        ref2 = S.fwd_plain(*fargs)
-        y2 = S._through_y2(radius, xyz, qidx, feats, idx, w1, a1, nb1, w2,
-                           rel, norm_dp)[4]
-        torch.cuda.synchronize()
-        e2 = {"new_xyz": float((got2[0] - ref2[0]).abs().max()),
-              "fi": float((got2[1] - ref2[1]).abs().max())}
-        ok2 = e2["new_xyz"] == 0 and e2["fi"] == 0
-        for j, name in ((2, "ymax"), (3, "ymin"), (6, "s2"), (7, "q2")):
-            ok2 = err(got2[j], ref2[j], TOL_TRAINBN["fwd"], name, e2) and ok2
-        ties, flips = 0, 0
-        for j, name in ((4, "amax"), (5, "amin")):
-            diff = got2[j] != ref2[j]
-            at_k = torch.gather(y2, 2, got2[j].long()[:, :, None, :])[:, :, 0]
-            at_p = torch.gather(y2, 2, ref2[j].long()[:, :, None, :])[:, :, 0]
-            near = (at_k - at_p).abs() <= TOL_TRAINBN["fwd"] * float(
-                y2.abs().max())
-            ties += int((diff & near).sum())
-            flips += int((diff & ~near).sum())
-        e2["slots_near_ties"], e2["slots_other"] = ties, flips
-        ok2 = ok2 and flips == 0
-        mu2, var2, r2, a2, c2 = S._bn2(got2[6], got2[7], g2, b2, n, 1e-5)
-        pos = a2 > 0
-        ystar = torch.where(pos, got2[2], got2[3])
-        slot = torch.where(pos, got2[4], got2[5])
-        g_out = torch.randn((Bq, M, cout), generator=gen, device=DEV)
-        g_fi = torch.randn((Bq, M, C), generator=gen, device=DEV)
-        g_new = torch.randn((Bq, M, 3), generator=gen, device=DEV)
-        xhat2 = (ystar - mu2) * r2
-        p2, q2c = S._bwd_consts(g_out.sum((0, 1)) / n,
-                                (g_out * xhat2).sum((0, 1)) / n, a2, mu2, r2)
-        # pass 3
-        bargs = (radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, mu1, r1,
-                 a2, p2, q2c, slot, g_out, rel, norm_dp)
-        got3 = S.bwd_w2_cuda(*bargs)
-        ref3 = S.bwd_w2_plain(*bargs)
-        torch.cuda.synchronize()
-        e3 = {}
-        ok3 = True
-        for a, b_, name in zip(got3, ref3, ("dw2", "sg1", "sgx1")):
-            ok3 = err(a, b_, TOL_TRAINBN["bwd_w2"], name, e3) and ok3
-        p1, q1c = S._bwd_consts(got3[1] / n, got3[2] / n, a1, mu1, r1)
-        # pass 4
-        xargs = (radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, a2, p2,
-                 q2c, p1, q1c, slot, g_out, g_fi, g_new, rel, norm_dp)
-        got4 = S.bwd_x_cuda(*xargs)
-        ref4 = S.bwd_x_plain(*xargs)
-        torch.cuda.synchronize()
-        e4 = {}
-        ok4 = True
-        for a, b_, name in zip(got4, ref4, ("g_xyz", "g_feats", "dw1")):
-            ok4 = err(a, b_, TOL_TRAINBN["bwd_x"], name, e4) and ok4
-        for name, e in zip(names, (e1, e2, e3, e4)):
+        errs, oks, inp = trainbn_passes(gen, S, xyz, qidx, feats, w1, g1, b1,
+                                        w2, g2, b2, radius, rel, norm_dp, K)
+        for name, e in zip(names, errs):
             emit("kernel", name=f"sa_trainbn_{name}",
                  stage=[Bq, n_pts, M, C, mid, cout, K], max_abs_err=e,
                  tolerance=f"indices, new_xyz, fi exact; slots exact but at "
-                           f"near-ties; each float output within "
+                           f"near-ties; ReLU mask differences inside the "
+                           f"reordering bound; g_y1' zero where the mask is "
+                           f"clear; each float output within "
                            f"{TOL_TRAINBN[name]} * max|plain|")
-        if not (ok and ok2 and ok3 and ok4):
+        if not all(oks):
             raise AssertionError(f"train-BN kernels disagree at stage "
-                                 f"{i + 1}: {e1} {e2} {e3} {e4}")
-        # times, and the operations each pass must do (bytes are far below);
-        # Σvvᵀ is symmetric, so the stats pass needs W(W+1)/2 products a row
-        flops = {"stats": n * W * (W + 1) + n * W,
-                 "fwd": 2 * n * (W * mid + mid * cout),
-                 "bwd_w2": 2 * n * (W * mid + 3 * mid * cout),
-                 "bwd_x": 2 * n * (3 * W * mid + 2 * mid * cout)}
-        nbytes = {"stats": Bq * n_pts * (3 + C) * 4 + Bq * M * 4
-                  + (W + W * W) * 4,
-                  "fwd": Bq * n_pts * (3 + C) * 4 + Bq * M * K * 4
-                  + (W * mid + mid * cout) * 4
-                  + Bq * M * (3 + C + 2 * cout) * 4 + Bq * M * cout * 2,
-                  "bwd_w2": Bq * n_pts * (3 + C) * 4 + Bq * M * K * 4
-                  + (W * mid + mid * cout) * 4 + Bq * M * cout * 5
-                  + mid * cout * 4,
-                  "bwd_x": Bq * n_pts * (3 + C) * 8 + Bq * M * K * 4
-                  + (W * mid + mid * cout) * 8
-                  + Bq * M * (cout * 5 + (3 + C) * 4)}
-        calls = {"stats": (lambda: S.stats_cuda(radius, K, xyz, qidx, feats,
-                                                rel, norm_dp),
-                           lambda: S.stats_plain(radius, K, xyz, qidx, feats,
-                                                 rel, norm_dp)),
+                                 f"{i + 1}: {errs}")
+        flops, nbytes, t_ops = trainbn_work(Bq, n_pts, M, C, mid, cout, K)
+        fargs, bargs, xargs = inp["fargs"], inp["bargs"], inp["xargs"]
+        calls = {"stats": (lambda: S.stats_cuda(*inp["stats"]),
+                           lambda: S.stats_plain(*inp["stats"])),
                  "fwd": (lambda: S.fwd_cuda(*fargs),
                          lambda: S.fwd_plain(*fargs)),
                  "bwd_w2": (lambda: S.bwd_w2_cuda(*bargs),
@@ -3712,24 +3786,30 @@ def check_sa_trainbn(gen, captured):
                  "bwd_x": (lambda: S.bwd_x_cuda(*xargs),
                            lambda: S.bwd_x_plain(*xargs))}
         stage_row = {}
-        for name in names:
+        for name, e in zip(names, errs):
             r = rows[f"sa_trainbn_{name}"]
             ms = cuda_ms(calls[name][0], 100.0)
             plain = cuda_ms(calls[name][1], 50.0)
             r["ms"] += ms
             r["plain_ms"] += plain
-            r["t_o"] += flops[name] / PEAK_F32
+            r["t_o"] += t_ops[name]
             r["t_b"] += nbytes[name] / PEAK_BYTES
-            errs = {"stats": e1, "fwd": e2, "bwd_w2": e3, "bwd_x": e4}[name]
+            r["bound_ms_f32_cores"] += 1e3 * max(flops[name] / PEAK_F32,
+                                                 nbytes[name] / PEAK_BYTES)
             r["max_abs_err"] = max([r["max_abs_err"]] + [
-                v for k, v in errs.items() if not k.startswith("slots")])
+                v for k_, v in e.items() if not k_.startswith(("slots",
+                                                               "relu", "g_y1p_nonzero"))])
             stage_row[name] = {"ms": ms, "plain_ms": plain,
-                               "gflop": flops[name] / 1e9}
+                               "gflop": flops[name] / 1e9,
+                               "bound_ms": 1e3 * max(t_ops[name],
+                                                     nbytes[name] / PEAK_BYTES)}
 
         # the unfused stage it replaces: ball group, conv, BatchNorm, relu,
         # conv, BatchNorm, max, forward and backward
         leaves = [t.clone().requires_grad_() for t in (xyz, feats, w1, g1, b1,
                                                         w2, g2, b2)]
+        g_out = bargs[15]
+        g_fi = xargs[11]
 
         def composite_step():
             x_, f_, w1_, g1_, b1_, w2_, g2_, b2_ = leaves
@@ -3752,6 +3832,70 @@ def check_sa_trainbn(gen, captured):
         r.update(bound_row(r.pop("t_b"), r.pop("t_o")))
         r["composite_ms"] = composite
     return rows
+
+
+def check_sa_trainbn_edges(gen) -> None:
+    """The four train-BN passes at TRAINBN_EDGES (ragged last tiles, tiles
+    that split a ball, K = 1 and 255, C = 0 and C % 4 != 0, mid and cout
+    off multiples of 8 and 32, a stage that takes rows of 64 and 32, both dp
+    modes, missing center cotangents) against their plain versions, as at
+    the captured stages; and rows 18 and 19 at every rows a block they offer
+    (``satrainbn.DESIGN``: 128, 64, 32) at each edge against the plan's own
+    launch, within TOL_TRAINBN (the products' sums are the same, only the L2
+    reductions of dW1, dW2 and the scatter land in another order)."""
+    import torch
+    from adaptpoint_tpu_torch.ops import satrainbn as S
+
+    for (Bq, n_pts, M, C, mid, cout, k, radius, rel, norm_dp,
+         centers) in TRAINBN_EDGES:
+        g = torch.Generator(device=DEV).manual_seed(Bq * 1000 + C + k)
+
+        def rnd(*shape, scale=1.0, shift=0.0):
+            return (torch.randn(shape, generator=g, device=DEV) * scale
+                    + shift).contiguous()
+
+        xyz = rnd(Bq, n_pts, 3, scale=0.5)
+        qidx = torch.stack([torch.randperm(n_pts, device=DEV)[:M]
+                            for _ in range(Bq)]).int().contiguous()
+        feats = rnd(Bq, n_pts, C)
+        w1 = rnd(C + 3, mid, scale=(C + 3) ** -0.5)
+        w2 = rnd(mid, cout, scale=mid ** -0.5)
+        params = (w1, rnd(mid, scale=0.2, shift=1.0), rnd(mid, scale=0.2), w2,
+                  rnd(cout), rnd(cout, scale=0.2))
+        errs, oks, inp = trainbn_passes(gen, S, xyz, qidx, feats, *params,
+                                        radius, rel, norm_dp, k, centers)
+        plans = {kind: S._plan(kind, Bq, M, k, C, mid, cout)
+                 for kind in (S.BWD_Y2, S.BWD_GH, S.BWD_X)}
+        emit("sa_trainbn_edge", shape=[Bq, n_pts, M, C, mid, cout, k],
+             radius=radius, relative=rel, normalize_dp=norm_dp,
+             centers=centers, plans=plans, max_abs_err=errs)
+        if not all(oks):
+            raise AssertionError(f"train-BN kernels disagree at edge "
+                                 f"{(Bq, n_pts, M, C, mid, cout, k)}: {errs}")
+        base3 = S.bwd_w2_cuda(*inp["bargs"])
+        base4 = S.bwd_x_cuda(*inp["xargs"])
+        worst = 0.0
+        for rows_ in (128, 64, 32):
+            S.DESIGN["rows"] = rows_
+            try:
+                got = S.bwd_w2_cuda(*inp["bargs"]) + S.bwd_x_cuda(
+                    *inp["xargs"])
+            finally:
+                S.DESIGN["rows"] = 0
+            for a, b_, name in zip(got, base3 + base4,
+                                   ("bwd_w2",) * 5 + ("bwd_x",) * 3):
+                d = float((a - b_).abs().max()) if a.numel() else 0.0
+                scale = max(float(b_.abs().max()) if b_.numel() else 0.0,
+                            1e-30)
+                worst = max(worst, d / scale)
+                if d > TOL_TRAINBN[name] * scale:
+                    raise AssertionError(
+                        f"train-BN launch shape rows={rows_} disagrees with "
+                        f"the plan's at "
+                        f"{(Bq, n_pts, M, C, mid, cout, k)}: {name} {d}")
+        emit("sa_trainbn_edge_designs", shape=[Bq, n_pts, M, C, mid, cout, k],
+             worst_relative=worst)
+    torch.cuda.synchronize()
 
 
 @contextlib.contextmanager
@@ -3975,6 +4119,7 @@ def phase_train_fused(gen, rows):
         raise AssertionError(f"fused train steps: loss {losses}")
 
     checked = check_sa_trainbn(gen, captured)
+    check_sa_trainbn_edges(gen)
     if rows is not None:
         rows.update(checked)
     del captured
@@ -4570,6 +4715,7 @@ def main(argv=None) -> int:
                       "library_host_us", "stages_ms", "stages_device_ms",
                       "stages_host_us", "stages_bound_ms",
                       "ms_with_d_w", "bound_ms_with_d_w", "full_n_op_ms",
+                      "bound_ms_f32_cores",
                       "ns_a_step", "gan_step_shape", "stand_in_ms", "bf16",
                       "op_launches_bf16", "op_launches"):
             if extra in r:

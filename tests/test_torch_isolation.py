@@ -289,12 +289,12 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
         satrainbn.bwd_w2_cuda(0.3, xyz, q, f, sa_idx, w1, vec6, vec6, w2,
                               vec6, vec6, vec7, vec7, vec7,
                               torch.zeros(1, 4, 7, dtype=torch.uint8),
-                              torch.zeros(1, 4, 7))
+                              torch.zeros(1, 4, 7),
+                              torch.zeros(1, 1, 4, 4, dtype=torch.int32))
     with pytest.raises(ValueError):
-        satrainbn.bwd_x_cuda(0.3, xyz, q, f, sa_idx, w1, vec6, vec6, w2,
-                             vec7, vec7, vec7, vec6, vec6,
-                             torch.zeros(1, 4, 7, dtype=torch.uint8),
-                             torch.zeros(1, 4, 7))
+        satrainbn.bwd_x_cuda(0.3, xyz, q, f, sa_idx, w1,
+                             torch.zeros(1, 4, 4, 6), torch.zeros(1, 4, 4, 6),
+                             vec6, vec6, vec6)
     # the dispatching ops take the plain versions on CPU tensors and never
     # count a launch, forward or backward
     ops.furthest_point_sample(xyz, 4)

@@ -177,3 +177,136 @@ def test_make_train_step_takes_the_fused_route_on_request():
             assert len(calls) == (2 if fused else 0)
     finally:
         ops.sa_trainbn = orig_op
+
+
+# ---- ROADMAP C.1: the routes as the mean outgrows the spread --------------
+# One stage (2 clouds of 96 points, 16 centers, K = 8, C = mid = 16, cout =
+# 24, radius 0.6, dp normalised) whose conv1 outputs sit at |mean| / std =
+# RATIO times their spread per channel (features offset by a constant, W1
+# positive), through the port's fused route (``ops.sa_trainbn``: the plain
+# passes on the CPU), the port's unfused route (ball group, conv, the port's
+# train-mode batch_norm with its two-pass variance, relu, conv, batch_norm,
+# max) and the JAX fused oracle (``sa_trainbn_pallas`` interpreted). Per
+# ratio, the stated tolerances (each tensor's max |a - b| over its largest
+# entry; the output and all eight cotangents) that the pairs must meet; the
+# readings on the CPU were, at 1, 10, 100: fused against the JAX fused
+# 1.2e-6, 7.5e-6, 1.9e-3, the unfused route against either 7.0e-7, 1.9e-2,
+# 1.8e-2, and the unfused route against its own float64 twin 2.6e-6 (at 10)
+# and 1.8e-5 (at 100). Both fused routes compute BN1's variance as flax's
+# E[y^2] - E[y]^2 from the row sums (the TPU kernel's form), and their
+# backward amplifies its rounding: beyond |mean| / std of about 10 their
+# gradients move by ~2e-2 together while the unfused route stays at f32
+# grade. Past 100 all three part (scripts/torch_bn_variance_vs_flax.py).
+C1_SHAPE = dict(B=2, N=96, M=16, C=16, mid=16, cout=24, K=8, radius=0.6)
+C1_TOL = {1: {"fused_jax": 1e-5, "unfused_fused": 1e-5, "unfused_f64": 1e-5},
+          10: {"fused_jax": 5e-5, "unfused_fused": 5e-2, "unfused_f64": 1e-4},
+          100: {"fused_jax": 1e-2, "unfused_fused": 5e-2,
+                "unfused_f64": 1e-4}}
+C1_NAMES = ("out", "xyz", "feats", "w1", "gamma1", "beta1", "w2", "gamma2",
+            "beta2")
+
+
+def _c1_problem(ratio, seed=0):
+    s = C1_SHAPE
+    rng = np.random.default_rng(seed)
+    xyz = (rng.standard_normal((s["B"], s["N"], 3)) * 0.5).astype(np.float32)
+    qidx = np.stack([rng.permutation(s["N"])[:s["M"]]
+                     for _ in range(s["B"])]).astype(np.int32)
+    w1 = (np.abs(rng.standard_normal((s["C"] + 3, s["mid"]))) * 0.3
+          ).astype(np.float32)
+    # y1 = v W1: the offset c of every feature gives each channel a mean of
+    # about c * 0.8 sqrt(C) times its spread
+    feats = (ratio / 3.2 + rng.standard_normal((s["B"], s["N"], s["C"]))
+             ).astype(np.float32)
+    g1 = (rng.standard_normal(s["mid"]) * 0.5 + 1.0).astype(np.float32)
+    b1 = (rng.standard_normal(s["mid"]) * 0.2).astype(np.float32)
+    w2 = (rng.standard_normal((s["mid"], s["cout"])) * 0.3).astype(np.float32)
+    g2 = (rng.standard_normal(s["cout"]) * 0.5
+          + np.sign(rng.standard_normal(s["cout"]))).astype(np.float32)
+    b2 = (rng.standard_normal(s["cout"]) * 0.2).astype(np.float32)
+    cot = [rng.standard_normal(shape).astype(np.float32) for shape in
+           ((s["B"], s["M"], 3), (s["B"], s["M"], s["C"]),
+            (s["B"], s["M"], s["cout"]))]
+    return xyz, qidx, feats, (w1, g1, b1, w2, g2, b2), cot
+
+
+def _c1_port(fused, problem, dtype=torch.float32):
+    xyz, qidx, feats, params, cot = problem
+    s = C1_SHAPE
+    leaves = [torch.tensor(a, dtype=dtype, requires_grad=True)
+              for a in (xyz, feats) + tuple(params)]
+    x, f, w1, g1, b1, w2, g2, b2 = leaves
+    q = torch.from_numpy(qidx)
+    if fused:
+        new, fi, out = ops.sa_trainbn(s["radius"], s["K"], x, q, f, w1, g1,
+                                      b1, w2, g2, b2, relative=True,
+                                      normalize_dp=True)[:3]
+    else:
+        new, fi, dpfj, _ = ops.ball_group(s["radius"], s["K"], x, q, f, True,
+                                          True)
+        y = torch.nn.functional.batch_norm(
+            (dpfj @ w1).reshape(-1, s["mid"]), None, None, g1, b1, True, 0.0,
+            1e-5)
+        y = torch.relu(y).reshape(s["B"], s["K"], s["M"], s["mid"]) @ w2
+        y = torch.nn.functional.batch_norm(
+            y.reshape(-1, s["cout"]), None, None, g2, b2, True, 0.0, 1e-5)
+        out = y.reshape(s["B"], s["K"], s["M"], s["cout"]).amax(dim=1)
+    total = sum((a * torch.tensor(r, dtype=dtype)).sum()
+                for a, r in zip((new, fi, out), cot))
+    return [out.detach().double().numpy()] + [
+        g.double().numpy() for g in torch.autograd.grad(total, leaves)]
+
+
+def _c1_jax(problem, monkeypatch):
+    monkeypatch.setenv("ADAPTPOINT_TPU_PALLAS_INTERPRET", "1")
+    from adaptpoint_tpu.ops.pallas.satrainbn import sa_trainbn_pallas
+    xyz, qidx, feats, params, cot = problem
+    s = C1_SHAPE
+
+    def loss(xyz, feats, *p):
+        new, fi, out = sa_trainbn_pallas(s["radius"], s["K"], xyz,
+                                         jnp.asarray(qidx), feats, *p,
+                                         normalize_dp=True)[:3]
+        return (jnp.sum(out * cot[2]) + jnp.sum(fi * cot[1])
+                + jnp.sum(new * cot[0])), out
+
+    (_, out), g = jax.value_and_grad(loss, argnums=tuple(range(8)),
+                                     has_aux=True)(
+        jnp.asarray(xyz), jnp.asarray(feats),
+        *[jnp.asarray(p) for p in params])
+    return [np.asarray(out, np.float64)] + [np.asarray(t, np.float64)
+                                            for t in g]
+
+
+def _c1_worst(a, b):
+    return max((float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30)),
+                name) for name, x, y in zip(C1_NAMES, a, b))
+
+
+@pytest.mark.parametrize("ratio", sorted(C1_TOL))
+def test_the_train_routes_as_the_mean_outgrows_the_spread(monkeypatch,
+                                                          ratio):
+    problem = _c1_problem(ratio)
+    # the conv1 outputs sit at the ratio asked for
+    from adaptpoint_tpu_torch.ops.geometry import ball_query, index_points
+    from adaptpoint_tpu_torch.ops.satrainbn import _rows
+    s = C1_SHAPE
+    t, q = torch.from_numpy(problem[0]), torch.from_numpy(problem[1])
+    idx = ball_query(s["radius"], s["K"], t, index_points(t, q))
+    y1 = (_rows(s["radius"], t, q, torch.from_numpy(problem[2]), idx, True,
+                True).double()
+          @ torch.from_numpy(problem[3][0]).double()).reshape(-1, s["mid"])
+    achieved = float((y1.mean(0).abs() / y1.std(0)).median())
+    assert 0.5 * ratio <= achieved <= 2.0 * ratio
+    fused = _c1_port(True, problem)
+    unfused = _c1_port(False, problem)
+    unfused64 = _c1_port(False, problem, torch.float64)
+    jax_fused = _c1_jax(problem, monkeypatch)
+    tol = C1_TOL[ratio]
+    for pair, (a, b) in {"fused_jax": (fused, jax_fused),
+                         "unfused_fused": (unfused, fused),
+                         "unfused_jax": (unfused, jax_fused),
+                         "unfused_f64": (unfused, unfused64)}.items():
+        worst = _c1_worst(a, b)
+        assert worst[0] <= tol[pair if pair in tol else "unfused_fused"], \
+            (pair, worst)
