@@ -30,81 +30,95 @@
 //                         through the row they repeat), and g_new - sum_k
 //                         g_dp and g_fi onto each center's row.
 //
-// Stats and forward: all arithmetic f32 on the CUDA cores (the TPU kernel's
-// bf16 three-way splits only make its MXU gathers exact; a load here is
-// exact already). The winners of the max-pool are not found again in the
+// Numerics. The forward's and the backward's products run on the tensor
+// cores as 3xTF32: each f32 operand is split x = hi + lo, hi its round to
+// TF32 (10 mantissa bits, to nearest, ties away) and lo = x - hi (exact), of
+// which mma.sync.m16n8k8.tf32 reads the TF32 part, and lo.hi + hi.lo + hi.hi
+// go into f32 accumulators: f32-grade products (the dropped lo.lo and lo's
+// truncation are each under 2^-21 of |a b|), as the TPU kernel's f32
+// products on its MXU ("parity ~1e-5", satrainbn.py:60-64). The statistics
+// (Sv, Svv) take f32 FMAs on the CUDA cores: BN1's variance is flax's E[y^2]
+// - E[y]^2 from Svv, which cancels as |mean| / std grows, and 3xTF32 sums
+// moved the stage's gradients by 1.9e-2 from the TPU kernel's at |mean| /
+// std = 10 and 100 (tests/test_torch_satrainbn_fwd.py), f32 ones by 1.5e-5
+// and 2.5e-3. The winners of the max-pool are not found again in the
 // backward: the forward writes both the max's and the min's first slot, and
 // the backward reads the one the sign of BN2's slope selects (ties to the
 // first slot, the port's rule). Nor is the ReLU's mask: the backward
-// computes y1 in another order (below), so it takes the forward's bits.
+// computes y1 in another order, so it takes the forward's bits.
 //
-// Design of the stats and forward passes. The neighbour indices of every
-// (b, m) are found once, by the select kernel of the stats pass (one warp
-// per center, the ball-group kernel's __ballot_sync scan), and every later
-// pass reads them. Each pass is a persistent grid: block g takes tiles g,
-// g + G, ... of TM centers (R = TM * K rows), gathers the tile's rows into
-// shared memory k-major (channel by channel), and runs the row products out
-// of shared memory: the weight is staged 16 rows at a time, each thread
-// holds a 4 x 4 block of outputs in registers (f32 FMA). A sum over rows
-// (Svv, the BatchNorm sums) goes into a slice of a workspace that block g
-// alone owns, in a fixed thread mapping, and a last kernel adds the G slices
-// in order: the results do not depend on scheduling.
+// Common pieces. The neighbour indices of every (b, m) are found once, by
+// the select kernel of the stats pass (one warp per center, the ball-group
+// kernel's __ballot_sync scan), and every later pass reads them. A block of
+// 8 warps owns tiles of rows of B*M*K; a tile's neighbour indices, centers,
+// slots and queries are loaded a tile ahead, its features by cp.async. Rows
+// are row-major in shared memory with a stride of 8 or 24 mod 32 floats: a
+// lane's two k of an mma fragment are one conflict-free float2 (each k8 step
+// takes its k in the order 2t, 2t + 1 in both operands), and the transposed
+// reads of the row sums (dW1, dW2: X^T Y over the tile's rows) are
+// conflict-free scalar loads. Weights stream 64 output columns by 64 k at a
+// time through a ring of 2-6 cp.async stages (as deep as shared memory allows
+// beside one or two blocks an SM), from copies padded to multiples of 8
+// (weight_rows_kernel: W1^T and W2^T, made by the forward's call and handed
+// to bwd_w2, and W1, W2). A product gives each warp a 32 x 8 NT tile of a
+// 64-column chunk (RT = 32 NT rows a block, NT = 4, 2 or 1) and loads all of
+// a k8 step's fragments before its 6 NT mma, issued as three sweeps (lo.hi,
+// hi.lo, hi.hi) over the warp's accumulators so that no mma waits on the one
+// before.
 //
-// Design of the backward passes. The products run on the tensor cores as
-// 3xTF32: each f32 operand is split x = hi + lo, hi its round to TF32 (10
-// mantissa bits, to nearest, ties away) and lo = x - hi (exact), of which
-// mma.sync.m16n8k8.tf32 reads the TF32 part, and lo.hi + hi.lo + hi.hi go
-// into f32 accumulators: f32-grade products (the dropped lo.lo and lo's
-// truncation are each under 2^-21 of |a b|), as the TPU kernel's f32
-// products on its MXU ("parity ~1e-5", satrainbn.py:60-64). A block of 8
-// warps owns RT = 32 NT rows (the instance NT = 4, 2 or 1: 128 rows, or 64
-// or 32 where the tile's rows do not fit shared memory; 64 at PointNeXt-S's
-// widest stage in the second and third kernels) of B*M*K, whatever K is
-// (a tile may split a ball). Rows are row-major in shared memory with a
-// stride of 8 or 24 mod 32 floats: a lane's two k of a fragment are one
-// conflict-free float2 (each k8 step takes its k in the order 2t, 2t + 1 in
-// both operands), and the transposed reads of the row sums (dW1, dW2: X^T Y
-// over the tile's rows) are conflict-free scalar loads. Weights stream 64
-// output columns by 64 k at a time through a ring of 2-6 cp.async stages
-// (as deep as shared memory allows beside one or two blocks an SM), from
-// copies padded to multiples of 8 (weight_rows_kernel). A product gives each
-// warp a 32 x 8 NT tile of a 64-column chunk and loads all of a k8 step's
-// fragments before its 6 NT mma, issued as three sweeps (lo.hi, hi.lo,
-// hi.hi) over the warp's accumulators so that no mma waits on the one
-// before; a row sum gives each warp a 32 x 32 block of 128 x 64 outputs, or
-// a share of the rows where the output has few rows. Row sums go out as
-// 16-byte L2 reductions (REDG.F32x4) into one of 8 copies of dW1 / dW2 (by
-// block), summed in order after the kernel: per-block slices read back and
-// rewritten every tile moved ~1 GB a pass at stage 4.
-//   bwd_w2 is two kernels: the first recomputes y1 (to device memory), then
-//   h in shared memory over the gathered rows, and per 64 output channels
-//   y2, g_y2 (kept beside it and written to device memory) and its dW2
-//   block; the second reads g_y2 back a tile at a time, computes g_h per 64
-//   hidden channels, masks it, writes g_y1' and sums the BatchNorm terms
-//   (block slices added in order). Splitting there keeps no (RT x mid) g_h
-//   accumulator live across the cout loop: the g_y2 round trip (n x cout
-//   f32) costs less than the smaller tiles or register spills that needs.
-//   bwd_x reads y1 and g_y1' (recomputing y1 from the gathered rows gives
-//   the same bits but timed slower) and writes nothing per row but the
-//   scatter of g_v: a warp takes one center's run of rows in the tile and a
-//   slice of channels, merges each run of equal neighbour index (a partial
-//   ball's pad slots) in registers and adds it with 16-byte L2 reductions
-//   where C % 4 == 0 and C > 32, else one reduction a channel, as the
-//   ball-group backward (ballgroup_bwd.cu) does, after the two memsets.
-//   A tile's neighbour indices, centers and slots are loaded a tile ahead,
-//   its features by cp.async; g_y2's sparse term reads the tile's winning
-//   slots and pooled cotangents staged in shared memory.
-// The L2 reductions (dW1, dW2, the scatter) land in no fixed order: not
-// bit-reproducible, held within the reordering bound.
+// stats: the upper triangle of S = sum u u^T, u = [dp || 1 || fj] (C + 4
+// columns, so that the features start 16-byte aligned and Sv is S's column
+// 3), in blocks of 64 x 64. A block owns one output block (si <= sj) and a
+// contiguous range of tiles of 128 rows, gathers only the two column slices
+// it needs, and keeps its 64 x 64 sums in registers across the range: four
+// groups of 64 threads take every fourth row, each thread 8 x 8 outputs from
+// four 16-byte shared loads a row. It writes its partial once (the groups
+// added in order); a second kernel adds the parts of each block in order and
+// reads every Svv entry from the upper triangle, so Svv is symmetric bit for
+// bit.
 //
-// What bounds it on the H100: operations. The backward passes do 113.1 and
-// 33.0 GFLOP at PointNeXt-S's four B=32 stages; as 3xTF32 that is 3x the
-// work at the dense TF32 rate of 495 TFLOP/s, 0.686 and 0.200 ms. Their
-// bytes (the rows and weights read once, y1 and g_y1' written once and read
-// once, the gradients) are 0.59 GB a pass, 0.18 ms at 3.35 TB/s. The stats
-// and forward passes run f32 FMAs on the CUDA cores.
+// forward: a tile is TM whole balls (TM = RT / K; a ball of K > RT rows is
+// one tile taken RT rows at a time), so the max over K stays in the block.
+// v is gathered to shared memory, h = relu(a1 (v W1) + nb1) kept there per
+// 64 hidden channels, then y2 = h W2 per 64 output channels; its epilogues
+// run on the accumulators: BN2's sums over the lane's rows, then the row
+// groups (shuffles), then the row warps in a fixed order into the block's
+// sums (a slice per block, added in order afterwards); the max and the min
+// with their first slot over the lane's rows and the row groups (shuffles)
+// where a warp's 32 rows are one ball, then across warps as 64-bit keys
+// (value, slot) in shared memory (atomicMax / atomicMin: the result does not
+// depend on their order); the ReLU bits of a row's 32 channels, spread over
+// the four lanes of a row group, by shuffles. Every result is the same bits
+// run to run.
+//
+// bwd_w2 is two kernels: the first recomputes y1 (to device memory), then h
+// in shared memory over the gathered rows, and per 64 output channels y2,
+// g_y2 (kept beside it and written to device memory) and its dW2 block; the
+// second reads g_y2 back a tile at a time, computes g_h per 64 hidden
+// channels, masks it, writes g_y1' and sums the BatchNorm terms (block slices
+// added in order). Splitting there keeps no (RT x mid) g_h accumulator live
+// across the cout loop: the g_y2 round trip (n x cout f32) costs less than
+// the smaller tiles or register spills that needs. bwd_x reads y1 and g_y1'
+// (recomputing y1 from the gathered rows gives the same bits but timed
+// slower) and writes nothing per row but the scatter of g_v: a warp takes
+// one center's run of rows in the tile and a slice of channels, merges each
+// run of equal neighbour index (a partial ball's pad slots) in registers and
+// adds it with 16-byte L2 reductions where C % 4 == 0 and C > 32, else one
+// reduction a channel, as the ball-group backward (ballgroup_bwd.cu) does,
+// after the two memsets. Row sums (dW1, dW2) go out as 16-byte L2
+// reductions (REDG.F32x4) into one of 8 copies (by block), summed in order
+// after the kernel. The L2 reductions (dW1, dW2, the scatter) land in no
+// fixed order: not bit-reproducible, held within the reordering bound.
+//
+// What bounds it on the H100: operations. At PointNeXt-S's four B=32 stages
+// the forward does 48.7 GFLOP and the backward passes 113.1 and 33.0; as
+// 3xTF32 that is 3x the work at the dense TF32 rate of 495 TFLOP/s, 0.295,
+// 0.686 and 0.200 ms. The statistics' 8.6 GFLOP (Svv counted once, as the
+// symmetric matrix it is) at the f32 rate of 67 TFLOP/s take 0.128 ms.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "sa_common.cuh"
 
@@ -112,23 +126,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 64;     // output columns of one chunk
-constexpr int kKC = 16;        // weight rows staged in shared memory at once
-constexpr int kMaxRows = 128;  // R = TM * K at most
 constexpr size_t kSmemLimit = 232448;
+// the most a block may use for two to fit an SM (228 KB, 1 KB reserved a
+// block)
+constexpr size_t kSmemTwo = (233472 - 2 * 1024) / 2;
 
-__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 __host__ __device__ inline int round8(int x) { return (x + 7) & ~7; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
-// The leading dimension of a tile buffer: buffers are k-major, element
-// (row r, channel c) at [c * LD + r]. LD = 4 * odd keeps the 128-bit reads
-// of gram_acc free of bank conflicts, and LD >= 64 + 4 lets gemm_rows read
-// a whole 64-row block of any channel.
-__host__ __device__ inline int tile_ld(int rows) {
-  const int ld = imax(round4(rows), 64) + 4;
-  return (ld / 4) % 2 ? ld : ld + 4;
-}
 
 struct Geo {
   const float* xyz;    // (B, N, 3)
@@ -139,157 +144,6 @@ struct Geo {
   float dp_scale;
   int relative;
 };
-
-// Rows of centers [c0, c0 + nc) into Vs (k-major, ld): row r is slot r % K
-// of center c0 + r / K, v = [dp || fj] exactly as the plain ball group
-// computes it.
-__device__ void gather_rows(const Geo& g, long long c0, int nc, float* Vs,
-                            int ld) {
-  const int R = nc * g.K;
-  for (int e = threadIdx.x; e < R * g.W; e += kThreads) {
-    const int r = e / g.W, c = e % g.W;
-    const long long center = c0 + r / g.K;
-    const int b = (int)(center / g.M);
-    const int j = g.idx[center * g.K + r % g.K];
-    float v;
-    if (c < 3) {
-      v = g.xyz[((size_t)b * g.N + j) * 3 + c];
-      if (g.relative) {
-        const int q = g.qidx[center];
-        v = __fmul_rn(__fsub_rn(v, g.xyz[((size_t)b * g.N + q) * 3 + c]),
-                      g.dp_scale);
-      }
-    } else {
-      v = g.feats[((size_t)b * g.N + j) * g.C + (c - 3)];
-    }
-    Vs[c * ld + r] = v;
-  }
-}
-
-// out(r, col) = sum_kd A[kd][r] * Bm[kd][col] for r < R and the columns
-// [col0, col0 + ncol), kd in order; epi(r, col, value) gets the global
-// column. A k-major in shared memory (lda = tile_ld), Bm row-major in
-// device memory, staged kKC rows at a time through Bs (kKC x 64 floats),
-// the next rows loaded into registers while the current ones are used.
-// Each thread holds a 4 x 4 block (rows 4 tr.., columns 4 tc..): two
-// 128-bit shared loads a step of kd. Every thread of the block must call it.
-template <class Epi>
-__device__ void gemm_rows(const float* A, int lda, int R, int Kd,
-                          const float* __restrict__ Bm, int ldb, int col0,
-                          int ncol, float* Bs, Epi epi) {
-  static_assert(kKC * 64 == 4 * kThreads, "each thread stages 4 values");
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-  for (int cb = 0; cb < ncol; cb += 64) {
-    const int nw = imin(64, ncol - cb);
-    for (int rb = 0; rb < R; rb += 64) {
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      const float* a_base = A + rb + 4 * tr;
-      float next[4];
-      auto fetch = [&](int k0) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int e = threadIdx.x + q * kThreads;
-          const int kk = e >> 6, cc = e & 63;
-          next[q] = (k0 + kk < Kd && cc < nw)
-                        ? __ldg(Bm + (size_t)(k0 + kk) * ldb + col0 + cb + cc)
-                        : 0.f;
-        }
-      };
-      fetch(0);
-      for (int k0 = 0; k0 < Kd; k0 += kKC) {
-        __syncthreads();  // the previous rows are read
-#pragma unroll
-        for (int q = 0; q < 4; ++q) Bs[threadIdx.x + q * kThreads] = next[q];
-        __syncthreads();
-        if (k0 + kKC < Kd) fetch(k0 + kKC);
-        const int kc = imin(kKC, Kd - k0);
-        for (int kk = 0; kk < kc; ++kk) {
-          const float4 a4 =
-              *reinterpret_cast<const float4*>(a_base + (size_t)(k0 + kk) * lda);
-          const float4 b4 =
-              *reinterpret_cast<const float4*>(Bs + kk * 64 + 4 * tc);
-          const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-          const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = rb + 4 * tr + i, c = 4 * tc + j;
-          if (r < R && c < nw) epi(r, col0 + cb + c, acc[i][j]);
-        }
-    }
-  }
-}
-
-// out[a][b] += sum_{r < R} A[a][r] * Bs[b][r] for a < Ma, b < Nb, r in
-// order within each group of 4 rows. A and Bs k-major in shared memory
-// (lda, ldb = tile_ld); out in device memory (ldo), owned by this block,
-// each element by one thread. Thread tile t = (ta0, tb0) takes a = ta0 +
-// TA i, b = tb0 + TB j (i, j < 4; TA, TB the tile counts): neighbouring
-// threads read neighbouring rows of Bs, free of bank conflicts at LD = 4 *
-// odd, and write neighbouring entries of out.
-__device__ void gram_acc(const float* A, int lda, int Ma, const float* Bs,
-                         int ldb, int Nb, int R, float* out, int ldo) {
-  const int TA = (Ma + 3) / 4, TB = (Nb + 3) / 4;
-  const int R4 = R & ~3;
-  for (int t = threadIdx.x; t < TA * TB; t += kThreads) {
-    const int ta0 = t / TB, tb0 = t % TB;
-    const float* arow[4];
-    const float* brow[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      arow[i] = A + (size_t)imin(ta0 + TA * i, Ma - 1) * lda;
-      brow[i] = Bs + (size_t)imin(tb0 + TB * i, Nb - 1) * ldb;
-    }
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int r = 0; r < R4; r += 4) {
-      float4 av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        av[i] = *reinterpret_cast<const float4*>(arow[i] + r);
-        bv[i] = *reinterpret_cast<const float4*>(brow[i] + r);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float x = acc[i][j];
-          x = __fmaf_rn(av[i].x, bv[j].x, x);
-          x = __fmaf_rn(av[i].y, bv[j].y, x);
-          x = __fmaf_rn(av[i].z, bv[j].z, x);
-          acc[i][j] = __fmaf_rn(av[i].w, bv[j].w, x);
-        }
-    }
-    for (int r = R4; r < R; ++r)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = __fmaf_rn(arow[i][r], brow[j][r], acc[i][j]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int a = ta0 + TA * i, b = tb0 + TB * j;
-        if (a < Ma && b < Nb) out[(size_t)a * ldo + b] += acc[i][j];
-      }
-  }
-}
 
 __device__ void zero_slice(float* p, long long E) {
   for (long long e = threadIdx.x; e < E; e += kThreads) p[e] = 0.f;
@@ -338,120 +192,10 @@ select_kernel(const float* __restrict__ xyz, const int* __restrict__ qidx,
   for (int k = lane; k < K; k += 32) idx[gc * K + k] = nbr[k];
 }
 
-// ---- pass 1: Sv and Svv (workspace slice [W + W*W]) ---------------------
-__global__ void __launch_bounds__(kThreads)
-stats_kernel(Geo g, int TM, long long tiles, float* __restrict__ part) {
-  extern __shared__ float4 smem4[];
-  float* Vs = reinterpret_cast<float*>(smem4);
-  const int W = g.W, ld = tile_ld(TM * g.K);
-  const long long E = (long long)W + (long long)W * W;
-  float* mine = part + blockIdx.x * E;
-  zero_slice(mine, E);
-  const long long centers = (long long)g.B * g.M;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const long long c0 = t * TM;
-    const int nc = (int)(centers - c0 < TM ? centers - c0 : TM);
-    const int R = nc * g.K;
-    gather_rows(g, c0, nc, Vs, ld);
-    __syncthreads();
-    for (int c = threadIdx.x; c < W; c += kThreads) {
-      float s = 0.f;
-      for (int r = 0; r < R; ++r) s = __fadd_rn(s, Vs[c * ld + r]);
-      mine[c] += s;
-    }
-    gram_acc(Vs, ld, W, Vs, ld, W, R, mine + W, W);
-    __syncthreads();
-  }
-}
-
-// ---- pass 2: the forward (workspace slice [2 * cout]: sum y2, sum y2^2) --
-// mask: (ceil(mid / 32), B*M*K) words, bit j % 32 of word (j / 32, row) set
-// where the ReLU passed (h > 0).
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(Geo g, int TM, long long tiles, const float* __restrict__ w1,
-           const float* __restrict__ a1, const float* __restrict__ nb1,
-           const float* __restrict__ w2, int mid, int cout,
-           float* __restrict__ new_xyz, float* __restrict__ fi,
-           float* __restrict__ ymax, float* __restrict__ ymin,
-           uint8_t* __restrict__ amax, uint8_t* __restrict__ amin,
-           uint32_t* __restrict__ mask, float* __restrict__ part) {
-  extern __shared__ float4 smem4[];
-  const int W = g.W, K = g.K, ld = tile_ld(TM * K);
-  float* Vs = reinterpret_cast<float*>(smem4);
-  float* Hs = Vs + W * ld;
-  float* Ds = Hs + mid * ld;
-  float* Bs = Ds + kChunk * ld;
-  float* mine = part + (long long)blockIdx.x * 2 * cout;
-  zero_slice(mine, 2LL * cout);
-  const long long centers = (long long)g.B * g.M;
-  const long long n = centers * K;
-  const int nwords = (mid + 31) / 32;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const long long c0 = t * TM;
-    const int nc = (int)(centers - c0 < TM ? centers - c0 : TM);
-    const int R = nc * K;
-    gather_rows(g, c0, nc, Vs, ld);
-    for (int e = threadIdx.x; e < nc * 3; e += kThreads) {
-      const long long center = c0 + e / 3;
-      const int b = (int)(center / g.M), q = g.qidx[center];
-      new_xyz[center * 3 + e % 3] = g.xyz[((size_t)b * g.N + q) * 3 + e % 3];
-    }
-    for (int e = threadIdx.x; e < nc * g.C; e += kThreads) {
-      const long long center = c0 + e / g.C;
-      const int b = (int)(center / g.M), q = g.qidx[center];
-      fi[center * g.C + e % g.C] =
-          g.feats[((size_t)b * g.N + q) * g.C + e % g.C];
-    }
-    gemm_rows(Vs, ld, R, W, w1, mid, 0, mid, Bs, [&](int r, int j, float y) {
-      Hs[j * ld + r] = bn_relu(y, a1[j], nb1[j]);
-    });
-    __syncthreads();
-    for (int e = threadIdx.x; e < nwords * R; e += kThreads) {
-      const int wd = e / R, r = e % R;
-      uint32_t bits = 0;
-      for (int b = 0; b < 32 && 32 * wd + b < mid; ++b)
-        bits |= (Hs[(32 * wd + b) * ld + r] > 0.f ? 1u : 0u) << b;
-      mask[(size_t)wd * n + c0 * K + r] = bits;
-    }
-    for (int col0 = 0; col0 < cout; col0 += kChunk) {
-      const int nw = imin(kChunk, cout - col0);
-      gemm_rows(Hs, ld, R, mid, w2, cout, col0, nw, Bs,
-                [&](int r, int c, float y) { Ds[(c - col0) * ld + r] = y; });
-      __syncthreads();
-      for (int p = threadIdx.x; p < nc * nw; p += kThreads) {
-        const int i = p / nw, c = p % nw;
-        const float* col = Ds + c * ld + i * K;
-        float hi = col[0], lo = col[0];
-        int khi = 0, klo = 0;
-        for (int k = 1; k < K; ++k) {
-          const float v = col[k];
-          if (v > hi) { hi = v; khi = k; }
-          if (v < lo) { lo = v; klo = k; }
-        }
-        const size_t o = (size_t)(c0 + i) * cout + col0 + c;
-        ymax[o] = hi;
-        ymin[o] = lo;
-        amax[o] = (uint8_t)khi;
-        amin[o] = (uint8_t)klo;
-      }
-      for (int c = threadIdx.x; c < nw; c += kThreads) {
-        float s = 0.f, s2 = 0.f;
-        for (int r = 0; r < R; ++r) {
-          const float v = Ds[c * ld + r];
-          s = __fadd_rn(s, v);
-          s2 = __fadd_rn(s2, __fmul_rn(v, v));
-        }
-        mine[col0 + c] += s;
-        mine[cout + col0 + c] += s2;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// ---- passes 3 and 4: the backward, 3xTF32 on the tensor cores ------------
+// ---- the tensor-core products (passes 2-4), 3xTF32 ------------------------
 constexpr int kNC = 64;                 // output columns of a product pass
-constexpr int kKR = 64;                 // k of one weight ring stage
+constexpr int kKR = 64;                 // k of one weight ring stage (the
+                                        // forward's one-block instances 128)
 constexpr int kLdR = kKR + 8;           // its row stride (8 mod 32)
 constexpr int kStageFloats = kNC * kLdR;
 constexpr int kMaxRing = 6;             // ring stages at most
@@ -563,32 +307,62 @@ __device__ __forceinline__ void cp_wait_dyn(int n) {
   }
 }
 
+// acc += one k8 step of A B^T: A's rows of the warp (row-major, lda) at
+// columns ka .., the warp's B rows (Bw: its first output column's row,
+// ldb floats a row) at columns kb ..; each takes its k in the order 2t, 2t +
+// 1, so that a lane's two k of a row are one conflict-free float2.
+template <int NT>
+__device__ __forceinline__ void kstep(Acc& acc, const float* A, int lda,
+                                      int ka, const float* Bw, int ldb,
+                                      int kb, const PassWarp& w) {
+  FragA a[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float* p = A + (size_t)(w.wr * 32 + i * 16 + w.g) * lda + ka +
+                     2 * w.t;
+    const float2 x0 = *reinterpret_cast<const float2*>(p);
+    const float2 x1 = *reinterpret_cast<const float2*>(p + 8 * lda);
+    split(x0.x, a[i].hi[0], a[i].lo[0]);
+    split(x1.x, a[i].hi[1], a[i].lo[1]);
+    split(x0.y, a[i].hi[2], a[i].lo[2]);
+    split(x1.y, a[i].hi[3], a[i].lo[3]);
+  }
+  FragB b[NT];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float2 y = *reinterpret_cast<const float2*>(
+        Bw + (size_t)(j * 8 + w.g) * ldb + kb + 2 * w.t);
+    split(y.x, b[j].hi[0], b[j].lo[0]);
+    split(y.y, b[j].hi[1], b[j].lo[1]);
+  }
+  mma3_sweeps<NT>(acc, a, b);
+}
+
 // acc = A B^T over k < Kd for B's rows n0 .. n0 + 63: A (RT rows, Kd a
 // multiple of 8 columns) row-major in shared memory (lda), B row-major in
 // device memory (nb rows of Kd floats, zero past the weight's k: see
-// weight_rows_kernel), staged kKR k at a time through a ring of nring stages
-// (rows past nb read as zero). Each k8 step takes the fragments' k in the
-// order 2t, 2t + 1 in both operands, so that a lane's two k of a row are
-// one conflict-free float2. Element (row, col) of the warp's block is
+// weight_rows_kernel), staged KR k at a time through a ring of nring stages
+// (rows past nb read as zero). Element (row, col) of the warp's block is
 // output row row, column n0 + col (PassWarp); n8 tiles past nb are skipped.
 // Every thread of the block calls it.
-template <int NT>
+template <int NT, int KR = kKR>
 __device__ void product(Acc& acc, const float* A, int lda,
                         const float* __restrict__ Bg, int nb, int n0, int Kd,
                         float* ring, int nring) {
+  constexpr int kLd = KR + 8, kStage = kNC * kLd;  // a stage's rows
   const PassWarp w(32 * NT);
   zero_acc(acc);
-  const int nk = (Kd + kKR - 1) / kKR;
+  const int nk = (Kd + KR - 1) / KR;
   const bool idle = n0 + w.wc * 8 * NT >= nb;  // no column of this warp's
   __syncthreads();  // the ring's and the operands' last readers are done
   auto issue = [&](int kt) {
-    float* st = ring + (kt % nring) * kStageFloats;
-    constexpr int kPieces = kKR / 4;  // 16-byte pieces of a row
+    float* st = ring + (kt % nring) * kStage;
+    constexpr int kPieces = KR / 4;  // 16-byte pieces of a row
     for (int q = threadIdx.x; q < kNC * kPieces; q += kThreads) {
       const int n = q / kPieces, f = (q % kPieces) * 4;
-      const int k = kt * kKR + f;
+      const int k = kt * KR + f;
       const bool full = n0 + n < nb && k < Kd;
-      apt_sa::cp_async16(st + n * kLdR + f,
+      apt_sa::cp_async16(st + n * kLd + f,
                          full ? Bg + (size_t)(n0 + n) * Kd + k : Bg, full);
     }
   };
@@ -601,37 +375,32 @@ __device__ void product(Acc& acc, const float* A, int lda,
     __syncthreads();
     if (kt + nring - 1 < nk) issue(kt + nring - 1);
     apt_sa::cp_commit();
-    const float* st = ring + (kt % nring) * kStageFloats;
-    const int steps = imin(kKR, Kd - kt * kKR) / 8;
+    const float* st =
+        ring + (kt % nring) * kStage + w.wc * 8 * NT * kLd;
+    const int steps = imin(KR, Kd - kt * KR) / 8;
     if (idle) continue;
 #pragma unroll
-    for (int s = 0; s < kKR / 8; ++s) {
+    for (int s = 0; s < KR / 8; ++s) {
       if (s >= steps) break;
-      const int k = s * 8 + 2 * w.t;
-      FragA a[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float* p = A + (size_t)(w.wr * 32 + i * 16 + w.g) * lda +
-                         kt * kKR + k;
-        const float2 x0 = *reinterpret_cast<const float2*>(p);
-        const float2 x1 = *reinterpret_cast<const float2*>(p + 8 * lda);
-        split(x0.x, a[i].hi[0], a[i].lo[0]);
-        split(x1.x, a[i].hi[1], a[i].lo[1]);
-        split(x0.y, a[i].hi[2], a[i].lo[2]);
-        split(x1.y, a[i].hi[3], a[i].lo[3]);
-      }
-      FragB b[NT];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float2 y = *reinterpret_cast<const float2*>(
-            st + (w.wc * 8 * NT + j * 8 + w.g) * kLdR + k);
-        split(y.x, b[j].hi[0], b[j].lo[0]);
-        split(y.y, b[j].hi[1], b[j].lo[1]);
-      }
-      mma3_sweeps<NT>(acc, a, b);
+      kstep<NT>(acc, A, lda, kt * KR + s * 8, st, kLd, s * 8, w);
     }
   }
   apt_sa::cp_wait<0>();
+}
+
+// product() with B resident in shared memory (Bs: rows of ldb floats, zero
+// past the weight's rows and k, at least n0 + 64 rows): no ring and no
+// barrier; the caller orders A's and B's writers before it.
+template <int NT>
+__device__ void product_res(Acc& acc, const float* A, int lda,
+                            const float* Bs, int ldb, int nb, int n0,
+                            int Kd) {
+  const PassWarp w(32 * NT);
+  zero_acc(acc);
+  if (n0 + w.wc * 8 * NT >= nb) return;
+  const float* Bw = Bs + (size_t)(n0 + w.wc * 8 * NT) * ldb;
+#pragma unroll 2
+  for (int k = 0; k < Kd; k += 8) kstep<NT>(acc, A, lda, k, Bw, ldb, k, w);
 }
 
 // A weight as product() reads it: dst row n (n < nrows) holds Kd floats,
@@ -831,6 +600,719 @@ __device__ void gather_tile(const Geo& g, int R, int RT, float* X, int ld,
         v = __fmul_rn(__fsub_rn(v, X0[(size_t)sq[r] * 3 + c]), g.dp_scale);
     }
     X[(size_t)r * ld + c] = v;
+  }
+}
+
+// ---- pass 1: the statistics, f32 FMAs on the CUDA cores -------------------
+constexpr int kTs = 64 + 4;  // a partial block's row stride and rows
+constexpr int kDepth = 3;    // tiles in flight a block
+
+// The feature columns of a slice of u = [fj || dp || 1]: 64, or 32 where C
+// <= 32 (the block's threads then cover a 32 x 32 output 4 rows deeper).
+__host__ __device__ inline int slice_of(int C) { return C <= 32 ? 32 : 64; }
+// Slices of the C feature columns (at least one, empty where C = 0); t =
+// [dp || 1] are u's last 4 columns.
+__host__ __device__ inline int slices_of(int C) {
+  const int S = slice_of(C);
+  return C > S ? (C + S - 1) / S : 1;
+}
+// Outputs a thread sums, and the threads of a group: S / 8 x S / 8 threads
+// of 8 x 8 outputs, the slice's features against t (each thread S / group
+// of its columns), and one entry of t t^T.
+template <int S>
+struct StatsShape {
+  static constexpr int kGroupThreads = (S / 8) * (S / 8);
+  static constexpr int kGroups = 256 / kGroupThreads;
+  static constexpr int kTail = S / kGroupThreads;  // columns a thread
+  static constexpr int kOut = 64 + 4 * kTail + 1;
+  static constexpr int kStage = (kGroups - 1) * kOut * kGroupThreads;
+};
+
+// Index of the output block (si, sj), si <= sj, in the upper triangle's
+// row-major order, and back.
+__host__ __device__ inline int pair_index(int si, int sj, int ns) {
+  return si * ns - si * (si - 1) / 2 + (sj - si);
+}
+__device__ inline void pair_of(int p, int ns, int& si, int& sj) {
+  si = 0;
+  while (p >= ns - si) {
+    p -= ns - si;
+    ++si;
+  }
+  sj = si + p;
+}
+
+// One row of a tile: its neighbour, cloud and query (ok: the row exists).
+struct StatRow {
+  int j, b, q;
+  bool ok;
+};
+__device__ inline StatRow stat_row(const Geo& g, long long n, long long row) {
+  StatRow s{0, 0, 0, false};
+  if (row < n) {  // n < 2^31 (sa_trainbn_plan)
+    const int center = (int)row / g.K;
+    s.j = g.idx[row];
+    s.b = center / g.M;
+    s.q = g.qidx[center];
+    s.ok = true;
+  }
+  return s;
+}
+
+// The thread's share (pieces part, part + parts, ...) of one row's features
+// x0 .. x0 + wx - 1 into Xr by cp.async (16 bytes a piece where vec).
+__device__ inline void issue_slice(const Geo& g, const StatRow& s, float* Xr,
+                                   int x0, int wx, bool vec, int part,
+                                   int parts) {
+  const float* src = g.feats + ((size_t)s.b * g.N + s.j) * g.C + x0;
+  if (vec) {
+    for (int p = part; p < wx / 4; p += parts)
+      apt_sa::cp_async16(Xr + 4 * p, src + 4 * p, true);
+  } else {
+    for (int c = part; c < wx; c += parts) cp_async4(Xr + c, src + c);
+  }
+}
+
+// The partial sums of output block (si, sj) of U = sum u u^T, u = [fj ||
+// dp || 1], over tiles t0 .. t1 - 1 of RT rows (blockIdx.x = block * P +
+// part), into part[(block * P + part) * kTs * kTs]: element (a, b) for the
+// features S si + a, S sj + b (a, b < S, the slice width); on the diagonal
+// also (a, 64 + c) = sum fj[S si + a] t[c], and in block (0, 0) (64 + c, 64
+// + d) = sum t[c] t[d]. A thread (group, ty, tx) sums rows group, group +
+// kGroups, ... into the features' outputs a in {4 ty .. 4 ty + 3, S / 2 + 4
+// ty ..}, b in {4 tx .., S / 2 + 4 tx ..}, each in row order. kDepth tiles are in flight: a thread
+// issues its share of row r = tid % RT of tile t + 2 (and loads the indices
+// of tile t + 3) before summing tile t. A buffer holds the tile's x slice,
+// t (4 floats a row, on the diagonal) and, off the diagonal, its y slice;
+// the thread that issues a row loads its coordinates and writes its t an
+// iteration later, before the barrier that hands the tile over.
+template <int S>
+__global__ void __launch_bounds__(kThreads, 2)
+stats_kernel(Geo g, int RT, int P, int vec, float* __restrict__ part) {
+  using Sh = StatsShape<S>;
+  constexpr int kG = Sh::kGroups, kGT = Sh::kGroupThreads, kTd = S / 8;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const size_t tile_f = (size_t)RT * S;
+  auto Xb = [&](int b) { return sm + b * tile_f; };
+  auto Tb = [&](int b) { return sm + kDepth * tile_f + (size_t)b * 4 * RT; };
+  auto Yb = [&](int b) {
+    return sm + kDepth * (tile_f + 4 * RT) + b * tile_f;
+  };
+  const int ns = slices_of(g.C), pt = blockIdx.x % P;
+  int si, sj;
+  pair_of(blockIdx.x / P, ns, si, sj);
+  const bool diag = si == sj;
+  const long long n = (long long)g.B * g.M * g.K;
+  const long long tiles = (n + RT - 1) / RT;
+  const long long t0 = tiles * pt / P, t1 = tiles * (pt + 1) / P;
+  const int grp = threadIdx.x / kGT, tl = threadIdx.x % kGT, tx = tl % kTd,
+            ty = tl / kTd;
+  const int r = threadIdx.x % RT, part_ = threadIdx.x / RT,
+            parts = kThreads / RT;
+  // the feature columns of the two slices; the 4 x 4 quarters of the
+  // thread's outputs that lie inside them
+  const int wx = imin(S, g.C - si * S), wy = imin(S, g.C - sj * S);
+  const bool qa[2] = {4 * ty < wx, S / 2 + 4 * ty < wx};
+  const bool qb[2] = {4 * tx < wy, S / 2 + 4 * tx < wy};
+  const bool full = wx >= S && wy >= S;  // every quarter, every thread
+  const bool tt_lane = si == 0 && sj == 0 && tl < 16;  // an entry of t t^T
+  float acc[8][8], tacc[Sh::kTail][4], tt = 0.f;
+#pragma unroll
+  for (int u = 0; u < Sh::kTail; ++u)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) tacc[u][c] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  // row r of tile t (to buffer (t - t0) % kDepth): its features by
+  // cp.async; on the diagonal its neighbour's and query's coordinates into
+  // cj, cq (written out as t by put_t)
+  float cj[3] = {0.f, 0.f, 0.f}, cq[3] = {0.f, 0.f, 0.f};
+  int tb = -1;  // the buffer cj, cq belong to
+  auto issue = [&](long long t, const StatRow& s) {
+    if (!s.ok) return;  // past the last row: never read
+    const int b = (int)((t - t0) % kDepth);
+    issue_slice(g, s, Xb(b) + (size_t)r * S, si * S, wx, vec, part_, parts);
+    if (!diag) {
+      issue_slice(g, s, Yb(b) + (size_t)r * S, sj * S, wy, vec, part_,
+                  parts);
+    } else if (part_ == 0) {
+      const float* X3 = g.xyz + (size_t)s.b * g.N * 3;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        cj[c] = X3[(size_t)s.j * 3 + c];
+        cq[c] = X3[(size_t)s.q * 3 + c];
+      }
+      tb = b;
+    }
+  };
+  auto put_t = [&]() {
+    if (tb < 0) return;
+    float d[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      d[c] = g.relative ? __fmul_rn(__fsub_rn(cj[c], cq[c]), g.dp_scale)
+                        : cj[c];
+    *reinterpret_cast<float4*>(Tb(tb) + 4 * r) =
+        make_float4(d[0], d[1], d[2], 1.f);
+    tb = -1;
+  };
+  for (int d = 0; d < kDepth - 1; ++d) {
+    if (t0 + d < t1) issue(t0 + d, stat_row(g, n, (t0 + d) * RT + r));
+    put_t();
+    apt_sa::cp_commit();
+  }
+  StatRow nxt = stat_row(g, n, (t0 + kDepth - 1) * RT + r);
+  for (long long t = t0; t < t1; ++t) {
+    const int b = (int)((t - t0) % kDepth);
+    put_t();  // tile t + 1's
+    apt_sa::cp_wait<kDepth - 2>();
+    __syncthreads();  // tile t is in buffer b; tile t - 1's is free
+    if (t + kDepth - 1 < t1) issue(t + kDepth - 1, nxt);
+    apt_sa::cp_commit();
+    nxt = stat_row(g, n, (t + kDepth) * RT + r);
+    const int R = (int)(n - t * RT < RT ? n - t * RT : RT);
+    const float* X = Xb(b);
+    const float* Y = diag ? X : Yb(b);
+    const float* T = Tb(b);
+    // the tile's rows; the quarter tests and the diagonal's work compiled
+    // in or out (kFull: every quarter of every thread inside the slices)
+    auto rows = [&](auto full_c, auto diag_c) {
+      constexpr bool kFull = decltype(full_c)::value;
+      constexpr bool kDiag = decltype(diag_c)::value;
+      for (int rr = grp; rr < R; rr += kG) {
+        const float* xr = X + (size_t)rr * S + 4 * ty;
+        const float* yr = Y + (size_t)rr * S + 4 * tx;
+        float a[8], bv[8];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4 x4 = *reinterpret_cast<const float4*>(xr + S / 2 * h);
+          const float4 y4 = *reinterpret_cast<const float4*>(yr + S / 2 * h);
+          a[4 * h] = x4.x; a[4 * h + 1] = x4.y; a[4 * h + 2] = x4.z; a[4 * h + 3] = x4.w;
+          bv[4 * h] = y4.x; bv[4 * h + 1] = y4.y; bv[4 * h + 2] = y4.z; bv[4 * h + 3] = y4.w;
+        }
+#pragma unroll
+        for (int ha = 0; ha < 2; ++ha)
+#pragma unroll
+          for (int hb = 0; hb < 2; ++hb) {
+            // (on the diagonal the quarter below it is never read)
+            if ((kDiag && ha > hb) || (!kFull && (!qa[ha] || !qb[hb])))
+              continue;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                acc[4 * ha + i][4 * hb + j] = __fmaf_rn(
+                    a[4 * ha + i], bv[4 * hb + j], acc[4 * ha + i][4 * hb + j]);
+          }
+        if (kDiag) {  // the features against t, and t against t
+          const float* tr = T + 4 * rr;
+          const float4 t4 = *reinterpret_cast<const float4*>(tr);
+#pragma unroll
+          for (int u = 0; u < Sh::kTail; ++u)
+            if (kFull || tl + u * kGT < wx) {
+              const float x = X[(size_t)rr * S + tl + u * kGT];
+              tacc[u][0] = __fmaf_rn(x, t4.x, tacc[u][0]);
+              tacc[u][1] = __fmaf_rn(x, t4.y, tacc[u][1]);
+              tacc[u][2] = __fmaf_rn(x, t4.z, tacc[u][2]);
+              tacc[u][3] = __fmaf_rn(x, t4.w, tacc[u][3]);
+            }
+          if (tt_lane) tt = __fmaf_rn(tr[tl >> 2], tr[tl & 3], tt);
+        }
+      }
+    };
+    if (full && diag)
+      rows(std::true_type(), std::true_type());
+    else if (full)
+      rows(std::true_type(), std::false_type());
+    else if (diag)
+      rows(std::false_type(), std::true_type());
+    else
+      rows(std::false_type(), std::false_type());
+  }
+  apt_sa::cp_wait<0>();
+  __syncthreads();
+  // groups 1 .. kG - 1 onto group 0, in that order, through the buffers
+  constexpr int kOut = Sh::kOut;  // a thread's outputs
+  float* stage = sm;              // [group - 1][output][kGT threads]
+  if (grp > 0) {
+    float* dst = stage + (size_t)(grp - 1) * kOut * kGT + tl;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dst[(8 * i + j) * kGT] = acc[i][j];
+#pragma unroll
+    for (int u = 0; u < Sh::kTail; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dst[(64 + 4 * u + c) * kGT] = tacc[u][c];
+    dst[(kOut - 1) * kGT] = tt;
+  }
+  __syncthreads();
+  if (grp > 0) return;
+  auto total = [&](float v, int o) {
+    for (int q = 0; q < kG - 1; ++q)
+      v = __fadd_rn(v, stage[((size_t)q * kOut + o) * kGT + tl]);
+    return v;
+  };
+  float* out = part + (size_t)blockIdx.x * kTs * kTs;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = total(acc[i][j], 8 * i + j);
+    const int a = (i < 4 ? 0 : S / 2) + 4 * ty + (i & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(out + (size_t)a * kTs + S / 2 * h + 4 * tx) =
+          make_float4(o[4 * h], o[4 * h + 1], o[4 * h + 2], o[4 * h + 3]);
+  }
+  if (diag) {
+#pragma unroll
+    for (int u = 0; u < Sh::kTail; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        out[(size_t)(tl + u * kGT) * kTs + 64 + c] =
+            total(tacc[u][c], 64 + 4 * u + c);
+    if (si == 0 && tl < 16)
+      out[(size_t)(64 + (tl >> 2)) * kTs + 64 + (tl & 3)] =
+          total(tt, kOut - 1);
+  }
+}
+
+// out = (Sv, Svv row-major) in v's order: v's column a is u's ua = C + a
+// (a < 3, dp) or a - 3 (the features), u's column C + 3 the ones; element
+// (a, b) of Svv is S's (ua, ub), read from the upper triangle (ua <= ub),
+// Sv[a] S's (ua, C + 3). A warp an element: lane l sums parts l, l + 32,
+// ... in order, then the lanes in a fixed tree.
+__global__ void stats_reduce_kernel(const float* __restrict__ part, int P,
+                                    int C, float* __restrict__ out) {
+  const int W = C + 3, S = slice_of(C), ns = slices_of(C),
+            lane = threadIdx.x & 31;
+  const long long E = (long long)W + (long long)W * W;
+  for (long long e = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       e < E; e += ((long long)gridDim.x * blockDim.x) >> 5) {
+    int ua, ub;
+    if (e < W) {
+      ua = (int)e < 3 ? C + (int)e : (int)e - 3;
+      ub = C + 3;
+    } else {
+      const int a = (int)((e - W) / W), b = (int)((e - W) % W);
+      ua = a < 3 ? C + a : a - 3;
+      ub = b < 3 ? C + b : b - 3;
+    }
+    if (ua > ub) {
+      const int t = ua;
+      ua = ub;
+      ub = t;
+    }
+    size_t at;
+    if (ub < C) {  // features by features
+      const int si = ua / S, sj = ub / S;
+      at = (size_t)pair_index(si, sj, ns) * P * kTs * kTs +
+           (size_t)(ua - si * S) * kTs + (ub - sj * S);
+    } else if (ua < C) {  // features by t, on the diagonal
+      const int si = ua / S;
+      at = (size_t)pair_index(si, si, ns) * P * kTs * kTs +
+           (size_t)(ua - si * S) * kTs + 64 + (ub - C);
+    } else {  // t by t, in block (0, 0)
+      at = (size_t)(64 + ua - C) * kTs + 64 + (ub - C);
+    }
+    float s = 0.f;
+    for (int i = lane; i < P; i += 32)
+      s = __fadd_rn(s, part[at + (size_t)i * kTs * kTs]);
+    for (int o = 16; o > 0; o >>= 1)
+      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+    if (lane == 0) out[e] = s;
+  }
+}
+
+// ---- pass 2: the forward, 3xTF32 on the tensor cores ----------------------
+typedef unsigned long long u64;
+
+struct FArgs {
+  const float *w1t, *a1, *nb1;  // w1t: W1^T, mid rows, Kd = W8
+  const float* w2t;             // W2^T, cout rows, Kd = mid8
+  float *new_xyz, *fi;          // (B, M, 3), (B, M, C)
+  float *ymax, *ymin;           // (B, M, cout)
+  uint8_t *amax, *amin;         // (B, M, cout)
+  uint32_t* mask;               // (ceil(mid / 32), n)
+  float* part;                  // (G, 2 cout): the block's sum y2, sum y2^2
+  int mid, cout;
+};
+
+// A float as an unsigned integer of the same order (-0 taken as +0), and
+// back.
+__device__ __forceinline__ uint32_t ord_of(float v) {
+  const uint32_t b = __float_as_uint(__fadd_rn(v, 0.f));
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+__device__ __forceinline__ float float_of(uint32_t o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+__device__ __forceinline__ uint32_t umax(uint32_t a, uint32_t b) {
+  return a > b ? a : b;
+}
+__device__ __forceinline__ uint32_t umin(uint32_t a, uint32_t b) {
+  return a < b ? a : b;
+}
+// (value, slot) as keys whose max is the max with the first slot, whose min
+// is the min with the first slot
+__device__ __forceinline__ u64 key_max(float v, int k) {
+  return ((u64)ord_of(v) << 32) | (uint32_t)(255 - k);
+}
+__device__ __forceinline__ u64 key_min(float v, int k) {
+  return ((u64)ord_of(v) << 32) | (uint32_t)k;
+}
+
+// The forward's shared memory, in floats: v, h, the weights (a ring of
+// nring stages of kr k, or with nring = 0 both resident: W1^T's mid and W2^T's cout
+// rows, each padded to a multiple of 64 rows of ld_rm(k) floats), the BN2
+// sums' cross-warp step, the max / min keys of the
+// tile's centers (64 columns a center, or every column where a ball takes
+// several passes of RT rows), the tile's mask words and its rows.
+struct FwdLayout {
+  int ldv, ldh, tm, nkeys, nwords;
+  size_t v, h, ring, w2, red, keys, wkeys, mask, rows, total;
+};
+__host__ __device__ inline int round64(int x) { return (x + 63) & ~63; }
+__host__ __device__ inline FwdLayout fwd_layout(int RT, int K, int W, int mid,
+                                                int cout, int nring,
+                                                int kr) {
+  FwdLayout L;
+  L.ldv = ld_rm(round8(W));
+  L.ldh = ld_rm(round8(mid));
+  L.tm = K <= RT ? RT / K : 1;
+  L.nkeys = K <= RT ? L.tm * kNC : round8(cout);
+  L.nwords = (mid + 31) / 32;
+  size_t o = 0;
+  L.v = o;
+  o += (size_t)RT * L.ldv;
+  L.h = o;
+  o += (size_t)RT * L.ldh;
+  L.ring = o;  // the ring, or W1^T resident
+  if (nring) {
+    o += (size_t)nring * kNC * (kr + 8);
+    L.w2 = o;
+  } else {
+    o += (size_t)round64(mid) * L.ldv;
+    L.w2 = o;
+    o += (size_t)round64(cout) * L.ldh;
+  }
+  L.red = o;
+  o += (size_t)(RT / 32) * kNC * 2;
+  L.keys = o;
+  o += (size_t)L.nkeys * 4;  // two u64 a key
+  L.wkeys = o;  // a row warp's keys of its ball (64 columns), its ball
+  o += (size_t)(RT / 32) * kNC * 4 + 8;
+  L.mask = o;
+  o += (size_t)L.nwords * RT;
+  L.rows = o;
+  o += 4 * RT;  // a row's neighbour, center, slot and query
+  L.total = o;
+  return L;
+}
+
+// kRes: the weights resident in shared memory (nring = 0), loaded once;
+// else streamed through the ring for every product. kBlocks: the blocks an
+// SM holds; with one, a thread may keep 255 registers and a ring stage holds
+// 128 k (half the stages and barriers a product).
+template <int NT, bool kRes, int kBlocks>
+__global__ void __launch_bounds__(kThreads, kBlocks)
+fwd_kernel(Geo g, int nring, FArgs a) {
+  constexpr int RT = 32 * NT;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int K = g.K, mid = a.mid, cout = a.cout;
+  const int W8 = round8(g.W), mid8 = round8(mid);
+  constexpr int KR = !kRes && kBlocks == 1 ? 128 : kKR;
+  const FwdLayout L = fwd_layout(RT, K, g.W, mid, cout, nring, KR);
+  float* V = sm + L.v;
+  float* H = sm + L.h;
+  float* ring = sm + L.ring;
+  float* red = sm + L.red;
+  // the block's BN2 sums, its slice of the workspace: column c's by thread
+  // c % 64 alone
+  float* mine = a.part + (size_t)blockIdx.x * 2 * cout;
+  u64* kmax = reinterpret_cast<u64*>(sm + L.keys);
+  u64* kmin = kmax + L.nkeys;
+  u64* wmax = reinterpret_cast<u64*>(sm + L.wkeys);  // [row warp][64]
+  u64* wmin = wmax + NT * kNC;
+  int* wball = reinterpret_cast<int*>(wmin + NT * kNC);  // [row warp]
+  uint32_t* smask = reinterpret_cast<uint32_t*>(sm + L.mask);
+  int* sidx = reinterpret_cast<int*>(sm + L.rows);
+  const int* scen = sidx + RT;
+  const int* sk = scen + RT;
+  const int* sq = sk + RT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool whole = K <= RT;  // a tile's balls take one pass of RT rows
+  const int TM = L.tm, nsub = whole ? 1 : (K + RT - 1) / RT;
+  const long long centers = (long long)g.B * g.M, n = centers * K;
+  const long long tiles = (centers + TM - 1) / TM;
+  const PassWarp w(RT);
+  Acc acc;
+  float* W1s = ring;  // the resident weights
+  float* W2s = sm + L.w2;
+
+
+  if (kRes) {  // landed before the first tile's gather is waited for
+    for (int e = threadIdx.x; e < round64(mid) * (W8 / 4); e += kThreads) {
+      const int r = e / (W8 / 4), c = 4 * (e % (W8 / 4));
+      apt_sa::cp_async16(W1s + (size_t)r * L.ldv + c,
+                         r < mid ? a.w1t + (size_t)r * W8 + c : a.w1t,
+                         r < mid);
+    }
+    for (int e = threadIdx.x; e < round64(cout) * (mid8 / 4); e += kThreads) {
+      const int r = e / (mid8 / 4), c = 4 * (e % (mid8 / 4));
+      apt_sa::cp_async16(W2s + (size_t)r * L.ldh + c,
+                         r < cout ? a.w2t + (size_t)r * mid8 + c : a.w2t,
+                         r < cout);
+    }
+    apt_sa::cp_commit();
+  }
+  for (int e = threadIdx.x; e < L.nkeys; e += kThreads) {
+    kmax[e] = 0ull;
+    kmin[e] = ~0ull;
+  }
+  if (threadIdx.x < kNC)
+    for (int c = threadIdx.x; c < cout; c += kNC) mine[c] = mine[cout + c] = 0.f;
+  for (int e = threadIdx.x; e < L.nwords * RT; e += kThreads) smask[e] = 0u;
+  // (the first product's barrier orders these before their first use)
+  RowPre pre = prefetch_rows(g, n, (long long)blockIdx.x * TM * K, RT);
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long cfirst = t * TM;
+    const int nc = (int)(centers - cfirst < TM ? centers - cfirst : TM);
+    for (int sub = 0; sub < nsub; ++sub) {
+      const long long row0 = cfirst * K + (long long)sub * RT;
+      const int R = imin(RT, nc * K - sub * RT);
+      gather_tile(g, R, RT, V, L.ldv, W8, sidx, pre);
+      pre = prefetch_rows(
+          g, n, sub + 1 < nsub ? row0 + RT : (t + gridDim.x) * TM * K, RT);
+      if (sub == 0)  // new_xyz and fi, a warp a center
+        for (int cl = warp; cl < nc; cl += kWarps) {
+          const long long center = cfirst + cl;
+          const size_t src = (size_t)(center / g.M) * g.N + sq[cl * K];
+          if (lane < 3) a.new_xyz[center * 3 + lane] = g.xyz[src * 3 + lane];
+          for (int ch = lane; ch < g.C; ch += 32)
+            a.fi[center * g.C + ch] = g.feats[src * g.C + ch];
+        }
+      // the lane's four rows 16 i + g + 8 h (s = 2 i + h) and their center
+      // in the tile (-1 past R), from the tile's rows in shared memory; and
+      // whether the warp's 32 rows are one ball
+      auto row_of = [&](int s) { return w.row(s >> 1, 2 * (s & 1)); };
+      auto center_of = [&](int s) {
+        const int r = row_of(s);
+        return r < R ? (int)(scen[r] - cfirst) : -1;
+      };
+      const int cl0 = __shfl_sync(0xffffffffu, center_of(0), 0);
+      const bool one = __all_sync(
+          0xffffffffu, cl0 >= 0 && center_of(0) == cl0 &&
+                           center_of(1) == cl0 && center_of(2) == cl0 &&
+                           center_of(3) == cl0);
+      if (w.wc == 0 && lane == 0) wball[w.wr] = one ? cl0 : -1;
+      if (kRes) {  // the gather (and the weights) landed
+        apt_sa::cp_wait<0>();
+        __syncthreads();
+      }
+      // h = relu(a1 y1 + nb1) per 64 hidden channels, and its ReLU bits
+      for (int j0 = 0; j0 < mid8; j0 += kNC) {
+        if (kRes) {
+          product_res<NT>(acc, V, L.ldv, W1s, L.ldv, mid, j0, W8);
+        } else {
+          product<NT, KR>(acc, V, L.ldv, a.w1t, mid, j0, W8, ring, nring);
+        }
+        uint32_t bits[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = j0 + w.col(j);
+          if (c >= mid8) continue;
+          float s1[2], s0[2];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            s1[q] = c + q < mid ? __ldg(a.a1 + c + q) : 0.f;
+            s0[q] = c + q < mid ? __ldg(a.nb1 + c + q) : 0.f;
+          }
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            float h[2];
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              h[q] = c + q < mid
+                         ? bn_relu(acc[s >> 1][j][2 * (s & 1) + q], s1[q], s0[q])
+                         : 0.f;
+              if (h[q] > 0.f) bits[s] |= 1u << ((c + q) & 31);
+            }
+            *reinterpret_cast<float2*>(
+                H + (size_t)w.row(s >> 1, 2 * (s & 1)) * L.ldh + c) =
+                make_float2(h[0], h[1]);
+          }
+        }
+        // a row's bits of the warp's 8 NT channels (one word's share) are
+        // spread over the four lanes of its row group
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          bits[s] |= __shfl_xor_sync(0xffffffffu, bits[s], 1);
+          bits[s] |= __shfl_xor_sync(0xffffffffu, bits[s], 2);
+        }
+        const int wd = (j0 + w.wc * 8 * NT) >> 5;
+        if (w.t == 0)
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            if (row_of(s) < R && bits[s])
+              atomicOr(smask + (size_t)wd * RT + row_of(s), bits[s]);
+      }
+      __syncthreads();  // h and the mask words are complete
+      for (int e = threadIdx.x; e < L.nwords * RT; e += kThreads) {
+        const int wd = e / RT, r = e % RT;
+        if (r < R) a.mask[(size_t)wd * n + row0 + r] = smask[e];
+        smask[e] = 0u;
+      }
+      // y2 = h W2 per 64 output channels, and its epilogues
+      for (int c0 = 0; c0 < cout; c0 += kNC) {
+        // the block's sums so far, loaded ahead of the chunk's readout
+        const bool own = threadIdx.x < kNC && c0 + threadIdx.x < cout;
+        float s1 = 0.f, s2 = 0.f;
+        if (own) {
+          s1 = mine[c0 + threadIdx.x];
+          s2 = mine[cout + c0 + threadIdx.x];
+        }
+        if (kRes) {
+          __syncthreads();  // the last chunk's sums and keys are read
+          product_res<NT>(acc, H, L.ldh, W2s, L.ldh, cout, c0, mid8);
+        } else {
+          product<NT, KR>(acc, H, L.ldh, a.w2t, cout, c0, mid8, ring, nring);
+        }
+        // the epilogues on the accumulators; kOne: the warp's 32 rows are one
+        // ball (every valid warp where K % 32 == 0), compiled without the
+        // rows' tests
+        auto epilogue = [&](auto one_c) {
+          constexpr bool kOne = decltype(one_c)::value;
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              float t1 = 0.f, t2 = 0.f;  // BN2's sums over the lane's rows
+#pragma unroll
+              for (int s = 0; s < 4; ++s)
+                if (kOne || row_of(s) < R) {
+                  const float y = acc[s >> 1][j][2 * (s & 1) + q];
+                  t1 = __fadd_rn(t1, y);
+                  t2 = __fadd_rn(t2, __fmul_rn(y, y));
+                }
+#pragma unroll
+              for (int o = 4; o < 32; o <<= 1) {
+                t1 = __fadd_rn(t1, __shfl_xor_sync(0xffffffffu, t1, o));
+                t2 = __fadd_rn(t2, __shfl_xor_sync(0xffffffffu, t2, o));
+              }
+              if (w.g == 0) {
+                float* p = red + ((size_t)w.wr * kNC + w.col(j) + q) * 2;
+                p[0] = t1;
+                p[1] = t2;
+              }
+              const int c = c0 + w.col(j) + q;
+              const int kb = whole ? c - c0 : c;  // the key's column
+              if (kOne || one) {
+                // the warp's rows g + 8 s are its ball's slots in order: the
+                // max and the min as ordered keys over the lane's rows and
+                // the row groups, then the first row holding each
+                uint32_t o4[4];
+#pragma unroll
+                for (int s = 0; s < 4; ++s)
+                  o4[s] = ord_of(acc[s >> 1][j][2 * (s & 1) + q]);
+                uint32_t hv = umax(umax(o4[0], o4[1]), umax(o4[2], o4[3]));
+                uint32_t lv = umin(umin(o4[0], o4[1]), umin(o4[2], o4[3]));
+#pragma unroll
+                for (int o = 4; o < 32; o <<= 1) {
+                  hv = umax(hv, __shfl_xor_sync(0xffffffffu, hv, o));
+                  lv = umin(lv, __shfl_xor_sync(0xffffffffu, lv, o));
+                }
+                int hr = 32, lr = 32;
+#pragma unroll
+                for (int s = 3; s >= 0; --s) {
+                  if (o4[s] == hv) hr = w.g + 8 * s;
+                  if (o4[s] == lv) lr = w.g + 8 * s;
+                }
+#pragma unroll
+                for (int o = 4; o < 32; o <<= 1) {
+                  hr = imin(hr, __shfl_xor_sync(0xffffffffu, hr, o));
+                  lr = imin(lr, __shfl_xor_sync(0xffffffffu, lr, o));
+                }
+                if (w.g == 0 && c < cout) {  // the warp's own keys of its ball
+                  const int k0 = sk[w.wr * 32];  // the warp's first slot
+                  wmax[w.wr * kNC + c - c0] =
+                      ((u64)hv << 32) | (uint32_t)(255 - k0 - hr);
+                  wmin[w.wr * kNC + c - c0] = ((u64)lv << 32) | (uint32_t)(k0 + lr);
+                }
+              } else if (c < cout) {
+#pragma unroll
+                for (int s = 0; s < 4; ++s) {
+                  const int cl = center_of(s);
+                  if (cl < 0) continue;
+                  const float y = acc[s >> 1][j][2 * (s & 1) + q];
+                  const int e = (whole ? cl * kNC : 0) + kb, k = sk[row_of(s)];
+                  atomicMax(kmax + e, key_max(y, k));
+                  atomicMin(kmin + e, key_min(y, k));
+                }
+              }
+            }
+        };
+        if (K % 32 == 0 && one)
+          epilogue(std::true_type());
+        else
+          epilogue(std::false_type());
+        __syncthreads();
+        // the chunk's sums into the block's, row warps in order
+        if (own) {
+          float u1 = 0.f, u2 = 0.f;
+          for (int wr = 0; wr < NT; ++wr) {
+            u1 = __fadd_rn(u1, red[((size_t)wr * kNC + threadIdx.x) * 2]);
+            u2 = __fadd_rn(u2, red[((size_t)wr * kNC + threadIdx.x) * 2 + 1]);
+          }
+          mine[c0 + threadIdx.x] = __fadd_rn(s1, u1);
+          mine[cout + c0 + threadIdx.x] = __fadd_rn(s2, u2);
+        }
+        // the keys of each (center, column): the shared ones (rows of warps
+        // that hold several balls) and those of the warps holding one ball
+        for (int e = threadIdx.x; e < (whole ? TM * kNC : kNC);
+             e += kThreads) {
+          const int cl_ = whole ? e / kNC : 0, cc = e % kNC, c = c0 + cc;
+          const int ke = whole ? e : c;
+          if (c < cout) {
+            u64 hx = kmax[ke], lx = kmin[ke];
+            for (int wr = 0; wr < NT; ++wr)
+              if (wball[wr] == cl_) {
+                hx = hx > wmax[wr * kNC + cc] ? hx : wmax[wr * kNC + cc];
+                lx = lx < wmin[wr * kNC + cc] ? lx : wmin[wr * kNC + cc];
+              }
+            if (whole && cl_ < nc) {
+              const size_t o = (size_t)(cfirst + cl_) * cout + c;
+              a.ymax[o] = float_of((uint32_t)(hx >> 32));
+              a.amax[o] = (uint8_t)(255 - (uint32_t)hx);
+              a.ymin[o] = float_of((uint32_t)(lx >> 32));
+              a.amin[o] = (uint8_t)(uint32_t)lx;
+            }
+            kmax[ke] = whole ? 0ull : hx;
+            kmin[ke] = whole ? ~0ull : lx;
+          } else if (whole) {
+            kmax[ke] = 0ull;
+            kmin[ke] = ~0ull;
+          }
+        }
+      }
+    }
+    if (!whole) {  // one ball, every column
+      __syncthreads();
+      for (int c = threadIdx.x; c < cout; c += kThreads) {
+        const size_t o = (size_t)cfirst * cout + c;
+        a.ymax[o] = float_of((uint32_t)(kmax[c] >> 32));
+        a.amax[o] = (uint8_t)(255 - (uint32_t)kmax[c]);
+        a.ymin[o] = float_of((uint32_t)(kmin[c] >> 32));
+        a.amin[o] = (uint8_t)(uint32_t)kmin[c];
+        kmax[c] = 0ull;
+        kmin[c] = ~0ull;
+      }
+    }
   }
 }
 
@@ -1293,14 +1775,24 @@ cudaError_t reduce(const float* part, int G, long long E, float* out,
 
 enum Kind { kStats, kFwd, kBwdY2, kBwdGh, kBwdX };
 
-// Shared memory (bytes) of a pass at its tile: TM centers (stats, forward)
-// or RT rows (the backward's kernels).
+// Shared memory (bytes) of a pass at its tile of RT rows.
 size_t smem_bytes(int kind, int tile, int K, int W, int mid, int cout,
                   int ring = 2) {
-  if (kind == kStats) return (size_t)W * tile_ld(tile * K) * 4;
-  if (kind == kFwd) {
-    const size_t ld = tile_ld(tile * K);
-    return ((W + mid + kChunk) * ld + (size_t)kKC * 64) * 4;
+  if (kind == kStats) {
+    // kDepth tiles of the x slice and the coordinates, and of the y slice
+    // where there are two slices; after the last tile, three groups'
+    // partial sums
+    const int S = slice_of(W - 3);
+    const size_t f = (size_t)kDepth * tile *
+                     (S + 4 + (slices_of(W - 3) > 1 ? S : 0));
+    const size_t g = S == 32 ? StatsShape<32>::kStage : StatsShape<64>::kStage;
+    return (f > g ? f : g) * 4;
+  }
+  if (kind == kFwd) {  // 128-k ring stages where two blocks do not fit
+    const size_t b = fwd_layout(tile, K, W, mid, cout, ring, kKR).total * 4;
+    return ring && b > kSmemTwo
+               ? fwd_layout(tile, K, W, mid, cout, ring, 128).total * 4
+               : b;
   }
   const int W8 = round8(W), mid8 = round8(mid), cout8 = round8(cout);
   size_t f;
@@ -1314,13 +1806,25 @@ size_t smem_bytes(int kind, int tile, int K, int W, int mid, int cout,
   return (f + (size_t)ring * kStageFloats + kIdxInts + kSlack) * 4;
 }
 
-// The instance of a pass's kernel for its tile (RT = 32 NT rows for the
-// backward's).
-const void* kernel_of(int kind, int tile) {
+// The instance of a pass's kernel for its tile (RT = 32 NT rows), ring (the
+// forward's 0: resident weights) and shared memory (the forward's ring
+// instance for one block an SM where two do not fit).
+const void* kernel_of(int kind, int tile, int ring, size_t smem) {
   const int nt = tile / 32;
   switch (kind) {
-    case kStats: return (const void*)stats_kernel;
-    case kFwd: return (const void*)fwd_kernel;
+    case kStats: return (const void*)stats_kernel<64>;
+    case kFwd:
+      if (ring == 0)
+        return nt == 4 ? (const void*)fwd_kernel<4, true, 2>
+               : nt == 2 ? (const void*)fwd_kernel<2, true, 2>
+                         : (const void*)fwd_kernel<1, true, 2>;
+      if (smem > kSmemTwo)
+        return nt == 4 ? (const void*)fwd_kernel<4, false, 1>
+               : nt == 2 ? (const void*)fwd_kernel<2, false, 1>
+                         : (const void*)fwd_kernel<1, false, 1>;
+      return nt == 4 ? (const void*)fwd_kernel<4, false, 2>
+             : nt == 2 ? (const void*)fwd_kernel<2, false, 2>
+                       : (const void*)fwd_kernel<1, false, 2>;
     case kBwdY2:
       return nt == 4 ? (const void*)bwd_y2_kernel<4>
              : nt == 2 ? (const void*)bwd_y2_kernel<2>
@@ -1336,7 +1840,17 @@ const void* kernel_of(int kind, int tile) {
   }
 }
 
-// Launches the backward's kernel instance for RT = 32 NT rows.
+// Launches a pass's kernel instance for RT = 32 NT rows.
+template <int NT>
+void launch_fwd(int grid, size_t smem, cudaStream_t st, const Geo& g,
+                int nring, const FArgs& a) {
+  if (nring == 0)
+    fwd_kernel<NT, true, 2><<<grid, kThreads, smem, st>>>(g, nring, a);
+  else if (smem > kSmemTwo)
+    fwd_kernel<NT, false, 1><<<grid, kThreads, smem, st>>>(g, nring, a);
+  else
+    fwd_kernel<NT, false, 2><<<grid, kThreads, smem, st>>>(g, nring, a);
+}
 template <int NT>
 void launch_y2(int grid, size_t smem, cudaStream_t st, const Geo& g,
                int nring, const W2Args& a, float* dw2) {
@@ -1368,58 +1882,71 @@ Geo make_geo(const float* xyz, const int* qidx, const float* feats,
 extern "C" {
 
 // The tile and the grid (G blocks) a pass runs with at these shapes: kind 0
-// stats and 1 forward (tile: TM centers a block), 2 and 3 the two kernels
-// of bwd_w2, 4 bwd_x (tile: RT rows a block, 128, 64 or 32: force_rows
-// where it fits shared memory, else as below), and the backward's weight
-// ring stages. The caller sizes the workspace G * E floats from them. Returns
-// cudaError_t.
+// stats (tile: RT rows a block, or force_rows; ring: P, the parts the
+// rows are cut into, G = P times the output blocks), 1 forward (tile: RT
+// rows a block, whole balls), 2 and 3 the two kernels of bwd_w2, 4 bwd_x
+// (tile: RT rows a block); for 1-4 RT is 128, 64 or 32: force_rows where it
+// fits shared memory, else as below, and ring the weight ring's stages (the
+// forward's 0: both weights resident, where they fit beside two blocks an
+// SM, or beside one at force_rows). The caller sizes the workspaces from
+// them. Returns cudaError_t.
 int sa_trainbn_plan(int kind, int B, int M, int K, int C, int mid, int cout,
                     int force_rows, int* tile, int* grid, int* ring) {
   if (B <= 0 || M <= 0 || K <= 0 || K > 255 || C < 0 || mid <= 0 ||
       cout <= 0 || kind < kStats || kind > kBwdX)
     return cudaErrorInvalidValue;
-  const int W = C + 3;
-  if ((long long)B * M * K > 0x7fffffffLL) return cudaErrorInvalidValue;
-  int t = 0;
-  if (kind <= kFwd) {
-    t = 8;
-    while (t > 1 && (t * K > kMaxRows ||
-                     smem_bytes(kind, t, K, W, mid, cout) > kSmemLimit))
-      t /= 2;
-  } else if (force_rows != 0 && force_rows != 32 && force_rows != 64 &&
-             force_rows != 128) {
+  if (force_rows != 0 && force_rows != 32 && force_rows != 64 &&
+      force_rows != 128)
     return cudaErrorInvalidValue;
-  } else if (force_rows &&
-             smem_bytes(kind, force_rows, K, W, mid, cout) <= kSmemLimit) {
+  const int W = C + 3;
+  const long long n = (long long)B * M * K;
+  if (n > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const auto fits = [&](int rt, size_t cap) {
+    return smem_bytes(kind, rt, K, W, mid, cout) <= cap;
+  };
+  // the forward's weights resident: no ring, no barrier a weight stage
+  const auto fits_res = [&](int rt, size_t cap) {
+    return kind == kFwd && smem_bytes(kind, rt, K, W, mid, cout, 0) <= cap;
+  };
+  int t = 0;
+  bool res = false;
+  if (kind == kStats) {  // 128 rows where one slice, else 64: two blocks
+    t = force_rows ? force_rows : slices_of(C) == 1 ? 128 : 64;
+  } else if (force_rows && fits_res(force_rows, kSmemLimit)) {
     t = force_rows;
+    res = true;
+  } else if (!force_rows && fits_res(128, kSmemTwo)) {
+    t = 128;
+    res = true;
+  } else if (!force_rows && fits_res(64, kSmemTwo)) {
+    t = 64;
+    res = true;
+  } else if (force_rows && fits(force_rows, kSmemLimit)) {
+    t = force_rows;
+  } else if (fits(128, kSmemTwo)) {
+    // two blocks an SM hide each other's waits: 128 rows where two fit,
+    // else 64 where two fit, else the most rows one block takes
+    t = 128;
+  } else if (fits(64, kSmemTwo)) {
+    t = 64;
   } else {
-    // two blocks an SM hide each other's waits: 128 rows where two fit, else
-    // 64 where two fit (faster than one block of 128 at PointNeXt-S's third
-    // stage), else the most rows one block takes
-    const auto fits = [&](int rt, size_t cap) {
-      return smem_bytes(kind, rt, K, W, mid, cout) <= cap;
-    };
-    if (fits(128, kSmemLimit / 2)) {
-      t = 128;
-    } else if (fits(64, kSmemLimit / 2)) {
-      t = 64;
-    } else {
-      t = 128;
-      while (t > 32 && !fits(t, kSmemLimit)) t /= 2;
-    }
+    t = 128;
+    while (t > 32 && !fits(t, kSmemLimit)) t /= 2;
   }
   // the weight ring: as deep as fits beside two blocks an SM where two
   // fit, else beside one
-  int nr = 2;
-  if (kind > kFwd) {
-    const size_t cap = smem_bytes(kind, t, K, W, mid, cout, 2) <= kSmemLimit / 2
-                           ? kSmemLimit / 2 : kSmemLimit;
+  int nr = res ? 0 : 2;
+  if (kind != kStats && !res) {
+    const size_t cap = smem_bytes(kind, t, K, W, mid, cout, 2) <= kSmemTwo
+                           ? kSmemTwo : kSmemLimit;
     while (nr < kMaxRing && smem_bytes(kind, t, K, W, mid, cout, nr + 1) <= cap)
       ++nr;
   }
   const size_t smem = smem_bytes(kind, t, K, W, mid, cout, nr);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  const void* fn = kernel_of(kind, t);
+  const void* fn = kind == kStats && slice_of(C) == 32
+                       ? (const void*)stats_kernel<32>
+                       : kernel_of(kind, t, nr, smem);
   // the most any shape asks: a later plan for smaller tiles must not lower
   // what an earlier shape's launches need
   cudaError_t e = cudaFuncSetAttribute(
@@ -1432,25 +1959,35 @@ int sa_trainbn_plan(int kind, int B, int M, int K, int C, int mid, int cout,
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  const long long units = kind <= kFwd ? (long long)B * M
-                                       : (long long)B * M * K;
-  const long long tiles = (units + t - 1) / t;
-  long long gsz = (long long)imax(per_sm, 1) * sms;
-  if (gsz > tiles) gsz = tiles;
+  const long long slots = (long long)imax(per_sm, 1) * sms;
+  if (kind == kStats) {
+    const int ns = slices_of(C), pairs = ns * (ns + 1) / 2;
+    const long long tiles = (n + t - 1) / t;
+    long long P = (slots + pairs - 1) / pairs;
+    if (P > tiles) P = tiles;
+    *tile = t;
+    *grid = (int)(P * pairs);
+    *ring = (int)P;
+    return cudaSuccess;
+  }
+  const long long tiles =
+      kind == kFwd ? ((long long)B * M + (K <= t ? t / K : 1) - 1) /
+                         (K <= t ? t / K : 1)
+                   : (n + t - 1) / t;
   *tile = t;
-  *grid = (int)gsz;
+  *grid = (int)(slots < tiles ? slots : tiles);
   *ring = nr;
   return cudaSuccess;
 }
 
 // Pass 1. xyz (B,N,3), qidx (B,M) i32, feats (B,N,C) f32 contiguous ->
-// idx (B,M,K) i32 and out [W + W*W] = (Sv, Svv row-major); part is the
-// workspace of G * (W + W*W) floats.
+// idx (B,M,K) i32 and out [W + W*W] = (Sv, Svv row-major); RT, G, P from
+// sa_trainbn_plan; part is the workspace of G * 68 * 68 floats.
 int sa_trainbn_stats_launch(const float* xyz, const int* qidx,
                             const float* feats, int B, int N, int M, int C,
                             int K, float r2, float dp_scale, int relative,
-                            int TM, int G, int* idx, float* part, float* out,
-                            cudaStream_t stream) {
+                            int RT, int G, int P, int* idx, float* part,
+                            float* out, cudaStream_t stream) {
   const size_t ssel = (size_t)kWarps * K * sizeof(int);
   cudaError_t e = cudaFuncSetAttribute(
       select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ssel);
@@ -1462,71 +1999,90 @@ int sa_trainbn_stats_launch(const float* xyz, const int* qidx,
   if (e != cudaSuccess) return e;
   const Geo g = make_geo(xyz, qidx, feats, idx, B, N, M, C, K, dp_scale,
                          relative);
-  const long long tiles = (centers + TM - 1) / TM;
-  stats_kernel<<<G, kThreads, smem_bytes(kStats, TM, K, g.W, 1, 1), stream>>>(
-      g, TM, tiles, part);
+  const int vec = C % 4 == 0 && (reinterpret_cast<size_t>(feats) & 15) == 0;
+  const size_t smem = smem_bytes(kStats, RT, K, g.W, 1, 1);
+  if (slice_of(C) == 32)
+    stats_kernel<32><<<G, kThreads, smem, stream>>>(g, RT, P, vec, part);
+  else
+    stats_kernel<64><<<G, kThreads, smem, stream>>>(g, RT, P, vec, part);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return reduce(part, G, (long long)g.W + (long long)g.W * g.W, out, stream);
+  const long long E = (long long)g.W + (long long)g.W * g.W;
+  stats_reduce_kernel<<<(int)((E + kWarps - 1) / kWarps < 8192
+                                  ? (E + kWarps - 1) / kWarps : 8192),
+                        kThreads, 0, stream>>>(part, P, C, out);
+  return cudaGetLastError();
 }
 
 // Pass 2. w1 (W, mid), a1, nb1 (mid), w2 (mid, cout) f32 -> new_xyz
 // (B,M,3), fi (B,M,C), ymax, ymin (B,M,cout) f32, amax, amin (B,M,cout) u8,
-// mask (ceil(mid/32), B*M*K) u32, out [2 * cout] = (sum y2, sum y2^2);
-// part: G * 2 * cout floats.
+// mask (ceil(mid/32), B*M*K) u32, out [2 * cout] = (sum y2, sum y2^2); RT,
+// G, ring from sa_trainbn_plan; wt: the weight copies W1^T (mid * W8
+// floats) and W2^T (cout * mid8), written here and handed to bwd_w2; part:
+// G * 2 * cout floats.
 int sa_trainbn_fwd_launch(const float* xyz, const int* qidx,
                           const float* feats, const int* idx, int B, int N,
                           int M, int C, int K, float dp_scale, int relative,
                           const float* w1, const float* a1, const float* nb1,
-                          const float* w2, int mid, int cout, int TM, int G,
-                          float* new_xyz, float* fi, float* ymax, float* ymin,
-                          uint8_t* amax, uint8_t* amin, uint32_t* mask,
-                          float* part, float* out, cudaStream_t stream) {
+                          const float* w2, int mid, int cout, int RT, int G,
+                          int ring, float* wt, float* new_xyz, float* fi,
+                          float* ymax, float* ymin, uint8_t* amax,
+                          uint8_t* amin, uint32_t* mask, float* part,
+                          float* out, cudaStream_t stream) {
   const Geo g = make_geo(xyz, qidx, feats, idx, B, N, M, C, K, dp_scale,
                          relative);
-  const long long tiles = ((long long)B * M + TM - 1) / TM;
-  fwd_kernel<<<G, kThreads, smem_bytes(kFwd, TM, K, g.W, mid, cout),
-               stream>>>(g, TM, tiles, w1, a1, nb1, w2, mid, cout, new_xyz,
-                         fi, ymax, ymin, amax, amin, mask, part);
-  cudaError_t e = cudaGetLastError();
+  const int W8 = round8(g.W), mid8 = round8(mid);
+  FArgs a;
+  a.w1t = wt; a.w2t = wt + (size_t)mid * W8; a.a1 = a1; a.nb1 = nb1;
+  a.new_xyz = new_xyz; a.fi = fi; a.ymax = ymax; a.ymin = ymin;
+  a.amax = amax; a.amin = amin; a.mask = mask; a.part = part;
+  a.mid = mid; a.cout = cout;
+  cudaError_t e = weight_rows(w1, mid, g.W, 1, W8, wt, stream);
+  if (e != cudaSuccess) return e;
+  e = weight_rows(w2, cout, mid, 1, mid8, const_cast<float*>(a.w2t), stream);
+  if (e != cudaSuccess) return e;
+  const size_t smem = smem_bytes(kFwd, RT, K, g.W, mid, cout, ring);
+  if (RT == 128)
+    launch_fwd<4>(G, smem, stream, g, ring, a);
+  else if (RT == 64)
+    launch_fwd<2>(G, smem, stream, g, ring, a);
+  else
+    launch_fwd<1>(G, smem, stream, g, ring, a);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return reduce(part, G, 2LL * cout, out, stream);
 }
 
-// Pass 3, two kernels, after three weight_rows_kernel launches. w1 (W,
-// mid) and w2 (mid, cout) f32; a1, nb1, mu1, r1 (mid) and a2, p2, q2c (cout)
-// per-channel rows; mask (ceil(mid/32), B*M*K) u32 the forward's ReLU; slot
-// (B,M,cout) u8 the winning slot, gout (B,M,cout) the pooled cotangent.
-// wsplit: the weight copies' scratch, mid * W8 + cout * mid8 + mid * cout8
-// floats (X8 = round8(X)). Writes y1 and gy1 = g_y1' ((B*M*K, mid8)
-// each), gy2 (B*M*K, cout8) scratch, dw2 [mid * cout] (16-byte aligned;
-// zeroed here) and sums [2 * mid] = (sum g_y1', sum g_y1' xhat1) through
-// the workspace part (grid_b * 2 * mid).
+// Pass 3, two kernels, after a weight_rows_kernel launch. w2 (mid, cout)
+// f32; a1, nb1, mu1, r1 (mid) and a2, p2, q2c (cout) per-channel rows; mask
+// (ceil(mid/32), B*M*K) u32 the forward's ReLU; slot (B,M,cout) u8 the
+// winning slot, gout (B,M,cout) the pooled cotangent. wt: the forward's
+// weight copies W1^T, W2^T (mid * W8 + cout * mid8 floats, X8 = round8(X));
+// w2p: mid * cout8 floats, W2's copy, made here. Writes y1 and gy1 = g_y1'
+// ((B*M*K, mid8) each), gy2 (B*M*K, cout8) scratch, dw2 [mid * cout]
+// (16-byte aligned; zeroed here) and sums [2 * mid] = (sum g_y1', sum g_y1'
+// xhat1) through the workspace part (grid_b * 2 * mid).
 int sa_trainbn_bwd_w2_launch(
     const float* xyz, const int* qidx, const float* feats, const int* idx,
     int B, int N, int M, int C, int K, float dp_scale, int relative,
-    const float* w1, const float* w2, const float* a1, const float* nb1,
-    const uint32_t* mask, const float* a2, const float* p2, const float* q2c,
-    const uint8_t* slot, const float* gout, const float* mu1,
-    const float* r1, int mid, int cout, int rt_a, int grid_a, int rt_b,
-    int grid_b, int ring_a, int ring_b, float* wsplit, float* y1,
-    float* gy2, float* gy1, float* dw2_part, float* dw2, float* part,
-    float* sums, cudaStream_t stream) {
+    const float* w2, const float* a1, const float* nb1, const uint32_t* mask,
+    const float* a2, const float* p2, const float* q2c, const uint8_t* slot,
+    const float* gout, const float* mu1, const float* r1, int mid, int cout,
+    int rt_a, int grid_a, int rt_b, int grid_b, int ring_a, int ring_b,
+    const float* wt, float* w2p, float* y1, float* gy2, float* gy1,
+    float* dw2_part, float* dw2, float* part, float* sums,
+    cudaStream_t stream) {
   const Geo g = make_geo(xyz, qidx, feats, idx, B, N, M, C, K, dp_scale,
                          relative);
-  const int W8 = round8(g.W), mid8 = round8(mid), cout8 = round8(cout);
+  const int W8 = round8(g.W), cout8 = round8(cout);
   W2Args a;
-  a.w1t = wsplit;
-  a.w2t = a.w1t + (size_t)mid * W8;
-  a.w2p = a.w2t + (size_t)cout * mid8;
+  a.w1t = wt;
+  a.w2t = wt + (size_t)mid * W8;
+  a.w2p = w2p;
   a.a1 = a1; a.nb1 = nb1; a.mask = mask; a.a2 = a2; a.p2 = p2; a.q2c = q2c;
   a.slot = slot; a.gout = gout; a.mu1 = mu1; a.r1 = r1; a.y1 = y1;
   a.gy2 = gy2; a.gy1 = gy1; a.mid = mid; a.cout = cout;
-  cudaError_t e = weight_rows(w1, mid, g.W, 1, W8, wsplit, stream);
-  if (e != cudaSuccess) return e;
-  e = weight_rows(w2, cout, mid, 1, mid8, const_cast<float*>(a.w2t), stream);
-  if (e != cudaSuccess) return e;
-  e = weight_rows(w2, mid, cout, 0, cout8, const_cast<float*>(a.w2p), stream);
+  cudaError_t e = weight_rows(w2, mid, cout, 0, cout8, w2p, stream);
   if (e != cudaSuccess) return e;
   e = cudaMemsetAsync(dw2_part, 0,
                       (size_t)kCopies * mid * cout * sizeof(float), stream);

@@ -34,17 +34,24 @@ for CUDA tensors, the plain passes for CPU tensors. :func:`sa_trainbn_plain`
 is the stage written out and differentiated by autograd, the reference the
 passes are held to.
 
-Bound on the H100: operations. The backward passes' products run on the
-tensor cores as 3xTF32 (each f32 operand split into a TF32 high part and
-a TF32 remainder, three products into f32 accumulators: f32-grade, as the
-TPU kernel's f32 MXU products); :func:`tf32x3_mm` is that numerics in
-PyTorch, and the backward's plain passes take their products through
-``_mm`` so that a test can swap it in. At PointNeXt-S's four B=32 stages
-pass 3 does 113.1 GFLOP and pass 4 33.0, so 3 x flops at the dense TF32
-rate (495 TFLOP/s) bounds them at 0.686 and 0.200 ms. Because the
-backward computes y1 in another order than the forward, it takes the
-ReLU's mask from the forward's bits rather than from its own y1. See the
-source's note for the tiling.
+Bound on the H100: operations. The forward's and the backward's products
+run on the tensor cores as 3xTF32 (each f32 operand split into a TF32 high
+part and a TF32 remainder, three products into f32 accumulators: f32-grade,
+as the TPU kernel's f32 MXU products); :func:`tf32x3_mm` is that numerics
+in PyTorch, and the plain passes take their products through
+``_mm_stats`` (pass 1), ``_mm_fwd`` (pass 2) and ``_mm`` (passes 3, 4) so
+that a test can swap it in. The statistics' Svv takes f32 FMAs on the CUDA
+cores: BN1's variance E[y^2] - E[y]^2 cancels, and 3xTF32 sums there fail
+the stage's bounds at |mean| / std = 10 and 100
+(``tests/test_torch_satrainbn_fwd.py``). At PointNeXt-S's
+four B=32 stages pass 2 does 48.7 GFLOP, pass 3 113.1 and pass 4 33.0, so 3
+x flops at the dense TF32 rate (495 TFLOP/s) bounds them at 0.295, 0.686
+and 0.200 ms; pass 1's 8.6 GFLOP at the f32 rate (67 TFLOP/s) at 0.128.
+Because the backward computes y1 in another order than the forward, it
+takes the ReLU's mask from the forward's bits rather than from its own y1.
+:func:`fwd_cuda` also returns the padded weight copies W1^T and W2^T
+that :func:`bwd_w2_cuda` reads (``SaTrainBN`` saves them with the mask).
+See the source's note for the tiling.
 """
 from __future__ import annotations
 
@@ -126,6 +133,17 @@ def _mm(a, b):
     return torch.matmul(a, b)
 
 
+def _mm_fwd(a, b):
+    """The forward's products (``tf32x3_mm`` emulates the kernel's)."""
+    return torch.matmul(a, b)
+
+
+def _mm_stats(a, b):
+    """The statistics' products: f32 FMAs in the kernel, as here; a test
+    swaps in ``tf32x3_mm`` to show why they are not 3xTF32."""
+    return torch.matmul(a, b)
+
+
 def _tf32(x):
     """``x`` rounded to TF32 (10 mantissa bits), to nearest with ties away
     from zero, in f32: the kernels' split ``tf32_bits``."""
@@ -177,16 +195,16 @@ def stats_plain(radius, nsample, xyz, query_idx, feats, relative=True,
     idx = ball_query(radius, nsample, xyz, index_points(xyz, query_idx))
     v = _rows(radius, xyz, query_idx, feats, idx, relative, normalize_dp)
     v = v.reshape(-1, v.shape[-1])
-    return idx, v.sum(dim=0), v.t() @ v
+    return idx, v.sum(dim=0), _mm_stats(v.t(), v)
 
 
 def _through_y2(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2,
                 relative, normalize_dp):
     v = _rows(radius, xyz, query_idx, feats, idx, relative, normalize_dp)
-    y1 = torch.matmul(v, w1)
+    y1 = _mm_fwd(v, w1)
     y1p = y1 * a1 + nb1
     h = torch.relu(y1p)
-    return v, y1, y1p, h, torch.matmul(h, w2)
+    return v, y1, y1p, h, _mm_fwd(h, w2)
 
 
 def fwd_plain(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2,
@@ -308,14 +326,14 @@ def _lib():
     lib.sa_trainbn_plan.argtypes = [i, i, i, i, i, i, i, i, p, p, p]
     lib.sa_trainbn_plan.restype = ctypes.c_int
     lib.sa_trainbn_stats_launch.argtypes = [p, p, p, i, i, i, i, i, f, f, i,
-                                            i, i, p, p, p, p]
+                                            i, i, i, p, p, p, p]
     lib.sa_trainbn_stats_launch.restype = ctypes.c_int
     lib.sa_trainbn_fwd_launch.argtypes = ([p, p, p, p, i, i, i, i, i, f, i,
-                                           p, p, p, p, i, i, i, i]
-                                          + [p] * 10)
+                                           p, p, p, p, i, i, i, i, i]
+                                          + [p] * 11)
     lib.sa_trainbn_fwd_launch.restype = ctypes.c_int
     lib.sa_trainbn_bwd_w2_launch.argtypes = (
-        [p, p, p, p, i, i, i, i, i, f, i] + [p] * 12 + [i] * 8 + [p] * 9)
+        [p, p, p, p, i, i, i, i, i, f, i] + [p] * 11 + [i] * 8 + [p] * 10)
     lib.sa_trainbn_bwd_w2_launch.restype = ctypes.c_int
     lib.sa_trainbn_bwd_x_launch.argtypes = (
         [p, p, p, p, i, i, i, i, i, f, i] + [p] * 6 + [i, p, p, i, i, i]
@@ -329,16 +347,17 @@ def _lib():
 COPIES = 8
 # the launch kinds of ``sa_trainbn_plan``
 STATS, FWD, BWD_Y2, BWD_GH, BWD_X = range(5)
-# the backward's rows a block, forced where they fit (``scripts/
-# torch_trainbn_timing.py --designs``); 0: the plan's choice
-DESIGN = {"rows": 0}
+# rows a block, forced where they fit (``scripts/torch_trainbn_timing.py
+# --designs``): "stats" for pass 1, "fwd" for pass 2, "rows" for the
+# backward's; 0: the plan's choice
+DESIGN = {"rows": 0, "fwd": 0, "stats": 0}
 
 
 @functools.lru_cache(maxsize=64)
 def _plan(kind: int, B: int, M: int, K: int, C: int, mid: int, cout: int,
           force_rows: int = 0):
-    """``(tile, G, ring)``: centers (stats, forward) or rows (backward) a
-    block, blocks a grid and the backward's weight ring stages (see
+    """``(tile, G, ring)``: rows a block, blocks a grid and the weight ring's
+    stages (for pass 1 the parts its rows are cut into; see
     ``sa_trainbn_plan``)."""
     lib = _lib()
     tile, grid, ring = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -366,6 +385,12 @@ def _f32_rows(dev, *named):
 
 def _round8(x: int) -> int:
     return (x + 7) // 8 * 8
+
+
+def _wt_floats(W: int, mid: int, cout: int) -> int:
+    """Floats of the forward's weight copies W1^T (mid rows of round8(W))
+    and W2^T (cout rows of round8(mid))."""
+    return mid * _round8(W) + cout * _round8(mid)
 
 
 def _padded(t, cols):
@@ -416,15 +441,15 @@ def stats_cuda(radius, nsample, xyz, query_idx, feats, relative=True,
     M, C, K = query_idx.shape[1], feats.shape[2], int(nsample)
     W = C + 3
     dev = xyz.device
-    tm, grid, _ = _plan(STATS, B, M, K, C, 1, 1)
+    rt, grid, parts = _plan(STATS, B, M, K, C, 1, 1, DESIGN["stats"])
     idx = torch.empty((B, M, K), dtype=torch.int32, device=dev)
-    part = torch.empty((grid, W + W * W), dtype=torch.float32, device=dev)
+    part = torch.empty((grid, 68, 68), dtype=torch.float32, device=dev)
     out = torch.empty((W + W * W,), dtype=torch.float32, device=dev)
     lib = _lib()
     err = lib.sa_trainbn_stats_launch(
         xyz.data_ptr(), query_idx.data_ptr(), feats.data_ptr(), B, N, M, C,
         K, radius_sq(radius), _dp_scale(radius, relative, normalize_dp),
-        int(bool(relative)), tm, grid, idx.data_ptr(), part.data_ptr(),
+        int(bool(relative)), rt, grid, parts, idx.data_ptr(), part.data_ptr(),
         out.data_ptr(), _stream(dev))
     _build.check(lib, err, "sa_trainbn_stats")
     LAUNCHES_STATS += 1
@@ -433,7 +458,10 @@ def stats_cuda(radius, nsample, xyz, query_idx, feats, relative=True,
 
 def fwd_cuda(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2,
              relative=True, normalize_dp=False):
-    """Pass 2 on CUDA tensors; same outputs as :func:`fwd_plain`."""
+    """Pass 2 on CUDA tensors: :func:`fwd_plain`'s outputs, then ``wt``, the
+    padded weight copies W1^T (mid rows of round8(W) floats) and W2^T (cout
+    rows of round8(mid)) in one f32 tensor, which :func:`bwd_w2_cuda`
+    reads."""
     global LAUNCHES_FWD
     _check_inputs(xyz, query_idx, feats)
     B, N, _ = xyz.shape
@@ -446,7 +474,7 @@ def fwd_cuda(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2,
     if w1.shape != (C + 3, mid):
         raise ValueError(f"w1 {tuple(w1.shape)} does not chain with C={C} "
                          f"and w2 {tuple(w2.shape)}")
-    tm, grid, _ = _plan(FWD, B, M, K, C, mid, cout)
+    rt, grid, ring = _plan(FWD, B, M, K, C, mid, cout, DESIGN["fwd"])
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -456,6 +484,7 @@ def fwd_cuda(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2,
     amax = empty(B, M, cout, dtype=torch.uint8)
     amin = empty(B, M, cout, dtype=torch.uint8)
     mask = empty((mid + 31) // 32, B, M, K, dtype=torch.int32)
+    wt = empty(_wt_floats(C + 3, mid, cout))
     part, out = empty(grid, 2 * cout), empty(2 * cout)
     lib = _lib()
     err = lib.sa_trainbn_fwd_launch(
@@ -463,13 +492,14 @@ def fwd_cuda(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2,
         idx.data_ptr(), B, N, M, C, K,
         _dp_scale(radius, relative, normalize_dp), int(bool(relative)),
         w1.data_ptr(), a1.data_ptr(), nb1.data_ptr(), w2.data_ptr(), mid,
-        cout, tm, grid, new_xyz.data_ptr(), fi.data_ptr(), ymax.data_ptr(),
+        cout, rt, grid, ring, wt.data_ptr(), new_xyz.data_ptr(),
+        fi.data_ptr(), ymax.data_ptr(),
         ymin.data_ptr(), amax.data_ptr(), amin.data_ptr(), mask.data_ptr(),
         part.data_ptr(), out.data_ptr(), _stream(dev))
     _build.check(lib, err, "sa_trainbn_fwd")
     LAUNCHES_FWD += 1
     return (new_xyz, fi, ymax, ymin, amax, amin, out[:cout], out[cout:],
-            mask)
+            mask, wt)
 
 
 def _geometry(xyz, query_idx, feats, idx):
@@ -481,10 +511,12 @@ def _geometry(xyz, query_idx, feats, idx):
 
 
 def bwd_w2_cuda(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2, mu1,
-                r1, a2, p2, q2c, slot, g_out, mask, relative=True,
+                r1, a2, p2, q2c, slot, g_out, mask, wt, relative=True,
                 normalize_dp=False):
     """Pass 3 on CUDA tensors; same outputs as :func:`bwd_w2_plain`
-    (``g_y1p`` and ``y1`` views of (B*M*K, round8(mid)) buffers)."""
+    (``g_y1p`` and ``y1`` views of (B*M*K, round8(mid)) buffers). ``wt`` is
+    the weight copies that :func:`fwd_cuda` returned for the same w1 and w2,
+    which it reads in their place."""
     global LAUNCHES_BWD_W2
     B, N, M, C, K, dev = _geometry(xyz, query_idx, feats, idx)
     W = C + 3
@@ -499,9 +531,16 @@ def bwd_w2_cuda(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2, mu1,
             or slot.device != dev):
         raise ValueError(f"slot must be (B, M, cout) uint8 on {dev}")
     _check_mask(mask, B, M, K, mid, dev)
+    if (wt.device != dev or wt.dtype != torch.float32
+            or tuple(wt.shape) != (_wt_floats(W, mid, cout),)
+            or not wt.is_contiguous()):
+        raise ValueError(f"wt must be the forward's weight copies, a "
+                         f"contiguous ({_wt_floats(W, mid, cout)},) f32 "
+                         f"tensor on {dev}, got {tuple(wt.shape)} "
+                         f"{wt.dtype} on {wt.device}")
     slot = slot.contiguous()
     g_out = _cotangent(g_out, (B, M, cout), "g_out", dev)
-    W8, mid8, cout8, n = _round8(W), _round8(mid), _round8(cout), B * M * K
+    mid8, cout8, n = _round8(mid), _round8(cout), B * M * K
     rt_a, grid_a, ring_a = _plan(BWD_Y2, B, M, K, C, mid, cout,
                                  DESIGN["rows"])
     rt_b, grid_b, ring_b = _plan(BWD_GH, B, M, K, C, mid, cout,
@@ -510,7 +549,7 @@ def bwd_w2_cuda(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2, mu1,
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    wsplit = empty(mid * W8 + cout * mid8 + mid * cout8)
+    w2p = empty(mid * cout8)
     y1, gy1, gy2 = empty(n, mid8), empty(n, mid8), empty(n, cout8)
     dw2_part, dw2 = empty(COPIES, mid, cout), empty(mid, cout)
     part, sums = empty(grid_b, 2 * mid), empty(2 * mid)
@@ -519,11 +558,10 @@ def bwd_w2_cuda(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2, mu1,
         xyz.data_ptr(), query_idx.data_ptr(), feats.data_ptr(),
         idx.data_ptr(), B, N, M, C, K,
         _dp_scale(radius, relative, normalize_dp), int(bool(relative)),
-        w1.data_ptr(), w2.data_ptr(), a1.data_ptr(), nb1.data_ptr(),
-        mask.data_ptr(), a2.data_ptr(), p2.data_ptr(), q2c.data_ptr(),
-        slot.data_ptr(), g_out.data_ptr(), mu1.data_ptr(), r1.data_ptr(),
-        mid, cout, rt_a, grid_a, rt_b, grid_b, ring_a, ring_b,
-        wsplit.data_ptr(),
+        w2.data_ptr(), a1.data_ptr(), nb1.data_ptr(), mask.data_ptr(),
+        a2.data_ptr(), p2.data_ptr(), q2c.data_ptr(), slot.data_ptr(),
+        g_out.data_ptr(), mu1.data_ptr(), r1.data_ptr(), mid, cout, rt_a,
+        grid_a, rt_b, grid_b, ring_a, ring_b, wt.data_ptr(), w2p.data_ptr(),
         y1.data_ptr(), gy2.data_ptr(), gy1.data_ptr(), dw2_part.data_ptr(),
         dw2.data_ptr(), part.data_ptr(), sums.data_ptr(), _stream(dev))
     _build.check(lib, err, "sa_trainbn_bwd_w2")
@@ -585,14 +623,16 @@ class SaTrainBN(torch.autograd.Function):
     def forward(ctx, xyz, query_idx, feats, w1, gamma1, beta1, w2, gamma2,
                 beta2, radius, nsample, relative, normalize_dp, eps,
                 use_kernels):
-        stats, fwd = ((stats_cuda, fwd_cuda) if use_kernels
-                      else (stats_plain, fwd_plain))
         B, M = query_idx.shape
         n = B * M * int(nsample)
+        stats, fwd = ((stats_cuda, fwd_cuda) if use_kernels
+                      else (stats_plain, fwd_plain))
         idx, sv, svv = stats(radius, nsample, xyz, query_idx, feats,
                              relative, normalize_dp)
         mu1, var1, r1, a1, nb1 = _bn1(sv, svv, w1, gamma1, beta1, n, eps)
-        new_xyz, fi, ymax, ymin, amax, amin, s2, q2, mask = fwd(
+        # the kernels' forward also returns its weight copies, which pass 3
+        # reads
+        new_xyz, fi, ymax, ymin, amax, amin, s2, q2, mask, *wt = fwd(
             radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2, relative,
             normalize_dp)
         mu2, var2, r2, a2, c2 = _bn2(s2, q2, gamma2, beta2, n, eps)
@@ -602,7 +642,7 @@ class SaTrainBN(torch.autograd.Function):
         out = a2 * ystar + c2
         ctx.save_for_backward(xyz, query_idx, feats, w1, gamma1, w2, idx,
                               mu1, r1, a1, nb1, mu2, r2, a2, ystar, slot,
-                              mask)
+                              mask, *wt)
         ctx.args = (radius, relative, normalize_dp, use_kernels, n)
         ctx.mark_non_differentiable(mu1, var1, mu2, var2)
         if not ctx.needs_input_grad[0]:
@@ -613,7 +653,7 @@ class SaTrainBN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_new, g_fi, g_out, *_g_stats):
         (xyz, query_idx, feats, w1, gamma1, w2, idx, mu1, r1, a1, nb1, mu2,
-         r2, a2, ystar, slot, mask) = ctx.saved_tensors
+         r2, a2, ystar, slot, mask, *wt) = ctx.saved_tensors
         radius, relative, normalize_dp, use_kernels, n = ctx.args
         bwd_w2, bwd_x = ((bwd_w2_cuda, bwd_x_cuda) if use_kernels
                          else (bwd_w2_plain, bwd_x_plain))
@@ -628,7 +668,7 @@ class SaTrainBN(torch.autograd.Function):
         # pass 3 hands y1 and g_y1' to pass 4, which frees them on return
         dw2, sg1, sgx1, g_y1p, y1 = bwd_w2(
             radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2, mu1, r1,
-            a2, p2, q2c, slot, g_out, mask, relative, normalize_dp)
+            a2, p2, q2c, slot, g_out, mask, *wt, relative, normalize_dp)
         p1, q1c = _bwd_consts(sg1 / n, sgx1 / n, a1, mu1, r1)
         need = ctx.needs_input_grad
         g_xyz = g_feats = dw1 = None

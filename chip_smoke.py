@@ -65,7 +65,9 @@ Phases, one JSON object a line:
    unfused step from the same weights, batch and draws, the launches a step
    makes (FPS 2, row gather 1, each of the four train-BN passes 4, no ball
    group), eight more steps, each pass against its plain version at the four
-   stages the step handed it (its own FPS picks), the unfused stage's
+   stages the step handed it (its own FPS picks) and at TRAINBN_EDGES (every
+   forced tile too), rows 16 and 17 launched twice for the same bits, the
+   device ops of each pass's call (TRAINBN_OPS), the unfused stage's
    composite time, and ms per step on both routes in turns.
 8. ``cli``: ``python -m adaptpoint_tpu_torch.main --cfg
    cfgs/scanobjectnn/pointnext-s.yaml`` in a child process on SyntheticCls
@@ -90,7 +92,10 @@ Phases, one JSON object a line:
    and without the feedback term), its clouds and metrics against the f32
    step's, ten more steps, the launches a step makes (the weighted gather
    4 + 4, and four row gathers and four scatter-adds fewer than in f32),
-   the epoch loop, and ms per step beside the f32 step's.
+   the step run twice from the same state, draws and batches for ten steps
+   (where the two runs first part, and the first kernel call whose outputs
+   part on equal inputs; reported, not held), the epoch loop, and ms per
+   step beside the f32 step's.
 11. ``window``: the windowed max-pooled ball group (``ops.ball_group_max_
    windowed``, rows 20, 21), which no model calls, as
    ``scripts/check_window.py`` drives its JAX twin: B=32, K=24, the
@@ -3124,6 +3129,153 @@ def adapt_setup(gen):
             "hardratio": float(cfg.adaptpoint_params.hardratio)}
 
 
+def tensor_fingerprints(obj) -> list:
+    """Every tensor in ``obj`` (nested tuples, lists, dicts) as two sums over
+    its bits on the card, plain and weighted by position (int64, wrapping),
+    which any changed bit moves; with its shape."""
+    import torch
+    if torch.is_tensor(obj):
+        x = obj.detach().contiguous().reshape(-1)
+        if x.numel() == 0:
+            return []
+        v = x.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                    8: torch.int64}[x.element_size()]).to(torch.int64)
+        pos = torch.arange(1, v.numel() + 1, device=v.device)
+        return [(tuple(obj.shape), torch.stack([v.sum(), (v * pos).sum()]))]
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (list, tuple)):
+        return [f for o in obj for f in tensor_fingerprints(o)]
+    return []
+
+
+@contextlib.contextmanager
+def kernel_fingerprints(log: list):
+    """Inside, every hand-written kernel's wrapper (each ``*_cuda`` function
+    of the modules of ``ops.KERNEL_MODULES``) appends ``(name, fingerprints
+    of its tensor inputs, of its tensor outputs)`` to ``log``
+    (``tensor_fingerprints``). Nothing of the port does this."""
+    from adaptpoint_tpu_torch import ops
+    saved = []
+    for mod in {m for m, _ in ops.KERNEL_MODULES.values()}:
+        for name in dir(mod):
+            fn = getattr(mod, name)
+            if not (name.endswith("_cuda") and callable(fn)):
+                continue
+
+            def wrapped(*args, _fn=fn, _name=mod.__name__.split(".")[-1]
+                        + "." + name, **kw):
+                ins = tensor_fingerprints((args, kw))
+                out = _fn(*args, **kw)
+                log.append((_name, ins, tensor_fingerprints(out)))
+                return out
+
+            saved.append((mod, name, fn))
+            setattr(mod, name, wrapped)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+# the wrappers of the scatters that add with atomics, kept on purpose
+# (ROADMAP "Kept on purpose"): rows 4, 6, 8, 18 and 19
+KEPT_ATOMIC_SCATTERS = {"ballgroup.ball_group_bwd_cuda",
+                        "saeval.sa_train_bwd_cuda",
+                        "ballgroup_max.ball_group_max_bwd_cuda",
+                        "satrainbn.bwd_w2_cuda", "satrainbn.bwd_x_cuda"}
+
+
+def gan_run_to_run(fresh, cfg, dev_batches, hardratio, steps: int = 10):
+    """ROADMAP C.5: phase A's step run twice from the same weights, optimizer
+    state, draws (a device generator of one seed) and batches for ``steps``
+    steps. After each step the losses, then G's, then D's parameters are
+    compared bit for bit; where the runs first part: the step, the tensor
+    and how far (max |a - b|, and over max |b|), and how far apart every
+    tensor is after the last step. The first step of both runs also logs
+    each kernel wrapper's inputs and outputs (``kernel_fingerprints``): the
+    first call whose outputs part while its inputs agree names that kernel;
+    inputs that part first name the PyTorch code since the call before."""
+    import torch
+    from adaptpoint_tpu_torch.engine import make_gan_step
+
+    runs = []
+    for _ in range(2):
+        st, cls_model = fresh(DEV)
+        step = make_gan_step(st.generator, st.discriminator, st.g_opt,
+                             st.d_opt, cls_model, cfg)
+        dev_gen = torch.Generator(device=DEV).manual_seed(11)
+        log, trace = [], []
+        for i in range(steps):
+            with (kernel_fingerprints(log) if i == 0
+                  else contextlib.nullcontext()):
+                st, _, metrics = step(st, dev_batches[i % len(dev_batches)],
+                                      dev_gen, hardratio)
+            snap = {"loss." + k: v.detach().clone()
+                    for k, v in metrics.items()}
+            for t, net in (("G", st.generator), ("D", st.discriminator)):
+                snap.update({f"{t}.{n}": p.detach().clone()
+                             for n, p in net.named_parameters()})
+            trace.append(snap)
+        log = [(name, [(sh, f.cpu()) for sh, f in ins],
+                [(sh, f.cpu()) for sh, f in outs]) for name, ins, outs in log]
+        runs.append((log, trace))
+        del st, cls_model, step
+        torch.cuda.empty_cache()
+    (log_a, trace_a), (log_b, trace_b) = runs
+
+    def apart(a, b):
+        d = float((a.double() - b.double()).abs().max())
+        return d, d / max(float(b.double().abs().max()), 1e-30)
+
+    parted = None
+    for i, (a, b) in enumerate(zip(trace_a, trace_b)):
+        for k in a:  # the losses, then G's, then D's parameters
+            if not torch.equal(a[k], b[k]):
+                d, rel = apart(a[k], b[k])
+                parted = {"step": i + 1, "tensor": k, "max_abs": d,
+                          "relative": rel}
+                break
+        if parted:
+            break
+    final = {k: apart(a, trace_b[-1][k]) for k, a in trace_a[-1].items()}
+    worst = max(final.items(), key=lambda kv: kv[1][1])
+
+    def same(x, y):
+        return len(x) == len(y) and all(
+            sa == sb and torch.equal(fa, fb) for (sa, fa), (sb, fb)
+            in zip(x, y))
+
+    kernel = {"calls": [len(log_a), len(log_b)], "first": None}
+    for i, ((na, ia, oa), (nb, ib, ob)) in enumerate(zip(log_a, log_b)):
+        if na != nb:
+            kernel["first"] = {"call": i, "name": na, "other": nb,
+                               "finding": "the runs called other kernels"}
+        elif not same(ia, ib):
+            kernel["first"] = {
+                "call": i, "name": na,
+                "after": log_a[i - 1][0] if i else None,
+                "inputs_apart": [j for j, (x, y) in enumerate(zip(ia, ib))
+                                 if not torch.equal(x[1], y[1])],
+                "finding": "inputs part on equal earlier outputs: PyTorch "
+                           "code between the two calls"}
+        elif not same(oa, ob):
+            kernel["first"] = {
+                "call": i, "name": na,
+                "outputs_apart": [(j, list(x[0])) for j, (x, y) in
+                                  enumerate(zip(oa, ob))
+                                  if not torch.equal(x[1], y[1])],
+                "finding": "outputs part on equal inputs: this kernel"}
+        if kernel["first"]:
+            break
+    return {"steps": steps, "first_parting": parted,
+            "worst_after_last_step": [worst[0], *worst[1]],
+            "tensors_apart_after_last_step": sum(
+                1 for d, _ in final.values() if d > 0),
+            "of": len(final), "first_step_kernel_calls": kernel}
+
+
 def phase_adapt(gen, ctx, precision: str, f32_run=None):
     """Phase A of the AdaptPoint protocol at full width under
     ``gan_precision: precision``: the adversarial ``gan_step`` (augmentor,
@@ -3506,6 +3658,22 @@ def phase_adapt(gen, ctx, precision: str, f32_run=None):
     got_l = ops.launch_counts()
     if got_l != {k: 11 * v for k, v in want.items()}:
         raise AssertionError(f"launches over eleven steps {got_l}")
+    if bf16:
+        # (d) ROADMAP C.5: where two runs of the step part. The spread is
+        # reported, not held; the source is: where the runs part, the first
+        # kernel whose outputs part on equal inputs must be one of the atomic
+        # scatters kept on purpose. Its launches are not this path's.
+        reading = gan_run_to_run(fresh, cfg, dev_batches, hardratio)
+        emit(f"{tag}_run_to_run", **reading)
+        first = reading["first_step_kernel_calls"]["first"]
+        if reading["first_parting"] and not (
+                first and "outputs_apart" in first
+                and first["name"] in KEPT_ATOMIC_SCATTERS):
+            raise AssertionError(f"two runs of the bf16 gan_step part, and "
+                                 f"not first at a kept atomic scatter "
+                                 f"{sorted(KEPT_ATOMIC_SCATTERS)}: {first}")
+        for k, (mod, attr) in ops.KERNEL_MODULES.items():
+            setattr(mod, attr, got_l[k])
 
     # (f) the epoch loop; in f32 then phase B on phase A's output: three
     # classifier train steps on the returned fake dataset
@@ -3631,11 +3799,17 @@ def trainbn_passes(gen, S, xyz, qidx, feats, w1, g1, b1, w2, g2, b2, radius,
         errs[name] = d
         return d <= tol * max(scale, 1e-30)
 
+    def same_bits(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
     got = S.stats_cuda(radius, k, xyz, qidx, feats, rel, norm_dp)
     ref = S.stats_plain(radius, k, xyz, qidx, feats, rel, norm_dp)
     torch.cuda.synchronize()
-    e1 = {"idx": float((got[0] != ref[0]).sum())}
-    ok = e1["idx"] == 0
+    # rows 16 and 17 sum in a fixed order: a second launch, the same bits
+    e1 = {"idx": float((got[0] != ref[0]).sum()),
+          "same_bits_again": same_bits(got, S.stats_cuda(
+              radius, k, xyz, qidx, feats, rel, norm_dp))}
+    ok = e1["idx"] == 0 and e1["same_bits_again"]
     for name, a, b_ in (("sv", got[1], ref[1]), ("svv", got[2], ref[2])):
         ok = err(a, b_, TOL_TRAINBN["stats"], name, e1) and ok
     idx = got[0]
@@ -3643,12 +3817,20 @@ def trainbn_passes(gen, S, xyz, qidx, feats, w1, g1, b1, w2, g2, b2, radius,
     fargs = (radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, rel, norm_dp)
     got2 = S.fwd_cuda(*fargs)
     ref2 = S.fwd_plain(*fargs)
+    # the forward's weight copies, which pass 3 reads: W1^T and W2^T, their
+    # rows padded with zeros to multiples of 8
+    wt = got2[9]
+    copies = torch.cat([S._padded(w.float().t(), (w.shape[0] + 7) // 8 * 8)
+                        .reshape(-1) for w in (w1, w2)])
     y2 = S._through_y2(radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, rel,
                        norm_dp)[4]
     torch.cuda.synchronize()
     e2 = {"new_xyz": float((got2[0] - ref2[0]).abs().max()),
-          "fi": float((got2[1] - ref2[1]).abs().max()) if C else 0.0}
-    ok2 = e2["new_xyz"] == 0 and e2["fi"] == 0
+          "fi": float((got2[1] - ref2[1]).abs().max()) if C else 0.0,
+          "same_bits_again": same_bits(got2, S.fwd_cuda(*fargs)),
+          "weight_copies_exact": torch.equal(wt, copies)}
+    ok2 = (e2["new_xyz"] == 0 and e2["fi"] == 0 and e2["same_bits_again"]
+           and e2["weight_copies_exact"])
     for j, name in ((2, "ymax"), (3, "ymin"), (6, "s2"), (7, "q2")):
         ok2 = err(got2[j], ref2[j], TOL_TRAINBN["fwd"], name, e2) and ok2
     ties, flips = 0, 0
@@ -3681,11 +3863,12 @@ def trainbn_passes(gen, S, xyz, qidx, feats, w1, g1, b1, w2, g2, b2, radius,
     xhat2 = (ystar - mu2) * r2
     p2, q2c = S._bwd_consts(g_out.sum((0, 1)) / n,
                             (g_out * xhat2).sum((0, 1)) / n, a2, mu2, r2)
-    # pass 3, both on the forward kernel's mask
-    bargs = (radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, mu1, r1, a2, p2,
-             q2c, slot, g_out, mask, rel, norm_dp)
+    # pass 3, both on the forward kernel's mask, the kernel on its copies
+    pre = (radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, mu1, r1, a2, p2,
+           q2c, slot, g_out, mask)
+    bargs, pargs = pre + (wt, rel, norm_dp), pre + (rel, norm_dp)
     got3 = S.bwd_w2_cuda(*bargs)
-    ref3 = S.bwd_w2_plain(*bargs)
+    ref3 = S.bwd_w2_plain(*pargs)
     torch.cuda.synchronize()
     e3 = {}
     ok3 = True
@@ -3708,7 +3891,7 @@ def trainbn_passes(gen, S, xyz, qidx, feats, w1, g1, b1, w2, g2, b2, radius,
     ok4 = True
     for a, b_, name in zip(got4, ref4, ("g_xyz", "g_feats", "dw1")):
         ok4 = err(a, b_, TOL_TRAINBN["bwd_x"], name, e4) and ok4
-    inputs = {"fargs": fargs, "bargs": bargs, "xargs": xargs,
+    inputs = {"fargs": fargs, "bargs": bargs, "pargs": pargs, "xargs": xargs,
               "stats": (radius, k, xyz, qidx, feats, rel, norm_dp)}
     return (e1, e2, e3, e4), (ok, ok2, ok3, ok4), inputs
 
@@ -3717,8 +3900,10 @@ def trainbn_work(Bq, n_pts, M, C, mid, cout, k, mask_words=None):
     """The flops and the bytes each pass must move at a stage (inputs read
     once, outputs written once; the hand-over y1 and g_y1', n x mid f32
     each, written by pass 3 and read by pass 4; g_y2 inside pass 3 not
-    counted), and each pass's operation bound in seconds: 3 flops at the
-    dense TF32 rate, the least time for f32-grade products (3xTF32)."""
+    counted), and each pass's operation bound in seconds: for passes 2-4, 3
+    flops at the dense TF32 rate, the least time for f32-grade products
+    (3xTF32); for pass 1, whose sums must be f32 (tests/
+    test_torch_satrainbn_fwd.py), its flops at the f32 rate."""
     W, n = C + 3, Bq * M * k
     nw = (mid + 31) // 32
     rows = Bq * n_pts * (3 + C) * 4 + Bq * M * 4 + n * 4  # points, qidx, idx
@@ -3736,17 +3921,107 @@ def trainbn_work(Bq, n_pts, M, C, mid, cout, k, mask_words=None):
               "bwd_x": rows + (W * mid + 3 * mid) * 4 + 2 * n * mid * 4
               + Bq * M * (3 + C) * 4 + Bq * n_pts * (3 + C) * 4
               + W * mid * 4}
-    return flops, nbytes, {p: 3 * f / PEAK_TF32 for p, f in flops.items()}
+    return flops, nbytes, {p: (f / PEAK_F32 if p == "stats"
+                               else 3 * f / PEAK_TF32)
+                           for p, f in flops.items()}
+
+
+# what one call of each train-BN pass puts on the card, as SaTrainBN calls
+# them (pass 3 on the forward's weight copies): device ops by name part
+TRAINBN_OPS = {"stats": {"select_kernel": 1, "stats_kernel": 1,
+                         "stats_reduce_kernel": 1},
+               "fwd": {"weight_rows_kernel": 2, "fwd_kernel": 1,
+                       "reduce_kernel": 1},
+               "bwd_w2": {"weight_rows_kernel": 1, "emset": 1,
+                          "bwd_y2_kernel": 1, "reduce_kernel": 2,
+                          "bwd_gh_kernel": 1},
+               "bwd_x": {"weight_rows_kernel": 1, "emset": 3,
+                         "bwd_x_kernel": 1, "reduce_kernel": 1}}
+
+
+# profiles of each pass's call that ``trainbn_op_launches`` may take: the
+# profiler drops records now and then but never adds one (PERF.md, section 6)
+TRAINBN_OP_ATTEMPTS = 4
+
+
+def trainbn_op_launches(S, inp) -> dict:
+    """The device ops of one call of each train-BN pass on ``inp`` (from
+    ``trainbn_passes``), from the profiler, by name: each must be
+    TRAINBN_OPS's, nothing else. The call counted is the step after a
+    warm-up step of one profile. The profiler leaves some of a call's
+    device ops unrecorded, always the first ones of a profile that starts at
+    the call and now and then even after a warm-up step (PERF.md, section 6),
+    but it records no op that did not run. So every profile of a pass must
+    hold no op beyond TRAINBN_OPS's, and one of up to TRAINBN_OP_ATTEMPTS
+    must hold them all: a launch too many fails every profile, a launch
+    missing fails all of them. A profile of its own around the call alone
+    is reported beside it, not held."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    calls = {"stats": lambda: S.stats_cuda(*inp["stats"]),
+             "fwd": lambda: S.fwd_cuda(*inp["fargs"]),
+             "bwd_w2": lambda: S.bwd_w2_cuda(*inp["bargs"]),
+             "bwd_x": lambda: S.bwd_x_cuda(*inp["xargs"])}
+
+    def ops_of(fn, warm):
+        activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        if not warm:
+            with profile(activities=activities) as prof:
+                fn()
+                torch.cuda.synchronize()
+        else:
+            with profile(activities=activities,
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1)) as prof:
+                for _ in range(2):
+                    fn()
+                    torch.cuda.synchronize()
+                    prof.step()
+        return {e.key[:60]: e.count for e in device_kernels(prof)}
+
+    def parts(want, ops):
+        return {part: sum(v for k, v in ops.items() if part in k)
+                for part in want}
+
+    alone = {name: ops_of(fn, False) for name, fn in calls.items()}
+    found, profiles, bad = {}, {}, {}
+    for name, want in TRAINBN_OPS.items():
+        profiles[name] = []
+        for _ in range(TRAINBN_OP_ATTEMPTS):
+            ops = ops_of(calls[name], True)
+            profiles[name].append(ops)
+            got = parts(want, ops)
+            if any(got[p] > want[p] for p in want) \
+                    or sum(ops.values()) > sum(got.values()):
+                bad[name] = ops  # an op beyond TRAINBN_OPS's
+                break
+            if got == want:
+                found[name] = ops
+                break
+        else:
+            bad[name] = profiles[name]  # none held them all
+    emit("sa_trainbn_op_launches", found=found, expected=TRAINBN_OPS,
+         profiles_taken={n: len(v) for n, v in profiles.items()},
+         profiles_short={n: v[:-1] for n, v in profiles.items() if len(v) > 1},
+         profiled_alone=alone,
+         alone_differs=[n for n in calls if alone[n] != found.get(n)])
+    if bad:
+        raise AssertionError(f"train-BN passes' device ops {bad}")
+    return found
 
 
 def check_sa_trainbn(gen, captured):
     """The four train-BN passes (rows 16-19), each against its plain pass on
     the same inputs, at the stages ``captured`` from the fused train step
     (its own FPS picks, features and weights), with seeded cotangents.
-    Returns their rows, summed over the stages. The operation bound of every
-    pass is 3 flops / PEAK_TF32 (the f32-grade 3xTF32 rate, the least time
-    the card could take for f32-grade work); the f32 CUDA cores' figure,
-    flops / PEAK_F32, is reported beside it (``bound_ms_f32_cores``)."""
+    Returns their rows, summed over the stages. The operation bound of
+    passes 2-4 is 3 flops / PEAK_TF32 (the f32-grade 3xTF32 rate, the least
+    time the card could take for f32-grade work), of pass 1 flops /
+    PEAK_F32 (its f32 sums); the f32 CUDA cores' figure, flops / PEAK_F32,
+    is reported beside every pass (``bound_ms_f32_cores``). At the first
+    stage, the device ops of each pass's call are pinned
+    (``trainbn_op_launches``)."""
     import torch
     from adaptpoint_tpu_torch import ops
     from adaptpoint_tpu_torch.ops import satrainbn as S
@@ -3775,6 +4050,8 @@ def check_sa_trainbn(gen, captured):
         if not all(oks):
             raise AssertionError(f"train-BN kernels disagree at stage "
                                  f"{i + 1}: {errs}")
+        if i == 0:
+            trainbn_op_launches(S, inp)
         flops, nbytes, t_ops = trainbn_work(Bq, n_pts, M, C, mid, cout, K)
         fargs, bargs, xargs = inp["fargs"], inp["bargs"], inp["xargs"]
         calls = {"stats": (lambda: S.stats_cuda(*inp["stats"]),
@@ -3782,7 +4059,7 @@ def check_sa_trainbn(gen, captured):
                  "fwd": (lambda: S.fwd_cuda(*fargs),
                          lambda: S.fwd_plain(*fargs)),
                  "bwd_w2": (lambda: S.bwd_w2_cuda(*bargs),
-                            lambda: S.bwd_w2_plain(*bargs)),
+                            lambda: S.bwd_w2_plain(*inp["pargs"])),
                  "bwd_x": (lambda: S.bwd_x_cuda(*xargs),
                            lambda: S.bwd_x_plain(*xargs))}
         stage_row = {}
@@ -3797,8 +4074,9 @@ def check_sa_trainbn(gen, captured):
             r["bound_ms_f32_cores"] += 1e3 * max(flops[name] / PEAK_F32,
                                                  nbytes[name] / PEAK_BYTES)
             r["max_abs_err"] = max([r["max_abs_err"]] + [
-                v for k_, v in e.items() if not k_.startswith(("slots",
-                                                               "relu", "g_y1p_nonzero"))])
+                v for k_, v in e.items() if not k_.startswith((
+                    "slots", "relu", "g_y1p_nonzero", "same_bits",
+                    "weight_copies"))])
             stage_row[name] = {"ms": ms, "plain_ms": plain,
                                "gflop": flops[name] / 1e9,
                                "bound_ms": 1e3 * max(t_ops[name],
@@ -3839,10 +4117,13 @@ def check_sa_trainbn_edges(gen) -> None:
     that split a ball, K = 1 and 255, C = 0 and C % 4 != 0, mid and cout
     off multiples of 8 and 32, a stage that takes rows of 64 and 32, both dp
     modes, missing center cotangents) against their plain versions, as at
-    the captured stages; and rows 18 and 19 at every rows a block they offer
+    the captured stages; and every pass at every rows a block it offers
     (``satrainbn.DESIGN``: 128, 64, 32) at each edge against the plan's own
-    launch, within TOL_TRAINBN (the products' sums are the same, only the L2
-    reductions of dW1, dW2 and the scatter land in another order)."""
+    launch: rows 18 and 19 within TOL_TRAINBN (the products' sums are the
+    same, only the L2 reductions of dW1, dW2 and the scatter land in another
+    order), row 16's Sv, Svv and row 17's BN2 sums within TOL_TRAINBN (the
+    rows are cut into other tiles), row 16's indices and row 17's other
+    outputs bit for bit (each row's products are the same sums)."""
     import torch
     from adaptpoint_tpu_torch.ops import satrainbn as S
 
@@ -3872,10 +4153,32 @@ def check_sa_trainbn_edges(gen) -> None:
         if not all(oks):
             raise AssertionError(f"train-BN kernels disagree at edge "
                                  f"{(Bq, n_pts, M, C, mid, cout, k)}: {errs}")
+        base1 = S.stats_cuda(*inp["stats"])
+        base2 = S.fwd_cuda(*inp["fargs"])
         base3 = S.bwd_w2_cuda(*inp["bargs"])
         base4 = S.bwd_x_cuda(*inp["xargs"])
         worst = 0.0
         for rows_ in (128, 64, 32):
+            S.DESIGN["stats"] = S.DESIGN["fwd"] = rows_
+            try:
+                got = S.stats_cuda(*inp["stats"]) + S.fwd_cuda(*inp["fargs"])
+            finally:
+                S.DESIGN["stats"] = S.DESIGN["fwd"] = 0
+            for j, (a, b_) in enumerate(zip(got, base1 + base2)):
+                name = "stats" if j < 3 else "fwd"
+                if j in (1, 2, 9, 10):  # Sv, Svv, sum y2, sum y2^2
+                    d = float((a - b_).abs().max()) if a.numel() else 0.0
+                    scale = max(float(b_.abs().max()) if b_.numel() else 0.0,
+                                1e-30)
+                    worst = max(worst, d / scale)
+                    good = d <= TOL_TRAINBN[name] * scale
+                else:
+                    good = torch.equal(a, b_)
+                if not good:
+                    raise AssertionError(
+                        f"train-BN {name} at rows={rows_} disagrees with the "
+                        f"plan's launch at {(Bq, n_pts, M, C, mid, cout, k)}:"
+                        f" output {j}")
             S.DESIGN["rows"] = rows_
             try:
                 got = S.bwd_w2_cuda(*inp["bargs"]) + S.bwd_x_cuda(

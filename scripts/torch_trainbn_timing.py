@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""Time the fused train-BN stage's passes (kernel rows 16-19, above all the
-two backward passes, rows 18 and 19) of one or more checkouts of the
-PyTorch port on one NVIDIA GPU, in turns.
+"""Time the fused train-BN stage's four passes (kernel rows 16-19) of one or
+more checkouts of the PyTorch port on one NVIDIA GPU, in turns.
 
     python3 scripts/torch_trainbn_timing.py                # this checkout
     python3 scripts/torch_trainbn_timing.py --roots OLD . . OLD [--designs]
@@ -22,11 +21,14 @@ For each pass at each stage: the device time of a call alone
 op's launches and ms a call by name, from the median of three profiles), the host's enqueue
 time a call, the mean of a CUDA-event loop, and each float output's largest
 distance from the checkout's plain pass on the same inputs over that
-output's largest entry. Also the kernels' registers and spills from the
-build. ``--designs`` also times rows 18 and 19 of a checkout that offers
-launch shapes to force (``satrainbn.DESIGN``) at each rows a block (128,
-64, 32, where they fit). The card's name and power limit (``nvidia-smi``)
-lead the output;
+output's largest entry, and for rows 16 and 17 whether a second call gives
+the same bits. Where the checkout's forward returns the weight copies that
+its pass 3 reads (a tenth output), pass 3 is timed on them, as in a train
+step. Also the kernels' registers and spills from the build.
+``--designs`` also times the passes of a checkout that offers launch shapes
+to force (``satrainbn.DESIGN``: rows 18 and 19 under "rows", row 17 under
+"fwd", row 16 under "stats") at each rows a block (128, 64, 32, where they
+fit). The card's name and power limit (``nvidia-smi``) lead the output;
 ``--out`` gets the same lines.
 
 Compare two checkouts only inside one run: hosts and clocks differ between
@@ -193,6 +195,7 @@ def child(root: str, designs: bool) -> dict:
         mu1, var1, r1, a1, nb1 = S._bn1(sv, svv, w1, g1, b1, n, 1e-5)
         fargs = (radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, rel, ndp)
         f = S.fwd_cuda(*fargs)
+        wt = tuple(f[9:])  # the forward's weight copies, where it has them
         mu2, var2, r2, a2, c2 = S._bn2(f[6], f[7], g2, b2, n, 1e-5)
         pos = a2 > 0
         ystar = torch.where(pos, f[2], f[3])
@@ -201,9 +204,9 @@ def child(root: str, designs: bool) -> dict:
         p2, q2c = S._bwd_consts(g_out.sum((0, 1)) / n,
                                 (g_out * xhat2).sum((0, 1)) / n, a2, mu2, r2)
         if handover:
-            mask = f[8]
-            wargs = (radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, mu1, r1,
-                     a2, p2, q2c, slot, g_out, mask, rel, ndp)
+            pre = (radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, mu1, r1,
+                   a2, p2, q2c, slot, g_out, f[8])
+            wargs, pargs = pre + wt + (rel, ndp), pre + (rel, ndp)
             w2_out = S.bwd_w2_cuda(*wargs)
             p1, q1c = S._bwd_consts(w2_out[1] / n, w2_out[2] / n, a1, mu1, r1)
             xargs = (radius, xyz, qidx, feats, idx, w1, w2_out[4], w2_out[3],
@@ -211,6 +214,7 @@ def child(root: str, designs: bool) -> dict:
         else:
             wargs = (radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, mu1, r1,
                      a2, p2, q2c, slot, g_out, rel, ndp)
+            pargs = wargs
             w2_out = S.bwd_w2_cuda(*wargs)
             p1, q1c = S._bwd_consts(w2_out[1] / n, w2_out[2] / n, a1, mu1, r1)
             xargs = (radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, a2, p2,
@@ -222,7 +226,7 @@ def child(root: str, designs: bool) -> dict:
                  "fwd": (lambda: S.fwd_cuda(*fargs),
                          lambda: S.fwd_plain(*fargs)),
                  "bwd_w2": (lambda: S.bwd_w2_cuda(*wargs),
-                            lambda: S.bwd_w2_plain(*wargs)),
+                            lambda: S.bwd_w2_plain(*pargs)),
                  "bwd_x": (lambda: S.bwd_x_cuda(*xargs),
                            lambda: S.bwd_x_plain(*xargs))}
         row = {"stage": si + 1, "shape": [Bq, xyz.shape[1], M, feats.shape[2],
@@ -237,24 +241,36 @@ def child(root: str, designs: bool) -> dict:
                 else:
                     errs[str(j)] = int((a != b).sum())
             row[name] = {**timings(kern), "rel_err": errs}
+            if name in ("stats", "fwd"):
+                again = kern()
+                row[name]["same_bits_again"] = all(
+                    torch.equal(a, b) for a, b in zip(got, again))
+                del again
             del got, ref
         if handover and designs and hasattr(S, "DESIGN"):
             row["designs"] = {}
-            for rows_ in (128, 64, 32):
-                S.DESIGN["rows"] = rows_
-                try:
-                    row["designs"][f"rows{rows_}"] = {
-                        "tiles": [list(S._plan(kind, Bq, M, K, feats.shape[2],
-                                               mid, cout, rows_))
-                                  for kind in (S.BWD_Y2, S.BWD_GH, S.BWD_X)],
-                        "bwd_w2": device(calls["bwd_w2"][0]),
-                        "bwd_x": device(calls["bwd_x"][0])}
-                except (ValueError, RuntimeError) as e:
-                    row["designs"][f"rows{rows_}"] = {"not_run": str(e)[:120]}
-                finally:
-                    S.DESIGN["rows"] = 0
+            # (DESIGN key, passes it forces, the plan kinds it sets)
+            forced = [("rows", ("bwd_w2", "bwd_x"),
+                       (S.BWD_Y2, S.BWD_GH, S.BWD_X))]
+            if "fwd" in S.DESIGN:
+                forced += [("fwd", ("fwd",), (S.FWD,)),
+                           ("stats", ("stats",), (S.STATS,))]
+            for key, passes, kinds in forced:
+                for rows_ in (128, 64, 32):
+                    S.DESIGN[key] = rows_
+                    try:
+                        row["designs"][f"{key}{rows_}"] = {
+                            "tiles": [list(S._plan(kind, Bq, M, K,
+                                                   feats.shape[2], mid, cout,
+                                                   rows_)) for kind in kinds],
+                            **{p: device(calls[p][0]) for p in passes}}
+                    except (ValueError, RuntimeError) as e:
+                        row["designs"][f"{key}{rows_}"] = {
+                            "not_run": str(e)[:120]}
+                    finally:
+                        S.DESIGN[key] = 0
         rows.append(row)
-        del w2_out, f, calls, wargs, xargs
+        del w2_out, f, wt, calls, wargs, pargs, xargs
         torch.cuda.empty_cache()
     res["stages"] = rows
 

@@ -290,7 +290,8 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
                               vec6, vec6, vec7, vec7, vec7,
                               torch.zeros(1, 4, 7, dtype=torch.uint8),
                               torch.zeros(1, 4, 7),
-                              torch.zeros(1, 1, 4, 4, dtype=torch.int32))
+                              torch.zeros(1, 1, 4, 4, dtype=torch.int32),
+                              torch.zeros(6 * 8 + 7 * 8))
     with pytest.raises(ValueError):
         satrainbn.bwd_x_cuda(0.3, xyz, q, f, sa_idx, w1,
                              torch.zeros(1, 4, 4, 6), torch.zeros(1, 4, 4, 6),
