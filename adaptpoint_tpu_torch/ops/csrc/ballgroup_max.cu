@@ -41,6 +41,7 @@
 // comparison, so the walk stops at the last found slot). fi, fmax, fmin are
 // 16-byte stores, the slots 4 or 8 bytes. Channels that are not a multiple
 // of the vector (or a misaligned pointer) take the one-channel instance.
+// The walk and the vectors live in bgmax_walk.cuh, shared with window.cu.
 //
 // Backward design: a block owns one cloud, a slice of S channels (a power of
 // two) and R rows of it (all N where they fit) and accumulates that slice of
@@ -65,120 +66,27 @@
 // the plain version's; values are compared after the same bf16 rounding, so
 // forward outputs and slots are exact.
 #include "ball_query.cuh"
+#include "bgmax_walk.cuh"
 
 #include <cuda_bf16.h>
 
 namespace {
 
+using apt_bgm::bf16;
+using apt_bgm::bf16r;
+using apt_bgm::max_min_walk;
+using apt_bgm::store;
+using apt_bgm::store_slots;
+using apt_bgm::Vec;
 using apt_bq::ball_scan;
 using apt_bq::stage_points;
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kUnroll = 4;  // slot loads in flight a thread
 constexpr size_t kSmemLimit = 232448;  // bytes a block may use on sm_90
 
 __host__ __device__ inline size_t a128(size_t x) {
   return (x + 127) / 128 * 128;
-}
-
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// V consecutive elements of type T, loaded as one vector (16 bytes when
-// V > 1), and their values as the kernels compare and add them: bf16
-// rounded for f32 features, exact for bf16 ones.
-template <typename T, int V>
-struct Vec;
-
-template <>
-struct Vec<float, 4> {
-  float4 r;
-  __device__ __forceinline__ void load(const float* p) {
-    r = *reinterpret_cast<const float4*>(p);
-  }
-  __device__ __forceinline__ float raw(int i) const {
-    return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
-  }
-  __device__ __forceinline__ float val(int i) const { return bf16r(raw(i)); }
-};
-
-template <>
-struct Vec<float, 1> {
-  float r;
-  __device__ __forceinline__ void load(const float* p) { r = *p; }
-  __device__ __forceinline__ float raw(int) const { return r; }
-  __device__ __forceinline__ float val(int) const { return bf16r(r); }
-};
-
-template <>
-struct Vec<bf16, 8> {
-  uint4 r;
-  __device__ __forceinline__ void load(const bf16* p) {
-    r = *reinterpret_cast<const uint4*>(p);
-  }
-  __device__ __forceinline__ float raw(int i) const {
-    const unsigned w = i < 2 ? r.x : i < 4 ? r.y : i < 6 ? r.z : r.w;
-    return __uint_as_float((i & 1) ? (w & 0xffff0000u) : (w << 16));
-  }
-  __device__ __forceinline__ float val(int i) const { return raw(i); }
-};
-
-template <>
-struct Vec<bf16, 1> {
-  bf16 r;
-  __device__ __forceinline__ void load(const bf16* p) { r = *p; }
-  __device__ __forceinline__ float raw(int) const {
-    return __bfloat162float(r);
-  }
-  __device__ __forceinline__ float val(int) const { return raw(0); }
-};
-
-// Store V values (already representable in T where T is bf16) at p.
-template <int V>
-__device__ __forceinline__ void store(float* p, const float (&v)[V]) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < V; ++i) p[i] = v[i];
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store(bf16* p, const float (&v)[V]) {
-  if constexpr (V == 8) {
-    unsigned w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-      w[i] = *reinterpret_cast<const unsigned*>(&h);
-    }
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < V; ++i) p[i] = __float2bfloat16_rn(v[i]);
-  }
-}
-
-// V slots (bytes) at p, packed into one store.
-template <int V>
-__device__ __forceinline__ void store_slots(unsigned char* p,
-                                            const int (&s)[V]) {
-  if constexpr (V == 1) {
-    p[0] = (unsigned char)s[0];
-  } else {
-    unsigned w[2] = {0u, 0u};
-#pragma unroll
-    for (int i = 0; i < V; ++i) w[i >> 2] |= (unsigned)s[i] << (8 * (i & 3));
-    if constexpr (V == 4)
-      *reinterpret_cast<unsigned*>(p) = w[0];
-    else
-      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
-  }
 }
 
 // ------------------------------------------------------------- forward
@@ -283,34 +191,10 @@ ball_group_max_kernel(FwdParams<T> p) {
     const int walk = cen[2 * c + 1];
     float vmax[V], vmin[V];
     int kmax[V], kmin[V];
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      vmax[i] = __int_as_float((int)0xff800000u);  // -inf
-      vmin[i] = __int_as_float((int)0x7f800000u);  // +inf
-      kmax[i] = kmin[i] = 0;
-    }
-    for (int k0 = 0; k0 < walk; k0 += kUnroll) {
-      Vec<T, V> v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        if (k0 + u < walk) v[u].load(F + (size_t)nbc[k0 + u] * C + col);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (k0 + u >= walk) continue;
-#pragma unroll
-        for (int i = 0; i < V; ++i) {
-          const float x = v[u].val(i);
-          if (x > vmax[i]) {
-            vmax[i] = x;
-            kmax[i] = k0 + u;
-          }
-          if (x < vmin[i]) {
-            vmin[i] = x;
-            kmin[i] = k0 + u;
-          }
-        }
-      }
-    }
+    max_min_walk<T, V>(
+        F, C, col, nbc, walk,
+        [](const Vec<T, V>& v, int i) { return v.val(i); }, vmax, vmin,
+        kmax, kmin);
     Vec<T, V> q;
     q.load(F + (size_t)qi * C + col);
     float vq[V];

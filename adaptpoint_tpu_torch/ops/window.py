@@ -36,23 +36,31 @@ count capped at K and the center's row) instead of rescanning the window.
 :class:`BallGroupMaxWindowed` ties them into one differentiable op: the
 kernels for CUDA tensors, the plain versions otherwise. ``ok`` stays with
 the caller, as in the JAX package: the op neither reads it nor falls back.
+
+Each kernel is one device op a call. :func:`fwd_tiling` picks the
+forward's launch shape on the host (centers a block, the selection design,
+the channel vector), ``ballgroup_max.bwd_tiling`` the backward's (row 8's
+block layout); see the source's note.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from . import _build
-from .ballgroup import _check_inputs, _cotangent
+from .ballgroup import _SMEM_LIMIT, _SMS, _a128, _check_inputs, _cotangent
+from .ballgroup_max import BwdTiling, _ptr, bwd_tiling
 from .geometry import index_points, radius_sq
 
 __all__ = ["pick_window", "window_prep", "ball_group_max_windowed_plain",
            "ball_group_max_windowed_bwd_plain", "ball_group_max_windowed_cuda",
            "ball_group_max_windowed_bwd_cuda", "BallGroupMaxWindowed",
+           "FwdTiling", "fwd_tiling", "fwd_smem_bytes", "bwd_tiling",
            "LAUNCHES", "LAUNCHES_BWD"]
 
 LAUNCHES = 0      # kernel launches of ball_group_max_windowed_cuda
@@ -274,46 +282,123 @@ def empty_ball_grad(cnt, g_fmax, g_fmin):
     return (g * (cnt == 0)[..., None]).sum(dim=1)
 
 
+# the forward's selection designs, by the code the C entry point reads
+DESIGNS = {"bitmap": 0, "sorted": 1}
+_WARPS = 8           # warps of a forward block, each with its own bit map
+_MAX_CENTERS = 32    # centers a forward block at most
+_FWD_CENTERS = (32, 16, 8)  # centers a forward block, most first
+
+
+class FwdTiling(NamedTuple):
+    """The forward's launch shape: ``design`` the selection ("bitmap": a
+    bit map of original indices a warp; "sorted": the window sorted in each
+    block), ``centers`` key-sorted centers a block (dividing ``tm``), ``vec``
+    channels a thread loads at once (4, or 1)."""
+    design: str
+    centers: int
+    vec: int
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(x - 1, 0).bit_length()
+
+
+def fwd_smem_bytes(design: str, centers: int, N: int, K: int, w: int) -> int:
+    """Shared memory of one forward block, as ``window_max_smem_bytes``
+    computes it (csrc/window.cu ``fwd_layout``; ``chip_smoke.py`` holds the
+    two equal). "bitmap": the window as float4, an N-bit map a warp, the
+    slot table, a center table and a flag word; "sorted": the first
+    draft's layout, unpadded (the window's original indices to a power of
+    two, its coordinates, the slot table)."""
+    if design == "bitmap":
+        return (_a128(w * 16) + _a128(_WARPS * -(-N // 32) * 4)
+                + _a128(centers * K * 4) + _a128(centers * 12 + 4))
+    return _next_pow2(w) * 4 + w * 12 + centers * K * 4
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_tiling(B: int, N: int, M: int, C: int, K: int, tm: int, w: int,
+               aligned: bool = True, design: Optional[str] = None,
+               centers: int = 0, vec: int = 0) -> FwdTiling:
+    """The forward's tiling: the most centers a block (32, 16 or 8, dividing
+    ``tm``) that still give four blocks an SM of work, else ``gcd(tm, 8)``;
+    the bit-map selection where its shared memory fits a block, else the
+    sorted one, at no more than 8 centers if need be (no more shared memory
+    than the first draft took); 4 channels a thread where C and the pointer
+    (``aligned``) allow. ``design``, ``centers`` and ``vec`` force those, so
+    ``fwd_tiling(..., aligned, *FwdTiling)`` checks a forced tiling. Raises
+    ValueError on a shape or a forced tiling the kernel does not take."""
+    if not (1 <= K <= 255) or min(B, N, M, C, tm) < 1 or M % tm:
+        raise ValueError(f"the windowed ball group takes 1 <= K <= 255, "
+                         f"B, N, M, C >= 1 and M a multiple of tm; got K={K} "
+                         f"B={B} N={N} M={M} C={C} tm={tm}")
+    n_pad = _round_up(N, 128)
+    if w % 128 or w < 128 or w > n_pad:
+        raise ValueError(f"window width {w} must be a multiple of 128 in "
+                         f"[128, {n_pad}]")
+    if design is not None and design not in DESIGNS:
+        raise ValueError(f"design must be one of {tuple(DESIGNS)}, got "
+                         f"{design!r}")
+    if centers and not (1 <= centers <= _MAX_CENTERS and tm % centers == 0):
+        raise ValueError(f"centers a block must divide tm={tm} and be at "
+                         f"most {_MAX_CENTERS}, got {centers}")
+    if vec not in (0, 1, 4) or (vec == 4 and (C % 4 or not aligned)):
+        raise ValueError(f"4 channels a thread need C % 4 == 0 and 16-byte "
+                         f"aligned features; vec={vec} C={C} "
+                         f"aligned={aligned}")
+    vec = vec or (4 if aligned and C % 4 == 0 else 1)
+    t = centers or next((t for t in _FWD_CENTERS
+                         if tm % t == 0 and B * (M // t) >= 4 * _SMS),
+                        math.gcd(tm, 8))
+    tries = [(d, t) for d in ([design] if design else DESIGNS)]
+    if not centers and tries[-1][0] == "sorted":
+        tries.append(("sorted", math.gcd(tm, 8)))
+    for d, t in tries:
+        if fwd_smem_bytes(d, t, N, K, w) <= _SMEM_LIMIT:
+            return FwdTiling(d, t, vec)
+    raise ValueError(f"window width {w} at N={N}, K={K} needs "
+                     f"{fwd_smem_bytes(d, t, N, K, w)} bytes of shared "
+                     f"memory, more than a block has ({_SMEM_LIMIT})")
+
+
 @functools.cache
 def _lib():
     lib = _build.load("window")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong
     lib.window_max_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                      i, f, p, p, p, p, p, p, p, p, p, p]
-    lib.window_max_launch.restype = ctypes.c_int
-    lib.window_max_smem.argtypes = [i, i]
-    lib.window_max_smem.restype = ctypes.c_int
+                                      i, f, i, i, i, p, p, p, p, p, p, p, p,
+                                      p, p]
+    lib.window_max_launch.restype = i
     lib.window_max_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
-                                          i, i, i, p, p, p]
-    lib.window_max_bwd_launch.restype = ctypes.c_int
+                                          i, i, i, i, i, p, p, p]
+    lib.window_max_bwd_launch.restype = i
+    lib.window_max_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.window_max_smem_bytes.restype = ll
+    lib.window_max_bwd_smem_bytes.argtypes = [i, i]
+    lib.window_max_bwd_smem_bytes.restype = ll
     return lib
 
 
 def ball_group_max_windowed_cuda(radius: float, nsample: int, xyz, query_idx,
                                  feats, prep: dict, w: int, tm: int,
-                                 splits: int = 1):
+                                 splits: int = 1,
+                                 tiling: Optional[FwdTiling] = None):
     """The forward kernel on contiguous CUDA tensors (f32 xyz and feats, int32
     query_idx) and ``window_prep``'s ``prep`` (``xyz_s`` not needed: the
     kernel reads the cloud through ``order``); the outputs of
-    :func:`ball_group_max_windowed_plain`."""
+    :func:`ball_group_max_windowed_plain`. ``tiling`` forces a launch shape
+    (``fwd_tiling(..., design=, centers=)``); every refusal comes before the
+    launch."""
     global LAUNCHES
     _check_inputs(xyz, query_idx, feats)
+    _check_splits(splits, 1)
     B, N, _ = xyz.shape
     M = query_idx.shape[1]
     C = feats.shape[2]
     K = int(nsample)
-    if not (1 <= K <= 255) or M < 1 or C < 1 or M % tm:
-        raise ValueError(f"the windowed ball group takes 1 <= K <= 255, "
-                         f"C >= 1 and M a multiple of tm; got K={K} M={M} "
-                         f"C={C} tm={tm}")
-    if w % 128 or w < 128 or w > _round_up(N, 128):
-        raise ValueError(f"window width {w} must be a multiple of 128 in "
-                         f"[128, {_round_up(N, 128)}]")
-    lib = _lib()
-    smem = lib.window_max_smem(w, K)
-    if smem > 232448:
-        raise ValueError(f"window width {w} needs {smem} bytes of shared "
-                         f"memory, more than a block has (232448)")
+    tl = fwd_tiling(B, N, M, C, K, tm, w, feats.data_ptr() % 16 == 0,
+                    *(tiling or ()))
     dev = xyz.device
     order, win, qpos, cperm = (prep[k].int().contiguous()
                                for k in ("order", "win", "qpos", "cperm"))
@@ -325,13 +410,14 @@ def ball_group_max_windowed_cuda(radius: float, nsample: int, xyz, query_idx,
     cnt, qrow = (torch.empty((B, M), dtype=torch.int32, device=dev)
                  for _ in range(2))
     idx = torch.empty((B, M, K), dtype=torch.int32, device=dev)
+    lib = _lib()
     err = lib.window_max_launch(
         xyz.data_ptr(), feats.data_ptr(), order.data_ptr(), win.data_ptr(),
         qpos.data_ptr(), cperm.data_ptr(), B, N, M, C, K, tm, w, splits,
-        radius_sq(radius), new_xyz.data_ptr(), fi.data_ptr(), fmax.data_ptr(),
-        fmin.data_ptr(), amax.data_ptr(), amin.data_ptr(), cnt.data_ptr(),
-        idx.data_ptr(), qrow.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        radius_sq(radius), DESIGNS[tl.design], tl.centers, tl.vec,
+        new_xyz.data_ptr(), fi.data_ptr(), fmax.data_ptr(), fmin.data_ptr(),
+        amax.data_ptr(), amin.data_ptr(), cnt.data_ptr(), idx.data_ptr(),
+        qrow.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "ball_group_max_windowed")
     LAUNCHES += 1
     return new_xyz, fi, fmax, fmin, amax, amin, cnt, idx, qrow
@@ -341,14 +427,21 @@ def ball_group_max_windowed_bwd_cuda(idx, cnt, qrow, amax, amin, g_new, g_fi,
                                      g_fmax, g_fmin, n: int,
                                      grad_splits: int = 1,
                                      need_xyz: bool = True,
-                                     need_feats: bool = True):
-    """The backward kernel; the outputs of
-    :func:`ball_group_max_windowed_bwd_plain` (``None`` for a gradient not
-    asked for). Cotangents may be ``None`` or non-contiguous."""
+                                     need_feats: bool = True,
+                                     tiling: Optional[BwdTiling] = None):
+    """The backward kernel, one launch that writes both gradients whole; the
+    outputs of :func:`ball_group_max_windowed_bwd_plain` (``None`` for a
+    gradient not asked for). Cotangents may be ``None`` or non-contiguous.
+    ``tiling`` forces a launch shape (``bwd_tiling(n, C, s)``)."""
     global LAUNCHES_BWD
     B, M, K = idx.shape
     C = amax.shape[-1]
     dev = idx.device
+    _check_splits(1, grad_splits)
+    if not (1 <= K <= 255) or min(B, M, C, n) < 1:
+        raise ValueError(f"the windowed ball group takes 1 <= K <= 255 and "
+                         f"B, M, C, n >= 1; got K={K} B={B} M={M} C={C} "
+                         f"n={n}")
     for name, t, dtype, shape in (("idx", idx, torch.int32, (B, M, K)),
                                   ("cnt", cnt, torch.int32, (B, M)),
                                   ("qrow", qrow, torch.int32, (B, M)),
@@ -363,20 +456,19 @@ def ball_group_max_windowed_bwd_cuda(idx, cnt, qrow, amax, amin, g_new, g_fi,
     g_fi, g_fmax, g_fmin = (_cotangent(g, (B, M, C), name, dev)
                             for g, name in ((g_fi, "g_fi"), (g_fmax, "g_fmax"),
                                             (g_fmin, "g_fmin")))
+    tl = tiling or bwd_tiling(n, C)
     g_xyz = torch.empty((B, n, 3), dtype=torch.float32, device=dev) \
         if need_xyz else None
     g_feats = torch.empty((B, n, C), dtype=torch.float32, device=dev) \
         if need_feats else None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    if g_xyz is None and g_feats is None:
+        return None, None
     lib = _lib()
     err = lib.window_max_bwd_launch(
-        idx.data_ptr(), cnt.data_ptr(), qrow.data_ptr(), ptr(g_new),
-        ptr(g_fi), ptr(g_fmax), ptr(g_fmin), amax.data_ptr(),
-        amin.data_ptr(), B, n, M, C, K, grad_splits, ptr(g_xyz),
-        ptr(g_feats), torch.cuda.current_stream(dev).cuda_stream)
+        idx.data_ptr(), cnt.data_ptr(), qrow.data_ptr(), _ptr(g_new),
+        _ptr(g_fi), _ptr(g_fmax), _ptr(g_fmin), amax.data_ptr(),
+        amin.data_ptr(), B, n, M, C, K, grad_splits, tl.s, tl.r, _ptr(g_xyz),
+        _ptr(g_feats), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "ball_group_max_windowed_bwd")
     LAUNCHES_BWD += 1
     return g_xyz, g_feats

@@ -104,9 +104,14 @@ Phases, one JSON object a line:
    both kernels against their plain versions (forward exact, backward
    within the reordering bound), and where ``ok`` the forward against row
    7's kernel (outputs, winning slots and slots equal), at the needed width
-   too where ``ok`` is False; CUDA-event times of the kernels, of
-   ``window_prep``, of the four un-permute gathers the JAX op makes, and of
-   the op forward and forward+backward beside row 7/8's op.
+   too where ``ok`` is False, and the same bits on a second forward launch;
+   one device op a call each way (``window_op_launches``, in a child
+   process of its own); CUDA-event
+   times of the kernels, of ``window_prep``, of the four un-permute gathers
+   the JAX op makes, and of the op forward and forward+backward beside row
+   7/8's op; then the same checks at ``WINDOW_EDGES`` (K = 1 to 255, C = 3
+   to 1024, N = 1000, splits 1-3, overflowing windows, misaligned
+   features) and at every forced launch shape (``WINDOW_FORCED``).
 12. ``adapt_cli``: ``python -m adaptpoint_tpu_torch.main --cfg
    cfgs/scanobjectnn/pointnext-s_adaptpoint_1.yaml`` (``mode: adaptpoint``)
    in a child process on SyntheticCls at the ``cli`` phase's sizes for
@@ -3939,68 +3944,119 @@ TRAINBN_OPS = {"stats": {"select_kernel": 1, "stats_kernel": 1,
                          "bwd_x_kernel": 1, "reduce_kernel": 1}}
 
 
-# profiles of each pass's call that ``trainbn_op_launches`` may take: the
-# profiler drops records now and then but never adds one (PERF.md, section 6)
+# warmed profiles of a call that ``held_op_launches`` may take (the train-BN
+# passes, the windowed kernels): the profiler drops records now and then
+# (PERF.md, section 6)
 TRAINBN_OP_ATTEMPTS = 4
+# a warmed profile's marks: a spin kernel on the stream just before and just
+# after the profiled call, whose ops are those between them in device time;
+# the host waits PROFILE_MARGIN_S on either side of each profiler step
+OP_MARK = "spin_kernel"
+OP_MARK_CYCLES = 1000
+PROFILE_MARGIN_S = 0.02
+
+
+def ops_between_marks(events) -> dict | None:
+    """The device ops (``name[:60]``: count) that ``events`` ((name, device
+    start), in any order) hold between the two ``OP_MARK`` spins, or None
+    where a mark is missing. A record that falls into the profiled step from
+    the warm-up step lies before the first mark; one dropped at the step's
+    start takes the first mark first."""
+    events = sorted(events, key=lambda e: e[1])
+    at = [i for i, (name, _) in enumerate(events) if OP_MARK in name]
+    if len(at) != 2:
+        return None
+    out: dict = {}
+    for name, _ in events[at[0] + 1:at[1]]:
+        out[name[:60]] = out.get(name[:60], 0) + 1
+    return out
+
+
+def op_profile(fn, warm: bool) -> dict | None:
+    """The device ops (``e.key[:60]``: count) one call of ``fn`` puts on
+    the card, from the profiler: the call profiled alone, or (``warm``) the
+    ops between ``OP_MARK`` spins around the call in the profiler step after
+    a warm-up step of one call (``ops_between_marks``: None where a mark was
+    not recorded)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    if not warm:
+        with profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return {e.key[:60]: e.count for e in device_kernels(prof)}
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+        prof.step()
+        time.sleep(PROFILE_MARGIN_S)
+        torch.cuda._sleep(OP_MARK_CYCLES)
+        fn()
+        torch.cuda._sleep(OP_MARK_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+        prof.step()
+    return ops_between_marks(
+        (e.name, e.time_range.start) for e in prof.events()
+        if e.device_type == DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False))
+
+
+def held_op_launches(calls: dict, want: dict):
+    """Each call's device ops against ``want`` (name: {part of an op's name:
+    count}), from warmed profiles (``op_profile``). The profiler leaves some
+    records out now and then: the first ones of a profile that starts at the
+    call, every one of a short call late in a long process, and the warm-up
+    step's last op can fall into the profiled step (PERF.md, section 6). So
+    the call's ops are those between two marks on the stream, a profile
+    without both marks holds nothing, every profile with both must hold no op
+    beyond ``want``'s, and one of up to TRAINBN_OP_ATTEMPTS must hold them
+    all: a launch too many fails every profile, a launch missing fails all
+    of them. Returns ``(found: the profile that held them, profiles: every
+    profile taken, None where a mark is missing, bad: the calls that
+    failed)``."""
+    def parts(need, ops):
+        return {part: sum(v for k, v in ops.items() if part in k)
+                for part in need}
+
+    found, profiles, bad = {}, {}, {}
+    for name, need in want.items():
+        profiles[name] = []
+        for _ in range(TRAINBN_OP_ATTEMPTS):
+            ops = op_profile(calls[name], True)
+            profiles[name].append(ops)
+            if ops is None:
+                continue
+            got = parts(need, ops)
+            if any(got[p] > need[p] for p in need) \
+                    or sum(ops.values()) > sum(got.values()):
+                bad[name] = ops  # an op beyond want's
+                break
+            if got == need:
+                found[name] = ops
+                break
+        else:
+            bad[name] = profiles[name]  # none held them all
+    return found, profiles, bad
 
 
 def trainbn_op_launches(S, inp) -> dict:
     """The device ops of one call of each train-BN pass on ``inp`` (from
     ``trainbn_passes``), from the profiler, by name: each must be
-    TRAINBN_OPS's, nothing else. The call counted is the step after a
-    warm-up step of one profile. The profiler leaves some of a call's
-    device ops unrecorded, always the first ones of a profile that starts at
-    the call and now and then even after a warm-up step (PERF.md, section 6),
-    but it records no op that did not run. So every profile of a pass must
-    hold no op beyond TRAINBN_OPS's, and one of up to TRAINBN_OP_ATTEMPTS
-    must hold them all: a launch too many fails every profile, a launch
-    missing fails all of them. A profile of its own around the call alone
-    is reported beside it, not held."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    TRAINBN_OPS's, nothing else, held by ``held_op_launches``. A profile of
+    its own around the call alone is reported beside it, not held."""
     calls = {"stats": lambda: S.stats_cuda(*inp["stats"]),
              "fwd": lambda: S.fwd_cuda(*inp["fargs"]),
              "bwd_w2": lambda: S.bwd_w2_cuda(*inp["bargs"]),
              "bwd_x": lambda: S.bwd_x_cuda(*inp["xargs"])}
-
-    def ops_of(fn, warm):
-        activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        torch.cuda.synchronize()
-        if not warm:
-            with profile(activities=activities) as prof:
-                fn()
-                torch.cuda.synchronize()
-        else:
-            with profile(activities=activities,
-                         schedule=schedule(wait=0, warmup=1, active=1,
-                                           repeat=1)) as prof:
-                for _ in range(2):
-                    fn()
-                    torch.cuda.synchronize()
-                    prof.step()
-        return {e.key[:60]: e.count for e in device_kernels(prof)}
-
-    def parts(want, ops):
-        return {part: sum(v for k, v in ops.items() if part in k)
-                for part in want}
-
-    alone = {name: ops_of(fn, False) for name, fn in calls.items()}
-    found, profiles, bad = {}, {}, {}
-    for name, want in TRAINBN_OPS.items():
-        profiles[name] = []
-        for _ in range(TRAINBN_OP_ATTEMPTS):
-            ops = ops_of(calls[name], True)
-            profiles[name].append(ops)
-            got = parts(want, ops)
-            if any(got[p] > want[p] for p in want) \
-                    or sum(ops.values()) > sum(got.values()):
-                bad[name] = ops  # an op beyond TRAINBN_OPS's
-                break
-            if got == want:
-                found[name] = ops
-                break
-        else:
-            bad[name] = profiles[name]  # none held them all
+    alone = {name: op_profile(fn, False) for name, fn in calls.items()}
+    found, profiles, bad = held_op_launches(calls, TRAINBN_OPS)
     emit("sa_trainbn_op_launches", found=found, expected=TRAINBN_OPS,
          profiles_taken={n: len(v) for n, v in profiles.items()},
          profiles_short={n: v[:-1] for n, v in profiles.items() if len(v) > 1},
@@ -4469,42 +4525,76 @@ def windowed_scanned(prep, idx, cnt, w, n):
     return int(torch.where(cnt >= Kq, upto, valid.sum(dim=-1)).sum())
 
 
-def check_window_stage(gen, tag, xyz, qidx, feats, radius, tm, w):
-    """The windowed kernels (rows 20, 21) at one stage and width against
-    their plain versions (forward outputs and residuals exact, the backward
-    and the op's autograd within the reordering bound) and, where ``ok``,
-    against row 7's kernel (outputs, winning slots and slots equal).
-    Returns ``(ok, need, prep, forward outputs, backward arguments, the
-    forward's and the backward's largest error)``."""
+def check_window_layout(b, n, m, c, k, tm, w, aligned, fwd_tl=None,
+                        bwd_tl=None):
+    """Rows 20, 21's launch shapes at this shape (the chooser's, or the
+    forced ones): the host's copies of their shared memory
+    (``window.fwd_smem_bytes``, ``ballgroup_max.bwd_smem_bytes``) against
+    the kernel's own, each within the card's opt-in. Returns both tilings
+    with their bytes."""
+    from adaptpoint_tpu_torch.ops import ballgroup_max as bgm
+    from adaptpoint_tpu_torch.ops import window as wnd
+    lib = wnd._lib()
+    ftl = wnd.fwd_tiling(b, n, m, c, k, tm, w, aligned, *(fwd_tl or ()))
+    host = wnd.fwd_smem_bytes(ftl.design, ftl.centers, n, k, w)
+    dev = lib.window_max_smem_bytes(wnd.DESIGNS[ftl.design], ftl.centers, n,
+                                    k, w)
+    btl = bwd_tl or wnd.bwd_tiling(n, c)
+    bhost = bgm.bwd_smem_bytes(btl.s, btl.r)
+    bdev = lib.window_max_bwd_smem_bytes(btl.s, btl.r)
+    if host != dev or bhost != bdev or max(dev, bdev) > bgm._SMEM_LIMIT:
+        raise AssertionError(f"windowed ball group layout: forward host "
+                             f"{host} kernel {dev} ({ftl}), backward host "
+                             f"{bhost} kernel {bdev} ({btl}) at {[b, n, m, c, k]}"
+                             f" tm={tm} w={w}")
+    return {"forward": dict(ftl._asdict(), smem_bytes=dev),
+            "backward": dict(btl._asdict(), smem_bytes=bdev)}
+
+
+def check_window_stage(gen, tag, xyz, qidx, feats, radius, tm, w, k=K_GAN,
+                       splits=1, grad_splits=1, fwd_tl=None, bwd_tl=None):
+    """The windowed kernels (rows 20, 21) at one stage and width, on their
+    chosen launch shapes or the forced ``fwd_tl`` / ``bwd_tl``, against
+    their plain versions (forward outputs and residuals exact and the same
+    bits on a second launch, the backward and the op's autograd within the
+    reordering bound) and, where ``ok`` at ``splits`` 1, against row 7's
+    kernel (outputs, winning slots and slots equal). Returns ``(ok, need,
+    prep, forward outputs, backward arguments, the forward's and the
+    backward's largest error)``."""
     import torch
     from adaptpoint_tpu_torch import ops
     from adaptpoint_tpu_torch.ops import ballgroup_max as bgm
     from adaptpoint_tpu_torch.ops import window as wnd
 
-    n, c = feats.shape[1], feats.shape[2]
+    b, n, c = feats.shape
     m = qidx.shape[1]
+    layout = check_window_layout(b, n, m, c, k, tm, w,
+                                 feats.data_ptr() % 16 == 0, fwd_tl, bwd_tl)
     prep = wnd.window_prep(xyz, qidx, radius, tm, w)
     ok, need = bool(prep["ok"]), int(prep["need"])
-    args = (radius, K_GAN, xyz, qidx, feats, prep, w, tm)
-    got = wnd.ball_group_max_windowed_cuda(*args)
+    args = (radius, k, xyz, qidx, feats, prep, w, tm, splits)
+    got = wnd.ball_group_max_windowed_cuda(*args, tiling=fwd_tl)
+    again = wnd.ball_group_max_windowed_cuda(*args, tiling=fwd_tl)
     ref = wnd.ball_group_max_windowed_plain(*args)
     torch.cuda.synchronize()
     names = ("new_xyz", "fi", "fmax", "fmin", "amax", "amin", "cnt", "idx",
              "qrow")
-    errs = {k: float((a.float() - b.float()).abs().max())
-            for k, a, b in zip(names, got, ref)}
-    del ref
+    errs = {k_: float((a.float() - b_.float()).abs().max())
+            for k_, a, b_ in zip(names, got, ref)}
+    same_bits = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    del ref, again
     _, _, _, _, amax, amin, cnt, idx, qrow = got
-    g_new = torch.randn((B, m, 3), generator=gen, device=DEV)
-    g_fi, g_fmax, g_fmin = (torch.randn((B, m, c), generator=gen, device=DEV)
+    g_new = torch.randn((b, m, 3), generator=gen, device=DEV)
+    g_fi, g_fmax, g_fmin = (torch.randn((b, m, c), generator=gen, device=DEV)
                             for _ in range(3))
-    bargs = (idx, cnt, qrow, amax, amin, g_new, g_fi, g_fmax, g_fmin, n)
-    back = wnd.ball_group_max_windowed_bwd_cuda(*bargs)
+    bargs = (idx, cnt, qrow, amax, amin, g_new, g_fi, g_fmax, g_fmin, n,
+             grad_splits)
+    back = wnd.ball_group_max_windowed_bwd_cuda(*bargs, tiling=bwd_tl)
     back_ref = wnd.ball_group_max_windowed_bwd_plain(*bargs)
     x_req, f_req = xyz.clone().requires_grad_(), feats.clone().requires_grad_()
     auto = torch.autograd.grad(
-        ops.ball_group_max_windowed(radius, K_GAN, x_req, qidx, f_req, 1, 1,
-                                    tm, w),
+        ops.ball_group_max_windowed(radius, k, x_req, qidx, f_req, splits,
+                                    grad_splits, tm, w),
         (x_req, f_req), (g_new, g_fi, g_fmax, g_fmin))
     auto_ref = (back_ref[0], back_ref[1].clone())
     auto_ref[1][:, 0] += wnd.empty_ball_grad(cnt, g_fmax, g_fmin)
@@ -4516,11 +4606,11 @@ def check_window_stage(gen, tag, xyz, qidx, feats, radius, tm, w):
     counts_f[:, 0] += 2 * (cnt == 0).sum(dim=1)[:, None]  # the row-0 term
     a_x, a_f = wnd.ball_group_max_windowed_bwd_plain(
         idx, cnt, qrow, amax, amin, g_new.abs(), g_fi.abs(), g_fmax.abs(),
-        g_fmin.abs(), n)
+        g_fmin.abs(), n, grad_splits)
     a_f[:, 0] += wnd.empty_ball_grad(cnt, g_fmax.abs(), g_fmin.abs())
     bounds = (scatter_bound(counts_x, a_x), scatter_bound(counts_f, a_f))
     bwd_errs = {}
-    good = not any(errs.values())
+    good = not any(errs.values()) and same_bits
     for name, a, b_, bound in (("g_xyz", back[0], back_ref[0], bounds[0]),
                                ("g_feats", back[1], back_ref[1], bounds[1]),
                                ("autograd_g_xyz", auto[0], auto_ref[0],
@@ -4532,28 +4622,191 @@ def check_window_stage(gen, tag, xyz, qidx, feats, radius, tm, w):
         good = good and bool((d <= bound).all()) \
             and bool(torch.isfinite(a).all())
     full_n = {}
-    if ok:  # the full-N kernel (row 7) on the same inputs
-        row7 = bgm.ball_group_max_cuda(radius, K_GAN, xyz, qidx, feats)
+    if ok and splits == 1:  # the full-N kernel (row 7) on the same inputs
+        row7 = bgm.ball_group_max_cuda(radius, k, xyz, qidx, feats)
         torch.cuda.synchronize()
-        for k, a, b_ in zip(("new_xyz", "fi", "fmax", "fmin", "amax", "amin",
-                             "idx"), row7, (got[0], got[1], got[2], got[3],
-                                            amax, amin, idx)):
-            full_n[k] = float((a.float() - b_.float()).abs().max())
+        for k_, a, b_ in zip(("new_xyz", "fi", "fmax", "fmin", "amax",
+                              "amin", "idx"), row7,
+                             (got[0], got[1], got[2], got[3], amax, amin,
+                              idx)):
+            full_n[k_] = float((a.float() - b_.float()).abs().max())
         good = good and not any(full_n.values())
     emit("kernel", name="ball_group_max_windowed", case=tag,
-         shape=[B, n, m, c, K_GAN], radius=radius, tm=tm, w=w,
-         w_over_n=w / n, ok=ok, need=need, max_abs_err=errs,
+         shape=[b, n, m, c, k], radius=radius, tm=tm, w=w, splits=splits,
+         grad_splits=grad_splits, w_over_n=w / n, ok=ok, need=need,
+         layout=layout, forced=fwd_tl is not None or bwd_tl is not None,
+         max_abs_err=errs, same_bits_second_launch=same_bits,
          max_abs_err_bwd=bwd_errs, against_row7=full_n or None,
          empty_balls=int((cnt == 0).sum()),
-         full_balls=float((cnt == K_GAN).float().mean()),
+         outside_window=int((qrow < 0).sum()),
+         full_balls=float((cnt == k).float().mean()),
          tolerance="forward outputs and residuals exact, against the plain "
-                   "version and (where ok) row 7's kernel; backward <= n * "
-                   "2^-23 * sum|addend| per element")
+                   "version, a second launch and (where ok, splits 1) row "
+                   "7's kernel; backward <= n * 2^-23 * sum|addend| per "
+                   "element")
     if not good:
         raise AssertionError(f"windowed kernels disagree ({tag}, w={w}): "
-                             f"{errs} {bwd_errs} {full_n}")
+                             f"{errs} same bits {same_bits} {bwd_errs} "
+                             f"{full_n}")
     return (ok, need, prep, got, bargs, max(errs.values()),
             max(bwd_errs["g_xyz"], bwd_errs["g_feats"]))
+
+
+def window_cloud(gen, b, n, kind="sphere"):
+    """A (b, n, 3) cloud: "sphere", normal points centred and scaled into
+    the unit ball (the ``window`` phase's); "overflow", a cloud narrower
+    than a ball along its key axis, away from the origin (the windows
+    overflow, and centers outside them see the points near the origin)."""
+    import torch
+    if kind == "overflow":
+        pc = torch.zeros((b, n, 3), device=DEV)
+        pc[..., 0] = 3.0 + 0.2 * torch.randn((b, n), generator=gen,
+                                             device=DEV)
+        pc[..., 1] = 1e-6 * torch.randn((b, n), generator=gen, device=DEV)
+        return pc
+    pc = torch.randn((b, n, 3), generator=gen, device=DEV)
+    pc = pc - pc.mean(dim=1, keepdim=True)
+    return (pc / pc.norm(dim=-1).amax(dim=1, keepdim=True)[..., None]
+            ).contiguous()
+
+
+# the windowed ball group at its edges: (B, N, M, C, K, radius, tm, w (None:
+# pick_window's), splits, grad_splits, cloud, features 16-byte aligned,
+# forced forward (design, centers, vec) and backward (s, r) or None)
+WINDOW_EDGES = [
+    (2, 1000, 256, 13, 24, 0.2, 128, None, 1, 1, "sphere", True, None, None),
+    (2, 1000, 256, 3, 1, 0.3, 128, 1024, 2, 3, "sphere", True, None, None),
+    (2, 512, 128, 1024, 64, 0.4, 64, 512, 3, 2, "sphere", True, None, None),
+    (1, 1000, 128, 16, 255, 0.9, 128, 1024, 1, 1, "sphere", True, None,
+     None),
+    (2, 1000, 256, 13, 24, 0.3, 128, 256, 1, 1, "overflow", True, None,
+     None),
+    (2, 1000, 256, 16, 24, 0.2, 128, None, 2, 2, "overflow", False, None,
+     None),
+    (2, 1000, 256, 16, 24, 0.2, 128, 512, 1, 1, "sphere", False, None,
+     None)]
+# each forced layout of the forward and the backward, at a grouper-1 shape
+# (four clouds) at the width its data needs, and on overflow clouds at 512
+WINDOW_FORCED = [(("bitmap", 32, 4), None), (("bitmap", 16, 4), None),
+                 (("bitmap", 8, 4), None), (("bitmap", 32, 1), None),
+                 (("sorted", 8, 4), None), (("sorted", 32, 4), None),
+                 (("sorted", 8, 1), None), (None, (4, 2048)),
+                 (None, (16, 2048)), (None, (32, 700)), (None, (8, 1000))]
+
+
+def check_window_edges(gen) -> None:
+    """Rows 20, 21 at ``WINDOW_EDGES`` (K = 1, 24, 64, 255; C = 3, 13, 16,
+    1024; N = 1000; splits and grad_splits 1-3; clouds whose windows
+    overflow; misaligned features, which take the one-channel instance) and
+    at every forced launch shape of ``WINDOW_FORCED``, each through
+    ``check_window_stage``."""
+    import torch
+    from adaptpoint_tpu_torch.ops import ballgroup_max as bgm
+    from adaptpoint_tpu_torch.ops import window as wnd
+    cases = [(bq, n, m, c, k, r, tm, w, sp, gs, kind, aligned, None, None)
+             for bq, n, m, c, k, r, tm, w, sp, gs, kind, aligned, _, _
+             in WINDOW_EDGES]
+    for kind, w in (("sphere", 1408), ("overflow", 512)):
+        for f, bt in WINDOW_FORCED:
+            cases.append((4, 2048, 1024, 128, K_GAN, 0.1, 256, w, 1, 1,
+                          kind, True, f, bt))
+    for (bq, n, m, c, k, r, tm, w, sp, gs, kind, aligned, f,
+         bt) in cases:
+        xyz = window_cloud(gen, bq, n, kind)
+        qidx = torch.argsort(torch.rand((bq, n), generator=gen, device=DEV),
+                             dim=1)[:, :m].int().contiguous()
+        feats = torch.empty(bq * n * c + 1, device=DEV)
+        feats = (feats[:-1] if aligned else feats[1:]).view(bq, n, c)
+        feats.copy_(torch.randn((bq, n, c), generator=gen, device=DEV))
+        w = w or wnd.pick_window(wnd._round_up(n, 128), r, m, tm)
+        fwd_tl = wnd.FwdTiling(*f) if f else None
+        bwd_tl = bgm.BwdTiling(*bt) if bt else None
+        check_window_stage(
+            gen, f"edge {[bq, n, m, c, k]} {kind} w={w} splits {sp}/{gs}"
+            f"{'' if aligned else ' misaligned'}", xyz, qidx, feats, r, tm,
+            w, k, sp, gs, fwd_tl, bwd_tl)
+
+
+# device ops one call of each windowed kernel wrapper makes, by name
+WINDOW_OPS = {"forward": {"window_max_kernel": 1},
+              "backward": {"window_max_bwd_kernel": 1}}
+
+
+def window_cases(gen):
+    """The ``window`` phase's inputs at the four grouper shapes: ``(n, m,
+    c, r, tm, w, xyz, qidx, feats)``, w ``pick_window``'s."""
+    import torch
+    from adaptpoint_tpu_torch.ops import window as wnd
+    cases = []
+    for n, m, c, r in GAN_STAGES:
+        pc = window_cloud(gen, B, n)
+        feats = torch.randn((B, n, c), generator=gen, device=DEV)
+        qidx = torch.argsort(torch.rand((B, n), generator=gen, device=DEV),
+                             dim=1)[:, :m].int().contiguous()
+        tm = 256 if m % 256 == 0 else 128
+        w = wnd.pick_window(wnd._round_up(n, 128), r, m, tm)
+        cases.append((n, m, c, r, tm, w, pc, qidx, feats))
+    return cases
+
+
+def window_op_launches_here() -> dict:
+    """``--window-op-launches``: the device ops of one call of each windowed
+    kernel wrapper at the four grouper shapes (the width the data needs),
+    from the profiler, by name: each must be WINDOW_OPS's, nothing else (no
+    memset), held as ``held_op_launches`` holds them. Returns them a
+    grouper; raises where they are not held."""
+    import torch
+    from adaptpoint_tpu_torch.ops import window as wnd
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    out = {}
+    for i, (n, m, c, r, tm, w, xyz, qidx, feats) in enumerate(
+            window_cases(gen)):
+        prep = wnd.window_prep(xyz, qidx, r, tm, w, stats_only=True)
+        if not bool(prep["ok"]):
+            w = int(prep["need"])
+            prep = wnd.window_prep(xyz, qidx, r, tm, w, stats_only=True)
+        fargs = (r, K_GAN, xyz, qidx, feats, prep, w, tm)
+        _, _, _, _, amax, amin, cnt, idx, qrow = \
+            wnd.ball_group_max_windowed_cuda(*fargs)
+        gs = [torch.randn((B, m, k), generator=gen, device=DEV)
+              for k in (3, c, c, c)]
+        bargs = (idx, cnt, qrow, amax, amin, *gs, n)
+        calls = {"forward": lambda: wnd.ball_group_max_windowed_cuda(*fargs),
+                 "backward":
+                     lambda: wnd.ball_group_max_windowed_bwd_cuda(*bargs)}
+        found, profiles, bad = held_op_launches(calls, WINDOW_OPS)
+        case = f"grouper {i + 1}"
+        emit("window_op_launches", case=case, found=found,
+             expected=WINDOW_OPS,
+             profiles_taken={k: len(v) for k, v in profiles.items()},
+             profiles_short={k: v[:-1] for k, v in profiles.items()
+                             if len(v) > 1})
+        if bad:
+            raise AssertionError(f"windowed kernels' device ops ({case}) "
+                                 f"{bad}")
+        out[case] = {k: sum(ops.values()) for k, ops in found.items()}
+    return out
+
+
+def window_op_launches() -> dict:
+    """``window_op_launches_here`` in a child process of its own (this
+    script with ``--window-op-launches``): in three runs of the whole
+    script every profile of these short calls came back empty, in the
+    ``window`` phase after the adapt phases and right after ``train_fused``
+    alike, while the same check held in every run of the ``window`` phase
+    alone (PERF.md, section 6). Its lines are passed on; raises if it
+    fails."""
+    got = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--window-op-launches"], capture_output=True,
+                         text=True, timeout=900, cwd=ROOT)
+    lines = got.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if got.returncode != 0:
+        raise AssertionError(f"--window-op-launches failed "
+                             f"({got.returncode}): {got.stdout[-2000:]}"
+                             f"{got.stderr[-3000:]}")
+    return json.loads(lines[-1])
 
 
 def phase_window(gen):
@@ -4562,28 +4815,22 @@ def phase_window(gen):
     augmentor's four groupers on clouds centred and normalised to the unit
     sphere, centers drawn without replacement. Per stage: the width, ``ok``
     and the needed width; the kernels against their plain versions and
-    row 7 (also at the needed width where ``ok`` is False); then CUDA-event
-    times of the kernels, ``window_prep``, the four un-permute gathers the
-    JAX op makes (folded into this kernel's writes), the op forward and
-    forward+backward, and row 7/8's op at the same inputs. Returns the
-    launch counts of one forward+backward of the op at each stage (the
-    path), and the kernel rows."""
+    row 7 (also at the needed width where ``ok`` is False); each kernel's
+    device ops a call (``window_op_launches``: one each way); then
+    CUDA-event times of the kernels (and their profiled device time and
+    host enqueue), ``window_prep``, the four un-permute gathers the JAX op
+    makes (folded into this kernel's writes), the op forward and
+    forward+backward, and row 7/8's op at the same inputs. Then the kernels
+    at ``WINDOW_EDGES`` and every forced launch shape. Returns the launch
+    counts of one forward+backward of the op at each stage (the path), and
+    the kernel rows."""
     import torch
     from adaptpoint_tpu_torch import ops
     from adaptpoint_tpu_torch.ops import gather as gth
     from adaptpoint_tpu_torch.ops import window as wnd
 
-    cases = []
-    for n, m, c, r in GAN_STAGES:
-        pc = torch.randn((B, n, 3), generator=gen, device=DEV)
-        pc = pc - pc.mean(dim=1, keepdim=True)
-        pc = pc / pc.norm(dim=-1).amax(dim=1, keepdim=True)[..., None]
-        feats = torch.randn((B, n, c), generator=gen, device=DEV)
-        qidx = torch.argsort(torch.rand((B, n), generator=gen, device=DEV),
-                             dim=1)[:, :m].int().contiguous()
-        tm = 256 if m % 256 == 0 else 128
-        w = wnd.pick_window(wnd._round_up(n, 128), r, m, tm)
-        cases.append((n, m, c, r, tm, w, pc.contiguous(), qidx, feats))
+    cases = window_cases(gen)
+    ops_a_call = window_op_launches()
 
     # the path: the op forward and backward once at each stage
     ops.reset_launch_counts()
@@ -4596,10 +4843,9 @@ def phase_window(gen):
     torch.cuda.synchronize()
     launches = ops.launch_counts()
 
-    fwd = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, t_b=0.0, t_o=0.0,
-               full_n_op_ms=0.0)
-    bwd = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, t_b=0.0, t_o=0.0,
-               full_n_op_ms=0.0)
+    fwd, bwd = ({"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "t_b": 0.0,
+                 "t_o": 0.0, "full_n_op_ms": 0.0, "device_ms": 0.0,
+                 "host_us": [], "op_launches": []} for _ in range(2))
     stages = []
     for i, (n, m, c, r, tm, w, xyz, qidx, feats) in enumerate(cases):
         tag = f"grouper {i + 1}"
@@ -4628,6 +4874,9 @@ def phase_window(gen):
         t_o_b = 4 * B * m * c / PEAK_F32
         f_ms = cuda_ms(lambda: wnd.ball_group_max_windowed_cuda(*fargs))
         b_ms = cuda_ms(lambda: wnd.ball_group_max_windowed_bwd_cuda(*bargs))
+        f_dh = device_host(lambda: wnd.ball_group_max_windowed_cuda(*fargs))
+        b_dh = device_host(
+            lambda: wnd.ball_group_max_windowed_bwd_cuda(*bargs))
         f_plain = cuda_ms(lambda: wnd.ball_group_max_windowed_plain(*fargs),
                           50.0)
         b_plain = cuda_ms(
@@ -4657,7 +4906,10 @@ def phase_window(gen):
                                                         feats))
         op_fb, full_fb_ms = cuda_ms(win_fb), cuda_ms(full_fb)
         row = dict(case=tag, shape=[B, n, m, c, K_GAN], w=w_run, ok=ok,
-                   kernel_ms=f_ms, kernel_ms_at_picked_w=picked_ms, bwd_kernel_ms=b_ms, plain_ms=f_plain,
+                   kernel_ms=f_ms, kernel_ms_at_picked_w=picked_ms,
+                   bwd_kernel_ms=b_ms, kernel_device_host=f_dh,
+                   bwd_kernel_device_host=b_dh, ops_a_call=ops_a_call[tag],
+                   plain_ms=f_plain,
                    bwd_plain_ms=b_plain, window_prep_ms=prep_ms,
                    jax_unpermutes_ms=unperm_ms, op_fwd_ms=op_f,
                    op_fwd_bwd_ms=op_fb, row7_op_fwd_ms=full_f,
@@ -4666,11 +4918,17 @@ def phase_window(gen):
                    bound_bwd_ms=1e3 * max(t_b_b, t_o_b))
         emit("window_times", **row)
         stages.append(row)
-        for acc, ms, pl, tb, to, full, e in (
-                (fwd, f_ms, f_plain, t_b_f, t_o_f, full_f, e_f),
+        for acc, ms, pl, tb, to, full, e, dh, n_ops in (
+                (fwd, f_ms, f_plain, t_b_f, t_o_f, full_f, e_f, f_dh,
+                 ops_a_call[tag]["forward"]),
                 (bwd, b_ms, b_plain, t_b_b, t_o_b, full_fb_ms - full_f,
-                 e_b)):
+                 e_b, b_dh, ops_a_call[tag]["backward"])):
             acc["max_abs_err"] = max(acc["max_abs_err"], e)
+            acc["device_ms"] = (None if acc["device_ms"] is None
+                                or dh["device_ms"] is None
+                                else acc["device_ms"] + dh["device_ms"])
+            acc["host_us"].append(dh["host_us"])
+            acc["op_launches"].append(n_ops)
             acc["ms"] += ms
             acc["plain_ms"] += pl
             acc["t_b"] += tb
@@ -4682,10 +4940,15 @@ def phase_window(gen):
         out[name] = dict(max_abs_err=acc["max_abs_err"], ms=acc["ms"],
                          plain_ms=acc["plain_ms"], library_ms=None,
                          full_n_op_ms=acc["full_n_op_ms"],
+                         device_ms=acc["device_ms"], host_us=acc["host_us"],
+                         op_launches=acc["op_launches"],
                          **bound_row(acc["t_b"], acc["t_o"]))
     emit("window_summary", note="ms summed over the four groupers at B=32; "
          "full_n_op_ms: row 7's op forward, and row 7/8's forward+backward "
-         "less its forward, on the same inputs", **out)
+         "less its forward, on the same inputs; device_ms: the profiled "
+         "kernels summed; host_us and op_launches (device ops a call) a "
+         "grouper", **out)
+    check_window_edges(gen)
     return launches, out, stages
 
 
@@ -4898,13 +5161,21 @@ def main(argv=None) -> int:
                          "for a partial run, which prints no final result "
                          "(default: all); attention alone runs the kernel "
                          "phase's attention checks and times")
-    phases = set(ap.parse_args(argv).phases.split(","))
+    ap.add_argument("--window-op-launches", action="store_true",
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if args.window_op_launches:  # the window phase's child
+        from adaptpoint_tpu_torch import resolve_device
+        resolve_device()
+        print(json.dumps(window_op_launches_here()), flush=True)
+        return 0
     from adaptpoint_tpu_torch import resolve_device
     from adaptpoint_tpu_torch.ops import _build
 
