@@ -1,5 +1,5 @@
 """AdaptPoint models: the learned augmentor, the discriminator, PointWOLF,
-the feedback loss and the fake-cloud dataset."""
+the feedback loss, the fake-cloud dataset and RSMix."""
 from . import augmentor, discriminator  # noqa: F401  (register the models)
 from .augmentor import gumbel_softmax
 from .build import ADAPTMODELS, build_adaptpointmodels_from_cfg
@@ -8,9 +8,10 @@ from .common import (WolfDraws, draw_wolf, kernel_regression, normalize_cloud,
 from .feedback import feedback_loss, update_hardratio
 from .form_dataset import FormDatasetCls, Form_dataset_cls
 from .pointwolf import PointWOLF, pointwolf
+from .rsmix import rsmix
 
 __all__ = ["ADAPTMODELS", "build_adaptpointmodels_from_cfg", "gumbel_softmax",
            "WolfDraws", "draw_wolf", "pointwolf_transform",
            "kernel_regression", "normalize_cloud", "random_axis",
            "feedback_loss", "update_hardratio", "FormDatasetCls",
-           "Form_dataset_cls", "PointWOLF", "pointwolf"]
+           "Form_dataset_cls", "PointWOLF", "pointwolf", "rsmix"]

@@ -1,11 +1,16 @@
-"""The classification experiment loop: modes ``train``, ``test``, ``val``.
+"""The classification experiment loop: modes ``train``, ``test``, ``val``,
+``resume`` and ``finetune``.
 
 Counterpart of ``adaptpoint_tpu/engine/cls_main.py`` (reference
 examples/classification/train.py:52-319): the model, criterion, optimizer,
 scheduler and loaders from the cfg; the epoch loop with validation every
 ``val_freq`` epochs, best and latest checkpoints and the learning rate set
 per epoch; then the test of the last and of the best weights and
-``write_to_csv``.
+``write_to_csv``. ``mode: resume`` continues the ``pretrained_path``
+checkpoint at its epoch + 1 with its optimizer's state and its
+``best_val``; ``mode: finetune`` loads its weights only (the JAX package
+also takes its optimizer state, where the file has one) and trains from
+epoch 1.
 
 The JAX package's two opt-in switches are read here, and only here:
 ``ADAPTPOINT_TPU_TRAIN_FUSED=1`` trains through the fused train-BN SA
@@ -13,8 +18,7 @@ stages (``make_train_step(..., fused_train_bn=True)``) and
 ``ADAPTPOINT_TPU_EVAL_FUSED=1`` evaluates through the fused eval SA stages
 (``make_eval_step(..., fused_eval=True)``).
 
-Not ported yet (they raise): ``mode: resume``, ``scan_batches > 1`` and
-``use_voting``.
+Not ported yet (they raise): ``scan_batches > 1`` and ``use_voting``.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from ..datasets import build_dataloader_from_cfg
 from ..device import resolve_device
 from ..metricslog import Summary
 from ..models import build_model_from_cfg
-from ..utils.ckpt import load_checkpoint, save_checkpoint
+from ..utils.ckpt import load_checkpoint, resume_checkpoint, save_checkpoint
 from ..utils.random import set_random_seed
 from .cls_trainer import (TrainState, build_train_tools, make_eval_step,
                           make_train_step, train_one_epoch, validate)
@@ -73,9 +77,10 @@ def print_cls_results(oa, macc, accs, epoch, cfg):
 
 def main(cfg, device: Optional[str] = None) -> Optional[float]:
     """Run ``cfg.mode`` on ``device`` (``None``: the card). Returns the best
-    validation OA (``train``) or the OA (``test``, ``val``)."""
+    validation OA (``train``, ``resume``, ``finetune``) or the OA (``test``,
+    ``val``)."""
     mode = cfg.get("mode", "train")
-    if mode not in ("train", "test", "val"):
+    if mode not in ("train", "test", "val", "resume", "finetune"):
         raise NotImplementedError(f"mode {mode} is not ported yet")
     if int(cfg.get("scan_batches", 1) or 1) > 1:
         raise NotImplementedError("scan_batches > 1 is not ported yet")
@@ -113,15 +118,22 @@ def main(cfg, device: Optional[str] = None) -> Optional[float]:
                                  fused_train_bn=fused_train_bn)
     eval_step = make_eval_step(model, cfg, fused_eval=fused_eval)
 
+    best_val = 0.0
     if cfg.get("pretrained_path"):
-        epoch_loaded, _ = load_checkpoint(model, cfg.pretrained_path,
-                                          optimizer)
+        if mode == "resume":
+            _, best_val = resume_checkpoint(cfg, model, optimizer)
+        elif mode == "finetune":  # the weights only, from epoch 1
+            load_checkpoint(model, cfg.pretrained_path)
+            logging.info("finetuning from %s", cfg.pretrained_path)
+        else:
+            epoch_loaded, _ = load_checkpoint(model, cfg.pretrained_path,
+                                              optimizer)
         if mode in ("test", "val"):
             loader = test_loader if mode == "test" else val_loader
             macc, oa, accs, _ = validate(eval_step, state, loader, cfg)
             print_cls_results(oa, macc, accs, epoch_loaded, cfg)
             return oa
-    elif mode in ("test", "val"):
+    elif mode in ("test", "val", "resume", "finetune"):
         raise ValueError(f"mode {mode} needs pretrained_path")
 
     train_loader = build_dataloader_from_cfg(
@@ -130,8 +142,7 @@ def main(cfg, device: Optional[str] = None) -> Optional[float]:
     logging.info("train size %d, val size %d", len(train_loader.dataset),
                  len(val_loader.dataset))
     summary = Summary(cfg.get("run_dir"))
-    best_val, best_epoch = 0.0, 0
-    val_oa = 0.0
+    best_epoch, val_oa = 0, 0.0
     for epoch in range(cfg.get("start_epoch", 1), cfg.epochs + 1):
         train_loader.set_epoch(epoch)
         lr = lr_fn(epoch - 1)

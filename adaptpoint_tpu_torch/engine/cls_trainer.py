@@ -93,13 +93,16 @@ def _in_channels(cfg) -> int:
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     criterion: Callable, cfg,
-                    fused_train_bn: bool = False) -> Callable:
+                    fused_train_bn: bool = False,
+                    batch_loss: Optional[Callable] = None) -> Callable:
     """``train_step(state, batch, gen_or_cols, lr, dropout_mask=None) ->
     (state, loss, preds)``.
 
     ``fused_train_bn`` sends the encoder's standard SA stages through the
     fused train-BN op (``ops.sa_trainbn``; the JAX package's opt-in
     ``ADAPTPOINT_TPU_TRAIN_FUSED=1``); the default is the unfused route.
+    ``batch_loss(logits, batch)`` replaces ``criterion(logits, batch["y"])``
+    (the mixed-label loss of ``corrupt_main.make_train_step_mixed``).
 
     ``batch`` holds ``x (B, N, C)`` and ``y (B,)`` on the model's device.
     ``gen_or_cols`` goes to :func:`resample_points`; when it is a generator
@@ -126,7 +129,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         logits = model(pos, x, dropout_mask=dropout_mask, generator=gen,
                        fused_train_bn=fused_train_bn)
-        loss = criterion(logits.float(), batch["y"])
+        loss = (criterion(logits.float(), batch["y"]) if batch_loss is None
+                else batch_loss(logits.float(), batch))
         loss.backward()
         if clip is not None and clip > 0:
             clip_by_global_norm_([p.grad for p in params

@@ -5,14 +5,15 @@
 
 The cfg loads recursively, ``k=v`` pairs override it, the experiment's name
 comes from the cfg's path and the overrides, the run directory is made (or,
-for ``mode=test``/``val`` with ``pretrained_path``, reused) and the cfg is
-dumped into it. Runs on the card unless ``--device cpu`` is given; without a
-card it raises. Modes ``train``, ``test`` and ``val`` run
-``engine.cls_main``, ``adaptpoint`` runs ``engine.adapt_main`` (as the JAX
-package's ``examples/classification/main.py`` dispatches them, with
-``adaptpoint_modelnet``, which ``adapt_main`` refuses for now); the others
-are not ported yet and raise. The last line printed is the run's kernel
-launch counts as one JSON object.
+for ``mode=test``/``val``/``resume`` and for ``resume=True`` with
+``pretrained_path``, the checkpoint's is reused) and the cfg is dumped into
+it. Runs on the card unless ``--device cpu`` is given; without a card it
+raises. As the JAX package's ``examples/classification/main.py`` dispatches
+them: modes ``train``, ``test``, ``val``, ``resume`` and ``finetune`` run
+``engine.cls_main``, ``adaptpoint`` and ``adaptpoint_modelnet``
+``engine.adapt_main``, ``scanobjectnnc`` and ``modelnetc``
+``engine.corrupt_main``; ``pretrain`` is not ported yet and raises. The
+last line printed is the run's kernel launch counts as one JSON object.
 """
 from __future__ import annotations
 
@@ -29,7 +30,10 @@ from .utils.logger import (generate_exp_directory, resume_exp_directory,
 
 __all__ = ["main"]
 
-NOT_PORTED = ("resume", "finetune", "scanobjectnnc", "modelnetc", "pretrain")
+NOT_PORTED = ("pretrain",)
+CLS_MODES = ("train", "test", "val", "resume", "finetune")
+ADAPT_MODES = ("adaptpoint", "adaptpoint_modelnet")
+CORRUPT_MODES = ("scanobjectnnc", "modelnetc")
 
 
 def main(argv=None):
@@ -46,8 +50,7 @@ def main(argv=None):
     mode = cfg.get("mode", "train")
     if mode in NOT_PORTED:
         raise NotImplementedError(f"mode {mode} is not ported yet")
-    if mode not in ("train", "test", "val", "adaptpoint",
-                    "adaptpoint_modelnet"):
+    if mode not in CLS_MODES + ADAPT_MODES + CORRUPT_MODES:
         raise ValueError(f"unknown mode {mode}")
     if cfg.get("seed") is None:
         cfg.seed = random.randint(1, 10000)
@@ -61,20 +64,26 @@ def main(argv=None):
                 and "/" not in opt:
             tags.append(opt.replace("=", "_"))
     cfg.exp_name = "-".join(tags)
-    reused = mode in ("test", "val") and cfg.get("pretrained_path")
+    # evaluating or continuing a checkpoint reuses its run directory
+    # (reference main.py:46-48)
+    reused = (mode in ("test", "val", "resume") or cfg.get("resume")) \
+        and cfg.get("pretrained_path")
     if reused:
         resume_exp_directory(cfg, cfg.pretrained_path)
     else:
         generate_exp_directory(cfg, exp_name=cfg.exp_name)
     setup_logger(cfg.log_path)
     # a reused run directory keeps the training run's cfg.yaml
-    cfg.dump(os.path.join(cfg.run_dir,
-                          f"cfg_{mode}.yaml" if reused else "cfg.yaml"))
+    cfg.dump(os.path.join(
+        cfg.run_dir, (f"cfg_{'resume' if cfg.get('resume') else mode}.yaml"
+                      if reused else "cfg.yaml")))
     logging.info("run dir: %s", cfg.run_dir)
 
     from . import ops
-    if mode in ("adaptpoint", "adaptpoint_modelnet"):
+    if mode in ADAPT_MODES:
         from .engine.adapt_main import main as run
+    elif mode in CORRUPT_MODES:
+        from .engine.corrupt_main import main as run
     else:
         from .engine.cls_main import main as run
     result = run(cfg, device=args.device)

@@ -1881,6 +1881,13 @@ Geo make_geo(const float* xyz, const int* qidx, const float* feats,
 
 extern "C" {
 
+// Bytes of shared memory a block of pass `kind` takes at RT = tile rows and
+// `ring` weight stages (ops/satrainbn.py smem_bytes is the host's copy).
+long long sa_trainbn_smem_bytes(int kind, int tile, int K, int C, int mid,
+                                int cout, int ring) {
+  return (long long)smem_bytes(kind, tile, K, C + 3, mid, cout, ring);
+}
+
 // The tile and the grid (G blocks) a pass runs with at these shapes: kind 0
 // stats (tile: RT rows a block, or force_rows; ring: P, the parts the
 // rows are cut into, G = P times the output blocks), 1 forward (tile: RT

@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -67,7 +68,8 @@ from .geometry import ball_query, index_points, inv_radius, radius_sq
 __all__ = ["sa_trainbn_plain", "stats_plain", "fwd_plain", "bwd_w2_plain",
            "bwd_x_plain", "tf32x3_mm", "pack_mask", "unpack_mask",
            "stats_cuda", "fwd_cuda", "bwd_w2_cuda",
-           "bwd_x_cuda", "SaTrainBN", "LAUNCHES_STATS", "LAUNCHES_FWD",
+           "bwd_x_cuda", "SaTrainBN", "TrainBNPlan", "plan_host",
+           "smem_bytes", "LAUNCHES_STATS", "LAUNCHES_FWD",
            "LAUNCHES_BWD_W2", "LAUNCHES_BWD_X"]
 
 LAUNCHES_STATS = 0   # kernel launches of stats_cuda
@@ -325,6 +327,8 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sa_trainbn_plan.argtypes = [i, i, i, i, i, i, i, i, p, p, p]
     lib.sa_trainbn_plan.restype = ctypes.c_int
+    lib.sa_trainbn_smem_bytes.argtypes = [i] * 7
+    lib.sa_trainbn_smem_bytes.restype = ctypes.c_longlong
     lib.sa_trainbn_stats_launch.argtypes = [p, p, p, i, i, i, i, i, f, f, i,
                                             i, i, i, p, p, p, p]
     lib.sa_trainbn_stats_launch.restype = ctypes.c_int
@@ -367,6 +371,131 @@ def _plan(kind: int, B: int, M: int, K: int, C: int, mid: int, cout: int,
                                           ctypes.byref(ring)),
                  "sa_trainbn_plan")
     return tile.value, grid.value, ring.value
+
+
+# The host's copy of the passes' launch shapes (csrc/satrainbn.cu
+# ``smem_bytes``, ``fwd_layout`` and the tile and ring choice of
+# ``sa_trainbn_plan``; the grid, which asks the card for its occupancy, is
+# left out). ``chip_smoke.py`` holds it equal to the kernels' plan at every
+# stage it runs; on the CPU it says whether a stage fits.
+_SMEM_LIMIT = 232448                  # kSmemLimit
+_SMEM_TWO = (233472 - 2 * 1024) // 2  # kSmemTwo
+_NC = 64                              # kNC, and kKR
+_STAGE_FLOATS = _NC * (_NC + 8)       # kStageFloats
+_MAX_RING = 6                         # kMaxRing
+_IDX_INTS, _SLACK, _DEPTH = 4 * 128, 256, 3
+
+
+class TrainBNPlan(NamedTuple):
+    """A pass's launch shape: ``tile`` rows a block, ``ring`` weight ring
+    stages (0 for the forward with both weights resident; 2 for pass 1,
+    which has no ring) and the ``smem`` bytes a block takes."""
+    tile: int
+    ring: int
+    smem: int
+
+
+def _ld_rm(cols: int) -> int:
+    x = _round8(cols)
+    return x if x & 8 else x + 8
+
+
+def _slice_of(C: int) -> int:
+    return 32 if C <= 32 else 64
+
+
+def _slices_of(C: int) -> int:
+    S = _slice_of(C)
+    return -(-C // S) if C > S else 1
+
+
+def _fwd_floats(rt, K, W, mid, cout, nring, kr) -> int:
+    """``fwd_layout(...).total``: v, h, the ring or both weights resident,
+    BN2's cross-warp sums, the keys, the row warps' keys, the mask words
+    and the rows."""
+    tm = rt // K if K <= rt else 1
+    nkeys = tm * _NC if K <= rt else _round8(cout)
+    ldv, ldh = _ld_rm(_round8(W)), _ld_rm(_round8(mid))
+    floats = rt * (ldv + ldh)
+    if nring:
+        floats += nring * _NC * (kr + 8)
+    else:
+        floats += (-(-mid // 64) * 64) * ldv + (-(-cout // 64) * 64) * ldh
+    return (floats + (rt // 32) * _NC * 2 + nkeys * 4
+            + (rt // 32) * _NC * 4 + 8 + (mid + 31) // 32 * rt + 4 * rt)
+
+
+def smem_bytes(kind: int, tile: int, K: int, C: int, mid: int, cout: int,
+               ring: int = 2) -> int:
+    """Bytes of shared memory a block of pass ``kind`` takes
+    (``sa_trainbn_smem_bytes``)."""
+    W = C + 3
+    if kind == STATS:
+        S = _slice_of(C)
+        f = _DEPTH * tile * (S + 4 + (S if _slices_of(C) > 1 else 0))
+        group = (S // 8) ** 2
+        stage = (256 // group - 1) * (64 + 4 * (S // group) + 1) * group
+        return max(f, stage) * 4
+    if kind == FWD:
+        b = _fwd_floats(tile, K, W, mid, cout, ring, _NC) * 4
+        if ring and b > _SMEM_TWO:
+            return _fwd_floats(tile, K, W, mid, cout, ring, 128) * 4
+        return b
+    W8, mid8 = _round8(W), _round8(mid)
+    if kind == BWD_Y2:
+        spanned = min(tile, (tile + K - 1) // K + 1)
+        f = tile * (_ld_rm(max(W8, mid8)) + _NC + 8) + spanned * _NC * 5 // 4
+    elif kind == BWD_GH:
+        f = tile * _ld_rm(_round8(cout)) + 4 * _NC * 2
+    else:
+        f = tile * (_ld_rm(_round8(W + 1)) + _ld_rm(mid8))
+    return (f + ring * _STAGE_FLOATS + _IDX_INTS + _SLACK) * 4
+
+
+def plan_host(kind: int, B: int, M: int, K: int, C: int, mid: int,
+              cout: int, force_rows: int = 0) -> TrainBNPlan:
+    """The tile and ring ``sa_trainbn_plan`` picks (the same order of
+    choices) and the block's shared memory; ValueError where it refuses."""
+    if B <= 0 or M <= 0 or K <= 0 or K > 255 or C < 0 or mid <= 0 \
+            or cout <= 0 or kind not in (STATS, FWD, BWD_Y2, BWD_GH, BWD_X) \
+            or force_rows not in (0, 32, 64, 128) or B * M * K > 0x7fffffff:
+        raise ValueError(f"sa_trainbn_plan refuses kind={kind} B={B} M={M} "
+                         f"K={K} C={C} mid={mid} cout={cout} "
+                         f"force_rows={force_rows}")
+
+    def size(rt, ring=2):
+        return smem_bytes(kind, rt, K, C, mid, cout, ring)
+
+    res = False
+    if kind == STATS:
+        t = force_rows or (128 if _slices_of(C) == 1 else 64)
+    elif kind == FWD and force_rows and size(force_rows, 0) <= _SMEM_LIMIT:
+        t, res = force_rows, True
+    elif kind == FWD and not force_rows and size(128, 0) <= _SMEM_TWO:
+        t, res = 128, True
+    elif kind == FWD and not force_rows and size(64, 0) <= _SMEM_TWO:
+        t, res = 64, True
+    elif force_rows and size(force_rows) <= _SMEM_LIMIT:
+        t = force_rows
+    elif size(128) <= _SMEM_TWO:
+        t = 128
+    elif size(64) <= _SMEM_TWO:
+        t = 64
+    else:
+        t = 128
+        while t > 32 and size(t) > _SMEM_LIMIT:
+            t //= 2
+    nr = 0 if res else 2
+    if kind != STATS and not res:
+        cap = _SMEM_TWO if size(t, 2) <= _SMEM_TWO else _SMEM_LIMIT
+        while nr < _MAX_RING and size(t, nr + 1) <= cap:
+            nr += 1
+    smem = size(t, nr)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"train-BN pass {kind} too wide for one block: "
+                         f"{smem} bytes at {t} rows (K={K} C={C} mid={mid} "
+                         f"cout={cout})")
+    return TrainBNPlan(t, nr, smem)
 
 
 def _stream(dev):

@@ -8,10 +8,18 @@ openpoints/utils/ckpt_util.py:61-216). ``save_checkpoint`` writes
 names), ``optimizer``, ``epoch`` and ``best_val``. ``load_checkpoint``
 restores the model (and the optimizer when given one) and raises on a
 missing or unexpected key, so that a checkpoint of another model is never
-evaluated as if it were loaded. Resuming a run waits for its slice.
+evaluated as if it were loaded. ``resume_checkpoint`` restores the model,
+the optimizer, ``epoch`` and ``best_val`` and sets ``cfg.start_epoch =
+epoch + 1`` (JAX ``utils/ckpt.py`` ``resume_checkpoint``).
+
+The ``.pth`` carries torch's own optimizer state (Adam's moments and step
+count), so loading it is what the JAX package's ``maybe_splice_opt_moments``
+does for checkpoints converted from the reference: the moments continue
+where the saved run left them.
 """
 from __future__ import annotations
 
+import logging
 import os
 import shutil
 from typing import Optional, Tuple
@@ -19,7 +27,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-__all__ = ["save_checkpoint", "load_checkpoint"]
+__all__ = ["save_checkpoint", "load_checkpoint", "resume_checkpoint"]
 
 
 def save_checkpoint(cfg, model: nn.Module,
@@ -54,3 +62,18 @@ def load_checkpoint(model: nn.Module, path: str,
     if optimizer is not None and "optimizer" in payload:
         optimizer.load_state_dict(payload["optimizer"])
     return int(payload.get("epoch", 0)), float(payload.get("best_val", 0.0))
+
+
+def resume_checkpoint(cfg, model: nn.Module,
+                      optimizer: Optional[torch.optim.Optimizer],
+                      pretrained_path: Optional[str] = None
+                      ) -> Tuple[int, float]:
+    """Restore ``model`` and ``optimizer`` from ``pretrained_path`` (default
+    ``cfg.pretrained_path``) and continue at the next epoch: sets
+    ``cfg.start_epoch = epoch + 1``. Returns ``(epoch, best_val)``."""
+    path = pretrained_path or cfg.get("pretrained_path")
+    epoch, best_val = load_checkpoint(model, path, optimizer)
+    cfg.start_epoch = epoch + 1
+    logging.info("Resumed from %s at epoch %d (best_val=%s)", path, epoch,
+                 best_val)
+    return epoch, best_val

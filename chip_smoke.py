@@ -46,7 +46,15 @@ Phases, one JSON object a line:
    bounds and CUDA-event times; for FPS, the kNN, the differentiable fused SA
    backward (per stage) and the row gather and its scatter-add (per shape, beside
    ``torch.gather`` and ``index_add_``) also the card's time of the call alone
-   from the profiler and the host's enqueue time a call.
+   from the profiler and the host's enqueue time a call. Then the same
+   checks at the ModelNet-C path's shapes (``phase_modelnet_kernels``;
+   ``--phases modelnet_kernels`` runs them alone): PointNeXt-S at width 64
+   from N = 1024 (STAGES_64: C = 64 -> 128 up to 512 -> 1024) for the ball
+   group, the fused SA, the differentiable fused SA forward and backward
+   and the four train-BN passes (their plans and shared memory against the
+   host's copy, ``satrainbn.plan_host``), and the AdaptPoint step at
+   N = 1024 for the max-pooled ball group, the kNN and the mask head's
+   attention.
 4. ``serve``: full-width ``cfgs/scanobjectnn/pointnext-s.yaml`` with seeded
    weights, exported unfused and fused at buckets 1,8,32 and served by the
    port's HTTP server; /predict with n = 1, 8, 32, 40 must match the same
@@ -120,6 +128,20 @@ Phases, one JSON object a line:
    the real ones, ``model_gan.pth`` reloading into a fresh ``build_gan`` bit
    for bit, the skipped ScanObjectNN-C sweep logged, a best val OA of at
    least ADAPT_CLI_MIN_OA, and the child's launch counts (rows 1-15).
+13. ``modelnet_cli``: the ModelNet-C protocol through the CLI in child
+   processes on SyntheticCls (1024 points, 40 classes, PointNeXt-S at width
+   64, B=32): ``cfgs/modelnetc/pointnext-s_adaptpoint.yaml`` (``mode:
+   adaptpoint_modelnet``) with ``rsmix_params`` for MN_EPOCHS epochs, the
+   same resumed (``resume=True``) for one epoch more (resumed at the next
+   epoch with the GAN pair reloaded, exactly one epoch run), then
+   ``cfgs/modelnetc/pointnext-s.yaml`` (``mode: modelnetc``) with
+   ``pointwolf`` for one epoch on the fused train-BN and eval routes; each
+   logs its skipped ModelNet-C sweep. In this process the ModelNet-C sweep
+   (``eval_corrupt_wrapper_modelnetc``) on the first run's best weights: 1
+   clean and 35 corrupt splits in ``outcorruption.txt``, mCE and RmCE equal
+   to ``calculate_ce`` of its OAs; without ``h5py`` the h5 read alone is
+   replaced by arrays the script made. The launch counts of the three
+   children and the sweep (rows 1-19).
 
 Then the card's name and power limit as nvidia-smi prints them, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` as the
@@ -300,7 +322,13 @@ PATH_KERNELS = {
     "adapt_cli": ("fps", "ball_group", "sa_eval", "ball_group_bwd",
                   "sa_train", "sa_train_bwd", "ball_group_max",
                   "ball_group_max_bwd", "mha", "mha_bwd", "knn", "fpinterp",
-                  "fpinterp_bwd", "gather_rows", "gather_rows_bwd")}
+                  "fpinterp_bwd", "gather_rows", "gather_rows_bwd"),
+    "modelnet_cli": ("fps", "ball_group", "sa_eval", "ball_group_bwd",
+                     "sa_train", "sa_train_bwd", "ball_group_max",
+                     "ball_group_max_bwd", "mha", "mha_bwd", "knn",
+                     "fpinterp", "fpinterp_bwd", "gather_rows",
+                     "gather_rows_bwd", "sa_trainbn_stats", "sa_trainbn_fwd",
+                     "sa_trainbn_bwd_w2", "sa_trainbn_bwd_x")}
 # names of the hand-written kernels as the profiler prints them
 OWN_KERNELS = ("fps_kernel", "ball_group_kernel", "ball_group_bwd_kernel",
                "ball_group_max_kernel", "ball_group_max_bwd_kernel",
@@ -377,6 +405,22 @@ CLI_MIN_OA = 50.0
 # best val OA must reach 3x chance on 15 classes
 ADAPT_CLI_EPOCHS = 3
 ADAPT_CLI_MIN_OA = 20.0
+# the ModelNet-C path (``cfgs/modelnetc/pointnext-s*.yaml``: PointNeXt-S at
+# width 64, 40 classes, N = 1024, in_channels 3): the four strided SA stages
+# (N -> M, C in, mid, C out, radius), the AdaptPoint step's groupers at
+# N = 1024 (N -> M, C, radius) and its mask head's attention (BH, N, d)
+STAGES_64 = [(1024, 512, 64, 64, 128, 0.15), (512, 256, 128, 128, 256, 0.225),
+             (256, 128, 256, 256, 512, 0.3375),
+             (128, 64, 512, 512, 1024, 0.50625)]
+GAN_STAGES_1024 = [(1024, 512, 128, 0.1), (512, 256, 256, 0.2),
+                   (256, 128, 512, 0.4), (128, 64, 1024, 0.8)]
+MHA_SHAPE_1024 = (128, 1024, 16)
+# the modelnet_cli phase: SyntheticCls clouds of 1024 points in 40 classes
+# (MN_SIZE a split, B = 32), AdaptPoint + RSMix for MN_EPOCHS epochs, one
+# more resumed, then mode: modelnetc with PointWOLF for one; the in-process
+# ModelNet-C sweep on MN_C_SIZE clouds a split
+MN_SIZE, MN_EPOCHS, MN_C_SIZE = 640, 2, 64
+MN_RSMIX = "rsmix_params={'beta':1.0,'rsmix_prob':0.5,'nsample':32,'knn':True}"
 
 
 def emit(phase: str, **kw) -> None:
@@ -1760,6 +1804,57 @@ def check_sa_forward_shapes(gen) -> None:
                 f"winners {mismatched} decisive mismatched, {far} far")
 
 
+def check_mha_shape(gen, shape, scale, dtype=None) -> dict:
+    """The flash attention kernels (rows 9, 10) at one shape and input type
+    (default f32) against their plain versions within TOL_MHA, directly and
+    through autograd, two backward runs bit for bit equal; returns the
+    errors."""
+    import torch
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.ops import attention
+    dtype = torch.float32 if dtype is None else dtype
+    q, k, v, do = [torch.randn(shape, generator=gen, device=DEV).to(dtype)
+                   for _ in range(4)]
+    do = do.float()
+    out, saved = attention.mha_cuda(q, k, v, scale, for_backward=True)
+    grads = attention.mha_bwd_cuda(q, k, v, scale, do, saved)
+    again = attention.mha_bwd_cuda(q, k, v, scale, do, saved)
+    # through autograd, as the model calls it
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(ops.fused_self_attention(*qkv, scale), qkv,
+                               do)
+    ref = attention.mha_plain(q, k, v, scale)
+    ref_grads = attention.mha_bwd_plain(q, k, v, scale, do)
+    torch.cuda.synchronize()
+    errs, worst, ok = {}, 0.0, True
+    pairs = [("out", out, ref)]
+    for name, a, b_, c in zip(("dq", "dk", "dv"), grads, ref_grads, auto):
+        pairs += [(name, a, b_), ("autograd_" + name, c, b_)]
+    for name, a, b_ in pairs:
+        if a.dtype != b_.dtype or a.shape != b_.shape:
+            ok = False
+        a, b_ = a.float(), b_.float()
+        d = (a - b_).abs()
+        errs[name] = float(d.max())
+        scaled = float((d / (1.0 + b_.abs())).max())
+        worst = max(worst, scaled)
+        tol = TOL_MHA if dtype == torch.float32 or name == "out" \
+            else TOL_MHA + 2.0 ** -8  # a bf16 gradient: one more ulp
+        ok = ok and scaled <= tol and bool(torch.isfinite(a).all())
+    repeat = all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+    emit("kernel", name="mha", shape=list(shape), scale=scale,
+         dtype=str(dtype), max_abs_err=errs, max_scaled_err=worst,
+         out_absmax=float(ref.abs().max()), backward_repeats=repeat,
+         tolerance=f"|kernel - plain| <= {TOL_MHA} * (1 + |plain|) "
+                   f"(+ 2^-8 for gradients stored as bf16); two "
+                   f"backward runs bit for bit equal")
+    if not ok or not repeat:
+        raise AssertionError(f"attention kernels disagree at {shape} "
+                             f"{dtype}: {errs}, backward repeats: "
+                             f"{repeat}")
+    return errs
+
+
 def check_attention(gen, rows) -> None:
     """The flash attention kernels (rows 9, 10) against their plain versions
     within TOL_MHA, directly and through autograd, at both input types:
@@ -1773,7 +1868,6 @@ def check_attention(gen, rows) -> None:
     Adds rows "mha" and "mha_bwd" to ``rows``."""
     import torch
     import torch.nn.functional as F
-    from adaptpoint_tpu_torch import ops
     from adaptpoint_tpu_torch.ops import attention
 
     def mha_inputs(shape, dtype=torch.float32):
@@ -1781,45 +1875,7 @@ def check_attention(gen, rows) -> None:
                 for _ in range(4)]
 
     def mha_check(shape, scale, dtype=torch.float32):
-        q, k, v, do = mha_inputs(shape, dtype)
-        do = do.float()
-        out, saved = attention.mha_cuda(q, k, v, scale, for_backward=True)
-        grads = attention.mha_bwd_cuda(q, k, v, scale, do, saved)
-        again = attention.mha_bwd_cuda(q, k, v, scale, do, saved)
-        # through autograd, as the model calls it
-        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
-        auto = torch.autograd.grad(ops.fused_self_attention(*qkv, scale), qkv,
-                                   do)
-        ref = attention.mha_plain(q, k, v, scale)
-        ref_grads = attention.mha_bwd_plain(q, k, v, scale, do)
-        torch.cuda.synchronize()
-        errs, worst, ok = {}, 0.0, True
-        pairs = [("out", out, ref)]
-        for name, a, b_, c in zip(("dq", "dk", "dv"), grads, ref_grads, auto):
-            pairs += [(name, a, b_), ("autograd_" + name, c, b_)]
-        for name, a, b_ in pairs:
-            if a.dtype != b_.dtype or a.shape != b_.shape:
-                ok = False
-            a, b_ = a.float(), b_.float()
-            d = (a - b_).abs()
-            errs[name] = float(d.max())
-            scaled = float((d / (1.0 + b_.abs())).max())
-            worst = max(worst, scaled)
-            tol = TOL_MHA if dtype == torch.float32 or name == "out" \
-                else TOL_MHA + 2.0 ** -8  # a bf16 gradient: one more ulp
-            ok = ok and scaled <= tol and bool(torch.isfinite(a).all())
-        repeat = all(torch.equal(a, b_) for a, b_ in zip(grads, again))
-        emit("kernel", name="mha", shape=list(shape), scale=scale,
-             dtype=str(dtype), max_abs_err=errs, max_scaled_err=worst,
-             out_absmax=float(ref.abs().max()), backward_repeats=repeat,
-             tolerance=f"|kernel - plain| <= {TOL_MHA} * (1 + |plain|) "
-                       f"(+ 2^-8 for gradients stored as bf16); two "
-                       f"backward runs bit for bit equal")
-        if not ok or not repeat:
-            raise AssertionError(f"attention kernels disagree at {shape} "
-                                 f"{dtype}: {errs}, backward repeats: "
-                                 f"{repeat}")
-        return errs
+        return check_mha_shape(gen, shape, scale, dtype)
 
     # a power-of-two scale folds the backward's division into the product;
     # sqrt(32) takes the division
@@ -4067,7 +4123,7 @@ def trainbn_op_launches(S, inp) -> dict:
     return found
 
 
-def check_sa_trainbn(gen, captured):
+def check_sa_trainbn(gen, captured, op_launches=True):
     """The four train-BN passes (rows 16-19), each against its plain pass on
     the same inputs, at the stages ``captured`` from the fused train step
     (its own FPS picks, features and weights), with seeded cotangents.
@@ -4076,8 +4132,8 @@ def check_sa_trainbn(gen, captured):
     time the card could take for f32-grade work), of pass 1 flops /
     PEAK_F32 (its f32 sums); the f32 CUDA cores' figure, flops / PEAK_F32,
     is reported beside every pass (``bound_ms_f32_cores``). At the first
-    stage, the device ops of each pass's call are pinned
-    (``trainbn_op_launches``)."""
+    stage, with ``op_launches``, the device ops of each pass's call are
+    pinned (``trainbn_op_launches``)."""
     import torch
     from adaptpoint_tpu_torch import ops
     from adaptpoint_tpu_torch.ops import satrainbn as S
@@ -4106,7 +4162,7 @@ def check_sa_trainbn(gen, captured):
         if not all(oks):
             raise AssertionError(f"train-BN kernels disagree at stage "
                                  f"{i + 1}: {errs}")
-        if i == 0:
+        if i == 0 and op_launches:
             trainbn_op_launches(S, inp)
         flops, nbytes, t_ops = trainbn_work(Bq, n_pts, M, C, mid, cout, K)
         fargs, bargs, xargs = inp["fargs"], inp["bargs"], inp["xargs"]
@@ -5149,18 +5205,406 @@ def phase_adapt_cli():
     return counts
 
 
+def check_trainbn_layout(b, m, k, c, mid, cout, where) -> dict:
+    """Rows 16-19's launch shapes at this stage: the host's copy of each
+    pass's plan (``satrainbn.plan_host``: tile, ring and shared memory)
+    against the kernels' own (``sa_trainbn_plan``, ``sa_trainbn_smem_bytes``),
+    each within the card's opt-in."""
+    from adaptpoint_tpu_torch.ops import satrainbn as S
+    lib = S._lib()
+    out = {}
+    for name, kind in (("stats", S.STATS), ("fwd", S.FWD),
+                       ("bwd_y2", S.BWD_Y2), ("bwd_gh", S.BWD_GH),
+                       ("bwd_x", S.BWD_X)):
+        mid_, cout_ = ((1, 1) if kind == S.STATS else
+                       (mid, 1 if kind == S.BWD_X else cout))
+        host = S.plan_host(kind, b, m, k, c, mid_, cout_)
+        tile, grid, ring = S._plan(kind, b, m, k, c, mid_, cout_)
+        dev = lib.sa_trainbn_smem_bytes(kind, tile, k, c, mid_, cout_,
+                                        2 if kind == S.STATS else ring)
+        out[name] = dict(tile=tile, grid=grid, ring=ring, smem_bytes=dev)
+        if (host.tile != tile or host.smem != dev or dev > S._SMEM_LIMIT
+                or (kind != S.STATS and host.ring != ring)):
+            raise AssertionError(f"train-BN {name} plan: host {host}, kernel "
+                                 f"tile {tile} ring {ring} {dev} bytes "
+                                 f"({where})")
+    return out
+
+
+def phase_modelnet_kernels(gen) -> dict:
+    """The kernels of the ModelNet-C path at its shapes, each against its
+    plain version as the kernel phase holds it at width 32: at the four
+    width-64 stages from N = 1024 (STAGES_64) the ball group (row 2) and
+    the fused SA (row 3) on whole clouds, the four train-BN passes (rows
+    16-19, random weights, their plans against the host's copy) and the
+    differentiable fused SA forward and backward (rows 5, 6) on clouds with
+    dropped points, each forward's and backward's shared memory against the
+    host's copy; at the AdaptPoint step's N = 1024 shapes the max-pooled
+    ball group at its four groupers (rows 7, 8, f32 and bf16 features, their
+    layouts), the kNN at its five calls (row 11, exact) and the mask head's
+    attention (rows 9, 10, both input types). Returns each kernel's summed
+    row at these shapes."""
+    import torch
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.ops import knn
+    from adaptpoint_tpu_torch.ops import fpsample as fps
+
+    out = {}
+    inputs = stage_inputs(gen, STAGES_64)
+    out["ball_group"], out["sa_eval"] = check_stages_forward(
+        gen, STAGES_64, inputs, inputs)
+    layouts, captured = {}, []
+    for i, ((n, m, c, mid, cout, r), (xyz, qidx, feats)) in enumerate(
+            zip(STAGES_64, inputs)):
+        layouts[f"stage {i + 1}"] = check_trainbn_layout(
+            B, m, K, c, mid, cout, f"width 64, stage {i + 1}")
+        w1 = torch.randn((3 + c, mid), generator=gen, device=DEV) \
+            / (3 + c) ** 0.5
+        w2 = torch.randn((mid, cout), generator=gen, device=DEV) / mid ** 0.5
+        g1, g2 = (1.0 + 0.1 * torch.randn((w,), generator=gen, device=DEV)
+                  for w in (mid, cout))
+        b1, b2 = (0.1 * torch.randn((w,), generator=gen, device=DEV)
+                  for w in (mid, cout))
+        captured.append((xyz, qidx, feats, w1, g1, b1, w2, g2, b2, r, True,
+                         True))
+    emit("sa_trainbn_layouts", width=64, layouts=layouts)
+    out.update(check_sa_trainbn(gen, captured, op_launches=False))
+    del inputs, captured
+    torch.cuda.empty_cache()
+    fake = stage_inputs(gen, STAGES_64, FAKE_DROPPED)
+    out["sa_train"], out["sa_train_bwd"] = check_sa_train(gen, STAGES_64,
+                                                          fake)
+    del fake
+    torch.cuda.empty_cache()
+
+    n0 = GAN_STAGES_1024[0][0]
+    cloud = torch.randn((B, n0, 3), generator=gen, device=DEV)
+    cloud = cloud / cloud.norm(dim=-1).amax(dim=1, keepdim=True)[..., None]
+    order = fps.furthest_point_sample_cuda(cloud, n0 // 2)
+    levels = [cloud, ops.index_points(cloud, order).contiguous()]
+    for _, m, _, _ in GAN_STAGES_1024[1:]:
+        levels.append(levels[1][:, :m].contiguous())
+    acc = {dt: [dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0) for _ in "fb"]
+           for dt in (torch.float32, torch.bfloat16)}
+    bg_layouts = {}
+    for i, (n, m, c, r) in enumerate(GAN_STAGES_1024):
+        qidx = (order if i == 0 else ops.fps_prefix_idx(B, m, DEV)) \
+            .int().contiguous()
+        bg_layouts[f"grouper {i + 1}"] = check_bgmax_layout(
+            n, m, c, K_GAN, f"N=1024 grouper {i + 1}")
+        for dt in acc:
+            feats = torch.randn((B, n, c), generator=gen, device=DEV).to(dt)
+            for a, row in zip(acc[dt], check_ball_group_max(
+                    gen, f"N=1024 grouper {i + 1}", levels[i], qidx, feats,
+                    r)):
+                a["ms"] += row["ms"]
+                a["plain_ms"] += row["plain_ms"]
+                a["max_abs_err"] = max(a["max_abs_err"], row["max_abs_err"])
+    emit("ball_group_max_layouts", n=n0, layouts=bg_layouts)
+    for name, j in (("ball_group_max", 0), ("ball_group_max_bwd", 1)):
+        out[name] = dict(acc[torch.float32][j], bf16=acc[torch.bfloat16][j],
+                         shape=[B, n0, K_GAN, "the four groupers"])
+
+    row = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0)
+    cases = [(3, levels[i + 1], levels[i]) for i in range(4)]
+    cases.append((24, levels[4], levels[0][:, :4].contiguous()))
+    for k, support, query in cases:
+        got = knn.knn_idx_cuda(k, support, query)
+        ref = knn.knn_idx_plain(k, support, query)
+        mism = int((got != ref).sum())
+        emit("kernel", name="knn", shape=[B, support.shape[1],
+                                          query.shape[1], 3, k],
+             mismatches=mism, tolerance="exact")
+        if mism:
+            raise AssertionError(f"kNN kernel disagrees at {mism} indices "
+                                 f"(N=1024 step, k={k})")
+        row["ms"] += cuda_ms(lambda: knn.knn_idx_cuda(k, support, query))
+        row["plain_ms"] += cuda_ms(lambda: knn.knn_idx_plain(k, support,
+                                                              query), 50.0)
+    out["knn"] = row
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        errs[str(dt)] = check_mha_shape(gen, MHA_SHAPE_1024, MHA_SCALE, dt)
+    # times for the bf16 inputs the policy passes
+    from adaptpoint_tpu_torch.ops import attention
+    q, k_, v, do = [torch.randn(MHA_SHAPE_1024, generator=gen, device=DEV)
+                    for _ in range(4)]
+    q, k_, v = (t.to(torch.bfloat16) for t in (q, k_, v))
+    _, saved = attention.mha_cuda(q, k_, v, MHA_SCALE, for_backward=True)
+    out["mha"] = dict(shape=list(MHA_SHAPE_1024),
+                      max_abs_err=errs["torch.bfloat16"]["out"],
+                      max_abs_err_f32=errs["torch.float32"]["out"],
+                      ms=cuda_ms(lambda: attention.mha_cuda(
+                          q, k_, v, MHA_SCALE, for_backward=True)))
+    out["mha_bwd"] = dict(shape=list(MHA_SHAPE_1024), max_abs_err=max(
+        errs["torch.bfloat16"][g] for g in ("dq", "dk", "dv")),
+        ms=cuda_ms(lambda: attention.mha_bwd_cuda(q, k_, v, MHA_SCALE, do,
+                                                  saved)))
+    del q, k_, v, do, saved
+    emit("modelnet_kernels", note="the ModelNet-C path's shapes: width-64 "
+         "stages from N=1024 at B=32 (rows 2, 3, 5, 6, 16-19), the "
+         "AdaptPoint step at N=1024 (rows 7-11); ms summed over the stages",
+         rows=out)
+    torch.cuda.empty_cache()
+    return out
+
+
+def modelnet_c_arrays(num_points: int, size: int) -> dict:
+    """A ModelNet-C split's ``(points, labels)`` by name, made from
+    SyntheticCls's val clouds (40 classes) with the seven corruptions at
+    five levels each (scale, jitter, rotate, global and local dropout with
+    the dropped points replaced by kept ones, global and local additions in
+    place of points): the sweep's data where the real set is absent."""
+    import numpy as np
+    from adaptpoint_tpu_torch.datasets.synthetic import SyntheticCls
+    from adaptpoint_tpu_torch.datasets.scanobjectnn import CORRUPTIONS
+    ds = SyntheticCls(split="val", num_points=num_points, num_classes=40,
+                      size=size)
+    clean = ds.points.astype(np.float32)
+    labels = ds.labels.astype(np.int64)
+    rng = np.random.default_rng(3)
+    out = {"clean": (clean, labels)}
+    n = num_points
+    for corruption in CORRUPTIONS[1:]:
+        for level in range(5):
+            s = (level + 1) / 5.0
+            p = clean.copy()
+            if corruption == "scale":
+                p *= rng.uniform(1 - 0.4 * s, 1 + 0.4 * s,
+                                 (size, 1, 3)).astype(np.float32)
+            elif corruption == "jitter":
+                p += rng.normal(0, 0.05 * s, p.shape).astype(np.float32)
+            elif corruption == "rotate":
+                t = np.pi / 6 * s
+                rot = np.array([[np.cos(t), -np.sin(t), 0],
+                                [np.sin(t), np.cos(t), 0], [0, 0, 1]],
+                               np.float32)
+                p = p @ rot
+            elif corruption.startswith("dropout"):
+                for i in range(size):
+                    if corruption == "dropout_global":
+                        drop = rng.random(n) < 0.5 * s
+                    else:
+                        c = p[i, rng.integers(n)]
+                        drop = ((p[i] - c) ** 2).sum(-1) < (0.5 * s) ** 2
+                    keep = np.flatnonzero(~drop)
+                    if len(keep) and len(keep) < n:
+                        p[i, drop] = p[i, rng.choice(keep, int(drop.sum()))]
+            else:
+                k = int(n * 0.2 * s)
+                for i in range(size):
+                    at = rng.choice(n, k, replace=False)
+                    if corruption == "add_global":
+                        p[i, at] = rng.uniform(-1, 1, (k, 3))
+                    else:
+                        c = p[i, rng.integers(n)]
+                        p[i, at] = c + rng.normal(0, 0.1, (k, 3))
+            out[f"{corruption}_{level}"] = (p.astype(np.float32), labels)
+    return out
+
+
+def phase_modelnet_cli():
+    """Path C, the paper's second benchmark: ModelNet40 training with the
+    ModelNet-C sweep, through the port's CLI in child processes as a user
+    starts it, on SyntheticCls at the ModelNet cfgs' shapes (1024 points, 40
+    classes, MN_SIZE clouds a split, B = 32, PointNeXt-S at width 64):
+
+    1. ``--cfg cfgs/modelnetc/pointnext-s_adaptpoint.yaml`` (``mode:
+       adaptpoint_modelnet``) with ``rsmix_params`` (AdaptPoint + RSMix in
+       phase B) for MN_EPOCHS epochs at the card's defaults;
+    2. the same with ``resume=True pretrained_path=<latest>`` and one epoch
+       more: the log must show the run resumed at epoch MN_EPOCHS + 1 with
+       the GAN pair reloaded, and exactly that one epoch run;
+    3. ``--cfg cfgs/modelnetc/pointnext-s.yaml`` (``mode: modelnetc``) with
+       ``pointwolf`` for one epoch on the fused routes
+       (``ADAPTPOINT_TPU_TRAIN_FUSED=1``, ``ADAPTPOINT_TPU_EVAL_FUSED=1``).
+
+    Each run logs its skipped ModelNet-C sweep (no tree on the card). Then,
+    in this process, ``eval_corrupt_wrapper_modelnetc`` over the port's
+    ``ModelNetC`` and ``validate_modelnetc`` on the first run's best weights
+    (fused eval): 1 clean and 7 x 5 corrupt splits in ``outcorruption.txt``,
+    mCE and RmCE equal to ``calculate_ce`` of its OAs within the report's
+    rounding. Without ``h5py`` only the h5 read is replaced, by arrays this
+    script made (``modelnet_c_arrays``). Returns the launch counts of the
+    three children and the sweep."""
+    import glob
+    import importlib.util
+    import logging
+    import re
+    import numpy as np
+    import torch
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.datasets import modelnet
+    from adaptpoint_tpu_torch.engine.cls_trainer import (TrainState,
+                                                         make_eval_step)
+    from adaptpoint_tpu_torch.models import build_model_from_cfg
+    from adaptpoint_tpu_torch.utils import EasyConfig
+    from adaptpoint_tpu_torch.utils.ckpt import load_checkpoint
+
+    adapt_cfg = "cfgs/modelnetc/pointnext-s_adaptpoint.yaml"
+    root = os.path.join(ROOT, "build", "chip_smoke", "modelnet_cli")
+    data = ["dataset.common.NAME=SyntheticCls", "dataset.common.num_classes=40",
+            f"dataset.common.size={MN_SIZE}", "seed=1"]
+    total = {}
+
+    def run(cfg_path, extra, env=None):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "adaptpoint_tpu_torch.main", "--cfg",
+             cfg_path] + data + extra + [f"root_dir={root}"], cwd=ROOT,
+            env=env or os.environ, capture_output=True, text=True,
+            timeout=600)
+        seconds = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"the CLI exited {out.returncode}:\n"
+                                 f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        counts = json.loads(out.stdout.strip().splitlines()[-1])[
+            "launch_counts"]
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        log = out.stdout
+        return dict(seconds=seconds, log=log, counts=counts,
+                    epochs=[int(e) for e in re.findall(r"Epoch (\d+) LR",
+                                                       log)],
+                    val_oa=[float(v) for v in re.findall(
+                        r"val_oa ([0-9.]+)", log)],
+                    phases=[(float(a), float(b)) for a, b in re.findall(
+                        r"phase_a_seconds ([0-9.]+) phase_b_seconds "
+                        r"([0-9.]+)", log)],
+                    epoch_seconds=[float(v) for v in re.findall(
+                        r"epoch_seconds ([0-9.]+)", log)],
+                    skipped=log.count("skipping corruption eval"))
+
+    first = run(adapt_cfg, [f"epochs={MN_EPOCHS}", MN_RSMIX])
+    runs = sorted(glob.glob(os.path.join(root, "modelnetc", "*")),
+                  key=os.path.getmtime)
+    run_dir = runs[-1]
+    name = os.path.basename(run_dir)
+    latest = os.path.join(run_dir, "checkpoint", f"{name}_ckpt_latest.pth")
+    best = os.path.join(run_dir, "checkpoint", f"{name}_ckpt_best.pth")
+    resumed = run(adapt_cfg, [f"epochs={MN_EPOCHS + 1}", MN_RSMIX,
+                              "resume=True", f"pretrained_path={latest}"])
+    after = torch.load(latest, map_location="cpu", weights_only=True)
+    env = dict(os.environ, ADAPTPOINT_TPU_TRAIN_FUSED="1",
+               ADAPTPOINT_TPU_EVAL_FUSED="1")
+    wolf = run("cfgs/modelnetc/pointnext-s.yaml",
+               ["epochs=1", "pointwolf.w_num_anchor=4"], env)
+
+    # the ModelNet-C sweep in this process, on the first run's best weights
+    cfg = EasyConfig()
+    cfg.load(os.path.join(ROOT, adapt_cfg), recursive=True)
+    cfg.model.in_channels = cfg.model.encoder_args.in_channels
+    tree = os.path.join(root, "modelnet_c")
+    os.makedirs(tree, exist_ok=True)
+    cfg.update({"modelnet_c_dir": tree, "run_dir": tree, "mode":
+                "adaptpoint_modelnet", "val_batch_size": 64})
+    arrays = modelnet_c_arrays(N0, MN_C_SIZE)
+    has_h5py = importlib.util.find_spec("h5py") is not None
+    for split, (pts, lab) in arrays.items():
+        path = os.path.join(tree, f"{split}.h5")
+        if has_h5py:
+            import h5py
+            with h5py.File(path, "w") as f:
+                f["data"], f["label"] = pts, lab[:, None]
+        else:
+            open(path, "wb").close()  # ModelNetC asks for the file
+    report = os.path.join(tree, "outcorruption.txt")
+    if os.path.exists(report):
+        os.remove(report)
+    read = modelnet.load_h5_cached
+    if not has_h5py:
+        modelnet.load_h5_cached = lambda path: arrays[
+            os.path.splitext(os.path.basename(path))[0]]
+    model = build_model_from_cfg(cfg.model, device=DEV, seed=1)
+    epoch_best, _ = load_checkpoint(model, best)
+    eval_step = make_eval_step(model, cfg, fused_eval=True)
+    root_log = logging.getLogger()
+    level = root_log.level
+    root_log.setLevel(logging.WARNING)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        result = modelnet.eval_corrupt_wrapper_modelnetc(
+            {"eval_step": eval_step, "state": TrainState(model, None),
+             "cfg": cfg}, tree, f"best E{epoch_best}")
+    finally:
+        modelnet.load_h5_cached = read
+        root_log.setLevel(level)
+    sweep_seconds = time.perf_counter() - t0
+    for k, v in ops.launch_counts().items():
+        total[k] = total.get(k, 0) + v
+    lines = open(report).read().splitlines()
+    split_lines = [ln for ln in lines if ln.startswith("{'acc'")]
+    oas = {c: result[c]["OA"] for c in result if c != "aggregate"}
+    ce = modelnet.calculate_ce(oas)
+    agg = result["aggregate"]
+    ce_ok = (abs(agg["mCE"] - ce["mCE"]) <= 1e-3 + 1e-9
+             and abs(agg["RmCE"] - ce["RmCE"]) <= 1e-3 + 1e-9)
+
+    emit("modelnet_cli",
+         adaptpoint_rsmix=dict(seconds=first["seconds"],
+                               epochs=first["epochs"],
+                               phase_seconds=first["phases"],
+                               val_oa=first["val_oa"],
+                               sweep_skipped=first["skipped"],
+                               launches=first["counts"]),
+         resumed=dict(seconds=resumed["seconds"], epochs=resumed["epochs"],
+                      phase_seconds=resumed["phases"],
+                      val_oa=resumed["val_oa"],
+                      latest_epoch=int(after["epoch"]),
+                      gan_pair_reloaded="resumed GAN pair from"
+                      in resumed["log"], launches=resumed["counts"]),
+         modelnetc_pointwolf=dict(seconds=wolf["seconds"],
+                                  epochs=wolf["epochs"],
+                                  epoch_seconds=wolf["epoch_seconds"],
+                                  val_oa=wolf["val_oa"],
+                                  sweep_skipped=wolf["skipped"],
+                                  launches=wolf["counts"]),
+         sweep=dict(seconds=sweep_seconds, splits=len(split_lines),
+                    oa=oas, aggregate=agg, calculate_ce=ce,
+                    h5_read="h5py" if has_h5py else
+                    "replaced: arrays made by chip_smoke.py (no h5py)"),
+         run_dir=os.path.relpath(run_dir, ROOT))
+    if first["epochs"] != list(range(1, MN_EPOCHS + 1)) or len(
+            first["phases"]) != MN_EPOCHS or not all(
+            a > 0 and b > 0 for a, b in first["phases"]):
+        raise AssertionError(f"AdaptPoint + RSMix epochs {first['epochs']}, "
+                             f"phases {first['phases']}")
+    if resumed["epochs"] != [MN_EPOCHS + 1] or int(after["epoch"]) != \
+            MN_EPOCHS + 1 or "resumed GAN pair from" not in resumed["log"] \
+            or f"at epoch {MN_EPOCHS} " not in resumed["log"]:
+        raise AssertionError(f"the resumed run: epochs {resumed['epochs']}, "
+                             f"checkpoint epoch {after['epoch']}")
+    if wolf["epochs"] != [1] or "epoch variant: pointwolf" not in wolf["log"]:
+        raise AssertionError(f"mode: modelnetc with pointwolf: "
+                             f"{wolf['epochs']}")
+    if min(first["skipped"], resumed["skipped"], wolf["skipped"]) < 1:
+        raise AssertionError("a skipped ModelNet-C sweep was not logged")
+    oas_all = first["val_oa"] + resumed["val_oa"] + wolf["val_oa"]
+    if not oas_all or not all(np.isfinite(v) and 0 <= v <= 100
+                              for v in oas_all):
+        raise AssertionError(f"validation OAs {oas_all}")
+    if len(split_lines) != 1 + 7 * 5 or not ce_ok or not all(
+            0.0 <= v <= 1.0 for v in oas.values()):
+        raise AssertionError(f"the ModelNet-C report: {len(split_lines)} "
+                             f"splits, aggregate {agg}, calculate_ce {ce}")
+    return total
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="kernels,serve,train,train_fused,cli,adapt,"
-                            "adapt_bf16,window,adapt_cli",
+                            "adapt_bf16,window,adapt_cli,modelnet_cli",
                     help="comma-separated subset of kernels,serve,train,"
-                         "train_fused,cli,adapt,adapt_bf16,window,adapt_cli "
-                         "for a partial run, which prints no final result "
-                         "(default: all); attention alone runs the kernel "
-                         "phase's attention checks and times")
+                         "train_fused,cli,adapt,adapt_bf16,window,adapt_cli,"
+                         "modelnet_cli for a partial run, which prints no "
+                         "final result (default: all); attention alone runs "
+                         "the kernel phase's attention checks and times, "
+                         "modelnet_kernels alone its checks at the ModelNet "
+                         "path's shapes")
     ap.add_argument("--window-op-launches", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -5196,6 +5640,8 @@ def main(argv=None) -> int:
     rows = phase_kernels(gen) if "kernels" in phases else None
     if "attention" in phases and rows is None:
         check_attention(gen, {})
+    mn_rows = (phase_modelnet_kernels(gen)
+               if phases & {"kernels", "modelnet_kernels"} else {})
     by_path = {}
     if "serve" in phases:
         out_dir = os.path.join(ROOT, "build", "chip_smoke")
@@ -5228,6 +5674,9 @@ def main(argv=None) -> int:
     if "adapt_cli" in phases:
         torch.cuda.empty_cache()
         by_path["adapt_cli"] = phase_adapt_cli()
+    if "modelnet_cli" in phases:
+        torch.cuda.empty_cache()
+        by_path["modelnet_cli"] = phase_modelnet_cli()
     emit("done", seconds=time.perf_counter() - t_start)
     if rows is None or set(by_path) != set(PATH_KERNELS):
         print(f"partial run ({sorted(phases)}): no final result",
@@ -5282,6 +5731,8 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms")})
+        if name in mn_rows:
+            kernels[-1]["modelnet_shapes"] = mn_rows[name]
         for extra in ("resample_shape", "feature_shape",
                       "gan_classifier_shapes", "gan_step_shapes", "shape",
                       "ms_forward_only", "bound_parts_ms", "composite_ms",

@@ -14,8 +14,9 @@
   report for the same per-split accuracies, the sweep runs the port's
   model over every split of the tree, and a missing tree is skipped with a
   warning.
-- Each switch the port lacks under ``mode: adaptpoint`` raises and names
-  its ``ROADMAP.md`` item; a requested dump without ``h5py`` raises.
+- Each switch the port lacks under ``mode: adaptpoint`` (``adaptpoint_fused``,
+  ``scan_batches > 1``, ``use_voting``) raises and names its ``ROADMAP.md``
+  item; a requested dump without ``h5py`` raises.
 """
 import glob
 import json
@@ -258,9 +259,8 @@ def test_sweep_runs_over_the_tree_and_skips_a_missing_one(corrupt_dir,
 
 
 @pytest.mark.parametrize("opt,item", [
-    ("resume=True", "§A.4"), ("adaptpoint_fused=True", "§A.5"),
-    ("rsmix_params.beta=1.0", "§A.6"), ("scan_batches=2", "§A.2"),
-    ("use_voting=True", "§A.5"), ("mode=adaptpoint_modelnet", "§A.6")])
+    ("adaptpoint_fused=True", "§A.5"), ("scan_batches=2", "§A.2"),
+    ("use_voting=True", "§A.5")])
 def test_what_the_port_lacks_under_adaptpoint_says_so(tmp_path, opt, item):
     with pytest.raises(NotImplementedError, match=f"not ported.*{item}"):
         cli(["--cfg", TINY, "--device", "cpu", opt, f"root_dir={tmp_path}"])
