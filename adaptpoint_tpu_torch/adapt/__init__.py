@@ -6,7 +6,8 @@ from .build import ADAPTMODELS, build_adaptpointmodels_from_cfg
 from .common import (WolfDraws, draw_wolf, kernel_regression, normalize_cloud,
                      pointwolf_transform, random_axis)
 from .feedback import feedback_loss, update_hardratio
-from .form_dataset import FormDatasetCls, Form_dataset_cls
+from .form_dataset import (FormDatasetCls, FormDatasetShapeNet,
+                           Form_dataset_cls, Form_dataset_shapenet)
 from .pointwolf import PointWOLF, pointwolf
 from .rsmix import rsmix
 
@@ -14,4 +15,5 @@ __all__ = ["ADAPTMODELS", "build_adaptpointmodels_from_cfg", "gumbel_softmax",
            "WolfDraws", "draw_wolf", "pointwolf_transform",
            "kernel_regression", "normalize_cloud", "random_axis",
            "feedback_loss", "update_hardratio", "FormDatasetCls",
-           "Form_dataset_cls", "PointWOLF", "pointwolf", "rsmix"]
+           "Form_dataset_cls", "FormDatasetShapeNet", "Form_dataset_shapenet",
+           "PointWOLF", "pointwolf", "rsmix"]

@@ -1,7 +1,8 @@
-"""In-memory fake-cloud dataset built from one epoch of generator outputs.
+"""In-memory fake-cloud datasets built from one epoch of generator outputs.
 
-Counterpart of ``adaptpoint_tpu/adapt/form_dataset.py`` ``FormDatasetCls``.
-It holds numpy arrays on the host, as the reference's epoch buffer does;
+Counterpart of ``adaptpoint_tpu/adapt/form_dataset.py`` (``FormDatasetCls``
+for classification, ``FormDatasetShapeNet`` for part segmentation). They
+hold numpy arrays on the host, as the reference's epoch buffer does;
 samples are served unchanged (no transform, no shuffle).
 """
 from __future__ import annotations
@@ -10,7 +11,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-__all__ = ["FormDatasetCls", "Form_dataset_cls"]
+__all__ = ["FormDatasetCls", "FormDatasetShapeNet", "Form_dataset_cls",
+           "Form_dataset_shapenet"]
 
 
 class FormDatasetCls:
@@ -34,4 +36,29 @@ class FormDatasetCls:
         return data
 
 
-Form_dataset_cls = FormDatasetCls  # the reference's name
+class FormDatasetShapeNet:
+    """An epoch's fake part-segmentation clouds: ``pos`` (the generator's
+    clouds), ``y`` (part labels), ``heights`` and ``cls`` of the real batches
+    they came from, each a sequence of per-batch arrays."""
+
+    def __init__(self, pos: Sequence[np.ndarray], y: Sequence[np.ndarray],
+                 heights: Sequence[np.ndarray], cls: Sequence[np.ndarray]):
+        self.pos = np.concatenate(pos)
+        self.y = np.concatenate(y)
+        self.heights = np.concatenate(heights)
+        self.cls = np.concatenate(cls)
+        if self.pos.shape[0] != self.y.shape[0]:
+            raise ValueError(f"{self.pos.shape[0]} clouds but "
+                             f"{self.y.shape[0]} label rows")
+
+    def __len__(self):
+        return self.pos.shape[0]
+
+    def get(self, idx: int, rng=None):
+        return {"pos": self.pos[idx], "y": self.y[idx],
+                "heights": self.heights[idx], "cls": self.cls[idx]}
+
+
+# the reference's names
+Form_dataset_cls = FormDatasetCls
+Form_dataset_shapenet = FormDatasetShapeNet

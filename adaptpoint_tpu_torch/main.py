@@ -28,7 +28,7 @@ from .utils import EasyConfig
 from .utils.logger import (generate_exp_directory, resume_exp_directory,
                            setup_logger)
 
-__all__ = ["main"]
+__all__ = ["main", "parse_cfg", "prepare_run", "run_and_report"]
 
 NOT_PORTED = ("pretrain",)
 CLS_MODES = ("train", "test", "val", "resume", "finetune")
@@ -36,9 +36,10 @@ ADAPT_MODES = ("adaptpoint", "adaptpoint_modelnet")
 CORRUPT_MODES = ("scanobjectnnc", "modelnetc")
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser(
-        "point-cloud classification (PyTorch port)")
+def parse_cfg(argv, description: str):
+    """``(args, opts, cfg)``: ``--cfg`` loaded recursively with the
+    ``k=v`` overrides in ``opts`` applied; ``args.device`` is ``--device``."""
+    parser = argparse.ArgumentParser(description)
     parser.add_argument("--cfg", type=str, required=True)
     parser.add_argument("--device", default=None,
                         help="'cpu' for the plain versions on the CPU "
@@ -47,19 +48,26 @@ def main(argv=None):
     cfg = EasyConfig()
     cfg.load(args.cfg, recursive=True)
     cfg.update_opts(opts)
+    return args, opts, cfg
+
+
+def prepare_run(cfg, cfg_path: str, opts, tag_overrides: bool = True
+                ) -> None:
+    """Draw a seed where the cfg has none, name the experiment from the
+    cfg's path (and the overrides, with ``tag_overrides``), make the run
+    directory (or reuse the
+    checkpoint's for ``mode=test``/``val``/``resume`` and for
+    ``resume=True`` with ``pretrained_path``), start the log and dump the
+    cfg into the directory (``cfg_<mode>.yaml`` in a reused one, whose
+    ``cfg.yaml`` stays the training run's)."""
     mode = cfg.get("mode", "train")
-    if mode in NOT_PORTED:
-        raise NotImplementedError(f"mode {mode} is not ported yet")
-    if mode not in CLS_MODES + ADAPT_MODES + CORRUPT_MODES:
-        raise ValueError(f"unknown mode {mode}")
     if cfg.get("seed") is None:
         cfg.seed = random.randint(1, 10000)
-
     # the experiment's name from the cfg's path (reference main.py:30-51)
-    cfg.task_name = os.path.basename(os.path.dirname(args.cfg))
-    cfg.cfg_basename = os.path.splitext(os.path.basename(args.cfg))[0]
+    cfg.task_name = os.path.basename(os.path.dirname(cfg_path))
+    cfg.cfg_basename = os.path.splitext(os.path.basename(cfg_path))[0]
     tags = [cfg.task_name, cfg.cfg_basename]
-    for opt in opts:
+    for opt in opts if tag_overrides else ():
         if "=" in opt and "path" not in opt and "dir" not in opt \
                 and "/" not in opt:
             tags.append(opt.replace("=", "_"))
@@ -73,22 +81,37 @@ def main(argv=None):
     else:
         generate_exp_directory(cfg, exp_name=cfg.exp_name)
     setup_logger(cfg.log_path)
-    # a reused run directory keeps the training run's cfg.yaml
     cfg.dump(os.path.join(
         cfg.run_dir, (f"cfg_{'resume' if cfg.get('resume') else mode}.yaml"
                       if reused else "cfg.yaml")))
     logging.info("run dir: %s", cfg.run_dir)
 
+
+def run_and_report(run, cfg, device):
+    """``run(cfg, device=device)``, then the run's kernel launch counts as
+    one JSON object on the last line of standard output."""
     from . import ops
+    result = run(cfg, device=device)
+    print(json.dumps({"launch_counts": ops.launch_counts()}), flush=True)
+    return result
+
+
+def main(argv=None):
+    args, opts, cfg = parse_cfg(argv,
+                                "point-cloud classification (PyTorch port)")
+    mode = cfg.get("mode", "train")
+    if mode in NOT_PORTED:
+        raise NotImplementedError(f"mode {mode} is not ported yet")
+    if mode not in CLS_MODES + ADAPT_MODES + CORRUPT_MODES:
+        raise ValueError(f"unknown mode {mode}")
+    prepare_run(cfg, args.cfg, opts)
     if mode in ADAPT_MODES:
         from .engine.adapt_main import main as run
     elif mode in CORRUPT_MODES:
         from .engine.corrupt_main import main as run
     else:
         from .engine.cls_main import main as run
-    result = run(cfg, device=args.device)
-    print(json.dumps({"launch_counts": ops.launch_counts()}), flush=True)
-    return result
+    return run_and_report(run, cfg, args.device)
 
 
 if __name__ == "__main__":

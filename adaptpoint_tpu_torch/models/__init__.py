@@ -1,4 +1,4 @@
 from .build import MODELS, build_model_from_cfg
-from . import backbone, classification  # noqa: F401  (registers the models)
+from . import backbone, classification, segmentation  # noqa: F401
 
 __all__ = ["MODELS", "build_model_from_cfg"]

@@ -1,3 +1,5 @@
-from .pointnext import PointNextEncoder, SetAbstraction
+from .pointnext import (FeaturePropagation, PointNextDecoder, PointNextEncoder,
+                        PointNextPartDecoder, SetAbstraction)
 
-__all__ = ["PointNextEncoder", "SetAbstraction"]
+__all__ = ["PointNextEncoder", "SetAbstraction", "FeaturePropagation",
+           "PointNextDecoder", "PointNextPartDecoder"]

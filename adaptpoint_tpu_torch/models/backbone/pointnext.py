@@ -1,13 +1,17 @@
-"""PointNeXt encoder, channels-last.
+"""PointNeXt encoder and decoders, channels-last.
 
 Counterpart of ``adaptpoint_tpu/models/backbone/pointnext.py`` for the
 stages PointNeXt-S instantiates: the stem, the strided SetAbstraction
 stages (ball-group route or fused route, differentiable under autograd as
 the GAN step's fake pass needs it, and in training the opt-in fused
-train-BN route) and the group-all stage.
+train-BN route) and the group-all stage; and the feature-propagation
+decoders of segmentation (``FeaturePropagation``, ``PointNextDecoder``,
+``PointNextPartDecoder``).
 ``InvResMLP`` depth blocks (``blocks[i] > 1``) wait for the PointNeXt-B
 slice and raise. Module names follow the reference openpoints layout
-(``encoder.{stage}.{block}.convs.{j}.{0|1}``, ``skipconv.0``).
+(``encoder.{stage}.{block}.convs.{j}.{0|1}``, ``skipconv.0``;
+``decoder.{stage}.0.convs.{j}.{0|1}``, ``global_conv{1,2}.0``,
+``convc.0``).
 
 Under the bf16 compute policy (``utils.precision``) the convs and their
 BatchNorms give bf16, the skip conv computes in f32 from its input (bf16 or
@@ -20,6 +24,7 @@ from __future__ import annotations
 from typing import Any, List, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..build import MODELS
@@ -27,7 +32,8 @@ from ..layers.blocks import CHANNEL_MAP, ConvBlock, create_act, norm_kind
 from ..layers.group_layers import create_grouper, get_aggregation_features
 from ... import ops
 
-__all__ = ["SetAbstraction", "PointNextEncoder"]
+__all__ = ["SetAbstraction", "PointNextEncoder", "FeaturePropagation",
+           "PointNextDecoder", "PointNextPartDecoder"]
 
 
 def _aggregation_features_kfirst(p, dpfj, fi, feature_type):
@@ -396,3 +402,139 @@ class PointNextEncoder(nn.Module):
                 fused_train_bn: bool = False):
         return self.forward_seg_feat(p0, f0, fused_eval, first_fps_idx,
                                      fused_train_bn)
+
+
+class FeaturePropagation(nn.Module):
+    """Feature-propagation upsampling (parity: pointnext.py
+    FeaturePropogation, upsample branch): the coarse level's features
+    interpolated onto the fine level's points from their three nearest
+    coarse points (``ops.three_interpolation``), the fine level's own
+    features in front of them, then pointwise convs ``mlp[0] -> mlp[1] ->
+    ...``, each with BatchNorm and ReLU."""
+
+    def __init__(self, mlp: Sequence[int], norm_args: Optional[dict] = None,
+                 act_args: Optional[dict] = None):
+        super().__init__()
+        self.convs = nn.Sequential(*[
+            ConvBlock(mlp[i - 1], mlp[i],
+                      norm_args=norm_args or {"norm": "bn1d"},
+                      act_args=act_args or {"act": "relu"}, kind="conv1d")
+            for i in range(1, len(mlp))])
+
+    def forward(self, p1: torch.Tensor, f1: Optional[torch.Tensor],
+                p2: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
+        """p1 (B, N, 3), f1 (B, N, C1) or None; p2 (B, M, 3), f2 (B, M, C2)
+        -> (B, N, mlp[-1])."""
+        interp = ops.three_interpolation(p1, p2, f2)
+        x = torch.cat([f1, interp], dim=-1) if f1 is not None else interp
+        return self.convs(x)
+
+
+def _fp_stages(mlps) -> nn.ModuleList:
+    """The reference's ``decoder.{stage}.0`` nesting of one FP a stage."""
+    return nn.ModuleList([nn.ModuleList([FeaturePropagation(m)])
+                          for m in mlps])
+
+
+@MODELS.register_module()
+class PointNextDecoder(nn.Module):
+    """The FP decoder of scene segmentation (parity: pointnext.py
+    PointNextDecoder): ``decoder_stages`` FPs from the deepest level up,
+    each taking the next shallower level's features as its skip; the
+    output is the shallowest decoded level's features."""
+
+    def __init__(self, encoder_channel_list: Sequence[int],
+                 decoder_layers: int = 2, decoder_stages: int = 4,
+                 in_channels: int = 3):
+        super().__init__()
+        ecl = list(encoder_channel_list)
+        skip_channels = ecl[:-1]
+        if len(skip_channels) < decoder_stages:
+            skip_channels.insert(0, in_channels)
+        fp_channels = ecl[:decoder_stages]
+        self.n = len(fp_channels)
+        mlps = [None] * self.n
+        in_ch = ecl[-1]
+        for i in range(-1, -self.n - 1, -1):
+            mlps[i] = ([skip_channels[i] + in_ch]
+                       + [fp_channels[i]] * decoder_layers)
+            in_ch = fp_channels[i]
+        self.out_channels = fp_channels[0]
+        self.decoder = _fp_stages(mlps)
+
+    def forward(self, p, f):
+        """``p``, ``f``: the encoder's ``forward_seg_feat`` lists, level 0 the
+        input cloud."""
+        f = list(f)
+        for i in range(-1, -self.n - 1, -1):
+            f[i - 1] = self.decoder[i][0](p[i - 1], f[i - 1], p[i], f[i])
+        return f[-self.n - 1]
+
+
+@MODELS.register_module()
+class PointNextPartDecoder(nn.Module):
+    """The part-segmentation decoder, conditioned on the shape category
+    (parity: pointnext.py PointNextPartDecoder). The FPs run from the
+    deepest level up without the category; the shallowest FP takes
+    ``[category feature || stage-0 features]`` as its skip. ``cls_map``
+    picks the category feature: ``pointnet2`` a 64-wide conv of the
+    category's one-hot (``convc``), ``curvenet`` the one-hot behind the
+    global maxima of a 64-wide conv of the second deepest level
+    (``global_conv1``) and a 128-wide one of the deepest (``global_conv2``),
+    both plain convs with a bias and ReLU. As in the JAX package, each
+    decoder stage is one FP (``decoder_blocks`` is not read)."""
+
+    def __init__(self, encoder_channel_list: Sequence[int],
+                 decoder_layers: int = 2, cls_map: str = "pointnet2",
+                 num_classes: int = 16, act_args: Optional[dict] = None):
+        super().__init__()
+        ecl = list(encoder_channel_list)
+        skip_channels = fp_channels = ecl[:-1]
+        self.n = len(fp_channels)
+        self.cls_map = cls_map
+        self.num_classes = int(num_classes)
+        act_args = act_args or {"act": "relu"}
+        if cls_map == "pointnet2":
+            self.convc = nn.Sequential(ConvBlock(
+                self.num_classes, 64, act_args=act_args, kind="conv1d"))
+            cls_ch = 64
+        elif cls_map == "curvenet":
+            # the reference registers global_conv2 first
+            self.global_conv2 = nn.Sequential(ConvBlock(
+                ecl[-1], 128, act_args=act_args, kind="conv1d"))
+            self.global_conv1 = nn.Sequential(ConvBlock(
+                ecl[-2], 64, act_args=act_args, kind="conv1d"))
+            cls_ch = 64 + 128 + self.num_classes
+        else:
+            raise ValueError(f"unsupported cls_map {cls_map}")
+        mlps = [None] * self.n
+        in_ch = ecl[-1]
+        for i in range(-1, -self.n, -1):
+            mlps[i] = ([skip_channels[i] + in_ch]
+                       + [fp_channels[i]] * decoder_layers)
+            in_ch = fp_channels[i]
+        mlps[0] = ([skip_channels[0] + cls_ch + in_ch]
+                   + [fp_channels[0]] * decoder_layers)
+        self.out_channels = fp_channels[0]
+        self.decoder = _fp_stages(mlps)
+
+    def forward(self, p, f, cls_label: torch.Tensor) -> torch.Tensor:
+        """``p``, ``f``: the encoder's ``forward_seg_feat`` lists (level 0
+        the input cloud, level 1 the stem's); ``cls_label`` (B,) or (B, 1)
+        the shape categories. Returns (B, N, ``out_channels``)."""
+        f = list(f)
+        bsz, n_pts = p[0].shape[0], p[0].shape[1]
+        one_hot = F.one_hot(cls_label.reshape(bsz).long(),
+                            self.num_classes).to(f[-1].dtype)
+        if self.cls_map == "pointnet2":
+            cls_feat = self.convc(one_hot[:, None, :].expand(
+                bsz, n_pts, self.num_classes))
+        else:
+            emb1 = self.global_conv1(f[-2]).amax(dim=1)  # (B, 64)
+            emb2 = self.global_conv2(f[-1]).amax(dim=1)  # (B, 128)
+            g = torch.cat([emb1, emb2, one_hot], dim=-1)
+            cls_feat = g[:, None, :].expand(bsz, n_pts, g.shape[-1])
+        for i in range(-1, -self.n, -1):
+            f[i - 1] = self.decoder[i][0](p[i - 1], f[i - 1], p[i], f[i])
+        f0 = torch.cat([cls_feat, f[1]], dim=-1)
+        return self.decoder[0][0](p[1], f0, p[2], f[2])

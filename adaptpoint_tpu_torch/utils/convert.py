@@ -4,7 +4,9 @@
 ``{"params", "batch_stats"}`` tree (numpy arrays) into the port's
 ``state_dict``, whose names are the reference openpoints layout (a
 ``tests/fixtures/ref_layout_*.json`` fixture gives ``layout_rows``). It keeps
-its own copy of the PointNeXt SA-stage and ClsHead rules of
+its own copy of the PointNeXt SA-stage, ClsHead and segmentation rules
+(SegHead, the FP decoder stages and the part decoder's ``global_conv1``,
+``global_conv2`` and ``convc``) of
 ``adaptpoint_tpu/utils/torch_convert.py`` ``export_reference_state_dict``:
 
 - ``Dense`` kernels ``(in, out)`` transpose to ``(out, in)`` and reshape to
@@ -43,6 +45,10 @@ __all__ = ["state_dict_from_jax", "generator_state_dict_from_jax",
 _SA_CONV = re.compile(r"^encoder\.encoder\.(\d+)\.0\.convs\.(\d+)\.([01])\.(.+)$")
 _SA_SKIP = re.compile(r"^encoder\.encoder\.(\d+)\.0\.skipconv\.0\.(weight|bias)$")
 _HEAD = re.compile(r"^prediction\.head\.(\d+)\.([01])\.(.+)$")
+_SEGHEAD = re.compile(r"^head\.head\.(\d+)\.([01])\.(.+)$")
+_DEC = re.compile(r"^decoder\.decoder\.(\d+)\.0\.convs\.(\d+)\.([01])\.(.+)$")
+_DEC_GLOBAL = re.compile(
+    r"^decoder\.(global_conv[12]|convc)\.0\.0\.(weight|bias)$")
 _BN = {"weight": ("params", "scale"), "bias": ("params", "bias"),
        "running_mean": ("batch_stats", "mean"),
        "running_var": ("batch_stats", "var")}
@@ -98,6 +104,27 @@ def _translate(key: str, keys) -> Tuple[str, str, bool]:
             return _pair(sub, leaf, f"{base}/Dense_0",
                          f"{base}/NormAct_0/BatchNorm_0")
         return _pair(sub, leaf, "prediction/Dense_0", "")
+    m = _SEGHEAD.match(key)
+    if m:
+        i, sub, leaf = int(m.group(1)), m.group(2), m.group(3)
+        if f"head.head.{i}.1.weight" in keys:
+            # the k-th head slot with a BatchNorm is ConvBlock_k
+            k = sum(f"head.head.{j}.1.weight" in keys for j in range(i))
+            base = f"head/ConvBlock_{k}"
+            return _pair(sub, leaf, f"{base}/Dense_0",
+                         f"{base}/NormAct_0/BatchNorm_0")
+        return _pair(sub, leaf, "head/Dense_0", "")
+    m = _DEC.match(key)
+    if m:
+        stage, j, sub, leaf = m.groups()
+        base = f"decoder/fp{stage}/ConvBlock_{j}"
+        return _pair(sub, leaf, f"{base}/Dense_0",
+                     f"{base}/NormAct_0/BatchNorm_0")
+    m = _DEC_GLOBAL.match(key)
+    if m:
+        # the part decoder's category convs: a conv with a bias, no norm
+        name, leaf = m.groups()
+        return _pair("0", leaf, f"decoder/{name}/Dense_0", "")
     raise KeyError(key)
 
 
