@@ -1,17 +1,19 @@
 """PointNeXt encoder and decoders, channels-last.
 
-Counterpart of ``adaptpoint_tpu/models/backbone/pointnext.py`` for the
-stages PointNeXt-S instantiates: the stem, the strided SetAbstraction
-stages (ball-group route or fused route, differentiable under autograd as
-the GAN step's fake pass needs it, and in training the opt-in fused
-train-BN route) and the group-all stage; and the feature-propagation
-decoders of segmentation (``FeaturePropagation``, ``PointNextDecoder``,
-``PointNextPartDecoder``).
-``InvResMLP`` depth blocks (``blocks[i] > 1``) wait for the PointNeXt-B
-slice and raise. Module names follow the reference openpoints layout
-(``encoder.{stage}.{block}.convs.{j}.{0|1}``, ``skipconv.0``;
-``decoder.{stage}.0.convs.{j}.{0|1}``, ``global_conv{1,2}.0``,
-``convc.0``).
+Counterpart of ``adaptpoint_tpu/models/backbone/pointnext.py``: the stem,
+the strided SetAbstraction stages (ball-group route or fused route,
+differentiable under autograd as the GAN step's fake pass needs it, and in
+training the opt-in fused train-BN route), the group-all stage, the
+``InvResMLP`` depth blocks of PointNeXt-B/L/XL (``blocks[i] > 1``: a
+``LocalAggregation`` over each point's own ball, query = support, through
+``ops.ball_group``, then a pointwise inverted bottleneck and the residual);
+and the feature-propagation decoders of segmentation
+(``FeaturePropagation``, ``PointNextDecoder``, ``PointNextPartDecoder``).
+Module names follow the reference openpoints layout
+(``encoder.{stage}.0.convs.{j}.{0|1}``, ``skipconv.0``;
+``encoder.{stage}.{block > 0}.convs.convs.{j}.{0|1}``,
+``pwconv.{i}.{0|1}``; ``decoder.{stage}.0.convs.{j}.{0|1}``,
+``global_conv{1,2}.0``, ``convc.0``).
 
 Under the bf16 compute policy (``utils.precision``) the convs and their
 BatchNorms give bf16, the skip conv computes in f32 from its input (bf16 or
@@ -32,8 +34,9 @@ from ..layers.blocks import CHANNEL_MAP, ConvBlock, create_act, norm_kind
 from ..layers.group_layers import create_grouper, get_aggregation_features
 from ... import ops
 
-__all__ = ["SetAbstraction", "PointNextEncoder", "FeaturePropagation",
-           "PointNextDecoder", "PointNextPartDecoder"]
+__all__ = ["SetAbstraction", "LocalAggregation", "InvResMLP",
+           "PointNextEncoder", "FeaturePropagation", "PointNextDecoder",
+           "PointNextPartDecoder"]
 
 
 def _aggregation_features_kfirst(p, dpfj, fi, feature_type):
@@ -167,12 +170,17 @@ class SetAbstraction(nn.Module):
             self._fused_cache = (key, (w1, b1, w2, b2), packed)
         return self._fused_cache[1], self._fused_cache[2]
 
-    def _fused_trainbn_ok(self) -> bool:
+    def _fused_trainbn_ok(self, n: int) -> bool:
         """The fused train-BN kernels cover training forwards of the standard
-        stage (``_fused_eval_ok``'s form, in train mode): the gate of the
-        JAX package's ``_fused_trainbn_ok``, without its platform test; the
-        tensors' device picks kernels or plain version."""
-        return (self.training and self.use_fused and self.layers == 2
+        stage (``_fused_eval_ok``'s form, in train mode) on ``n`` points
+        whose ``n // stride`` centers are a multiple of 8: the gate of the
+        JAX package's ``_fused_trainbn_ok`` and its caller's center test
+        (its kernel pads other center counts, which would bias the batch
+        statistics), without its platform test; the tensors' device picks
+        kernels or plain version. A stage the gate refuses takes the ball
+        group route, as in the JAX package."""
+        return (self.training and self.use_fused
+                and (n // self.stride) % 8 == 0 and self.layers == 2
                 and self.feature_type == "dp_fj"
                 and self.order == "conv-norm-act"
                 and norm_kind(self.norm_args) == "bn"
@@ -243,7 +251,7 @@ class SetAbstraction(nn.Module):
             for cb in self.convs:
                 x = cb(x)
             return p, x
-        if fused_train_bn and self._fused_trainbn_ok():
+        if fused_train_bn and self._fused_trainbn_ok(p.shape[1]):
             return self._fused_trainbn_stage(p, f, first_fps_idx)
         if self.use_fused and fused_eval and self._fused_eval_ok():
             return self._fused_stage(p, f, first_fps_idx)
@@ -282,6 +290,116 @@ class SetAbstraction(nn.Module):
         if self.use_res:
             x = self.act(x + identity)
         return new_p, x
+
+
+def _pool(x: torch.Tensor, reduction: str, dim: int) -> torch.Tensor:
+    red = "mean" if reduction.lower() == "avg" else reduction.lower()
+    if red == "max":
+        return x.amax(dim=dim)
+    if red == "mean":
+        return x.mean(dim=dim)
+    if red == "sum":
+        return x.sum(dim=dim)
+    raise ValueError(reduction)
+
+
+class LocalAggregation(nn.Module):
+    """Grouped shared MLP over each point's own neighbourhood, then a pool
+    (parity: pointnext.py LocalAggregation). The ball query's queries are
+    the support points themselves (identity query indices), through
+    ``ops.ball_group``: the ball query is the port's one grouper
+    (``create_grouper``). ``channels[0]`` is the input width before
+    ``CHANNEL_MAP[feature_type]`` widens it. The convs are the reference's
+    ``convs.{j}``."""
+
+    def __init__(self, channels: Sequence[int],
+                 norm_args: Optional[dict] = None,
+                 act_args: Optional[dict] = None,
+                 group_args: Optional[dict] = None,
+                 conv_args: Optional[dict] = None,
+                 feature_type: str = "dp_fj", reduction: str = "max",
+                 last_act: bool = True):
+        super().__init__()
+        self.group_args = dict(group_args or {})
+        if self.group_args.get("NAME", "ballquery") != "ballquery":
+            raise ValueError(f"grouper {self.group_args['NAME']} is not "
+                             f"ported yet")
+        self.feature_type = feature_type
+        self.reduction = reduction
+        order = (conv_args or {}).get("order", "conv-norm-act")
+        ch = list(channels)
+        ch[0] = CHANNEL_MAP[feature_type](ch[0])
+        n = len(ch) - 1
+        self.convs = nn.ModuleList([ConvBlock(
+            ch[i], ch[i + 1], norm_args=norm_args,
+            act_args=None if (i == n - 1 and not last_act) else act_args,
+            kind="conv2d", order=order) for i in range(n)])
+
+    def forward(self, p: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+        """p (B, N, 3), f (B, N, C) -> (B, N, channels[-1])."""
+        g = self.group_args
+        qidx = torch.arange(p.shape[1], dtype=torch.int32,
+                            device=p.device).expand(p.shape[0], -1)
+        _, fi, dpfj, _ = ops.ball_group(
+            float(g.get("radius", 0.1)), int(g.get("nsample", 16)), p, qidx,
+            f, relative=g.get("relative_xyz", True),
+            normalize_dp=g.get("normalize_dp", False))
+        x = _aggregation_features_kfirst(p, dpfj, fi, self.feature_type)
+        for cb in self.convs:
+            x = cb(x)
+        return _pool(x, self.reduction, 1)  # over the K neighbours
+
+
+class InvResMLP(nn.Module):
+    """Inverted-residual MLP depth block (parity: pointnext.py InvResMLP):
+    ``LocalAggregation`` (reference ``convs``), then the pointwise convs
+    ``in -> in * expansion -> in`` (``pwconv``, the last without its
+    activation), the residual and the activation. The points stay where
+    they are."""
+
+    def __init__(self, in_channels: int, norm_args: Optional[dict] = None,
+                 act_args: Optional[dict] = None,
+                 aggr_args: Optional[dict] = None,
+                 group_args: Optional[dict] = None,
+                 conv_args: Optional[dict] = None, expansion: int = 1,
+                 use_res: bool = True, num_posconvs: int = 2,
+                 less_act: bool = False):
+        super().__init__()
+        aggr = dict(aggr_args or {"feature_type": "dp_fj",
+                                  "reduction": "max"})
+        order = (conv_args or {}).get("order", "conv-norm-act")
+        self.use_res = use_res
+        self.convs = LocalAggregation(
+            [in_channels, in_channels], norm_args=norm_args,
+            act_args=act_args if num_posconvs > 0 else None,
+            group_args=group_args, conv_args=conv_args,
+            feature_type=aggr.get("feature_type", "dp_fj"),
+            reduction=aggr.get("reduction", "max"))
+        mid = int(in_channels * expansion)
+        if num_posconvs < 1:
+            channels = []
+        elif num_posconvs == 1:
+            channels = [in_channels, in_channels]
+        else:
+            channels = [in_channels, mid, in_channels]
+        self.pwconv = nn.Sequential(*[ConvBlock(
+            channels[i], channels[i + 1], norm_args=norm_args,
+            act_args=act_args if (i != len(channels) - 2
+                                  and not less_act) else None,
+            kind="conv1d", order=order) for i in range(len(channels) - 1)])
+        self.act = create_act(act_args)
+
+    def forward(self, p: torch.Tensor, f: torch.Tensor,
+                fused_eval: bool = False,
+                first_fps_idx: Optional[torch.Tensor] = None,
+                fused_train_bn: bool = False):
+        """The encoder's block call; the route switches and the FPS indices
+        concern SA stages and are not read here."""
+        identity = f
+        x = self.pwconv(self.convs(p, f))
+        if self.use_res and x.shape[-1] == identity.shape[-1]:
+            x = x + identity
+        return p, x if self.act is None else self.act(x)
 
 
 def _to_full_list(param, blocks, strides, param_scaling=1):
@@ -324,9 +442,6 @@ class PointNextEncoder(nn.Module):
         super().__init__()
         if block != "InvResMLP":
             raise ValueError(f"unsupported block {block}")
-        if any(b > 1 for b in blocks):
-            raise NotImplementedError(
-                "InvResMLP depth blocks (blocks > 1) are not ported yet")
         self.blocks, self.strides = list(blocks), list(strides)
         aggr_args = dict(aggr_args or {"feature_type": "dp_fj",
                                        "reduction": "max"})
@@ -355,6 +470,14 @@ class PointNextEncoder(nn.Module):
             if strides[i] > 1 and not is_head and sampler == "fps":
                 fps_ordered = True
             in_ch = self.channel_list[i]
+            for j in range(1, blocks[i]):
+                g = dict(group_args or {"NAME": "ballquery"})
+                g["radius"] = radii[i][j]
+                g["nsample"] = nsamples[i][j]
+                stages[-1].append(InvResMLP(
+                    in_ch, norm_args=norm_args, act_args=act_args,
+                    aggr_args=aggr_args, group_args=g, conv_args=conv_args,
+                    expansion=expansion, use_res=use_res))
         self.encoder = nn.ModuleList(stages)
 
     @staticmethod

@@ -21,7 +21,8 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["SOURCES", "build_all", "load", "check", "BUILD_DIR"]
+__all__ = ["SOURCES", "build_all", "load", "check", "check_int32",
+           "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "adaptpoint_tpu_torch"
@@ -90,6 +91,15 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(name)))
             _libs[name] = lib
         return lib
+
+
+def check_int32(what: str, **elements: int) -> None:
+    """Raise before a launch where a tensor's element count (``name=count``)
+    reaches 2**31: the kernels index within a tensor in 32-bit ints."""
+    big = {k: int(v) for k, v in elements.items() if int(v) >= 2 ** 31}
+    if big:
+        raise ValueError(f"{what}: element counts past the kernels' 32-bit "
+                         f"indexing: {big}")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -238,6 +238,8 @@ def ball_group_cuda(radius: float, nsample: int, xyz: torch.Tensor,
     K = int(nsample)
     if K < 1 or M < 1:
         raise ValueError(f"empty ball group: M={M} K={K}")
+    _build.check_int32("ball_group", feats=B * N * C,
+                       dpfj=B * K * M * (3 + C))
     tl = fwd_tiling(B, N, M, C, K, feats.data_ptr() % 16 == 0)
     dev = xyz.device
     new_xyz = torch.empty((B, M, 3), dtype=torch.float32, device=dev)
@@ -296,6 +298,8 @@ def ball_group_bwd_cuda(radius: float, idx: torch.Tensor,
     else:
         raise ValueError("channels, g_dpfj or g_fi must give the channel "
                          "count")
+    _build.check_int32("ball_group_bwd", g_dpfj=B * K * M * (3 + C),
+                       g_feats=B * int(n) * C)
     dev = idx.device
     g_new = _cotangent(g_new, (B, M, 3), "g_new", dev)
     g_fi = _cotangent(g_fi, (B, M, C), "g_fi", dev)

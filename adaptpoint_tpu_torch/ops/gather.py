@@ -123,6 +123,7 @@ def gather_rows_cuda(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check(points, idx, "points")
     B, N, C = points.shape
     M = idx.shape[1]
+    _build.check_int32("gather_rows", points=B * N * C, out=B * M * C)
     out = torch.empty((B, M, C), dtype=points.dtype, device=points.device)
     err = (_fwd_entry or _bind()[0])(
         points.data_ptr(), idx.data_ptr(), B, N, M, C, points.element_size(),
@@ -144,6 +145,7 @@ def gather_rows_bwd_cuda(g: torch.Tensor, idx: torch.Tensor,
     if idx.shape[1] != M or n < 1:
         raise ValueError(f"g {tuple(g.shape)} does not match idx "
                          f"{tuple(idx.shape)} or n={n}")
+    _build.check_int32("gather_rows_bwd", g=B * M * C, out=B * n * C)
     out = torch.empty((B, n, C), dtype=g.dtype, device=g.device)
     tl = scatter_rows.choose(B, M, n, C, False, g.element_size(),
                              g.data_ptr() % 16 == 0)

@@ -134,6 +134,7 @@ def knn_idx_cuda(k: int, xyz: torch.Tensor,
     if min(B, M) < 1:
         raise ValueError(f"the kNN kernel takes non-empty clouds, got B={B} "
                          f"M={M}")
+    _build.check_int32("knn", xyz=B * N * C, query=B * M * C, idx=B * M * k)
     var = knn_variant(k, N, C)
     lib = _lib()
     idx = torch.empty((B, M, k), dtype=torch.int32, device=xyz.device)

@@ -459,6 +459,8 @@ def _forward_cuda(radius, nsample, xyz, query_idx, feats, packed, relative,
                          f"M >= 1, got M={M} K={K}")
     Wp, midp = packed.w1.shape
     coutp = packed.w2.shape[1]
+    _build.check_int32("sa_eval", feats=B * N * C,
+                       slots=B * M * K * max(Wp, midp, coutp))
     tl = _fwd_tiling(K, Wp, midp, coutp, N, B, M)
     dev = xyz.device
     new_xyz = torch.empty((B, M, 3), dtype=torch.float32, device=dev)

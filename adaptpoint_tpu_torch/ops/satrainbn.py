@@ -569,6 +569,7 @@ def stats_cuda(radius, nsample, xyz, query_idx, feats, relative=True,
     B, N, _ = xyz.shape
     M, C, K = query_idx.shape[1], feats.shape[2], int(nsample)
     W = C + 3
+    _build.check_int32("sa_trainbn_stats", feats=B * N * C, rows=B * M * K * W)
     dev = xyz.device
     rt, grid, parts = _plan(STATS, B, M, K, C, 1, 1, DESIGN["stats"])
     idx = torch.empty((B, M, K), dtype=torch.int32, device=dev)
@@ -603,6 +604,8 @@ def fwd_cuda(radius, xyz, query_idx, feats, idx, w1, a1, nb1, w2,
     if w1.shape != (C + 3, mid):
         raise ValueError(f"w1 {tuple(w1.shape)} does not chain with C={C} "
                          f"and w2 {tuple(w2.shape)}")
+    _build.check_int32("sa_trainbn_fwd", feats=B * N * C,
+                       rows=B * M * K * max(C + 3, mid, cout))
     rt, grid, ring = _plan(FWD, B, M, K, C, mid, cout, DESIGN["fwd"])
 
     def empty(*shape, dtype=torch.float32):

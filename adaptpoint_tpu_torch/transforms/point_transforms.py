@@ -1,11 +1,13 @@
 """Point-cloud data transforms (host-side numpy, per sample).
 
 Counterpart of ``adaptpoint_tpu/transforms/point_transforms.py`` for the
-transforms the classification cfgs use (reference
+transforms the classification and S3DIS cfgs use (reference
 openpoints/transforms/point_transformer_gpu.py:35-314 and
 point_transform_cpu.py): PointsToTensor, PointCloudScaling,
-PointCloudCenterAndNormalize (heights from the pre-centering gravity axis)
-and PointCloudRotation (per-axis uniform angles, random composition order).
+PointCloudCenterAndNormalize (heights from the pre-centering gravity axis),
+PointCloudRotation (per-axis uniform angles, random composition order),
+PointCloudXYZAlign (centred in the floor plane, the floor at 0) and
+PointCloudJitter (clipped gaussian noise).
 Each draws from the generator it is given in the JAX package's order.
 """
 from __future__ import annotations
@@ -15,7 +17,8 @@ import numpy as np
 from .transforms_factory import DataTransforms
 
 __all__ = ["PointsToTensor", "PointCloudScaling",
-           "PointCloudCenterAndNormalize", "PointCloudRotation"]
+           "PointCloudCenterAndNormalize", "PointCloudRotation",
+           "PointCloudXYZAlign", "PointCloudJitter"]
 
 
 def _rot_single_axis(axis_ind: int, theta: float) -> np.ndarray:
@@ -115,4 +118,35 @@ class PointCloudRotation:
         data["pos"] = data["pos"] @ rot.T
         if "normals" in data:
             data["normals"] = data["normals"] @ rot.T
+        return data
+
+
+@DataTransforms.register_module()
+class PointCloudXYZAlign:
+    """Centre the cloud, then move its lowest point along the gravity axis
+    to 0 (parity: point_transformer_gpu.py:71-90)."""
+
+    def __init__(self, gravity_dim=2, **kwargs):
+        self.gravity_dim = gravity_dim
+
+    def __call__(self, data, rng):
+        pos = data["pos"] - data["pos"].mean(axis=0, keepdims=True)
+        pos[:, self.gravity_dim] -= pos[:, self.gravity_dim].min()
+        data["pos"] = pos.astype(np.float32)
+        return data
+
+
+@DataTransforms.register_module()
+class PointCloudJitter:
+    """Gaussian noise of ``jitter_sigma`` on each coordinate, clipped to
+    +-``jitter_clip`` (parity: point_transformer_gpu.py PointCloudJitter)."""
+
+    def __init__(self, jitter_sigma=0.01, jitter_clip=0.05, **kwargs):
+        self.sigma = jitter_sigma
+        self.clip = jitter_clip
+
+    def __call__(self, data, rng):
+        noise = np.clip(rng.standard_normal(data["pos"].shape) * self.sigma,
+                        -self.clip, self.clip).astype(np.float32)
+        data["pos"] = data["pos"] + noise
         return data

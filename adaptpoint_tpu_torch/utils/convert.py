@@ -4,7 +4,9 @@
 ``{"params", "batch_stats"}`` tree (numpy arrays) into the port's
 ``state_dict``, whose names are the reference openpoints layout (a
 ``tests/fixtures/ref_layout_*.json`` fixture gives ``layout_rows``). It keeps
-its own copy of the PointNeXt SA-stage, ClsHead and segmentation rules
+its own copy of the PointNeXt SA-stage, InvResMLP depth-block
+(``encoder.encoder.{s}.{b > 0}``: ``convs.convs.{j}``, the local
+aggregation's convs, and ``pwconv.{i}``), ClsHead and segmentation rules
 (SegHead, the FP decoder stages and the part decoder's ``global_conv1``,
 ``global_conv2`` and ``convc``) of
 ``adaptpoint_tpu/utils/torch_convert.py`` ``export_reference_state_dict``:
@@ -44,6 +46,10 @@ __all__ = ["state_dict_from_jax", "generator_state_dict_from_jax",
 
 _SA_CONV = re.compile(r"^encoder\.encoder\.(\d+)\.0\.convs\.(\d+)\.([01])\.(.+)$")
 _SA_SKIP = re.compile(r"^encoder\.encoder\.(\d+)\.0\.skipconv\.0\.(weight|bias)$")
+_IRB_LA = re.compile(
+    r"^encoder\.encoder\.(\d+)\.([1-9]\d*)\.convs\.convs\.(\d+)\.([01])\.(.+)$")
+_IRB_PW = re.compile(
+    r"^encoder\.encoder\.(\d+)\.([1-9]\d*)\.pwconv\.(\d+)\.([01])\.(.+)$")
 _HEAD = re.compile(r"^prediction\.head\.(\d+)\.([01])\.(.+)$")
 _SEGHEAD = re.compile(r"^head\.head\.(\d+)\.([01])\.(.+)$")
 _DEC = re.compile(r"^decoder\.decoder\.(\d+)\.0\.convs\.(\d+)\.([01])\.(.+)$")
@@ -93,6 +99,14 @@ def _translate(key: str, keys) -> Tuple[str, str, bool]:
         base = f"encoder/enc{stage}_sa/skipconv"
         return ("params", f"{base}/kernel", True) if leaf == "weight" \
             else ("params", f"{base}/bias", False)
+    m = _IRB_LA.match(key) or _IRB_PW.match(key)
+    if m:
+        stage, block, j, sub, leaf = m.groups()
+        base = f"encoder/enc{stage}_b{block}/" + (
+            f"LocalAggregation_0/ConvBlock_{j}" if m.re is _IRB_LA
+            else f"ConvBlock_{j}")
+        return _pair(sub, leaf, f"{base}/Dense_0",
+                     f"{base}/NormAct_0/BatchNorm_0")
     m = _HEAD.match(key)
     if m:
         i, sub, leaf = int(m.group(1)), m.group(2), m.group(3)

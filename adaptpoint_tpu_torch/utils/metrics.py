@@ -1,16 +1,18 @@
 """Classification metrics on torch tensors.
 
-Counterpart of ``adaptpoint_tpu/utils/metrics.py`` for the classifier
-trainer: ``AverageMeter`` and ``ConfusionMatrix`` (``update``, ``all_acc``;
-accuracies in percent). The matrix is an int64 tensor on the CPU; ``update``
+Counterpart of ``adaptpoint_tpu/utils/metrics.py`` for the trainers:
+``AverageMeter``, ``ConfusionMatrix`` (``update``, ``all_acc``, ``tp``,
+``count``, ``union``; accuracies in percent) and ``get_mious``, scene
+segmentation's IoUs from the matrix's counts. The matrix is an int64 tensor on the CPU; ``update``
 takes predictions and labels from any device and brings them over, so the
 caller decides when that copy (a device sync) happens.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["AverageMeter", "ConfusionMatrix"]
+__all__ = ["AverageMeter", "ConfusionMatrix", "get_mious"]
 
 
 class AverageMeter:
@@ -63,6 +65,11 @@ class ConfusionMatrix:
     def count(self):
         return self.value.sum(dim=1)
 
+    @property
+    def union(self):
+        return (self.value.sum(dim=0) + self.value.sum(dim=1)
+                - torch.diag(self.value))
+
     def all_acc(self):
         return self.cal_acc(self.tp, self.count)
 
@@ -75,3 +82,18 @@ class ConfusionMatrix:
         acc_per_cls = tp / torch.clamp(count, min=1) * 100.0
         over_all_acc = tp.sum() / max(float(count.sum()), 1) * 100.0
         return float(acc_per_cls.mean()), float(over_all_acc), acc_per_cls
+
+
+def get_mious(tp, union, count):
+    """``(mIoU, mAcc, OA, per-class IoUs, per-class accuracies)`` in percent
+    (parity: metrics.py get_mious): a class with no points and no
+    predictions counts 100 (``(0 + 1e-10) / (0 + 1e-10)``), as in the JAX
+    package and the reference."""
+    tp = np.asarray(tp, dtype=np.float64)
+    union = np.asarray(union, dtype=np.float64)
+    count = np.asarray(count, dtype=np.float64)
+    iou_per_cls = (tp + 1e-10) / (union + 1e-10) * 100.0
+    acc_per_cls = (tp + 1e-10) / (count + 1e-10) * 100.0
+    over_all_acc = tp.sum() / count.sum() * 100.0
+    return (float(iou_per_cls.mean()), float(acc_per_cls.mean()),
+            float(over_all_acc), iou_per_cls, acc_per_cls)

@@ -172,6 +172,29 @@ Phases, one JSON object a line:
    ``outcorruption.txt``; without ``h5py`` the h5 read alone is replaced by
    arrays the script made. The launch counts of the three children and the
    sweep.
+16. ``seg``: S3DIS scene segmentation at full width
+   (``cfgs/s3dis/pointnext-b.yaml``: PointNeXt-B, width 32, blocks [1, 2,
+   3, 2, 2], strides [1, 4, 4, 4, 4], 13 classes) with seeded weights on
+   B = 8 ``SyntheticScene`` crops of N = 24000 points under the cfg's
+   transforms: the first train step against the same step through the plain
+   versions on the card, the launches a step makes (FPS 1, ball group 9 +
+   9: four SA stages and five InvResMLP blocks, kNN 4, row gather 8,
+   scatter-add 4), the eval forward against the plain versions and
+   ``validate_seg`` over a padded last batch; ``cfgs/s3dis/pointnext-s.yaml``
+   at the same size, its fused train-BN step against its unfused step (the
+   gate admits only stage 1's 6000 centers) and its fused eval forward
+   against its unfused one; then every kernel of the path against its plain
+   version at the models' shapes (FPS 24000 -> 6000 on the four-block
+   instance, the ball group at the step's nine calls, the FP levels' kNN and
+   gathers, row 3 at the S model's eval stages, rows 16-19 at its fused
+   stage); ms per train step and per eval forward of both models (S on both
+   routes) with the profiler's device-busy time and peak memory.
+17. ``seg_cli``: ``python -m adaptpoint_tpu_torch.seg --cfg
+   cfgs/s3dis/pointnext-b.yaml`` in child processes on SyntheticScene crops
+   of 24000 points (SEG_CLI_SIZE a split, B = 8): SEG_CLI_EPOCHS epochs,
+   ``mode=test`` and ``mode=val`` on the best checkpoint giving exactly the
+   best epoch's mIoU, mAcc and OA, ``mode=resume`` to one epoch more; the
+   launch counts of the four children.
 
 Then the card's name and power limit as nvidia-smi prints them, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` as the
@@ -364,7 +387,12 @@ PATH_KERNELS = {
                 "sa_trainbn_fwd", "sa_trainbn_bwd_w2", "sa_trainbn_bwd_x"),
     "partseg_cli": ("fps", "ball_group", "ball_group_bwd", "sa_eval",
                     "ball_group_max", "ball_group_max_bwd", "mha", "mha_bwd",
-                    "knn", "gather_rows", "gather_rows_bwd")}
+                    "knn", "gather_rows", "gather_rows_bwd"),
+    "seg": ("fps", "ball_group", "ball_group_bwd", "knn", "gather_rows",
+            "gather_rows_bwd", "sa_eval", "sa_trainbn_stats",
+            "sa_trainbn_fwd", "sa_trainbn_bwd_w2", "sa_trainbn_bwd_x"),
+    "seg_cli": ("fps", "ball_group", "ball_group_bwd", "knn", "gather_rows",
+                "gather_rows_bwd")}
 # names of the hand-written kernels as the profiler prints them
 OWN_KERNELS = ("fps_kernel", "ball_group_kernel", "ball_group_bwd_kernel",
                "ball_group_max_kernel", "ball_group_max_bwd_kernel",
@@ -498,6 +526,32 @@ PARTSEG_ARGMAX_SHARE = 0.99
 # one more resumed; the in-process ShapeNet-C sweep on PS_C_SIZE clouds a
 # split
 PS_SIZE, PS_EPOCHS, PS_C_SIZE = 128, 2, 64
+# the S3DIS path (``cfgs/s3dis/pointnext-b.yaml``: PointNeXt-B at width 32,
+# blocks [1, 2, 3, 2, 2], strides [1, 4, 4, 4, 4], 13 classes, features
+# ``x,heights``) on SEG_B crops of N_SEG points, the cfg's batch and
+# ``voxel_max``: its four strided SA stages (N -> M, C in, mid, C out,
+# radius; mid unused at sa_layers 1), its InvResMLP blocks (N, C, radius;
+# query = support) and the decoder's FP levels (queries, coarse points,
+# coarse channels), deepest first
+N_SEG, SEG_B = 24000, 8
+SEG_STAGES = [(24000, 6000, 32, 0, 64, 0.1), (6000, 1500, 64, 0, 128, 0.2),
+              (1500, 375, 128, 0, 256, 0.4), (375, 93, 256, 0, 512, 0.8)]
+SEG_BLOCKS = [(6000, 64, 0.2), (1500, 128, 0.4), (1500, 128, 0.4),
+              (375, 256, 0.8), (93, 512, 1.6)]
+SEG_LEVELS = [(375, 93, 512), (1500, 375, 256), (6000, 1500, 128),
+              (24000, 6000, 64)]
+# the first seg train step on the card against the same step through the
+# plain versions on the card: the forward is the same bits (every kernel of
+# it is exact), the backward's scatters add in another order, so the band
+# is TOL_STEP_PLAIN's. PointNeXt-S's fused train-BN step against its
+# unfused step (only stage 1, 6000 centers, passes the gate) and its fused
+# eval forward against the unfused one: part segmentation's bands
+# (TOL_PARTSEG_STEP; TOL_SA and SEG_ARGMAX_SHARE of the points' argmax)
+SEG_ARGMAX_SHARE = 0.99
+# the seg_cli phase: SyntheticScene crops of N_SEG points, SEG_CLI_SIZE a
+# split, SEG_B a batch, SEG_CLI_EPOCHS epochs, then mode=test, mode=val and
+# mode=resume to one epoch more
+SEG_CLI_SIZE, SEG_CLI_EPOCHS = 16, 2
 
 
 def emit(phase: str, **kw) -> None:
@@ -591,24 +645,33 @@ def stage_inputs(gen, stages=None, dropped: float = 0.0):
 
 def scanned_points(xyz, qidx, radius, K=K):
     """Support points the ball query must look at: up to the K-th in-ball
-    point, or all N when the ball holds fewer."""
+    point, or all N when the ball holds fewer. Taken over slices of the
+    queries, so that a scene-sized support (24000 points) stays small."""
     import torch
     from adaptpoint_tpu_torch.ops.geometry import index_points, radius_sq
-    q = index_points(xyz, qidx)
-    d = q[:, :, None, :] - xyz[:, None, :, :]
-    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
-    cum = torch.cumsum((d2 < radius_sq(radius)).int(), dim=-1)
-    full = cum[..., -1] >= K
-    kth = torch.argmax((cum >= K).int(), dim=-1) + 1
-    return int(torch.where(full, kth, torch.full_like(kth, xyz.shape[1]))
-               .sum())
+    q_all = index_points(xyz, qidx)
+    b, n = xyz.shape[:2]
+    step = max(1, (1 << 25) // (b * n))
+    total = 0
+    for lo in range(0, q_all.shape[1], step):
+        q = q_all[:, lo:lo + step]
+        d = q[:, :, None, :] - xyz[:, None, :, :]
+        d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+              + d[..., 2] * d[..., 2])
+        del d
+        cum = torch.cumsum((d2 < radius_sq(radius)).int(), dim=-1)
+        full = cum[..., -1] >= K
+        kth = torch.argmax((cum >= K).int(), dim=-1) + 1
+        total += int(torch.where(full, kth, torch.full_like(kth, n)).sum())
+    return total
 
 
 def check_stages_forward(gen, stages, bg_inputs, sa_inputs):
-    """The ball-group kernel on ``bg_inputs`` (``None``: not checked) and the
-    fused SA kernel (folded weights at each stage's widths) on ``sa_inputs``,
-    K neighbours, dp normalised as PointNeXt-S asks, each against its plain
-    version. Returns their rows, summed over the stages."""
+    """The ball-group kernel on ``bg_inputs`` and the fused SA kernel
+    (folded weights at each stage's widths) on ``sa_inputs`` (either
+    ``None``: not checked), K neighbours, dp normalised as PointNeXt-S asks,
+    each against its plain version, at the batch the inputs hold. Returns
+    their rows, summed over the stages."""
     import torch
     from adaptpoint_tpu_torch.ops import ballgroup, saeval
 
@@ -628,9 +691,10 @@ def check_stages_forward(gen, stages, bg_inputs, sa_inputs):
         return row
 
     for i, (n, m, c, mid, cout, r) in enumerate(stages):
-        bg_row = None
+        bg_row = sa_row = None
         if bg_inputs is not None:
             xyz, qidx, feats = bg_inputs[i]
+            B = xyz.shape[0]
             args = (r, K, xyz, qidx, feats, True, True)
             got = ballgroup.ball_group_cuda(*args)
             ref = ballgroup.ball_group_plain(*args)
@@ -663,8 +727,13 @@ def check_stages_forward(gen, stages, bg_inputs, sa_inputs):
                 bg[key] = (None if bg[key] is None or bg_row[key] is None
                            else bg[key] + bg_row[key])
             del cat, rows_of
+        if sa_inputs is None:
+            emit("stage_times", stage=i + 1, shape=[B, n, m, c, K],
+                 ball_group=bg_row)
+            continue
 
         xyz, qidx, feats = sa_inputs[i]
+        B = xyz.shape[0]
         scanned = scanned_points(xyz, qidx, r)
         w1 = torch.randn((3 + c, mid), generator=gen, device=DEV) \
             / (3 + c) ** 0.5
@@ -706,7 +775,7 @@ def check_stages_forward(gen, stages, bg_inputs, sa_inputs):
     for acc in (bg, sa):
         acc["bound_by"] = "bytes" if acc.pop("t_b") > acc.pop("t_o") \
             else "operations"
-    return bg, sa
+    return bg, (sa if sa_inputs is not None else None)
 
 
 def check_bg_backward(gen, tag, r, k, xyz, qidx, feats) -> dict:
@@ -793,6 +862,7 @@ def check_stages_backward(gen, stages, inputs):
                stand_in_ms=0.0, device_ms=0.0, host_us=0.0)
     for i, ((n, m, c, _, _, r), (xyz, qidx, feats)) in enumerate(
             zip(stages, inputs)):
+        B = xyz.shape[0]
         got = check_bg_backward(gen, f"stage {i + 1}", r, K, xyz, qidx, feats)
         args, errs = got["args"], got["errs"]
         idx, g_dpfj = args[1], args[5]
@@ -949,18 +1019,23 @@ def bg_op_launches(gen, xyz, qidx, feats, radius) -> dict:
 
 # FPS edge cases, each exact against the plain version: (B, N, npoint, share
 # of points moved to the origin); every instance of the kernel
-# (fpsample.FPS_INSTANCES) and the shared-memory planes (N > 4096)
+# (fpsample.FPS_INSTANCES), the shared-memory planes (N > 4096) and the
+# four-block clusters (N > 16384: ties across the blocks, a last block
+# without points for its last threads, its largest N)
 FPS_EDGES = [(1, 1024, 512, 0.0), (2, 1000, 1000, 0.0), (2, 4097, 4097, 0.0),
              (4, 2048, 1, 0.0), (4, 2048, 1024, 0.5), (2, 300, 300, 0.0),
-             (2, 4096, 2048, 0.0), (2, 16384, 4096, 0.0)]
+             (2, 4096, 2048, 0.0), (2, 16384, 4096, 0.0),
+             (3, 16385, 2000, 0.5), (2, 24577, 1500, 0.0),
+             (1, 32768, 1000, 0.0)]
 
 
 def check_fps_edges(gen) -> None:
     """The FPS kernel at FPS_EDGES against its plain version, index for
     index: B = 1, N = 1000 and 4097 with npoint = N, npoint = 1, a cloud
     with half its points at the origin (ties), N = 300 (threads without
-    points), N = 4096 (1024 threads of 4 points) and N = 16384 (the
-    kernel's largest); together every instance of the kernel."""
+    points), N = 4096 (1024 threads of 4 points), N = 16384 (the one-block
+    kernel's largest) and the four-block clusters from 16385 points (half at
+    the origin) to 32768; together every instance of the kernel."""
     import torch
     from adaptpoint_tpu_torch.ops import fpsample as fps
     if fps._lib().fps_max_points() != fps.FPS_MAX_POINTS:
@@ -1127,6 +1202,7 @@ def check_gather(gen, tag, n, c, idx, distinct=False,
     from adaptpoint_tpu_torch.ops import gather, scatter_rows
     from adaptpoint_tpu_torch.ops.geometry import index_points as plain_index
 
+    B = idx.shape[0]
     flat_idx = idx.reshape(B, -1).int().contiguous()
     m = flat_idx.shape[1]
     pts = torch.randn((B, n, c), generator=gen, device=DEV)
@@ -3943,15 +4019,40 @@ def trainbn_passes(gen, S, xyz, qidx, feats, w1, g1, b1, w2, g2, b2, radius,
     Bq = xyz.shape[0]
     M, C, mid, cout = qidx.shape[1], feats.shape[2], w1.shape[1], w2.shape[1]
     n = Bq * M * k
+    over_max = {}  # each output's max |kernel - plain| over max |plain|
 
     def err(a, b, tol, name, errs):
         d = float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
         scale = float(b.float().abs().max()) if b.numel() else 0.0
         errs[name] = d
+        over_max[name] = d / max(scale, 1e-30)
         return d <= tol * max(scale, 1e-30)
 
     def same_bits(a, b):
         return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def held(got_, ref_, tol, names, errs, plain_fn, args):
+        """Each output within ``tol`` of the plain pass's largest entry;
+        where one is not, within ``tol`` of the same pass in float64 on the
+        same inputs. The plain pass's own f32 sums round too, and where a
+        sum cancels (BatchNorm's backward sums over features with a large
+        mean: S3DIS's raw colours) they sit further from the exact sum than
+        the kernel's (PERF.md, the S3DIS slice)."""
+        ok_, exact = True, None
+        for j, (a, b_, name) in enumerate(zip(got_, ref_, names)):
+            if err(a, b_, tol, name, errs):
+                continue
+            if exact is None:
+                exact = plain_fn(*(t.double() if torch.is_tensor(t)
+                                   and t.is_floating_point() else t
+                                   for t in args))
+            d = float((a.double() - exact[j]).abs().max())
+            scale = float(exact[j].abs().max())
+            over_max[f"{name}_vs_float64"] = d / max(scale, 1e-30)
+            over_max[f"{name}_plain_vs_float64"] = float(
+                (b_.double() - exact[j]).abs().max()) / max(scale, 1e-30)
+            ok_ = ok_ and d <= tol * max(scale, 1e-30)
+        return ok_
 
     got = S.stats_cuda(radius, k, xyz, qidx, feats, rel, norm_dp)
     ref = S.stats_plain(radius, k, xyz, qidx, feats, rel, norm_dp)
@@ -3961,8 +4062,9 @@ def trainbn_passes(gen, S, xyz, qidx, feats, w1, g1, b1, w2, g2, b2, radius,
           "same_bits_again": same_bits(got, S.stats_cuda(
               radius, k, xyz, qidx, feats, rel, norm_dp))}
     ok = e1["idx"] == 0 and e1["same_bits_again"]
-    for name, a, b_ in (("sv", got[1], ref[1]), ("svv", got[2], ref[2])):
-        ok = err(a, b_, TOL_TRAINBN["stats"], name, e1) and ok
+    ok = held(got[1:], ref[1:], TOL_TRAINBN["stats"], ("sv", "svv"), e1,
+              lambda *a: S.stats_plain(*a)[1:],
+              (radius, k, xyz, qidx, feats, rel, norm_dp)) and ok
     idx = got[0]
     mu1, var1, r1, a1, nb1 = S._bn1(got[1], got[2], w1, g1, b1, n, 1e-5)
     fargs = (radius, xyz, qidx, feats, idx, w1, a1, nb1, w2, rel, norm_dp)
@@ -3982,8 +4084,11 @@ def trainbn_passes(gen, S, xyz, qidx, feats, w1, g1, b1, w2, g2, b2, radius,
           "weight_copies_exact": torch.equal(wt, copies)}
     ok2 = (e2["new_xyz"] == 0 and e2["fi"] == 0 and e2["same_bits_again"]
            and e2["weight_copies_exact"])
-    for j, name in ((2, "ymax"), (3, "ymin"), (6, "s2"), (7, "q2")):
-        ok2 = err(got2[j], ref2[j], TOL_TRAINBN["fwd"], name, e2) and ok2
+    pick = (2, 3, 6, 7)
+    ok2 = held([got2[j] for j in pick], [ref2[j] for j in pick],
+               TOL_TRAINBN["fwd"], ("ymax", "ymin", "s2", "q2"), e2,
+               lambda *a: [o[j] for o in (S.fwd_plain(*a),) for j in pick],
+               fargs) and ok2
     ties, flips = 0, 0
     for j, name in ((4, "amax"), (5, "amin")):
         diff = got2[j] != ref2[j]
@@ -4022,10 +4127,9 @@ def trainbn_passes(gen, S, xyz, qidx, feats, w1, g1, b1, w2, g2, b2, radius,
     ref3 = S.bwd_w2_plain(*pargs)
     torch.cuda.synchronize()
     e3 = {}
-    ok3 = True
-    for a, b_, name in zip(got3, ref3, ("dw2", "sg1", "sgx1", "g_y1p",
-                                        "y1")):
-        ok3 = err(a, b_, TOL_TRAINBN["bwd_w2"], name, e3) and ok3
+    ok3 = held(got3, ref3, TOL_TRAINBN["bwd_w2"],
+               ("dw2", "sg1", "sgx1", "g_y1p", "y1"), e3, S.bwd_w2_plain,
+               pargs)
     # the backward's ReLU is the forward's: g_y1' is zero wherever the
     # forward's bit is clear
     off = ~S.unpack_mask(mask, mid)
@@ -4039,11 +4143,11 @@ def trainbn_passes(gen, S, xyz, qidx, feats, w1, g1, b1, w2, g2, b2, radius,
     ref4 = S.bwd_x_plain(*xargs)
     torch.cuda.synchronize()
     e4 = {}
-    ok4 = True
-    for a, b_, name in zip(got4, ref4, ("g_xyz", "g_feats", "dw1")):
-        ok4 = err(a, b_, TOL_TRAINBN["bwd_x"], name, e4) and ok4
+    ok4 = held(got4, ref4, TOL_TRAINBN["bwd_x"], ("g_xyz", "g_feats", "dw1"),
+               e4, S.bwd_x_plain, xargs)
     inputs = {"fargs": fargs, "bargs": bargs, "pargs": pargs, "xargs": xargs,
-              "stats": (radius, k, xyz, qidx, feats, rel, norm_dp)}
+              "stats": (radius, k, xyz, qidx, feats, rel, norm_dp),
+              "over_max": over_max}
     return (e1, e2, e3, e4), (ok, ok2, ok3, ok4), inputs
 
 
@@ -4251,7 +4355,8 @@ def check_sa_trainbn(gen, captured, op_launches=True):
                            f"{TOL_TRAINBN[name]} * max|plain|")
         if not all(oks):
             raise AssertionError(f"train-BN kernels disagree at stage "
-                                 f"{i + 1}: {errs}")
+                                 f"{i + 1}: {errs}, over max|plain| "
+                                 f"{inp['over_max']}")
         if i == 0 and op_launches:
             trainbn_op_launches(S, inp)
         flops, nbytes, t_ops = trainbn_work(Bq, n_pts, M, C, mid, cout, K)
@@ -4304,6 +4409,7 @@ def check_sa_trainbn(gen, captured, op_launches=True):
             torch.autograd.grad((out * g_out).sum() + (fi_ * g_fi).sum(),
                                 leaves)
 
+        stage_row["over_max"] = inp["over_max"]
         stage_row["composite_ms"] = cuda_ms(composite_step, 100.0)
         composite += stage_row["composite_ms"]
         emit("stage_times", stage=i + 1, shape=[Bq, n_pts, M, C, mid, cout,
@@ -5715,6 +5821,55 @@ def captured_sa_eval(log: list):
         ops.sa_eval = orig
 
 
+def captured_sa_eval_rows(captured_eval, tag: str, layouts: dict) -> dict:
+    """Row 3 against its plain version at the four stages an eval forward
+    handed the fused eval op (``captured_sa_eval``), each stage's launch
+    shape against the host's copy (into ``layouts``). Returns its row, the
+    times summed over the stages."""
+    import torch
+    from adaptpoint_tpu_torch.ops import saeval
+
+    row = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, t_b=0.0, t_o=0.0)
+    for i, (r, k, xyz, qidx, feats, w1, b1, w2, b2, rel, ndp) in enumerate(
+            captured_eval):
+        bq, n = xyz.shape[:2]
+        m, c, mid, cout = qidx.shape[1], feats.shape[2], w1.shape[1], \
+            w2.shape[1]
+        args = (r, k, xyz, qidx, feats, w1, b1, w2, b2, rel, ndp)
+        layouts[f"eval stage {i + 1}"] = check_fwd_layout(
+            k, saeval.pack_weights(w1, b1, w2, b2), n, bq, m,
+            f"{tag} eval stage {i + 1}")
+        got = saeval.sa_eval_cuda(*args)
+        ref = saeval.sa_eval_plain(*args)
+        torch.cuda.synchronize()
+        e_pos = max(float((got[0] - ref[0]).abs().max()),
+                    float((got[1] - ref[1]).abs().max()))
+        diff = (got[2] - ref[2]).abs()
+        scaled = float((diff / (1.0 + ref[2].abs())).max())
+        emit("kernel", name="sa_eval", case=f"{tag} eval",
+             stage=[bq, n, m, c, mid, cout, k],
+             max_abs_err={"new_xyz_fi": e_pos, "out": float(diff.max())},
+             max_scaled_err=scaled,
+             tolerance=f"new_xyz, fi exact; |out - plain| <= {TOL_SA} * "
+                       f"(1 + |plain|)")
+        if e_pos or scaled > TOL_SA or not torch.isfinite(got[2]).all():
+            raise AssertionError(f"fused SA kernel disagrees at {tag} "
+                                 f"eval stage {i + 1}: {e_pos}, {scaled}")
+        row["ms"] += cuda_ms(lambda: saeval.sa_eval_cuda(*args))
+        row["plain_ms"] += cuda_ms(lambda: saeval.sa_eval_plain(*args), 50.0)
+        row["max_abs_err"] = max(row["max_abs_err"], float(diff.max()))
+        row["t_b"] += (bq * n * (12 + c * 4) + bq * m * 4
+                       + ((3 + c) * mid + mid * cout) * 2 + (mid + cout) * 4
+                       + bq * m * (12 + c * 4 + cout * 4)) / PEAK_BYTES
+        row["t_o"] += (2 * bq * m * k * ((3 + c) * mid + mid * cout)
+                       / PEAK_BF16
+                       + scanned_points(xyz, qidx, r, k) * 9 / PEAK_F32)
+    if len(captured_eval) != 4:
+        raise AssertionError(f"{len(captured_eval)} fused eval stages")
+    row.update(bound_row(row.pop("t_b"), row.pop("t_o")))
+    return row
+
+
 def partseg_kernels(gen, captured_eval, captured_train, rows) -> None:
     """Every kernel of the part-segmentation path against its plain version
     at the shapes the model hands it, each row's times summed over its calls
@@ -5764,46 +5919,8 @@ def partseg_kernels(gen, captured_eval, captured_train, rows) -> None:
     del inputs
 
     # row 3 at the stages of a B = 64 fused eval forward
-    row = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, t_b=0.0, t_o=0.0,
-               b32=sa32)
-    for i, (r, k, xyz, qidx, feats, w1, b1, w2, b2, rel, ndp) in enumerate(
-            captured_eval):
-        bq, n = xyz.shape[:2]
-        m, c, mid, cout = qidx.shape[1], feats.shape[2], w1.shape[1], \
-            w2.shape[1]
-        args = (r, k, xyz, qidx, feats, w1, b1, w2, b2, rel, ndp)
-        layouts[f"eval stage {i + 1}"] = check_fwd_layout(
-            k, saeval.pack_weights(w1, b1, w2, b2), n, bq, m,
-            f"part-seg eval stage {i + 1}")
-        got = saeval.sa_eval_cuda(*args)
-        ref = saeval.sa_eval_plain(*args)
-        torch.cuda.synchronize()
-        e_pos = max(float((got[0] - ref[0]).abs().max()),
-                    float((got[1] - ref[1]).abs().max()))
-        diff = (got[2] - ref[2]).abs()
-        scaled = float((diff / (1.0 + ref[2].abs())).max())
-        emit("kernel", name="sa_eval", case="partseg eval",
-             stage=[bq, n, m, c, mid, cout, k],
-             max_abs_err={"new_xyz_fi": e_pos, "out": float(diff.max())},
-             max_scaled_err=scaled,
-             tolerance=f"new_xyz, fi exact; |out - plain| <= {TOL_SA} * "
-                       f"(1 + |plain|)")
-        if e_pos or scaled > TOL_SA or not torch.isfinite(got[2]).all():
-            raise AssertionError(f"fused SA kernel disagrees at part-seg "
-                                 f"eval stage {i + 1}: {e_pos}, {scaled}")
-        row["ms"] += cuda_ms(lambda: saeval.sa_eval_cuda(*args))
-        row["plain_ms"] += cuda_ms(lambda: saeval.sa_eval_plain(*args), 50.0)
-        row["max_abs_err"] = max(row["max_abs_err"], float(diff.max()))
-        row["t_b"] += (bq * n * (12 + c * 4) + bq * m * 4
-                       + ((3 + c) * mid + mid * cout) * 2 + (mid + cout) * 4
-                       + bq * m * (12 + c * 4 + cout * 4)) / PEAK_BYTES
-        row["t_o"] += (2 * bq * m * k * ((3 + c) * mid + mid * cout)
-                       / PEAK_BF16
-                       + scanned_points(xyz, qidx, r, k) * 9 / PEAK_F32)
-    if len(captured_eval) != 4:
-        raise AssertionError(f"{len(captured_eval)} fused eval stages")
-    row.update(bound_row(row.pop("t_b"), row.pop("t_o")))
-    out["sa_eval"] = row
+    out["sa_eval"] = captured_sa_eval_rows(captured_eval, "part-seg", layouts)
+    out["sa_eval"]["b32"] = sa32
 
     # rows 16-19 at the fused train step's stages
     for i, c_ in enumerate(captured_train):
@@ -6324,6 +6441,515 @@ def phase_partseg_cli():
     return total
 
 
+@contextlib.contextmanager
+def captured_ball_group(log: list):
+    """Inside, every ``ops.ball_group`` call appends its arguments to
+    ``log`` (detached): the calls a step hands the ball group, its SA
+    stages' and its InvResMLP blocks'. Nothing of the port does this."""
+    from adaptpoint_tpu_torch import ops
+    orig = ops.ball_group
+
+    def recording(radius, nsample, xyz, query_idx, feats, relative=True,
+                  normalize_dp=False):
+        log.append((float(radius), int(nsample), xyz.detach().contiguous(),
+                    query_idx.int().contiguous(),
+                    feats.detach().float().contiguous(), bool(relative),
+                    bool(normalize_dp)))
+        return orig(radius, nsample, xyz, query_idx, feats,
+                    relative=relative, normalize_dp=normalize_dp)
+
+    ops.ball_group = recording
+    try:
+        yield
+    finally:
+        ops.ball_group = orig
+
+
+def seg_kernels(gen, first_pos, captured_bg, captured_eval, captured_train,
+                rows) -> None:
+    """Every kernel of the S3DIS path against its plain version at the
+    shapes the models hand it, each row's times summed over its calls under
+    ``seg_shapes`` in ``rows`` where given: FPS 24000 -> 6000 at B = 8 on
+    the first batch's crops (row 1, the four-block instance); the ball group
+    forward and backward at the nine calls of PointNeXt-B's train step (rows
+    2, 4: four SA stages from the 24000-point crop, five InvResMLP blocks
+    with query = support, ``captured_bg``), with their layouts; the kNN and
+    the row gather and its scatter-add at the decoder's four FP levels
+    (rows 11, 14, 15: k = 3, the cloud's FPS order and its prefixes); for
+    PointNeXt-S the fused eval SA at the four stages of its B = 8 fused eval
+    forward (row 3, ``captured_eval``) and the four train-BN passes at the
+    stage its fused train step handed them (rows 16-19,
+    ``captured_train``)."""
+    import torch
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.ops import fpsample as fps
+    from adaptpoint_tpu_torch.ops import knn
+
+    out, layouts = {}, {}
+    b, n = first_pos.shape[:2]
+    m = n // 4
+    # row 1
+    got = fps.furthest_point_sample_cuda(first_pos, m)
+    ref = fps.furthest_point_sample_plain(first_pos, m)
+    mism = int((got != ref).sum())
+    emit("kernel", name="fps", case="seg", shape=[b, n, m],
+         tiling=list(fps.fps_tiling(n)), mismatches=mism, tolerance="exact")
+    if mism:
+        raise AssertionError(f"FPS kernel disagrees at {mism} indices "
+                             f"(B={b}, {n} -> {m})")
+    row = dict(ms=cuda_ms(lambda: fps.furthest_point_sample_cuda(
+        first_pos, m), 100.0),
+        plain_ms=cuda_ms(lambda: fps.furthest_point_sample_plain(
+            first_pos, m), 50.0), max_abs_err=0,
+        **device_host(lambda: fps.furthest_point_sample_cuda(first_pos, m),
+                      reps=3),
+        **bound_row((b * n * 12 + b * m * 4) / PEAK_BYTES,
+                    (m - 1) * b * n * 10 / PEAK_F32))
+    row["ns_a_step"] = row["ms"] * 1e6 / (m - 1)
+    out["fps"] = row
+    order = got
+
+    # rows 2, 4 at the train step's nine ball-group calls
+    if len(captured_bg) != len(SEG_STAGES) + len(SEG_BLOCKS):
+        raise AssertionError(f"{len(captured_bg)} ball-group calls a step")
+    stages, inputs = [], []
+    for r, k, xyz, qidx, feats, rel, ndp in captured_bg:
+        if k != K or not (rel and ndp):
+            raise AssertionError(f"a ball group at K={k} {rel} {ndp}")
+        stages.append((xyz.shape[1], qidx.shape[1], feats.shape[2], 0, 0, r))
+        inputs.append((xyz, qidx, feats))
+        layouts[f"ball group {len(stages)}"] = check_bg_layout(
+            xyz.shape[0], xyz.shape[1], qidx.shape[1], feats.shape[2], K)
+    want = ([(n_, m_, c, r) for n_, m_, c, _, _, r in SEG_STAGES]
+            + [(n_, n_, c, r) for n_, c, r in SEG_BLOCKS])
+    got_shapes = sorted((s_[0], s_[1], s_[2], round(s_[5], 6))
+                        for s_ in stages)
+    if got_shapes != sorted((a, b_, c, round(r, 6)) for a, b_, c, r in want):
+        raise AssertionError(f"the ball-group calls' shapes {got_shapes}")
+    out["ball_group"], _ = check_stages_forward(gen, stages, inputs, None)
+    out["ball_group_bwd"] = check_stages_backward(gen, stages, inputs)
+    del inputs
+
+    # rows 11, 14, 15 at the decoder's levels
+    knn_row = dict(ms=0.0, plain_ms=0.0, max_abs_err=0, t_b=0.0, t_o=0.0)
+    g_rows = [dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0,
+                   bound_ms=0.0) for _ in range(2)]
+    levels = {n: first_pos,
+              m: ops.index_points(first_pos, order).contiguous()}
+    for _, ns, _ in SEG_LEVELS[:-1]:
+        levels[ns] = levels[m][:, :ns].contiguous()
+    for i, (nq, ns, c) in enumerate(SEG_LEVELS):
+        query, support = levels[nq], levels[ns]
+        idx = knn.knn_idx_cuda(3, support, query)
+        mism = int((idx != knn.knn_idx_plain(3, support, query)).sum())
+        emit("kernel", name="knn", case="seg", shape=[b, ns, nq, 3, 3],
+             variant=list(knn.knn_variant(3, ns, 3)), mismatches=mism,
+             tolerance="exact")
+        if mism:
+            raise AssertionError(f"kNN kernel disagrees at {mism} indices "
+                                 f"(B={b}, {nq} over {ns})")
+        knn_row["ms"] += cuda_ms(lambda: knn.knn_idx_cuda(3, support, query),
+                                 50.0)
+        knn_row["plain_ms"] += cuda_ms(
+            lambda: knn.knn_idx_plain(3, support, query), 50.0)
+        knn_row["t_b"] += b * (ns + nq) * 12 / PEAK_BYTES
+        knn_row["t_o"] += b * nq * ns * 9 / PEAK_F32
+        cases = [(c, f"FP level {4 - i}")]
+        if i == 3:  # the coarse points' gather of the distances
+            cases.append((3, "FP level 1 points"))
+        for width, tag in cases:
+            for acc, r_ in zip(g_rows, check_gather(
+                    gen, f"seg {tag}", ns, width, idx, dtypes=("float32",),
+                    min_total_ms=50.0)):
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                    acc[key] += r_[key]
+                acc["max_abs_err"] = max(acc["max_abs_err"],
+                                         r_["max_abs_err"])
+    knn_row.update(bound_row(knn_row.pop("t_b"), knn_row.pop("t_o")))
+    out["knn"] = knn_row
+    out["gather_rows"], out["gather_rows_bwd"] = g_rows
+
+    # PointNeXt-S: row 3 at its eval stages, rows 16-19 at its fused stage
+    out["sa_eval"] = captured_sa_eval_rows(captured_eval, "seg", layouts)
+    for i, c_ in enumerate(captured_train):
+        xyz, qidx, feats, w1 = c_[:4]
+        layouts[f"train-BN stage {i + 1}"] = check_trainbn_layout(
+            xyz.shape[0], qidx.shape[1], K, feats.shape[2], w1.shape[1],
+            c_[6].shape[1], f"seg stage {i + 1}")
+    out.update(check_sa_trainbn(gen, captured_train, op_launches=False))
+    emit("seg_layouts", layouts=layouts)
+    for name, r_ in out.items():
+        if rows is not None:
+            rows[name]["seg_shapes"] = r_
+    emit("seg_kernels", note="the S3DIS path's shapes at B = 8, N = 24000: "
+         "FPS 24000 -> 6000, the ball group at PointNeXt-B's nine calls "
+         "a step, the FP levels' kNN and gathers, PointNeXt-S's fused eval "
+         "stages and fused train-BN stage; ms summed over calls", rows=out)
+
+
+def phase_seg(gen, rows):
+    """S3DIS scene segmentation at full width through the entry points a
+    user calls (``cfgs/s3dis/pointnext-b.yaml``, seeded weights, SEG_B
+    ``SyntheticScene`` crops of N_SEG points under the cfg's transforms):
+    the first train step on the card against the same step through the
+    plain versions on the card, the launches a step makes (FPS 1, ball
+    group 9 + 9: four SA stages and five InvResMLP blocks, kNN 4, row
+    gather 8, scatter-add 4), two more steps, the eval forward against the
+    plain versions and ``validate_seg`` over a padded last batch; then
+    ``cfgs/s3dis/pointnext-s.yaml`` (sa_layers 2, residual) at the same
+    size: its fused train-BN step against its unfused step from the same
+    weights, batch and dropout mask (only stage 1's 6000 centers pass the
+    train-BN gate), its fused eval forward against its unfused one, with
+    the launches of each; then every kernel of the path against its plain
+    version at the models' shapes (``seg_kernels``, their rows added to
+    ``rows`` when given), and ms per train step and per eval forward with
+    the profiler's device-busy time. Returns the launch counts of this
+    path's run."""
+    import numpy as np
+    import torch
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.datasets import NumpyLoader, SyntheticScene
+    from adaptpoint_tpu_torch.engine import TrainState, build_train_tools
+    from adaptpoint_tpu_torch.engine.seg_main import (
+        make_seg_eval_step, make_seg_train_step, seg_batch, validate_seg)
+    from adaptpoint_tpu_torch.models import build_model_from_cfg
+    from adaptpoint_tpu_torch.transforms import build_transforms_from_cfg
+    from adaptpoint_tpu_torch.utils import EasyConfig
+
+    def load(name):
+        c = EasyConfig()
+        c.load(os.path.join(ROOT, "cfgs", "s3dis", name), recursive=True)
+        c.model.in_channels = c.model.encoder_args.in_channels
+        return c
+
+    cfg, cfg_s = load("pointnext-b.yaml"), load("pointnext-s.yaml")
+    lr = float(cfg.lr)
+    t0 = time.perf_counter()
+    train = NumpyLoader(SyntheticScene(
+        "train", N_SEG, size=3 * SEG_B,
+        transform=build_transforms_from_cfg("train", cfg.datatransforms)),
+        SEG_B, shuffle=True, drop_last=True, seed=1, num_workers=4)
+    batches = [seg_batch(b_, DEV, cfg) for b_ in train]
+    val = list(NumpyLoader(SyntheticScene(
+        "val", N_SEG, size=SEG_B + 3,
+        transform=build_transforms_from_cfg("val", cfg.datatransforms)),
+        SEG_B, num_workers=4))
+    data_s = time.perf_counter() - t0
+    model = build_model_from_cfg(cfg.model, seed=1)
+    n_params = sum(p.numel() for p in model.parameters())
+    host_gen = torch.Generator().manual_seed(2)
+    mask = torch.rand((SEG_B, N_SEG, model.head.head[0].conv.out_channels),
+                      generator=host_gen) >= 0.5
+    first = batches[0]
+
+    def copy_of(net_cfg, net):
+        twin = build_model_from_cfg(net_cfg.model)
+        twin.load_state_dict(net.state_dict())
+        return twin
+
+    def first_step(net, net_cfg, fused=False, step=None, st=None):
+        if step is None:
+            crit, opt, _ = build_train_tools(net_cfg, net)
+            step = make_seg_train_step(net, opt, crit, net_cfg,
+                                       fused_train_bn=fused)
+            st = TrainState(net, opt)
+        seen = {}
+        hook = net.register_forward_hook(
+            lambda _m, _i, out: seen.__setitem__("logits", out.detach()))
+        _, loss_, preds_ = step(st, first, lr, dropout_mask=mask.to(DEV))
+        hook.remove()
+        return {"loss": float(loss_), "preds": preds_.cpu(),
+                "logits": seen["logits"].double().cpu(),
+                "grads": {k: p.grad.double().cpu()
+                          for k, p in net.named_parameters()},
+                "params": {k: p.detach().double().cpu()
+                           for k, p in net.named_parameters()},
+                "buffers": {k: b_.double().cpu()
+                            for k, b_ in net.named_buffers()}}
+
+    plain_twin = copy_of(cfg, model)
+    model_s = build_model_from_cfg(cfg_s.model, seed=3)
+    fused_s = copy_of(cfg_s, model_s)
+    zero = dict.fromkeys(ops.KERNEL_MODULES, 0)
+    want = {**zero, "fps": 1, "ball_group": 9, "ball_group_bwd": 9,
+            "knn": 4, "gather_rows": 8, "gather_rows_bwd": 4}
+    want_s = {**want, "ball_group": 4, "ball_group_bwd": 4}
+    want_fused = {**want_s, "ball_group": 3, "ball_group_bwd": 3,
+                  "sa_trainbn_stats": 1, "sa_trainbn_fwd": 1,
+                  "sa_trainbn_bwd_w2": 1, "sa_trainbn_bwd_x": 1}
+    ops.reset_launch_counts()  # this path's run starts here
+    criterion, optimizer, _ = build_train_tools(cfg, model)
+    train_step = make_seg_train_step(model, optimizer, criterion, cfg)
+    state = TrainState(model, optimizer)
+    captured_bg = []
+    t0 = time.perf_counter()
+    with captured_ball_group(captured_bg):
+        got = first_step(model, cfg, step=train_step, st=state)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    per_step = ops.launch_counts()
+    before = ops.launch_counts()
+    got_s = first_step(model_s, cfg_s)
+    torch.cuda.synchronize()
+    s_step = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    captured_train = []
+    before = ops.launch_counts()
+    with captured_trainbn(captured_train):
+        fused = first_step(fused_s, cfg_s, fused=True)
+    torch.cuda.synchronize()
+    fused_step = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    run_counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    with plain_ops():
+        ref_plain = first_step(plain_twin, cfg)
+    plain_s = time.perf_counter() - t0
+    if ops.launch_counts() != run_counts:
+        raise AssertionError("a plain-version step launched a kernel")
+    del plain_twin, fused_s
+    w_plain, ok_plain = step_disagreement(got, ref_plain, TOL_STEP_PLAIN, lr)
+    w_fused, ok_fused = step_disagreement(fused, got_s, TOL_PARTSEG_STEP, lr)
+    emit("seg_first_step", params=n_params, loss=got["loss"],
+         plain_loss=ref_plain["loss"], s_loss=got_s["loss"],
+         s_fused_loss=fused["loss"],
+         logits_absmax=float(ref_plain["logits"].abs().max()),
+         against_plain_versions_on_the_card=w_plain,
+         s_fused_against_unfused=w_fused, launches=per_step, expected=want,
+         s_launches=s_step, s_expected=want_s, s_fused_launches=fused_step,
+         s_fused_expected=want_fused,
+         fused_stages=[list(c[0].shape[:2]) + [c[1].shape[1],
+                                               c[2].shape[2], c[3].shape[1],
+                                               c[6].shape[1]]
+                       for c in captured_train],
+         seconds={"data": data_s, "first_step": first_s,
+                  "plain_step": plain_s},
+         tolerance={"against_plain_versions_on_the_card": TOL_STEP_PLAIN,
+                    "s_fused_against_unfused": TOL_PARTSEG_STEP})
+    if per_step != want or s_step != want_s or fused_step != want_fused:
+        raise AssertionError(f"launches in one seg train step {per_step} != "
+                             f"{want}, S {s_step} != {want_s}, fused "
+                             f"{fused_step} != {want_fused}")
+    if not (ok_plain and ok_fused and np.isfinite(got["loss"])):
+        raise AssertionError(f"the first seg train step disagrees: with the "
+                             f"plain versions {w_plain}, S fused with "
+                             f"unfused {w_fused}")
+    if len(captured_train) != 1:
+        raise AssertionError(f"{len(captured_train)} fused train stages")
+    del got, ref_plain, got_s, fused
+
+    # two more steps, then the eval forwards and validate over a padded
+    # last batch
+    dev_gen = torch.Generator(device=DEV).manual_seed(3)
+    losses = []
+    for b_ in batches[1:]:
+        state, loss, _ = train_step(state, b_, lr, generator=dev_gen)
+        losses.append(loss)
+    losses = torch.stack(losses).cpu().tolist()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"seg train steps: loss {losses}")
+    eval_batch = seg_batch(val[0], DEV, cfg)
+    model.eval()
+    model_s.eval()
+    eval_counts, captured_eval = {}, []
+    with torch.no_grad():
+        before = ops.launch_counts()
+        logits = model(eval_batch["pos"], eval_batch["x"]).double()
+        eval_counts["b"] = {k: v - before[k] for k, v in
+                            ops.launch_counts().items() if v - before[k]}
+        with plain_ops():
+            plain = model(eval_batch["pos"], eval_batch["x"]).double()
+        s_logits = {}
+        for fused_eval in (False, True):
+            before = ops.launch_counts()
+            with (captured_sa_eval(captured_eval) if fused_eval
+                  else contextlib.nullcontext()):
+                s_logits[fused_eval] = model_s(
+                    eval_batch["pos"], eval_batch["x"],
+                    fused_eval=fused_eval).double()
+            eval_counts[f"s_{'fused' if fused_eval else 'unfused'}"] = {
+                k: v - before[k] for k, v in ops.launch_counts().items()
+                if v - before[k]}
+    e_plain = float((logits - plain).abs().max())
+    unf, fus = s_logits[False], s_logits[True]
+    scaled = float(((fus - unf).abs() / (1.0 + unf.abs())).max())
+    agree = float((fus.argmax(-1) == unf.argmax(-1)).double().mean())
+    want_eval = {"b": {"fps": 1, "ball_group": 9, "knn": 4,
+                       "gather_rows": 8},
+                 "s_unfused": {"fps": 1, "ball_group": 4, "knn": 4,
+                               "gather_rows": 8},
+                 "s_fused": {"fps": 1, "sa_eval": 4, "knn": 4,
+                             "gather_rows": 8}}
+    before = ops.launch_counts()
+    perf = validate_seg(make_seg_eval_step(model), state, val, cfg)
+    perf["launches"] = {k: v - before[k] for k, v in
+                        ops.launch_counts().items() if v - before[k]}
+    launches = ops.launch_counts()  # this path's run ends here
+    emit("seg_eval", batch=SEG_B, points=N_SEG,
+         b_vs_plain_max_abs=e_plain,
+         s_fused_vs_unfused_max_scaled=scaled, s_argmax_share_equal=agree,
+         logits_absmax=float(logits.abs().max()), launches=eval_counts,
+         expected=want_eval, validate=perf, train_losses=losses,
+         launches_total=launches,
+         tolerance={"b_vs_plain": list(TOL_UNFUSED),
+                    "s_fused_vs_unfused": f"|fused - unfused| <= {TOL_SA} * "
+                    f"(1 + |unfused|), argmax equal on >= "
+                    f"{SEG_ARGMAX_SHARE} of the points"})
+    want_val = {k: len(val) * v for k, v in want_eval["b"].items()}
+    if (eval_counts != want_eval
+            or not torch.allclose(logits, plain, rtol=TOL_UNFUSED[0],
+                                  atol=TOL_UNFUSED[1])
+            or scaled > TOL_SA or agree < SEG_ARGMAX_SHARE
+            or perf["launches"] != want_val
+            or not all(np.isfinite(perf[k]) and 0 <= perf[k] <= 100
+                       for k in ("miou", "macc", "oa"))):
+        raise AssertionError(f"seg eval: launches {eval_counts}, plain "
+                             f"{e_plain}, S fused {scaled} / {agree}, "
+                             f"validate {perf}")
+    del logits, plain, s_logits, unf, fus
+
+    seg_kernels(gen, first["pos"], captured_bg, captured_eval,
+                captured_train, rows)
+    del captured_bg, captured_eval, captured_train
+    torch.cuda.empty_cache()
+
+    # ms per train step and per eval forward: PointNeXt-B, then
+    # PointNeXt-S on both routes
+    readings = {}
+    for name, net_cfg, net, fused_route in (
+            ("b", cfg, model, False), ("s_unfused", cfg_s, model_s, False),
+            ("s_fused", cfg_s, model_s, True)):
+        crit, opt, _ = build_train_tools(net_cfg, net)
+        step = make_seg_train_step(net, opt, crit, net_cfg,
+                                   fused_train_bn=fused_route)
+        st = TrainState(net, opt)
+        it = [0]
+
+        def go():
+            step(st, batches[it[0] % len(batches)], lr, generator=dev_gen)
+            it[0] += 1
+
+        r_ = step_readings(go, reps=4)
+        r_["clouds_per_s"] = SEG_B * 1e3 / r_["ms_per_step"]
+        readings[("train", name)] = r_
+        net.eval()
+
+        def fwd():
+            with torch.no_grad():
+                net(eval_batch["pos"], eval_batch["x"],
+                    fused_eval=fused_route)
+
+        r_ = step_readings(fwd, reps=4)
+        r_["clouds_per_s"] = SEG_B * 1e3 / r_["ms_per_step"]
+        readings[("eval", name)] = r_
+        del opt, st
+        torch.cuda.empty_cache()
+    for (what, name), r_ in readings.items():
+        emit("seg_throughput", what=what, model=name, batch=SEG_B,
+             points=N_SEG, reading=r_)
+    return launches
+
+
+def phase_seg_cli():
+    """S3DIS scene segmentation through the port's CLI in child processes as
+    a user starts it (``python -m adaptpoint_tpu_torch.seg --cfg
+    cfgs/s3dis/pointnext-b.yaml``) at full width on ``SyntheticScene``
+    crops of N_SEG points (SEG_CLI_SIZE a split, B = SEG_B): SEG_CLI_EPOCHS
+    epochs with finite mIoU, mAcc and OA each; ``mode=test`` and
+    ``mode=val`` on the best checkpoint, each giving exactly the best
+    epoch's mIoU, mAcc and OA (``scalars.jsonl``); ``mode=resume`` on the
+    latest checkpoint to one epoch more (exactly that epoch run, from the
+    saved epoch and ``best_val``). Returns the launch counts of the four
+    children."""
+    import re
+    import numpy as np
+    import torch
+
+    root = os.path.join(ROOT, "build", "chip_smoke", "seg_cli")
+    data = ["dataset.common.NAME=SyntheticScene",
+            f"dataset.common.num_points={N_SEG}",
+            f"dataset.common.size={SEG_CLI_SIZE}", f"batch_size={SEG_B}",
+            f"val_batch_size={SEG_B}", "seed=1"]
+    total = {}
+
+    def run(extra):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "adaptpoint_tpu_torch.seg", "--cfg",
+             "cfgs/s3dis/pointnext-b.yaml"] + data + extra
+            + [f"root_dir={root}"], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        seconds = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"the CLI exited {out.returncode}:\n"
+                                 f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        counts = json.loads(out.stdout.strip().splitlines()[-1])[
+            "launch_counts"]
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        log = out.stdout
+        return dict(seconds=seconds, log=log, counts=counts,
+                    epochs=[int(e) for e in re.findall(r"Epoch (\d+) LR",
+                                                       log)],
+                    train_seconds=[float(v) for v in re.findall(
+                        r"train_seconds ([0-9.]+)", log)],
+                    test=re.findall(r"test: miou ([0-9.]+) macc ([0-9.]+) "
+                                    r"oa ([0-9.]+)", log))
+
+    first = run([f"epochs={SEG_CLI_EPOCHS}"])
+    run_dir = re.findall(r"run dir: (.+)", first["log"])[0].strip()
+    name = os.path.basename(run_dir)
+    vals = {}
+    for line in open(os.path.join(run_dir, "scalars.jsonl")):
+        r_ = json.loads(line)
+        vals.setdefault(r_["tag"], {})[r_["step"]] = r_["value"]
+    best_epoch = max(vals["val_miou"], key=vals["val_miou"].get)
+    # as the test run's log prints them
+    best_metrics = tuple(f"{vals[f'val_{k}'][best_epoch]:.2f}"
+                         for k in ("miou", "macc", "oa"))
+    best = os.path.join(run_dir, "checkpoint", f"{name}_ckpt_best.pth")
+    latest = os.path.join(run_dir, "checkpoint", f"{name}_ckpt_latest.pth")
+    tested = run(["mode=test", f"pretrained_path={best}"])
+    validated = run(["mode=val", f"pretrained_path={best}"])
+    saved = torch.load(latest, map_location="cpu", weights_only=True)
+    resumed = run([f"epochs={SEG_CLI_EPOCHS + 1}", "mode=resume",
+                   f"pretrained_path={latest}"])
+    after = torch.load(latest, map_location="cpu", weights_only=True)
+    emit("seg_cli",
+         train=dict(seconds=first["seconds"], epochs=first["epochs"],
+                    train_seconds=first["train_seconds"],
+                    val={k: v for k, v in vals.items()},
+                    launches=first["counts"]),
+         best_epoch=best_epoch, best_epoch_metrics=best_metrics,
+         tested=dict(seconds=tested["seconds"], metrics=tested["test"],
+                     launches=tested["counts"]),
+         validated=dict(seconds=validated["seconds"],
+                        metrics=validated["test"],
+                        launches=validated["counts"]),
+         resumed=dict(seconds=resumed["seconds"], epochs=resumed["epochs"],
+                      train_seconds=resumed["train_seconds"],
+                      latest_epoch=int(after["epoch"]),
+                      best_val=[float(saved["best_val"]),
+                                float(after["best_val"])],
+                      launches=resumed["counts"]),
+         run_dir=os.path.relpath(run_dir, ROOT))
+    mets = [vals[f"val_{k}"][e] for k in ("miou", "macc", "oa")
+            for e in vals[f"val_{k}"]]
+    if first["epochs"] != list(range(1, SEG_CLI_EPOCHS + 1)) or not all(
+            np.isfinite(v) and 0 <= v <= 100 for v in mets):
+        raise AssertionError(f"seg CLI epochs {first['epochs']}, val {vals}")
+    if tested["test"] != [best_metrics] or validated["test"] != [
+            best_metrics]:
+        raise AssertionError(f"mode=test / val on the best checkpoint: "
+                             f"{tested['test']}, {validated['test']} "
+                             f"against the best epoch's {best_metrics}")
+    if resumed["epochs"] != [SEG_CLI_EPOCHS + 1] or int(after["epoch"]) != \
+            SEG_CLI_EPOCHS + 1 or f"at epoch {SEG_CLI_EPOCHS} " not in \
+            resumed["log"] or float(after["best_val"]) < float(
+            saved["best_val"]):
+        raise AssertionError(f"the resumed run: epochs {resumed['epochs']}, "
+                             f"checkpoint epoch {after['epoch']}")
+    return total
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -6331,11 +6957,11 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="kernels,serve,train,train_fused,cli,adapt,"
                             "adapt_bf16,window,adapt_cli,modelnet_cli,"
-                            "partseg,partseg_cli",
+                            "partseg,partseg_cli,seg,seg_cli",
                     help="comma-separated subset of kernels,serve,train,"
                          "train_fused,cli,adapt,adapt_bf16,window,adapt_cli,"
-                         "modelnet_cli,partseg,partseg_cli for a partial "
-                         "run, which prints no "
+                         "modelnet_cli,partseg,partseg_cli,seg,seg_cli for a "
+                         "partial run, which prints no "
                          "final result (default: all); attention alone runs "
                          "the kernel phase's attention checks and times, "
                          "modelnet_kernels alone its checks at the ModelNet "
@@ -6418,6 +7044,12 @@ def main(argv=None) -> int:
     if "partseg_cli" in phases:
         torch.cuda.empty_cache()
         by_path["partseg_cli"] = phase_partseg_cli()
+    if "seg" in phases:
+        torch.cuda.empty_cache()
+        by_path["seg"] = phase_seg(gen, rows)
+    if "seg_cli" in phases:
+        torch.cuda.empty_cache()
+        by_path["seg_cli"] = phase_seg_cli()
     emit("done", seconds=time.perf_counter() - t_start)
     if rows is None or set(by_path) != set(PATH_KERNELS):
         print(f"partial run ({sorted(phases)}): no final result",
@@ -6474,7 +7106,7 @@ def main(argv=None) -> int:
             "library_ms": r.get("library_ms")})
         if name in mn_rows:
             kernels[-1]["modelnet_shapes"] = mn_rows[name]
-        for extra in ("partseg_shapes", "resample_shape", "feature_shape",
+        for extra in ("partseg_shapes", "seg_shapes", "resample_shape", "feature_shape",
                       "gan_classifier_shapes", "gan_step_shapes", "shape",
                       "ms_forward_only", "bound_parts_ms", "composite_ms",
                       "device_ms", "host_us", "library_device_ms",

@@ -12,7 +12,10 @@ prints one JSON line. Inputs are seeded and the same for every root:
 - FPS (``furthest_point_sample_cuda``) at the main paths' shapes, B = 32:
   1024 -> 512 (the serving forward), 2048 -> 1200 (the train step's
   resampling) and 2048 -> 1024 (each of the GAN step's two calls), on
-  clouds in the unit ball;
+  clouds in the unit ball; and at B = 8: 16384 -> 4096 (the one-block
+  kernel's largest N), 24000 -> 6000 (the S3DIS crop: the two-block
+  instance) and 32768 -> 8192 (its largest N); a checkout whose kernel
+  refuses an N reports that shape as refused;
 - kNN (``knn_idx_cuda``) at the GAN step's five calls, B = 32, C = 3: k = 3
   at the four FP-decode levels (support N = 1024, 512, 256, 128 from the FPS
   half of a 2048-point cloud and its prefixes, queries the level above) and
@@ -20,6 +23,11 @@ prints one JSON line. Inputs are seeded and the same for every root:
   ``torch.topk(torch.cdist(q, x), k, largest=False)`` beside it: a stand-in
   that computes other arithmetic and breaks ties its own way, not a library
   call for the same function.
+
+With ``--designs`` each root also times every cluster instance its kernel
+compiles (``fpsample.FPS_CLUSTER_DESIGNS``, forced through ``tiling=``:
+clusters of 2, 4 and 8 blocks) at 24000 -> 6000 and 32768 -> 8192, B = 8,
+each held index for index against the plain version.
 
 For each: the device time of the call alone (``torch.profiler``, per call),
 the host's enqueue time per call (a host clock around calls that do not wait
@@ -44,10 +52,14 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B = 32
-# (N, npoint, launches on the paths): serving forward, train step, GAN step
-FPS_SHAPES = [(1024, 512, "1 / fused serving forward"),
-              (2048, 1200, "1 / train step"),
-              (2048, 1024, "2 / GAN step")]
+# (B, N, npoint, launches on the paths): serving forward, train step, GAN
+# step, then the one-block and two-block instances past 2048 points
+FPS_SHAPES = [(B, 1024, 512, "1 / fused serving forward"),
+              (B, 2048, 1200, "1 / train step"),
+              (B, 2048, 1024, "2 / GAN step"),
+              (8, 16384, 4096, "none (the one-block kernel's largest N)"),
+              (8, 24000, 6000, "1 / S3DIS train step and eval forward"),
+              (8, 32768, 8192, "none (the two-block kernel's largest N)")]
 # the GAN step's kNN calls: (support N, queries M, k, caller)
 KNN_SHAPES = [(1024, 2048, 3, "FP decode"), (512, 1024, 3, "FP decode"),
               (256, 512, 3, "FP decode"), (128, 256, 3, "FP decode"),
@@ -123,9 +135,9 @@ def ptxas_rows(log: str) -> dict:
     return {n[-60:]: [int(r), int(sp)] for n, r, sp in zip(names, regs, spills)}
 
 
-def unit_clouds(gen, n: int):
+def unit_clouds(gen, n: int, b: int = B):
     import torch
-    xyz = torch.randn((B, n, 3), generator=gen, device="cuda")
+    xyz = torch.randn((b, n, 3), generator=gen, device="cuda")
     return (xyz / xyz.norm(dim=-1).amax(dim=1, keepdim=True)[..., None]
             ).contiguous()
 
@@ -133,22 +145,52 @@ def unit_clouds(gen, n: int):
 def fps_rows(fps, gen) -> list:
     import torch
     rows = []
-    for n, npoint, launches in FPS_SHAPES:
-        xyz = unit_clouds(gen, n)
+    for b, n, npoint, launches in FPS_SHAPES:
+        xyz = unit_clouds(gen, n, b)
+        try:
+            tiling = list(fps.fps_tiling(n))
+        except ValueError as e:
+            rows.append({"shape": [b, n, npoint], "refused": str(e)})
+            continue
         got = fps.furthest_point_sample_cuda(xyz, npoint)
         ref = fps.furthest_point_sample_plain(xyz, npoint)
         if not torch.equal(got, ref):
             raise AssertionError(f"FPS disagrees with its plain version at "
                                  f"{n} -> {npoint}: "
                                  f"{int((got != ref).sum())} indices")
-        row = {"shape": [B, n, npoint], "launches": launches,
-               "bound_ms": 1e3 * max((npoint - 1) * B * n * 10 / PEAK_F32,
-                                     (B * n * 12 + B * npoint * 4)
+        row = {"shape": [b, n, npoint], "launches": launches,
+               "tiling": tiling,
+               "bound_ms": 1e3 * max((npoint - 1) * b * n * 10 / PEAK_F32,
+                                     (b * n * 12 + b * npoint * 4)
                                      / PEAK_BYTES),
                "fps": timings(lambda: fps.furthest_point_sample_cuda(
                    xyz, npoint))}
         row["ns_a_step"] = row["fps"]["event_ms"] * 1e6 / (npoint - 1)
         rows.append(row)
+    return rows
+
+
+def fps_design_rows(fps, gen) -> list:
+    """Every cluster instance the checkout compiles, forced, at the shapes
+    past 16384 points."""
+    import torch
+    rows = []
+    for b, n, npoint in ((8, 24000, 6000), (8, 32768, 8192)):
+        xyz = unit_clouds(gen, n, b)
+        ref = fps.furthest_point_sample_plain(xyz, npoint)
+        for design in getattr(fps, "FPS_CLUSTER_DESIGNS", ()):
+            if design[0] * design[1] < n:
+                continue
+            got = fps.furthest_point_sample_cuda(xyz, npoint, tiling=design)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"FPS {design} disagrees with its plain "
+                                     f"version at {n} -> {npoint}: "
+                                     f"{int((got != ref).sum())} indices")
+            t = timings(lambda: fps.furthest_point_sample_cuda(
+                xyz, npoint, tiling=design))
+            rows.append({"shape": [b, n, npoint], "design": list(design),
+                         "blocks_a_cloud": design[0] // 1024, "fps": t,
+                         "ns_a_step": t["event_ms"] * 1e6 / (npoint - 1)})
     return rows
 
 
@@ -190,7 +232,7 @@ def total(values):
     return None if any(v is None for v in values) else sum(values)
 
 
-def child(root: str) -> dict:
+def child(root: str, designs: bool = False) -> dict:
     import torch
     sys.path.insert(0, os.path.abspath(root))
     from adaptpoint_tpu_torch.ops import _build, fpsample, knn
@@ -205,6 +247,8 @@ def child(root: str) -> dict:
                                 for n in names}}
     gen = torch.Generator(device="cuda").manual_seed(0)
     res["fps"] = fps_rows(fpsample, gen)
+    if designs:
+        res["fps_designs"] = fps_design_rows(fpsample, gen)
     res["knn"] = knn_rows(fpsample, knn, gen)
     gan = res["fps"][2]
     res["fps_gan_step_device_ms"] = (None if gan["fps"]["device_ms"] is None
@@ -225,6 +269,8 @@ def main(argv=None) -> int:
                     help="checkouts to time, in this order (default: this "
                          "one)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--designs", action="store_true",
+                    help="also time every cluster instance of the FPS kernel")
     ap.add_argument("--out", default=os.path.join(
         REPO, "build", "fps_knn_timing.jsonl"))
     args = ap.parse_args(argv)
@@ -233,7 +279,7 @@ def main(argv=None) -> int:
         print("torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     if args.child:
-        print(json.dumps(child(args.child)), flush=True)
+        print(json.dumps(child(args.child, args.designs)), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -242,8 +288,9 @@ def main(argv=None) -> int:
     print(lines[0], flush=True)
     for root in args.roots:
         got = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--child", root], capture_output=True,
-                             text=True)
+                              "--child", root]
+                             + (["--designs"] if args.designs else []),
+                             capture_output=True, text=True)
         if got.returncode != 0:
             sys.stderr.write(got.stdout + got.stderr)
             return got.returncode

@@ -199,4 +199,5 @@ def test_what_the_port_lacks_says_so(tmp_path):
             cli(["--cfg", TINY, "--device", "cpu", f"mode={mode}",
                  f"root_dir={tmp_path}"])
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_transforms_from_cfg("train", {"train": ["PointCloudJitter"]})
+        build_transforms_from_cfg("train",
+                                  {"train": ["PointCloudTranslation"]})

@@ -93,11 +93,15 @@ def test_knn_plain_matches_jax_knn_point(k, b, n, m, c, kind):
 @pytest.mark.parametrize("n,want", [(1, (512, 1)), (300, (512, 1)),
                                     (1024, (512, 2)), (2048, (512, 4)),
                                     (2049, (1024, 4)), (4096, (1024, 4)),
-                                    (4097, (1024, 8)), (16384, (1024, 16))])
+                                    (4097, (1024, 8)), (16384, (1024, 16)),
+                                    (16385, (4096, 6)), (24000, (4096, 6)),
+                                    (24577, (4096, 8)), (32768, (4096, 8))])
 def test_fps_tiling_by_n(n, want):
-    """512 threads a cloud up to 2048 points, then 1024; points a thread the
-    power of two that covers N; the coordinates in registers up to 4 a
-    thread (the kernel's shared-memory planes beyond)."""
+    """512 threads a cloud up to 2048 points, then 1024 up to 16384, then
+    4096 (a cluster of four blocks of 1024); points a thread the power of
+    two that covers N in one block, 6 or 8 in four; the coordinates in
+    registers up to 4 a thread (the kernel's shared-memory planes
+    beyond)."""
     tl = fpsample.fps_tiling(n)
     assert tuple(tl) == want
     assert tl.threads * tl.per_thread >= n > tl.threads * tl.per_thread // 2 \
@@ -114,7 +118,7 @@ def test_fps_tiling_forced_threads_and_refusals():
     for n in (0, -1, fpsample.FPS_MAX_POINTS + 1):
         with pytest.raises(ValueError):
             fpsample.fps_tiling(n)
-    assert fpsample.FPS_MAX_POINTS == 16 * 1024
+    assert fpsample.FPS_MAX_POINTS == 32 * 1024
 
 
 @pytest.mark.parametrize("k,n,c,want", [
