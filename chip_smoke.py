@@ -11,8 +11,10 @@ Phases, one JSON object a line:
 3. ``kernel``: each kernel against its plain PyTorch version on the card at the
    shapes the B=32 PointNeXt-S forward, train step and adversarial step give it
    (FPS 1024 -> 512, 2048 -> 1200 and 2048 -> 1024, each timed with ns a step,
-   and at seven edges: B = 1, N = 1000 and 4097 with npoint = N, npoint = 1,
-   half the points at the origin, N = 300, N = 16384; the four SA stages at
+   and at the edges of FPS_EDGES: B = 1, N = 1000 and 4097 with npoint = N,
+   npoint = 1, half the points at the origin, N = 300, N = 16384, the
+   pruned kernel up to 100003 points on surfaces and duplicated points,
+   with its plan against the host's copy; the four SA stages at
    N=1024 for ball-group forward, backward and fused SA, the ball group's
    forward and backward also at seven edges (M off the tile, N % 4 with
    K = 33 and C = 3, N too large to stage, K = 1 with C = 0, K = 128, C
@@ -114,7 +116,8 @@ Phases, one JSON object a line:
    7's kernel (outputs, winning slots and slots equal), at the needed width
    too where ``ok`` is False, and the same bits on a second forward launch;
    one device op a call each way (``window_op_launches``, in a child
-   process of its own); CUDA-event
+   process of its own, which also counts the ``seg`` phase's FPS ops where
+   that phase runs); CUDA-event
    times of the kernels, of ``window_prep``, of the four un-permute gathers
    the JAX op makes, and of the op forward and forward+backward beside row
    7/8's op; then the same checks at ``WINDOW_EDGES`` (K = 1 to 255, C = 3
@@ -184,11 +187,15 @@ Phases, one JSON object a line:
    at the same size, its fused train-BN step against its unfused step (the
    gate admits only stage 1's 6000 centers) and its fused eval forward
    against its unfused one; then every kernel of the path against its plain
-   version at the models' shapes (FPS 24000 -> 6000 on the four-block
-   instance, the ball group at the step's nine calls, the FP levels' kNN and
-   gathers, row 3 at the S model's eval stages, rows 16-19 at its fused
-   stage); ms per train step and per eval forward of both models (S on both
-   routes) with the profiler's device-busy time and peak memory.
+   version at the models' shapes (FPS 24000 -> 6000 on the pruned kernel,
+   beside the earlier four-block instance on the same crops, and the FPS
+   call's device ops, one at most three, in the op-count child process; the
+   ball group at the step's nine calls, the FP levels' kNN and gathers, row
+   3 at the S model's eval stages, rows 16-19 at its fused stage); ms per
+   train step and per eval forward of both models (S on both routes) with
+   the profiler's device-busy time and peak memory. B's step and eval on
+   rooms of surfaces, and with the earlier FPS instance, are timed by
+   ``scripts/torch_fps_knn_timing.py --steps``.
 17. ``seg_cli``: ``python -m adaptpoint_tpu_torch.seg --cfg
    cfgs/s3dis/pointnext-b.yaml`` in child processes on SyntheticScene crops
    of 24000 points (SEG_CLI_SIZE a split, B = 8): SEG_CLI_EPOCHS epochs,
@@ -534,6 +541,9 @@ PS_SIZE, PS_EPOCHS, PS_C_SIZE = 128, 2, 64
 # query = support) and the decoder's FP levels (queries, coarse points,
 # coarse channels), deepest first
 N_SEG, SEG_B = 24000, 8
+# the earlier FPS instance at N_SEG, timed beside the pruned kernel: a cluster
+# of four blocks of 1024 threads of 6 points
+FPS_PARENT_INSTANCE = (4096, 6)
 SEG_STAGES = [(24000, 6000, 32, 0, 64, 0.1), (6000, 1500, 64, 0, 128, 0.2),
               (1500, 375, 128, 0, 256, 0.4), (375, 93, 256, 0, 512, 0.8)]
 SEG_BLOCKS = [(6000, 64, 0.2), (1500, 128, 0.4), (1500, 128, 0.4),
@@ -980,9 +990,9 @@ def bg_op_launches(gen, xyz, qidx, feats, radius) -> dict:
     profiler: the forward, then the backward through autograd, each by
     name. It must be the forward kernel alone, then the backward kernel
     and the memsets of its two outputs (ballgroup_bwd.cu's reductions need
-    zeros to add to), nothing else."""
+    zeros to add to), nothing else, held as ``held_op_launches`` holds
+    them."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from adaptpoint_tpu_torch import ops
     x_req = xyz.clone().requires_grad_()
     f_req = feats.clone().requires_grad_()
@@ -990,75 +1000,109 @@ def bg_op_launches(gen, xyz, qidx, feats, radius) -> dict:
     gs = (torch.randn((b, m, 3), generator=gen, device=DEV),
           torch.randn((b, m, c), generator=gen, device=DEV),
           torch.randn((b, K, m, 3 + c), generator=gen, device=DEV))
-    for _ in range(2):  # the second call is the one counted
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as p_fwd:
-            out = ops.ball_group(radius, K, x_req, qidx, f_req, True, True)
-            torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as p_bwd:
-            torch.autograd.grad(out[:3], (x_req, f_req), gs)
-            torch.cuda.synchronize()
-    found = {phase: {e.key[:60]: e.count for e in device_kernels(prof)}
-             for phase, prof in (("forward", p_fwd), ("backward", p_bwd))}
-    fwd, bwd = found["forward"], found["backward"]
-    memsets = sum(v for k, v in bwd.items() if "emset" in k)
-    ok = (list(fwd.values()) == [1] and "ball_group_kernel<" in next(iter(fwd))
-          and sum(v for k, v in bwd.items()
-                  if "ball_group_bwd_kernel" in k) == 1
-          and sum(bwd.values()) - memsets == 1 and memsets == 2)
+    out = ops.ball_group(radius, K, x_req, qidx, f_req, True, True)
+    calls = {"forward": lambda: ops.ball_group(radius, K, x_req, qidx, f_req,
+                                               True, True),
+             "backward": lambda: torch.autograd.grad(
+                 out[:3], (x_req, f_req), gs, retain_graph=True)}
+    want = {"forward": {"ball_group_kernel<": 1},
+            "backward": {"ball_group_bwd_kernel": 1, "emset": 2}}
+    found, profiles, bad = held_op_launches(calls, want)
     emit("ball_group_op_launches", shape=[b, xyz.shape[1], m, c, K],
-         forward=fwd, backward=bwd,
+         forward=found.get("forward"), backward=found.get("backward"),
+         profiles_taken={k: len(v) for k, v in profiles.items()},
+         profiles_short={k: v[:-1] for k, v in profiles.items()
+                         if len(v) > 1},
          expected="forward: the kernel alone; backward: the kernel and the "
                   "memsets of its two outputs")
-    if not ok:
-        raise AssertionError(f"ops.ball_group launches {found}")
-    return {"forward": sum(fwd.values()), "backward": sum(bwd.values())}
+    if bad:
+        raise AssertionError(f"ops.ball_group launches {bad}")
+    return {k: sum(v.values()) for k, v in found.items()}
 
 
 # FPS edge cases, each exact against the plain version: (B, N, npoint, share
-# of points moved to the origin); every instance of the kernel
-# (fpsample.FPS_INSTANCES), the shared-memory planes (N > 4096) and the
-# four-block clusters (N > 16384: ties across the blocks, a last block
-# without points for its last threads, its largest N)
+# of points moved to the origin, or the kind of cloud: "surface" a seeded
+# room of surfaces, as S3DIS crops are, "duplicated" every point twice and a
+# seventh of them on the first); every instance of the kernels
+# (fpsample.FPS_INSTANCES): the chain kernel up to 4096 points, the pruned
+# kernel past it on each of its four launches: one bucket a thread (ties
+# across buckets, a last bucket with padding, npoint = N, 16384 and 32768
+# points), two with the minima in shared memory (40000), in the scratch
+# (65536) and buckets of 64 (100003)
 FPS_EDGES = [(1, 1024, 512, 0.0), (2, 1000, 1000, 0.0), (2, 4097, 4097, 0.0),
              (4, 2048, 1, 0.0), (4, 2048, 1024, 0.5), (2, 300, 300, 0.0),
              (2, 4096, 2048, 0.0), (2, 16384, 4096, 0.0),
              (3, 16385, 2000, 0.5), (2, 24577, 1500, 0.0),
-             (1, 32768, 1000, 0.0)]
+             (1, 32768, 1000, 0.0), (8, 24000, 6000, "surface"),
+             (2, 24000, 3000, "duplicated"), (1, 40000, 1000, 0.0),
+             (1, 65536, 1000, 0.0), (2, 100003, 500, 0.0)]
+
+
+def fps_cloud(gen, b: int, n: int, kind):
+    """A (b, n, 3) cloud of FPS_EDGES on the card: gaussian with ``kind``'s
+    share at the origin, a seeded room of surfaces, or duplicated points."""
+    import numpy as np
+    import torch
+    from scripts.surface_rooms import surface_room
+    if kind == "surface":
+        seed = int(torch.randint(1 << 30, (1,), generator=gen,
+                                 device=DEV).item())
+        rng = np.random.default_rng(seed)
+        return torch.from_numpy(np.stack([surface_room(n, rng)[0]
+                                          for _ in range(b)])).to(DEV)
+    if kind == "duplicated":
+        half = torch.randn((b, n - n // 2, 3), generator=gen, device=DEV)
+        xyz = torch.cat([half, half.flip(1)[:, :n // 2]], dim=1)
+        xyz[:, ::7] = xyz[:, :1]
+        return xyz.contiguous()
+    xyz = torch.randn((b, n, 3), generator=gen, device=DEV)
+    if kind:
+        xyz = xyz * (torch.rand((b, n), generator=gen, device=DEV)
+                     >= kind)[..., None]
+    return xyz.contiguous()
 
 
 def check_fps_edges(gen) -> None:
-    """The FPS kernel at FPS_EDGES against its plain version, index for
-    index: B = 1, N = 1000 and 4097 with npoint = N, npoint = 1, a cloud
-    with half its points at the origin (ties), N = 300 (threads without
-    points), N = 4096 (1024 threads of 4 points), N = 16384 (the one-block
-    kernel's largest) and the four-block clusters from 16385 points (half at
-    the origin) to 32768; together every instance of the kernel."""
-    import torch
+    """The FPS kernels at FPS_EDGES against their plain version, index for
+    index: B = 1, N = 1000 with npoint = N, npoint = 1, a cloud with half
+    its points at the origin (ties), N = 300 (threads without points),
+    N = 4096 (the chain kernel's largest: 1024 threads of 4 points), then
+    the pruned kernel from 4097 points (npoint = N) to 100003: 16385 with
+    half its points at the origin, a room of surfaces at the S3DIS crop's
+    24000 -> 6000, duplicated points (ties across buckets), and its minima
+    in the scratch past 51200 points; together every instance of the
+    kernels and each launch of the pruned kernel.
+    Before them the kernel's own plan (``fps_pruned_plan``) against the
+    host's copy (``fpsample.pruned_plan``) at every pruned edge and past
+    it, and its refusal of the host's refusals."""
     from adaptpoint_tpu_torch.ops import fpsample as fps
-    if fps._lib().fps_max_points() != fps.FPS_MAX_POINTS:
-        raise AssertionError("the FPS kernel's largest N differs from the "
-                             "wrapper's FPS_MAX_POINTS")
+    plans = [n for _, n, _, _ in FPS_EDGES if n > 4096] + [
+        51200, 51201, 65537, 2 ** 29 - 2 ** 18, 2 ** 29 - 1, 0, -1]
+    for n in plans:
+        try:
+            host = fps.pruned_plan(n)
+        except ValueError:
+            host = None
+        if fps.pruned_plan_kernel(n) != host:
+            raise AssertionError(f"the pruned FPS plan at N={n}: the "
+                                 f"kernel's {fps.pruned_plan_kernel(n)}, "
+                                 f"the host's {host}")
     if {tuple(fps.fps_tiling(n)) for _, n, _, _ in FPS_EDGES} \
             != set(fps.FPS_INSTANCES):
         raise AssertionError("FPS_EDGES miss an instance of the FPS kernel")
-    for b, n, npoint, dropped in FPS_EDGES:
-        xyz = torch.randn((b, n, 3), generator=gen, device=DEV)
-        if dropped:
-            xyz = xyz * (torch.rand((b, n), generator=gen, device=DEV)
-                         >= dropped)[..., None]
-        xyz = xyz.contiguous()
+    for b, n, npoint, kind in FPS_EDGES:
+        t0 = time.perf_counter()
+        xyz = fps_cloud(gen, b, n, kind)
         got = fps.furthest_point_sample_cuda(xyz, npoint)
         ref = fps.furthest_point_sample_plain(xyz, npoint)
         mism = int((got != ref).sum())
         emit("kernel", name="fps", case="edge", shape=[b, n, npoint],
-             dropped_share=dropped, tiling=list(fps.fps_tiling(n)),
-             mismatches=mism, tolerance="exact")
+             cloud=kind, tiling=list(fps.fps_tiling(n)),
+             mismatches=mism, tolerance="exact",
+             seconds=time.perf_counter() - t0)
         if mism:
             raise AssertionError(f"FPS kernel disagrees at {mism} indices "
-                                 f"({b}, {n} -> {npoint}, {dropped=})")
+                                 f"({b}, {n} -> {npoint}, {kind=})")
 
 
 def check_knn_edges(gen) -> None:
@@ -1502,10 +1546,10 @@ def check_bgmax_layout(n, m, c, k, where) -> dict:
 def bgmax_op_launches(gen, xyz, qidx, n, c, radius) -> dict:
     """What one call of ``ops.ball_group_max`` on bf16 features puts on the
     card, from the profiler: the forward, then the backward through
-    autograd, each by name. The bf16 route must be one forward kernel, one
-    backward kernel and at most one memset: no cast around them."""
+    autograd, each by name, held as ``held_op_launches`` holds them. The
+    bf16 route must be one forward kernel, one backward kernel and at most
+    one memset: no cast around them."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from adaptpoint_tpu_torch import ops
     x_req = xyz.clone().requires_grad_()
     f_req = torch.randn((B, n, c), generator=gen, device=DEV).to(
@@ -1514,35 +1558,29 @@ def bgmax_op_launches(gen, xyz, qidx, n, c, radius) -> dict:
     gs = (torch.randn((B, m, 3), generator=gen, device=DEV),
           *(torch.randn((B, m, c), generator=gen, device=DEV).to(
               torch.bfloat16) for _ in range(3)))
-    for _ in range(2):  # the second call is the one counted
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as p_fwd:
-            out = ops.ball_group_max(radius, K_GAN, x_req, qidx, f_req)
-            torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as p_bwd:
-            grads = torch.autograd.grad(out, (x_req, f_req), gs)
-            torch.cuda.synchronize()
-    found = {}
-    for phase, prof in (("forward", p_fwd), ("backward", p_bwd)):
-        found[phase] = {e.key[:60]: e.count for e in device_kernels(prof)}
-    fwd, bwd = found["forward"], found["backward"]
-    memsets = sum(v for k, v in bwd.items() if "emset" in k)
-    ok = (list(fwd.values()) == [1]
-          and "ball_group_max_kernel<" in next(iter(fwd))
-          and sum(v for k, v in bwd.items()
-                  if "ball_group_max_bwd_kernel<" in k) == 1
-          and sum(bwd.values()) - memsets == 1 and memsets <= 1
-          and out[1].dtype == grads[1].dtype == torch.bfloat16)
+    out = ops.ball_group_max(radius, K_GAN, x_req, qidx, f_req)
+    grads = torch.autograd.grad(out, (x_req, f_req), gs, retain_graph=True)
+    calls = {"forward": lambda: ops.ball_group_max(radius, K_GAN, x_req,
+                                                   qidx, f_req),
+             "backward": lambda: torch.autograd.grad(
+                 out, (x_req, f_req), gs, retain_graph=True)}
+    want = {"forward": {"ball_group_max_kernel<": 1},
+            "backward": {"ball_group_max_bwd_kernel<": 1}}
+    found, profiles, bad = held_op_launches(calls, want,
+                                            {"backward": {"emset": 1}})
     emit("ball_group_max_op_launches", features="bfloat16",
-         shape=[B, n, m, c, K_GAN], forward=fwd, backward=bwd,
+         shape=[B, n, m, c, K_GAN], forward=found.get("forward"),
+         backward=found.get("backward"),
+         profiles_taken={k: len(v) for k, v in profiles.items()},
+         profiles_short={k: v[:-1] for k, v in profiles.items()
+                         if len(v) > 1},
          expected="forward: the kernel alone; backward: the kernel and at "
                   "most one memset; no cast")
-    if not ok:
+    if bad or not out[1].dtype == grads[1].dtype == torch.bfloat16:
         raise AssertionError(f"ops.ball_group_max on bf16 features launches "
-                             f"{found}")
-    return {"forward": sum(fwd.values()), "backward": sum(bwd.values())}
+                             f"{bad or found}, dtypes {out[1].dtype} "
+                             f"{grads[1].dtype}")
+    return {k: sum(v.values()) for k, v in found.items()}
 
 
 def rel_l2(a, b) -> float:
@@ -2331,20 +2369,17 @@ def scatter_op_launches(gen, levels):
     card's opt-in. Returns the device ops a call of each kernel, by
     shape."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from adaptpoint_tpu_torch.ops import _build, knn
     from adaptpoint_tpu_torch.ops import fpinterp as fpi
     from adaptpoint_tpu_torch.ops import gather
     from adaptpoint_tpu_torch.ops import scatter_rows as sr
 
-    def one_call(fn):
-        for _ in range(2):  # the second call is the one counted
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-        return {e.key[:60]: e.count for e in device_kernels(prof)}
+    not_held = {}
+
+    def one_call(tag, fn, part):  # held as held_op_launches holds them
+        found, _, bad = held_op_launches({tag: fn}, {tag: {part: 1}})
+        not_held.update(bad)
+        return found.get(tag, {})
 
     gather._bind()
     glib, flib = _build.load("gather"), fpi._lib()
@@ -2360,8 +2395,10 @@ def scatter_op_launches(gen, levels):
             torch.bfloat16)
         g = torch.randn((B, n, c), generator=gen, device=DEV)
         r13[f"decode {m} -> {n}"] = one_call(
+            f"row 13 decode {m} -> {n}",
             lambda: fpi.weighted_gather3_bwd_cuda(feat, idx3, w, g,
-                                                  need_w=False))
+                                                  need_w=False),
+            "fpinterp_bwd_")
         tl = sr.choose(B, 3 * n, m, c, True, 4, True)
         layouts[f"row 13 decode {m} -> {n}"] = [
             list(tl), sr.smem_bytes(tl, 3 * n, True, n),
@@ -2376,7 +2413,9 @@ def scatter_op_launches(gen, levels):
         for dt in (torch.float32, torch.bfloat16):
             g = torch.randn((B, s, c), generator=gen, device=DEV).to(dt)
             r15[f"{tag} {str(dt)[6:]}"] = one_call(
-                lambda: gather.gather_rows_bwd_cuda(g, flat, rows_out))
+                f"row 15 {tag} {str(dt)[6:]}",
+                lambda: gather.gather_rows_bwd_cuda(g, flat, rows_out),
+                "gather_rows_bwd_kernel")
             out = gather.gather_rows_bwd_cuda(g, flat, rows_out)
             exact[f"{tag} {str(dt)[6:]}"] = (
                 torch.equal(out, gather.gather_rows_bwd_ordered(g, flat,
@@ -2391,7 +2430,7 @@ def scatter_op_launches(gen, levels):
                 glib.gather_rows_bwd_smem_bytes(*tl, s)]
             del g
     emit("scatter_op_launches", row_13=r13, row_15=r15, layouts=layouts,
-         row_15_equals_ordered_plain=exact,
+         row_15_equals_ordered_plain=exact, not_held=not_held,
          expected="one kernel a call, no memset; row 15 the ordered plain "
                   "function's bits and a second launch's, unnamed rows "
                   "zero; host and kernel shared memory equal, within the "
@@ -4258,7 +4297,7 @@ def op_profile(fn, warm: bool) -> dict | None:
         and not getattr(e, "is_user_annotation", False))
 
 
-def held_op_launches(calls: dict, want: dict):
+def held_op_launches(calls: dict, want: dict, may: dict | None = None):
     """Each call's device ops against ``want`` (name: {part of an op's name:
     count}), from warmed profiles (``op_profile``). The profiler leaves some
     records out now and then: the first ones of a profile that starts at the
@@ -4268,8 +4307,9 @@ def held_op_launches(calls: dict, want: dict):
     without both marks holds nothing, every profile with both must hold no op
     beyond ``want``'s, and one of up to TRAINBN_OP_ATTEMPTS must hold them
     all: a launch too many fails every profile, a launch missing fails all
-    of them. Returns ``(found: the profile that held them, profiles: every
-    profile taken, None where a mark is missing, bad: the calls that
+    of them. ``may`` (name: {part: most}) names ops a call may add, each up
+    to its count. Returns ``(found: the profile that held them, profiles:
+    every profile taken, None where a mark is missing, bad: the calls that
     failed)``."""
     def parts(need, ops):
         return {part: sum(v for k, v in ops.items() if part in k)
@@ -4277,15 +4317,18 @@ def held_op_launches(calls: dict, want: dict):
 
     found, profiles, bad = {}, {}, {}
     for name, need in want.items():
+        extra = (may or {}).get(name, {})
         profiles[name] = []
         for _ in range(TRAINBN_OP_ATTEMPTS):
             ops = op_profile(calls[name], True)
             profiles[name].append(ops)
             if ops is None:
                 continue
-            got = parts(need, ops)
+            got, opt = parts(need, ops), parts(extra, ops)
             if any(got[p] > need[p] for p in need) \
-                    or sum(ops.values()) > sum(got.values()):
+                    or any(opt[p] > extra[p] for p in extra) \
+                    or sum(ops.values()) > sum(got.values()) \
+                    + sum(opt.values()):
                 bad[name] = ops  # an op beyond want's
                 break
             if got == need:
@@ -5002,7 +5045,7 @@ def window_cases(gen):
 
 
 def window_op_launches_here() -> dict:
-    """``--window-op-launches``: the device ops of one call of each windowed
+    """``--op-launches window``: the device ops of one call of each windowed
     kernel wrapper at the four grouper shapes (the width the data needs),
     from the profiler, by name: each must be WINDOW_OPS's, nothing else (no
     memset), held as ``held_op_launches`` holds them. Returns them a
@@ -5040,25 +5083,85 @@ def window_op_launches_here() -> dict:
     return out
 
 
+# the op-count checks this run makes (``--op-launches``), set by ``main``
+# from its phases: all of them run in the one child process that the first
+# of them starts
+OP_CHECKS = {"window": lambda: window_op_launches_here(),
+             "fps": lambda: fps_op_launches_here()}
+OP_CHECKS_WANTED = set()
+_OP_CHECKS_DONE = {}
+
+
+def child_op_launches(check: str) -> dict:
+    """An op-count check of OP_CHECKS (``window``, ``fps``) from a child
+    process of its own (this script with ``--op-launches``), which also
+    makes this run's other checks of OP_CHECKS_WANTED not yet made: in
+    three runs of the whole script every profile of the windowed kernels'
+    short calls came back empty, in the ``window`` phase after the adapt
+    phases and right after ``train_fused`` alike, while the same check held
+    in every run of the ``window`` phase alone (PERF.md, section 6). Its
+    lines are passed on; raises if it fails."""
+    if check not in _OP_CHECKS_DONE:
+        todo = sorted((OP_CHECKS_WANTED | {check}) - set(_OP_CHECKS_DONE))
+        t0 = time.perf_counter()
+        got = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--op-launches", ",".join(todo)],
+                             capture_output=True, text=True, timeout=900,
+                             cwd=ROOT)
+        lines = got.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            print(line, flush=True)
+        if got.returncode != 0:
+            raise AssertionError(f"--op-launches {todo} failed "
+                                 f"({got.returncode}): {got.stdout[-2000:]}"
+                                 f"{got.stderr[-3000:]}")
+        _OP_CHECKS_DONE.update(json.loads(lines[-1]))
+        emit("op_launches_child", checks=todo,
+             seconds=time.perf_counter() - t0)
+    return _OP_CHECKS_DONE[check]
+
+
 def window_op_launches() -> dict:
-    """``window_op_launches_here`` in a child process of its own (this
-    script with ``--window-op-launches``): in three runs of the whole
-    script every profile of these short calls came back empty, in the
-    ``window`` phase after the adapt phases and right after ``train_fused``
-    alike, while the same check held in every run of the ``window`` phase
-    alone (PERF.md, section 6). Its lines are passed on; raises if it
-    fails."""
-    got = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--window-op-launches"], capture_output=True,
-                         text=True, timeout=900, cwd=ROOT)
-    lines = got.stdout.strip().splitlines()
-    for line in lines[:-1]:
-        print(line, flush=True)
-    if got.returncode != 0:
-        raise AssertionError(f"--window-op-launches failed "
-                             f"({got.returncode}): {got.stdout[-2000:]}"
-                             f"{got.stderr[-3000:]}")
-    return json.loads(lines[-1])
+    """``window_op_launches_here`` in a child process of its own."""
+    return child_op_launches("window")
+
+
+# row 1's device ops a call, at the S3DIS crop (minima in shared memory) and
+# past 51200 points (minima in the scratch): the pruned kernel alone (the
+# wrapper's outputs and scratch are torch.empty), at most FPS_MAX_OPS in any
+# case
+FPS_OPS = {"24000 -> 6000": {"fps_pruned_kernel": 1},
+           "65536 -> 1000": {"fps_pruned_kernel": 1}}
+FPS_MAX_OPS = 3
+
+
+def fps_op_launches_here() -> dict:
+    """The device ops of one FPS call at the S3DIS crop (8, 24000) -> 6000
+    (minima in shared memory) and at (1, 65536) -> 1000 (minima in the
+    scratch), held as ``held_op_launches`` holds them: each must be
+    FPS_OPS's. Returns the ops a call by case."""
+    import torch
+    from adaptpoint_tpu_torch.ops import fpsample as fps
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    clouds = {"24000 -> 6000": (fps_cloud(gen, SEG_B, N_SEG, 0.0),
+                                N_SEG // 4, True),
+              "65536 -> 1000": (fps_cloud(gen, 1, 65536, 0.0), 1000, False)}
+    for case, (xyz, _, smem) in clouds.items():
+        n = xyz.shape[1]
+        if fps.fps_tiling(n).kind != "pruned" \
+                or fps.pruned_plan(n).smem_minima != smem:
+            raise AssertionError(f"{case}: not the pruned kernel with its "
+                                 f"minima in {'shared memory' if smem else 'the scratch'}")
+    calls = {case: (lambda x=x, m=m: fps.furthest_point_sample_cuda(x, m))
+             for case, (x, m, _) in clouds.items()}
+    found, profiles, bad = held_op_launches(calls, FPS_OPS)
+    emit("fps_op_launches", found=found, expected=FPS_OPS,
+         profiles_taken={k: len(v) for k, v in profiles.items()},
+         profiles_short={k: v[:-1] for k, v in profiles.items()
+                         if len(v) > 1})
+    if bad:
+        raise AssertionError(f"the FPS call's device ops {bad}")
+    return {k: sum(ops.values()) for k, ops in found.items()}
 
 
 def phase_window(gen):
@@ -6470,7 +6573,8 @@ def seg_kernels(gen, first_pos, captured_bg, captured_eval, captured_train,
     """Every kernel of the S3DIS path against its plain version at the
     shapes the models hand it, each row's times summed over its calls under
     ``seg_shapes`` in ``rows`` where given: FPS 24000 -> 6000 at B = 8 on
-    the first batch's crops (row 1, the four-block instance); the ball group
+    the first batch's crops (row 1: the pruned kernel, the earlier four-block
+    instance beside it, the call's device ops); the ball group
     forward and backward at the nine calls of PointNeXt-B's train step (rows
     2, 4: four SA stages from the 24000-point crop, five InvResMLP blocks
     with query = support, ``captured_bg``), with their layouts; the kNN and
@@ -6488,15 +6592,26 @@ def seg_kernels(gen, first_pos, captured_bg, captured_eval, captured_train,
     out, layouts = {}, {}
     b, n = first_pos.shape[:2]
     m = n // 4
-    # row 1
+    # row 1: the pruned kernel, and the earlier four-block cluster instance
+    # (FPS_PARENT_INSTANCE) on the same crops
     got = fps.furthest_point_sample_cuda(first_pos, m)
     ref = fps.furthest_point_sample_plain(first_pos, m)
     mism = int((got != ref).sum())
+    t_parent = time.perf_counter()
+    parent = fps.furthest_point_sample_cuda(first_pos, m,
+                                            tiling=FPS_PARENT_INSTANCE)
+    mism_parent = int((parent != ref).sum())
+    p_ms = cuda_ms(lambda: fps.furthest_point_sample_cuda(
+        first_pos, m, tiling=FPS_PARENT_INSTANCE), 100.0)
+    t_parent = time.perf_counter() - t_parent
     emit("kernel", name="fps", case="seg", shape=[b, n, m],
-         tiling=list(fps.fps_tiling(n)), mismatches=mism, tolerance="exact")
-    if mism:
+         tiling=list(fps.fps_tiling(n)), mismatches=mism,
+         parent_instance=list(FPS_PARENT_INSTANCE),
+         parent_mismatches=mism_parent, tolerance="exact")
+    if mism or mism_parent:
         raise AssertionError(f"FPS kernel disagrees at {mism} indices "
-                             f"(B={b}, {n} -> {m})")
+                             f"(B={b}, {n} -> {m}; the parent's instance at "
+                             f"{mism_parent})")
     row = dict(ms=cuda_ms(lambda: fps.furthest_point_sample_cuda(
         first_pos, m), 100.0),
         plain_ms=cuda_ms(lambda: fps.furthest_point_sample_plain(
@@ -6506,6 +6621,13 @@ def seg_kernels(gen, first_pos, captured_bg, captured_eval, captured_train,
         **bound_row((b * n * 12 + b * m * 4) / PEAK_BYTES,
                     (m - 1) * b * n * 10 / PEAK_F32))
     row["ns_a_step"] = row["ms"] * 1e6 / (m - 1)
+    row["parent_instance"] = dict(tiling=list(FPS_PARENT_INSTANCE), ms=p_ms,
+                                  ns_a_step=p_ms * 1e6 / (m - 1),
+                                  seconds=t_parent)
+    ops_a_call = child_op_launches("fps")
+    if max(ops_a_call.values()) > FPS_MAX_OPS:
+        raise AssertionError(f"an FPS call makes {ops_a_call} device ops")
+    row["op_launches"] = ops_a_call
     out["fps"] = row
     order = got
 
@@ -6966,8 +7088,7 @@ def main(argv=None) -> int:
                          "the kernel phase's attention checks and times, "
                          "modelnet_kernels alone its checks at the ModelNet "
                          "path's shapes")
-    ap.add_argument("--window-op-launches", action="store_true",
-                    help=argparse.SUPPRESS)
+    ap.add_argument("--op-launches", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     t_start = time.perf_counter()
@@ -6976,11 +7097,15 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    if args.window_op_launches:  # the window phase's child
+    if args.op_launches:  # the op-count child
         from adaptpoint_tpu_torch import resolve_device
         resolve_device()
-        print(json.dumps(window_op_launches_here()), flush=True)
+        print(json.dumps({c: OP_CHECKS[c]()
+                          for c in args.op_launches.split(",")}), flush=True)
         return 0
+    OP_CHECKS_WANTED.update(c for c, phase in (("window", "window"),
+                                               ("fps", "seg"))
+                            if phase in phases)
     from adaptpoint_tpu_torch import resolve_device
     from adaptpoint_tpu_torch.ops import _build
 

@@ -12,7 +12,8 @@ kernels' launch shapes.
   exact, at k = 32 (the kernel's MAX_K, past the JAX package's iterated
   min at 24: its ``top_k`` route), C = 35 (feature-space kNN), k > N and
   every point twice (ties to the lower index).
-- ``fps_tiling`` (threads a cloud by N, points a thread) and
+- ``fps_tiling`` (the chain kernel's threads a cloud by N and points a
+  thread up to 4096 points, the pruned kernel past it, any N) and
   ``knn_variant`` (a thread or a warp a query by k, N, C; the list length),
   including the shapes at which each refuses.
 - Both wrappers raise on CPU tensors and count no launch.
@@ -90,35 +91,44 @@ def test_knn_plain_matches_jax_knn_point(k, b, n, m, c, kind):
                 assert j == np.argmax(same)
 
 
+PRUNED = (1024, 0, "pruned")
+
+
 @pytest.mark.parametrize("n,want", [(1, (512, 1)), (300, (512, 1)),
                                     (1024, (512, 2)), (2048, (512, 4)),
                                     (2049, (1024, 4)), (4096, (1024, 4)),
-                                    (4097, (1024, 8)), (16384, (1024, 16)),
-                                    (16385, (4096, 6)), (24000, (4096, 6)),
-                                    (24577, (4096, 8)), (32768, (4096, 8))])
+                                    (4097, PRUNED), (16384, PRUNED),
+                                    (16385, PRUNED), (24000, PRUNED),
+                                    (24577, PRUNED), (32768, PRUNED),
+                                    (51200, PRUNED), (51201, PRUNED)])
 def test_fps_tiling_by_n(n, want):
-    """512 threads a cloud up to 2048 points, then 1024 up to 16384, then
-    4096 (a cluster of four blocks of 1024); points a thread the power of
-    two that covers N in one block, 6 or 8 in four; the coordinates in
-    registers up to 4 a thread (the kernel's shared-memory planes
-    beyond)."""
+    """The chain kernel on 512 threads a cloud up to 2048 points, then 1024
+    up to 4096, points a thread the power of two that covers N (the
+    coordinates in registers); past 4096 the pruned kernel on 1024 threads,
+    its running minima in shared memory up to 51200 points and in the
+    scratch past them (its plan, from N)."""
     tl = fpsample.fps_tiling(n)
-    assert tuple(tl) == want
-    assert tl.threads * tl.per_thread >= n > tl.threads * tl.per_thread // 2 \
-        or tl.per_thread == 1
+    assert tl == fpsample.FpsTiling(*want)
+    if tl.kind == "chain":
+        assert tl.threads * tl.per_thread >= n \
+            > tl.threads * tl.per_thread // 2 or tl.per_thread == 1
+    else:
+        plan = fpsample.pruned_plan(n)
+        assert plan.n_pad >= n and plan.smem_minima == (n <= 51200)
 
 
 def test_fps_tiling_forced_threads_and_refusals():
-    """The block size follows N alone: every N the kernel takes gets one of
-    the kernel's compiled instances, each instance is used, and N outside
-    1..FPS_MAX_POINTS is refused."""
+    """The instance follows N alone: every N up to 65536 (and a few far
+    past it) gets one of the kernels' compiled instances, each instance is
+    used, and only N < 1 is refused: the old ceiling of 32768 points is
+    gone (ROADMAP C.9)."""
     used = {tuple(fpsample.fps_tiling(n))
-            for n in range(1, fpsample.FPS_MAX_POINTS + 1)}
+            for n in list(range(1, 65537)) + [100003, 10 ** 7]}
     assert used == set(fpsample.FPS_INSTANCES)
-    for n in (0, -1, fpsample.FPS_MAX_POINTS + 1):
+    for n in (0, -1):
         with pytest.raises(ValueError):
             fpsample.fps_tiling(n)
-    assert fpsample.FPS_MAX_POINTS == 32 * 1024
+    assert not hasattr(fpsample, "FPS_MAX_POINTS")
 
 
 @pytest.mark.parametrize("k,n,c,want", [

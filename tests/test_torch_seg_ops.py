@@ -7,9 +7,10 @@ in the decoder. Pure Python, as ``tests/test_torch_width64_tiling.py`` holds
 the width-64 stages; ``chip_smoke.py``'s ``seg`` phase holds the kernels to
 their plain versions at the same shapes on the card.
 
-- FPS (row 1): ``fps_tiling`` takes the crop (a cluster of four blocks
-  past 16384 points, up to 32768) and refuses past it; the plain FPS at
-  N = 24000 equals the JAX package's FPS index for index.
+- FPS (row 1): ``fps_tiling`` takes the crop and any larger cloud (the
+  pruned kernel, one block a cloud, past 16384 points) and refuses only
+  N < 1; the plain FPS at N = 24000 equals the JAX package's FPS index for
+  index.
 - The ball group (rows 2, 4) at every SA and InvResMLP shape: the tiling
   fits (the 24000-point support is not staged in shared memory), and the
   element counts stay below the kernels' 32-bit indexing
@@ -91,13 +92,19 @@ def test_the_seg_shapes_are_the_models():
 
 # ---------------------------------------------------------------- row 1
 
-@pytest.mark.parametrize("n,want", [(24000, (4096, 6)),
-                                    (32768, (4096, 8))])
+@pytest.mark.parametrize("n,want", [(24000, (1024, 0, "pruned")),
+                                    (32768, (1024, 0, "pruned")),
+                                    (32769, (1024, 0, "pruned")),
+                                    (100000, (1024, 0, "pruned"))])
 def test_fps_tiling_takes_the_crop(n, want):
+    """The crop and past the old ceiling of 32768 points (ROADMAP C.9):
+    the pruned kernel, its minima in shared memory while they fit; only
+    N < 1 is refused."""
     assert tuple(fpsample.fps_tiling(n)) == want
-    assert fpsample.FPS_MAX_POINTS >= 32768
-    with pytest.raises(ValueError):
-        fpsample.fps_tiling(fpsample.FPS_MAX_POINTS + 1)
+    assert fpsample.pruned_plan(n).smem_minima == (n < 100000)
+    for bad in (0, -1):
+        with pytest.raises(ValueError):
+            fpsample.fps_tiling(bad)
 
 
 def test_plain_fps_at_the_crop_equals_jax():

@@ -198,7 +198,12 @@ def test_make_train_step_takes_the_fused_route_on_request():
 # gradients move by ~2e-2 together while the unfused route stays at f32
 # grade. Past 100 all three part (scripts/torch_bn_variance_vs_flax.py).
 C1_SHAPE = dict(B=2, N=96, M=16, C=16, mid=16, cout=24, K=8, radius=0.6)
+# 1.5: PointNeXt-S's S3DIS stage 1 on rooms of surfaces with raw colours
+# (ROADMAP C.8, test_the_s3dis_stage1_conv1_spread), held as 1 is; readings
+# on the CPU 1.2e-6, 7.8e-7, 1.2e-6 and 1.2e-6 against float64.
 C1_TOL = {1: {"fused_jax": 1e-5, "unfused_fused": 1e-5, "unfused_f64": 1e-5},
+          1.5: {"fused_jax": 1e-5, "unfused_fused": 1e-5,
+                "unfused_f64": 1e-5},
           10: {"fused_jax": 5e-5, "unfused_fused": 5e-2, "unfused_f64": 1e-4},
           100: {"fused_jax": 1e-2, "unfused_fused": 5e-2,
                 "unfused_f64": 1e-4}}
@@ -310,3 +315,67 @@ def test_the_train_routes_as_the_mean_outgrows_the_spread(monkeypatch,
         worst = _c1_worst(a, b)
         assert worst[0] <= tol[pair if pair in tol else "unfused_fused"], \
             (pair, worst)
+
+
+# ---- ROADMAP C.8: the spread at S3DIS stage 1 -----------------------------
+def _stage1_spread(batch, seed=3):
+    """Median, min and max over channels of |mean| / std of PointNeXt-S's
+    S3DIS stage-1 conv1 outputs (the conv before BN1, over every row the
+    stage's ball group gives) on ``batch``, seeded weights."""
+    from adaptpoint_tpu_torch.models import build_model_from_cfg
+    model = build_model_from_cfg(_s3dis_s_cfg().model, device="cpu",
+                                 seed=seed).train()
+    cb = model.encoder.encoder[1][0].convs[0]
+    got = []
+    hook = cb.register_forward_pre_hook(lambda m, i: got.append(
+        i[0].detach().double() @ cb.weight_matrix().detach().double().T))
+    with torch.no_grad():
+        model(batch["pos"], batch["x"])
+    hook.remove()
+    y = got[0].reshape(-1, got[0].shape[-1])
+    r = (y.mean(0).abs() / y.std(0)).numpy()
+    return float(np.median(r)), float(r.min()), float(r.max())
+
+
+def _s3dis_s_cfg():
+    cfg = EasyConfig()
+    cfg.load(os.path.join(REPO, "cfgs", "s3dis", "pointnext-s.yaml"),
+             recursive=True)
+    cfg.model.in_channels = cfg.model.encoder_args.in_channels
+    return cfg
+
+
+def test_the_s3dis_stage1_conv1_spread():
+    """ROADMAP C.8: on SyntheticScene crops (one-hot 0 / 255 colours) the
+    stage-1 conv1 outputs sit at a median |mean| / std of about 0.5, and on
+    rooms of surfaces with a spread of raw 0-255 colours
+    (``surface_room``) at about 1.5, no channel past 4: the stem's BN keeps
+    the stage far below the ratio of 10 past which the fused train-BN
+    routes lose digits (test_the_train_routes_as_the_mean_outgrows_the_
+    spread, whose 1.5 case is this stage). B = 2 crops of 4000 points under
+    the cfg's train transforms."""
+    from adaptpoint_tpu_torch.datasets import NumpyLoader
+    from adaptpoint_tpu_torch.datasets.s3dis import SyntheticScene
+    from scripts.surface_rooms import surface_room
+    from adaptpoint_tpu_torch.engine.seg_main import seg_batch
+    from adaptpoint_tpu_torch.transforms import build_transforms_from_cfg
+    cfg = _s3dis_s_cfg()
+    n, b = 4000, 2
+    tr = build_transforms_from_cfg("train", cfg.datatransforms)
+    syn = next(iter(NumpyLoader(SyntheticScene("train", n, size=b,
+                                               transform=tr), b,
+                                num_workers=0, seed=1)))
+    rng = np.random.default_rng(5)
+    rooms = []
+    for _ in range(b):
+        pos, rgb = surface_room(n, rng)
+        d = tr({"pos": pos, "x": rgb, "y": np.zeros(n, np.int64)}, rng)
+        d["heights"] = d["pos"][:, 2:3].astype(np.float32)
+        rooms.append(d)
+    surf = {k: np.stack([np.asarray(d[k]) for d in rooms])
+            for k in ("pos", "x", "y", "heights")}
+    med_syn, _, max_syn = _stage1_spread(seg_batch(syn, "cpu", cfg))
+    med_surf, _, max_surf = _stage1_spread(seg_batch(surf, "cpu", cfg))
+    assert 0.3 <= med_syn <= 0.8 and max_syn < 2.0, (med_syn, max_syn)
+    assert 1.0 <= med_surf <= 2.25 and max_surf < 4.0, (med_surf, max_surf)
+    assert 0.5 * 1.5 <= med_surf <= 2.0 * 1.5  # the C1_TOL case's band
