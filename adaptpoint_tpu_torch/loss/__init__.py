@@ -1,10 +1,12 @@
 """Loss registry, the classification criteria and the GAN criterion.
 
 Counterpart of ``adaptpoint_tpu/loss/__init__.py`` for what classifier
-training and the adversarial step use: the ``LOSS`` registry,
-``SmoothCrossEntropy``, ``CrossEntropy`` and ``BCELoss``. A criterion is a
-plain callable of ``(logits, labels)`` (``BCELoss``: of probabilities and
-targets) that returns a scalar tensor; logits are channels-last ``(..., C)``.
+training, the adversarial step and scene segmentation use: the ``LOSS``
+registry, ``SmoothCrossEntropy``, ``CrossEntropy``, ``MaskedCrossEntropy``
+and ``BCELoss``. A criterion is a plain callable of ``(logits, labels)``
+(``MaskedCrossEntropy``: and the points' mask; ``BCELoss``: of
+probabilities and targets) that returns a scalar tensor; logits are
+channels-last ``(..., C)``.
 The other criteria of the JAX package (focal, poly-1, distillation) wait for
 the slices that use them.
 """
@@ -18,7 +20,7 @@ from ..utils.registry import Registry, build_from_cfg
 LOSS = Registry("loss")
 
 __all__ = ["LOSS", "build_criterion_from_cfg", "SmoothCrossEntropy",
-           "CrossEntropy", "BCELoss"]
+           "CrossEntropy", "MaskedCrossEntropy", "BCELoss"]
 
 
 @LOSS.register_module(name="SmoothCrossEntropy")
@@ -67,6 +69,24 @@ class SmoothCrossEntropy:
 class CrossEntropy(SmoothCrossEntropy):
     def __init__(self, label_smoothing: float = 0.0, **kwargs):
         super().__init__(label_smoothing=label_smoothing, **kwargs)
+
+
+@LOSS.register_module(name="MaskedCrossEntropy")
+class MaskedCrossEntropy:
+    """Label-smoothed cross entropy over the points a mask keeps (parity:
+    loss/build.py MaskedCrossEntropy): (sum of per-point losses times the
+    mask) / max(sum of the mask, 1). The S3DIS spheres' mask marks their
+    real points; the copies that pad a sphere leave the mean."""
+
+    def __init__(self, label_smoothing: float = 0.2, **kwargs):
+        self.ce = SmoothCrossEntropy(label_smoothing=label_smoothing)
+
+    def __call__(self, logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+        per = self.ce.per_sample(logits.reshape(-1, logits.shape[-1]),
+                                 labels.reshape(-1))
+        m = mask.reshape(-1).to(per.dtype)
+        return (per * m).sum() / torch.clamp(m.sum(), min=1.0)
 
 
 @LOSS.register_module(name="BCELoss")

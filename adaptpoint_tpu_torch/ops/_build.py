@@ -9,6 +9,9 @@ returns ``cudaGetLastError()`` after its launch; :func:`check` raises when it
 is not ``cudaSuccess``. A missing ``nvcc`` or a failed build raises.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all.
+
+The host libraries of ``ops/cpu`` (C++ with a plain C interface) are built
+the same way by ``g++`` (:func:`load_host`), into the same directory.
 """
 from __future__ import annotations
 
@@ -21,8 +24,8 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["SOURCES", "build_all", "load", "check", "check_int32",
-           "BUILD_DIR"]
+__all__ = ["SOURCES", "build_all", "load", "load_host", "check",
+           "check_int32", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "adaptpoint_tpu_torch"
@@ -32,6 +35,9 @@ SOURCES = ("fps", "ballgroup", "ballgroup_bwd", "ballgroup_max", "gather",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v"]
+# the JAX package's flags for the same sources: no -march, so no FMA
+# contraction, and the same bits as its libraries
+GXX_FLAGS = ["-O3", "-shared", "-fPIC"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -90,6 +96,39 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, _start(name))
             lib = ctypes.CDLL(str(_lib_path(name)))
             _libs[name] = lib
+        return lib
+
+
+def load_host(src: Path) -> ctypes.CDLL:
+    """The loaded host library of the C++ source ``src``, compiled by
+    ``g++`` at first use into ``BUILD_DIR/lib<stem>-<hash>.so`` (keyed by a
+    hash of the source and the flags). A missing ``g++`` or a failed build
+    raises: no caller falls back to another implementation."""
+    src = Path(src)
+    key = f"host:{src}"
+    with _lock:
+        lib = _libs.get(key)
+        if lib is not None:
+            return lib
+        digest = hashlib.sha256(src.read_bytes()
+                                + " ".join(GXX_FLAGS).encode()).hexdigest()
+        out = BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
+        if not out.exists():
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(f"g++ not found: {src.name} cannot be "
+                                   f"built")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([gxx, *GXX_FLAGS, str(src), "-o", str(tmp)],
+                                  capture_output=True, text=True)
+            build_logs[src.stem] = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed for {src.name}:\n"
+                                   f"{proc.stderr}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        _libs[key] = lib
         return lib
 
 

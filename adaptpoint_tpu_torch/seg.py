@@ -7,10 +7,12 @@ The cfg and its overrides, the run directory (the checkpoint's is reused
 for ``mode=test``/``val``/``resume``) and the dumped cfg are those of
 ``adaptpoint_tpu_torch.main``; the experiment is named from the cfg's path
 alone, as the JAX package's scene-segmentation CLI names it. Modes
-``train``, ``val``, ``test`` and ``resume`` run ``engine.seg_main``;
-``test_6fold`` is not ported yet and raises. Runs on the card unless
-``--device cpu`` is given; without a card it raises. The last line printed
-is the run's kernel launch counts as one JSON object.
+``train``, ``val``, ``test``, ``resume`` and ``test_6fold`` (one checkpoint
+an area: ``pretrained_path`` a format string with ``{area}``) run
+``engine.seg_main``, on voxel crops (``S3DIS``) or on spheres
+(``S3DISSphere``, ``cfgs/s3dis/pointnext-s_sphere.yaml``). Runs on the card
+unless ``--device cpu`` is given; without a card it raises. The last line
+printed is the run's kernel launch counts as one JSON object.
 """
 from __future__ import annotations
 
@@ -24,10 +26,8 @@ __all__ = ["main"]
 def main(argv=None):
     args, opts, cfg = parse_cfg(
         argv, "S3DIS scene segmentation (PyTorch port)")
-    from .engine.seg_main import MODES, NOT_PORTED, main as run
+    from .engine.seg_main import MODES, main as run
     mode = cfg.get("mode", "train")
-    if mode in NOT_PORTED:
-        raise NotImplementedError(f"mode {mode} is not ported yet")
     if mode not in MODES:
         raise ValueError(f"unknown scene-segmentation mode {mode}")
     prepare_run(cfg, args.cfg, opts, tag_overrides=False)

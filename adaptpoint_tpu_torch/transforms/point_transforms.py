@@ -6,8 +6,9 @@ openpoints/transforms/point_transformer_gpu.py:35-314 and
 point_transform_cpu.py): PointsToTensor, PointCloudScaling,
 PointCloudCenterAndNormalize (heights from the pre-centering gravity axis),
 PointCloudRotation (per-axis uniform angles, random composition order),
-PointCloudXYZAlign (centred in the floor plane, the floor at 0) and
-PointCloudJitter (clipped gaussian noise).
+PointCloudXYZAlign (centred in the floor plane, the floor at 0),
+PointCloudJitter (clipped gaussian noise) and ChromaticNormalize (colours
+to [0, 1], optionally standardised).
 Each draws from the generator it is given in the JAX package's order.
 """
 from __future__ import annotations
@@ -18,7 +19,7 @@ from .transforms_factory import DataTransforms
 
 __all__ = ["PointsToTensor", "PointCloudScaling",
            "PointCloudCenterAndNormalize", "PointCloudRotation",
-           "PointCloudXYZAlign", "PointCloudJitter"]
+           "PointCloudXYZAlign", "PointCloudJitter", "ChromaticNormalize"]
 
 
 def _rot_single_axis(axis_ind: int, theta: float) -> np.ndarray:
@@ -149,4 +150,27 @@ class PointCloudJitter:
         noise = np.clip(rng.standard_normal(data["pos"].shape) * self.sigma,
                         -self.clip, self.clip).astype(np.float32)
         data["pos"] = data["pos"] + noise
+        return data
+
+
+@DataTransforms.register_module()
+class ChromaticNormalize:
+    """Colours to [0, 1] where a cloud's largest colour value is past 1,
+    then, where ``color_mean`` is given, standardised by it and
+    ``color_std`` (parity: point_transformer_gpu.py:396-422). Draws
+    nothing."""
+
+    def __init__(self, color_mean=None, color_std=None, **kwargs):
+        self.color_mean = (np.asarray(color_mean, np.float32)
+                           if color_mean is not None else None)
+        self.color_std = (np.asarray(color_std, np.float32)
+                          if color_std is not None else None)
+
+    def __call__(self, data, rng):
+        rgb = data["x"][:, :3].astype(np.float32)
+        if rgb.max() > 1:
+            rgb = rgb / 255.0
+        if self.color_mean is not None:
+            rgb = (rgb - self.color_mean) / self.color_std
+        data["x"][:, :3] = rgb
         return data

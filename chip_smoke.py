@@ -13,8 +13,9 @@ Phases, one JSON object a line:
    (FPS 1024 -> 512, 2048 -> 1200 and 2048 -> 1024, each timed with ns a step,
    and at the edges of FPS_EDGES: B = 1, N = 1000 and 4097 with npoint = N,
    npoint = 1, half the points at the origin, N = 300, N = 16384, the
-   pruned kernel up to 100003 points on surfaces and duplicated points,
-   with its plan against the host's copy; the four SA stages at
+   pruned kernel up to 100003 points on surfaces and duplicated points and
+   on a sphere padded by resampling (16384 points, 3000 distinct), with its
+   plan against the host's copy; the four SA stages at
    N=1024 for ball-group forward, backward and fused SA, the ball group's
    forward and backward also at seven edges (M off the tile, N % 4 with
    K = 33 and C = 3, N too large to stage, K = 1 with C = 0, K = 128, C
@@ -193,15 +194,33 @@ Phases, one JSON object a line:
    ball group at the step's nine calls, the FP levels' kNN and gathers, row
    3 at the S model's eval stages, rows 16-19 at its fused stage); ms per
    train step and per eval forward of both models (S on both routes) with
-   the profiler's device-busy time and peak memory. B's step and eval on
-   rooms of surfaces, and with the earlier FPS instance, are timed by
+   the profiler's device-busy time and peak memory; then
+   ``cfgs/s3dis/pointnext-l.yaml`` and ``pointnext-xl.yaml`` (SEG_BIG) on
+   the same batches: one train step against the same step through the plain
+   versions on the card, one eval forward against the plain versions, the
+   launches (a ball group each SA stage and InvResMLP block), peak memory
+   and ms of each. B's step and eval on rooms of surfaces, and with the
+   earlier FPS instance, are timed by
    ``scripts/torch_fps_knn_timing.py --steps``.
-17. ``seg_cli``: ``python -m adaptpoint_tpu_torch.seg --cfg
+17. ``sphere``: the S3DIS sphere protocol at full width
+   (``cfgs/s3dis/pointnext-s_sphere.yaml``: PointNeXt-S, sa_layers 2,
+   ``S3DISSphere``, ``MaskedCrossEntropy``, ``validate_sphere``) on a
+   seeded tree of rooms of surfaces, B = 8 spheres of N = 16384 points
+   (``phase_sphere``): the loaders from the cfg with the schedule cut, the
+   first masked train step against the plain versions on the card and on
+   the fused train-BN route (all four stages pass its gate) against the
+   unfused one, the eval logits of both routes, ``validate_sphere`` over a
+   padded last batch with its host time, the launches of each, every
+   kernel of the path at its shapes (``sphere_shapes``), ms per step and
+   eval forward on both routes.
+18. ``seg_cli``: ``python -m adaptpoint_tpu_torch.seg --cfg
    cfgs/s3dis/pointnext-b.yaml`` in child processes on SyntheticScene crops
    of 24000 points (SEG_CLI_SIZE a split, B = 8): SEG_CLI_EPOCHS epochs,
    ``mode=test`` and ``mode=val`` on the best checkpoint giving exactly the
    best epoch's mIoU, mAcc and OA, ``mode=resume`` to one epoch more; the
-   launch counts of the four children.
+   sphere cfg's ``train`` (two epochs), ``mode=test`` on its best checkpoint
+   and ``mode=resume``; ``mode=test_6fold`` over six seeded areas; the
+   launch counts of the children.
 
 Then the card's name and power limit as nvidia-smi prints them, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` as the
@@ -399,7 +418,10 @@ PATH_KERNELS = {
             "gather_rows_bwd", "sa_eval", "sa_trainbn_stats",
             "sa_trainbn_fwd", "sa_trainbn_bwd_w2", "sa_trainbn_bwd_x"),
     "seg_cli": ("fps", "ball_group", "ball_group_bwd", "knn", "gather_rows",
-                "gather_rows_bwd")}
+                "gather_rows_bwd"),
+    "sphere": ("fps", "ball_group", "ball_group_bwd", "knn", "gather_rows",
+               "gather_rows_bwd", "sa_eval", "sa_trainbn_stats",
+               "sa_trainbn_fwd", "sa_trainbn_bwd_w2", "sa_trainbn_bwd_x")}
 # names of the hand-written kernels as the profiler prints them
 OWN_KERNELS = ("fps_kernel", "ball_group_kernel", "ball_group_bwd_kernel",
                "ball_group_max_kernel", "ball_group_max_bwd_kernel",
@@ -562,6 +584,27 @@ SEG_ARGMAX_SHARE = 0.99
 # split, SEG_B a batch, SEG_CLI_EPOCHS epochs, then mode=test, mode=val and
 # mode=resume to one epoch more
 SEG_CLI_SIZE, SEG_CLI_EPOCHS = 16, 2
+# the sphere path (``cfgs/s3dis/pointnext-s_sphere.yaml``: PointNeXt-S at
+# width 32, blocks [1, 1, 1, 1, 1], sa_layers 2, residual, 13 classes,
+# ``MaskedCrossEntropy``) on SEG_B spheres of N_SPHERE points from
+# ``S3DISSphere``: its four SA stages (N -> M, C in, mid unused, C out,
+# radius; every one passes the train-BN gate) and the decoder's FP levels
+N_SPHERE = 16384
+SPHERE_STAGES = [(16384, 4096, 32, 0, 64, 0.1), (4096, 1024, 64, 0, 128, 0.2),
+                 (1024, 256, 128, 0, 256, 0.4), (256, 64, 256, 0, 512, 0.8)]
+SPHERE_LEVELS = [(256, 64, 512), (1024, 256, 256), (4096, 1024, 128),
+                 (16384, 4096, 64)]
+# the seeded S3DIS tree the sphere paths read: SPHERE_ROOMS rooms of
+# surfaces (scripts/surface_rooms.py) of SPHERE_ROOM_POINTS raw points an
+# area, side by side, labels by height; Area_1 trains, Area_5 validates.
+# The cfg's schedule (100 epochs of 500 spheres) is cut to
+# SPHERE_TRAIN_STEPS spheres (three batches) and SPHERE_VAL_STEPS (a padded
+# last batch of three)
+SPHERE_ROOMS, SPHERE_ROOM_POINTS = 2, 40000
+SPHERE_TRAIN_STEPS, SPHERE_VAL_STEPS = 3 * SEG_B, SEG_B + 3
+# PointNeXt-L and -XL (cfgs/s3dis/pointnext-{l,xl}.yaml) in the seg phase:
+# one train step and one eval forward each at SEG_B crops of N_SEG points
+SEG_BIG = ("pointnext-l.yaml", "pointnext-xl.yaml")
 
 
 def emit(phase: str, **kw) -> None:
@@ -1028,22 +1071,32 @@ def bg_op_launches(gen, xyz, qidx, feats, radius) -> dict:
 # kernel past it on each of its four launches: one bucket a thread (ties
 # across buckets, a last bucket with padding, npoint = N, 16384 and 32768
 # points), two with the minima in shared memory (40000), in the scratch
-# (65536) and buckets of 64 (100003)
+# (65536) and buckets of 64 (100003); a sphere of the sphere protocol
+# padded by resampling (3000 distinct of 16384 points, npoint 4096: every
+# step past the 3000th finds all minima 0 and picks index 0)
 FPS_EDGES = [(1, 1024, 512, 0.0), (2, 1000, 1000, 0.0), (2, 4097, 4097, 0.0),
              (4, 2048, 1, 0.0), (4, 2048, 1024, 0.5), (2, 300, 300, 0.0),
              (2, 4096, 2048, 0.0), (2, 16384, 4096, 0.0),
              (3, 16385, 2000, 0.5), (2, 24577, 1500, 0.0),
              (1, 32768, 1000, 0.0), (8, 24000, 6000, "surface"),
              (2, 24000, 3000, "duplicated"), (1, 40000, 1000, 0.0),
-             (1, 65536, 1000, 0.0), (2, 100003, 500, 0.0)]
+             (1, 65536, 1000, 0.0), (2, 100003, 500, 0.0),
+             (2, 16384, 4096, "padded")]
 
 
 def fps_cloud(gen, b: int, n: int, kind):
     """A (b, n, 3) cloud of FPS_EDGES on the card: gaussian with ``kind``'s
-    share at the origin, a seeded room of surfaces, or duplicated points."""
+    share at the origin, a seeded room of surfaces, duplicated points, or a
+    sphere of 3000 distinct points padded by resampling."""
     import numpy as np
     import torch
-    from scripts.surface_rooms import surface_room
+    from scripts.surface_rooms import padded_sphere, surface_room
+    if kind == "padded":
+        seed = int(torch.randint(1 << 30, (1,), generator=gen,
+                                 device=DEV).item())
+        rng = np.random.default_rng(seed)
+        return torch.from_numpy(np.stack([padded_sphere(n, 3000, rng)
+                                          for _ in range(b)])).to(DEV)
     if kind == "surface":
         seed = int(torch.randint(1 << 30, (1,), generator=gen,
                                  device=DEV).item())
@@ -4237,26 +4290,32 @@ TRAINBN_OPS = {"stats": {"select_kernel": 1, "stats_kernel": 1,
 # passes, the windowed kernels): the profiler drops records now and then
 # (PERF.md, section 6)
 TRAINBN_OP_ATTEMPTS = 4
-# a warmed profile's marks: a spin kernel on the stream just before and just
-# after the profiled call, whose ops are those between them in device time;
-# the host waits PROFILE_MARGIN_S on either side of each profiler step
+# a warmed profile's marks: OP_MARK_RUN spin kernels on the stream just
+# before and as many just after the profiled call, whose ops are those
+# between the two runs in device time; the host waits PROFILE_MARGIN_S on
+# either side of each profiler step
 OP_MARK = "spin_kernel"
 OP_MARK_CYCLES = 1000
+OP_MARK_RUN = 3
 PROFILE_MARGIN_S = 0.02
 
 
 def ops_between_marks(events) -> dict | None:
     """The device ops (``name[:60]``: count) that ``events`` ((name, device
-    start), in any order) hold between the two ``OP_MARK`` spins, or None
-    where a mark is missing. A record that falls into the profiled step from
-    the warm-up step lies before the first mark; one dropped at the step's
-    start takes the first mark first."""
+    start), in any order) hold between the run of ``OP_MARK`` spins before
+    the call and the run after it, or None where either run is missing
+    (the spins do not form exactly two runs of consecutive records). A run
+    holds as long as one of its spins was recorded. A record that falls into
+    the profiled step from the warm-up step lies before the first run; one
+    dropped at the step's start takes the first run's spins first."""
     events = sorted(events, key=lambda e: e[1])
     at = [i for i, (name, _) in enumerate(events) if OP_MARK in name]
-    if len(at) != 2:
+    runs = [i for j, i in enumerate(at) if j == 0 or at[j - 1] != i - 1]
+    if len(runs) != 2:
         return None
+    first_end = max(i for i in at if i < runs[1])
     out: dict = {}
-    for name, _ in events[at[0] + 1:at[1]]:
+    for name, _ in events[first_end + 1:runs[1]]:
         out[name[:60]] = out.get(name[:60], 0) + 1
     return out
 
@@ -4264,9 +4323,9 @@ def ops_between_marks(events) -> dict | None:
 def op_profile(fn, warm: bool) -> dict | None:
     """The device ops (``e.key[:60]``: count) one call of ``fn`` puts on
     the card, from the profiler: the call profiled alone, or (``warm``) the
-    ops between ``OP_MARK`` spins around the call in the profiler step after
-    a warm-up step of one call (``ops_between_marks``: None where a mark was
-    not recorded)."""
+    ops between runs of ``OP_MARK`` spins around the call in the profiler
+    step after a warm-up step of one call (``ops_between_marks``: None where
+    a run of marks was not recorded)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -4285,9 +4344,11 @@ def op_profile(fn, warm: bool) -> dict | None:
         time.sleep(PROFILE_MARGIN_S)
         prof.step()
         time.sleep(PROFILE_MARGIN_S)
-        torch.cuda._sleep(OP_MARK_CYCLES)
+        for _ in range(OP_MARK_RUN):
+            torch.cuda._sleep(OP_MARK_CYCLES)
         fn()
-        torch.cuda._sleep(OP_MARK_CYCLES)
+        for _ in range(OP_MARK_RUN):
+            torch.cuda._sleep(OP_MARK_CYCLES)
         torch.cuda.synchronize()
         time.sleep(PROFILE_MARGIN_S)
         prof.step()
@@ -4303,14 +4364,14 @@ def held_op_launches(calls: dict, want: dict, may: dict | None = None):
     records out now and then: the first ones of a profile that starts at the
     call, every one of a short call late in a long process, and the warm-up
     step's last op can fall into the profiled step (PERF.md, section 6). So
-    the call's ops are those between two marks on the stream, a profile
-    without both marks holds nothing, every profile with both must hold no op
-    beyond ``want``'s, and one of up to TRAINBN_OP_ATTEMPTS must hold them
-    all: a launch too many fails every profile, a launch missing fails all
-    of them. ``may`` (name: {part: most}) names ops a call may add, each up
-    to its count. Returns ``(found: the profile that held them, profiles:
-    every profile taken, None where a mark is missing, bad: the calls that
-    failed)``."""
+    the call's ops are those between two runs of marks on the stream, a
+    profile without both runs holds nothing, every one with both must hold
+    no op beyond ``want``'s, and one of up to TRAINBN_OP_ATTEMPTS must hold
+    them all: a launch too many fails every profile, a launch missing fails
+    all of them. ``may`` (name: {part: most}) names ops a call may add, each
+    up to its count. Returns ``(found: the profile that held them, profiles:
+    every profile taken, None where a run of marks is missing, bad: the
+    calls that failed)``."""
     def parts(need, ops):
         return {part: sum(v for k, v in ops.items() if part in k)
                 for part in need}
@@ -4360,6 +4421,31 @@ def trainbn_op_launches(S, inp) -> dict:
     return found
 
 
+def trainbn_op_launches_here() -> dict:
+    """``--op-launches trainbn``: ``trainbn_op_launches`` at the fused
+    classifier step's first stage (STAGES[0], B=32: 1024 points, 512
+    centers), on seeded inputs made as ``stage_inputs`` makes them, with the
+    step's relative, normalised offsets. Returns the ops a call by pass."""
+    import torch
+    from adaptpoint_tpu_torch.ops import satrainbn as S
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    _, _, c, mid, cout, r = STAGES[0]
+    (xyz, qidx, feats), = stage_inputs(gen, STAGES[:1])
+    w1 = torch.randn((3 + c, mid), generator=gen, device=DEV) / (3 + c) ** 0.5
+    w2 = torch.randn((mid, cout), generator=gen, device=DEV) / mid ** 0.5
+    g1, g2 = (1.0 + 0.1 * torch.randn((w,), generator=gen, device=DEV)
+              for w in (mid, cout))
+    b1, b2 = (0.1 * torch.randn((w,), generator=gen, device=DEV)
+              for w in (mid, cout))
+    errs, oks, inp = trainbn_passes(gen, S, xyz, qidx, feats, w1, g1, b1, w2,
+                                    g2, b2, r, True, True, K)
+    if not all(oks):
+        raise AssertionError(f"train-BN kernels disagree at the op-count "
+                             f"stage: {errs}")
+    found = trainbn_op_launches(S, inp)
+    return {k: sum(ops.values()) for k, ops in found.items()}
+
+
 def check_sa_trainbn(gen, captured, op_launches=True):
     """The four train-BN passes (rows 16-19), each against its plain pass on
     the same inputs, at the stages ``captured`` from the fused train step
@@ -4368,9 +4454,10 @@ def check_sa_trainbn(gen, captured, op_launches=True):
     passes 2-4 is 3 flops / PEAK_TF32 (the f32-grade 3xTF32 rate, the least
     time the card could take for f32-grade work), of pass 1 flops /
     PEAK_F32 (its f32 sums); the f32 CUDA cores' figure, flops / PEAK_F32,
-    is reported beside every pass (``bound_ms_f32_cores``). At the first
-    stage, with ``op_launches``, the device ops of each pass's call are
-    pinned (``trainbn_op_launches``)."""
+    is reported beside every pass (``bound_ms_f32_cores``). With
+    ``op_launches``, the device ops of each pass's call are pinned at the
+    classifier's first stage, in the op-count child
+    (``trainbn_op_launches_here``)."""
     import torch
     from adaptpoint_tpu_torch import ops
     from adaptpoint_tpu_torch.ops import satrainbn as S
@@ -4401,7 +4488,7 @@ def check_sa_trainbn(gen, captured, op_launches=True):
                                  f"{i + 1}: {errs}, over max|plain| "
                                  f"{inp['over_max']}")
         if i == 0 and op_launches:
-            trainbn_op_launches(S, inp)
+            child_op_launches("trainbn")
         flops, nbytes, t_ops = trainbn_work(Bq, n_pts, M, C, mid, cout, K)
         fargs, bargs, xargs = inp["fargs"], inp["bargs"], inp["xargs"]
         calls = {"stats": (lambda: S.stats_cuda(*inp["stats"]),
@@ -5087,20 +5174,22 @@ def window_op_launches_here() -> dict:
 # from its phases: all of them run in the one child process that the first
 # of them starts
 OP_CHECKS = {"window": lambda: window_op_launches_here(),
-             "fps": lambda: fps_op_launches_here()}
+             "fps": lambda: fps_op_launches_here(),
+             "trainbn": lambda: trainbn_op_launches_here()}
 OP_CHECKS_WANTED = set()
 _OP_CHECKS_DONE = {}
 
 
 def child_op_launches(check: str) -> dict:
-    """An op-count check of OP_CHECKS (``window``, ``fps``) from a child
-    process of its own (this script with ``--op-launches``), which also
-    makes this run's other checks of OP_CHECKS_WANTED not yet made: in
-    three runs of the whole script every profile of the windowed kernels'
-    short calls came back empty, in the ``window`` phase after the adapt
-    phases and right after ``train_fused`` alike, while the same check held
-    in every run of the ``window`` phase alone (PERF.md, section 6). Its
-    lines are passed on; raises if it fails."""
+    """An op-count check of OP_CHECKS (``window``, ``fps``, ``trainbn``)
+    from a child process of its own (this script with ``--op-launches``),
+    which also makes this run's other checks of OP_CHECKS_WANTED not yet
+    made: in three runs of the whole script every profile of the windowed
+    kernels' short calls came back empty, in the ``window`` phase after the
+    adapt phases and right after ``train_fused`` alike, while the same check
+    held in every run of the ``window`` phase alone; and in one run all four
+    profiles of the train-BN forward's call in ``train_fused`` lost a mark
+    (PERF.md, section 6). Its lines are passed on; raises if it fails."""
     if check not in _OP_CHECKS_DONE:
         todo = sorted((OP_CHECKS_WANTED | {check}) - set(_OP_CHECKS_DONE))
         t0 = time.perf_counter()
@@ -5732,8 +5821,9 @@ def phase_modelnet_cli():
     (fused eval): 1 clean and 7 x 5 corrupt splits in ``outcorruption.txt``,
     mCE and RmCE equal to ``calculate_ce`` of its OAs within the report's
     rounding. Without ``h5py`` only the h5 read is replaced, by arrays this
-    script made (``modelnet_c_arrays``). Returns the launch counts of the
-    three children and the sweep."""
+    script made (``modelnet_c_arrays``). Runs 2 and 3 run side by side.
+    Returns the launch counts of the three children and the sweep."""
+    import concurrent.futures
     import glob
     import importlib.util
     import logging
@@ -5752,7 +5842,7 @@ def phase_modelnet_cli():
     root = os.path.join(ROOT, "build", "chip_smoke", "modelnet_cli")
     data = ["dataset.common.NAME=SyntheticCls", "dataset.common.num_classes=40",
             f"dataset.common.size={MN_SIZE}", "seed=1"]
-    total = {}
+    total, lock = {}, threading.Lock()
 
     def run(cfg_path, extra, env=None):
         t0 = time.perf_counter()
@@ -5767,8 +5857,9 @@ def phase_modelnet_cli():
                                  f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
         counts = json.loads(out.stdout.strip().splitlines()[-1])[
             "launch_counts"]
-        for k, v in counts.items():
-            total[k] = total.get(k, 0) + v
+        with lock:
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
         log = out.stdout
         return dict(seconds=seconds, log=log, counts=counts,
                     epochs=[int(e) for e in re.findall(r"Epoch (\d+) LR",
@@ -5789,13 +5880,17 @@ def phase_modelnet_cli():
     name = os.path.basename(run_dir)
     latest = os.path.join(run_dir, "checkpoint", f"{name}_ckpt_latest.pth")
     best = os.path.join(run_dir, "checkpoint", f"{name}_ckpt_best.pth")
-    resumed = run(adapt_cfg, [f"epochs={MN_EPOCHS + 1}", MN_RSMIX,
-                              "resume=True", f"pretrained_path={latest}"])
-    after = torch.load(latest, map_location="cpu", weights_only=True)
     env = dict(os.environ, ADAPTPOINT_TPU_TRAIN_FUSED="1",
                ADAPTPOINT_TPU_EVAL_FUSED="1")
-    wolf = run("cfgs/modelnetc/pointnext-s.yaml",
-               ["epochs=1", "pointwolf.w_num_anchor=4"], env)
+    # the pointwolf run reads and writes no file of the resumed one (a run
+    # dir of its own), so the two children run side by side
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        wolf_job = pool.submit(run, "cfgs/modelnetc/pointnext-s.yaml",
+                               ["epochs=1", "pointwolf.w_num_anchor=4"], env)
+        resumed = run(adapt_cfg, [f"epochs={MN_EPOCHS + 1}", MN_RSMIX,
+                                  "resume=True", f"pretrained_path={latest}"])
+        wolf = wolf_job.result()
+    after = torch.load(latest, map_location="cpu", weights_only=True)
 
     # the ModelNet-C sweep in this process, on the first run's best weights
     cfg = EasyConfig()
@@ -6568,6 +6663,54 @@ def captured_ball_group(log: list):
         ops.ball_group = orig
 
 
+def fp_level_rows(gen, tag, pos, order, levels):
+    """The kNN (k = 3) and the row gather and its scatter-add at a decoder's
+    FP ``levels`` (queries, coarse points, coarse channels; deepest first)
+    of the clouds ``pos`` (B, N, 3), each coarse level the prefix of the
+    first level's FPS ``order``, each against its plain version: rows 11,
+    14 and 15, the times summed over the levels."""
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.ops import knn
+
+    b, n = pos.shape[:2]
+    m = levels[-1][1]
+    knn_row = dict(ms=0.0, plain_ms=0.0, max_abs_err=0, t_b=0.0, t_o=0.0)
+    g_rows = [dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0,
+                   bound_ms=0.0) for _ in range(2)]
+    points = {n: pos, m: ops.index_points(pos, order).contiguous()}
+    for _, ns, _ in levels[:-1]:
+        points[ns] = points[m][:, :ns].contiguous()
+    for i, (nq, ns, c) in enumerate(levels):
+        query, support = points[nq], points[ns]
+        idx = knn.knn_idx_cuda(3, support, query)
+        mism = int((idx != knn.knn_idx_plain(3, support, query)).sum())
+        emit("kernel", name="knn", case=tag, shape=[b, ns, nq, 3, 3],
+             variant=list(knn.knn_variant(3, ns, 3)), mismatches=mism,
+             tolerance="exact")
+        if mism:
+            raise AssertionError(f"kNN kernel disagrees at {mism} indices "
+                                 f"({tag}, B={b}, {nq} over {ns})")
+        knn_row["ms"] += cuda_ms(lambda: knn.knn_idx_cuda(3, support, query),
+                                 50.0)
+        knn_row["plain_ms"] += cuda_ms(
+            lambda: knn.knn_idx_plain(3, support, query), 50.0)
+        knn_row["t_b"] += b * (ns + nq) * 12 / PEAK_BYTES
+        knn_row["t_o"] += b * nq * ns * 9 / PEAK_F32
+        cases = [(c, f"FP level {len(levels) - i}")]
+        if i == len(levels) - 1:  # the coarse points' gather of distances
+            cases.append((3, "FP level 1 points"))
+        for width, case in cases:
+            for acc, r_ in zip(g_rows, check_gather(
+                    gen, f"{tag} {case}", ns, width, idx,
+                    dtypes=("float32",), min_total_ms=50.0)):
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                    acc[key] += r_[key]
+                acc["max_abs_err"] = max(acc["max_abs_err"],
+                                         r_["max_abs_err"])
+    knn_row.update(bound_row(knn_row.pop("t_b"), knn_row.pop("t_o")))
+    return knn_row, g_rows[0], g_rows[1]
+
+
 def seg_kernels(gen, first_pos, captured_bg, captured_eval, captured_train,
                 rows) -> None:
     """Every kernel of the S3DIS path against its plain version at the
@@ -6584,10 +6727,7 @@ def seg_kernels(gen, first_pos, captured_bg, captured_eval, captured_train,
     forward (row 3, ``captured_eval``) and the four train-BN passes at the
     stage its fused train step handed them (rows 16-19,
     ``captured_train``)."""
-    import torch
-    from adaptpoint_tpu_torch import ops
     from adaptpoint_tpu_torch.ops import fpsample as fps
-    from adaptpoint_tpu_torch.ops import knn
 
     out, layouts = {}, {}
     b, n = first_pos.shape[:2]
@@ -6653,43 +6793,8 @@ def seg_kernels(gen, first_pos, captured_bg, captured_eval, captured_train,
     del inputs
 
     # rows 11, 14, 15 at the decoder's levels
-    knn_row = dict(ms=0.0, plain_ms=0.0, max_abs_err=0, t_b=0.0, t_o=0.0)
-    g_rows = [dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0,
-                   bound_ms=0.0) for _ in range(2)]
-    levels = {n: first_pos,
-              m: ops.index_points(first_pos, order).contiguous()}
-    for _, ns, _ in SEG_LEVELS[:-1]:
-        levels[ns] = levels[m][:, :ns].contiguous()
-    for i, (nq, ns, c) in enumerate(SEG_LEVELS):
-        query, support = levels[nq], levels[ns]
-        idx = knn.knn_idx_cuda(3, support, query)
-        mism = int((idx != knn.knn_idx_plain(3, support, query)).sum())
-        emit("kernel", name="knn", case="seg", shape=[b, ns, nq, 3, 3],
-             variant=list(knn.knn_variant(3, ns, 3)), mismatches=mism,
-             tolerance="exact")
-        if mism:
-            raise AssertionError(f"kNN kernel disagrees at {mism} indices "
-                                 f"(B={b}, {nq} over {ns})")
-        knn_row["ms"] += cuda_ms(lambda: knn.knn_idx_cuda(3, support, query),
-                                 50.0)
-        knn_row["plain_ms"] += cuda_ms(
-            lambda: knn.knn_idx_plain(3, support, query), 50.0)
-        knn_row["t_b"] += b * (ns + nq) * 12 / PEAK_BYTES
-        knn_row["t_o"] += b * nq * ns * 9 / PEAK_F32
-        cases = [(c, f"FP level {4 - i}")]
-        if i == 3:  # the coarse points' gather of the distances
-            cases.append((3, "FP level 1 points"))
-        for width, tag in cases:
-            for acc, r_ in zip(g_rows, check_gather(
-                    gen, f"seg {tag}", ns, width, idx, dtypes=("float32",),
-                    min_total_ms=50.0)):
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                    acc[key] += r_[key]
-                acc["max_abs_err"] = max(acc["max_abs_err"],
-                                         r_["max_abs_err"])
-    knn_row.update(bound_row(knn_row.pop("t_b"), knn_row.pop("t_o")))
-    out["knn"] = knn_row
-    out["gather_rows"], out["gather_rows_bwd"] = g_rows
+    out["knn"], out["gather_rows"], out["gather_rows_bwd"] = fp_level_rows(
+        gen, "seg", first_pos, order, SEG_LEVELS)
 
     # PointNeXt-S: row 3 at its eval stages, rows 16-19 at its fused stage
     out["sa_eval"] = captured_sa_eval_rows(captured_eval, "seg", layouts)
@@ -6725,8 +6830,8 @@ def phase_seg(gen, rows):
     the launches of each; then every kernel of the path against its plain
     version at the models' shapes (``seg_kernels``, their rows added to
     ``rows`` when given), and ms per train step and per eval forward with
-    the profiler's device-busy time. Returns the launch counts of this
-    path's run."""
+    the profiler's device-busy time; then PointNeXt-L and -XL
+    (``seg_big_model``). Returns the launch counts of this path's run."""
     import numpy as np
     import torch
     from adaptpoint_tpu_torch import ops
@@ -6967,6 +7072,495 @@ def phase_seg(gen, rows):
     for (what, name), r_ in readings.items():
         emit("seg_throughput", what=what, model=name, batch=SEG_B,
              points=N_SEG, reading=r_)
+    del model, model_s, state, optimizer
+    torch.cuda.empty_cache()
+    for name in SEG_BIG:
+        seg_big_model(name, first, eval_batch, lr)
+    return launches
+
+
+def seg_big_model(name, batch, eval_batch, lr) -> None:
+    """``cfgs/s3dis/<name>`` (PointNeXt-L or -XL) at full width with seeded
+    weights on the seg phase's first train batch and eval batch: one train
+    step on the card against the same step through the plain versions on
+    the card (TOL_STEP_PLAIN, the same dropout mask), one eval forward
+    against the plain versions (TOL_UNFUSED), each with the card's peak
+    memory and its CUDA-event ms."""
+    import numpy as np
+    import torch
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.engine import TrainState, build_train_tools
+    from adaptpoint_tpu_torch.engine.seg_main import make_seg_train_step
+    from adaptpoint_tpu_torch.models import build_model_from_cfg
+    from adaptpoint_tpu_torch.utils import EasyConfig
+
+    cfg = EasyConfig()
+    cfg.load(os.path.join(ROOT, "cfgs", "s3dis", name), recursive=True)
+    cfg.model.in_channels = cfg.model.encoder_args.in_channels
+    model = build_model_from_cfg(cfg.model, seed=4)
+    twin = build_model_from_cfg(cfg.model)
+    twin.load_state_dict(model.state_dict())
+    mask = (torch.rand((SEG_B, N_SEG, model.head.head[0].conv.out_channels),
+                       generator=torch.Generator().manual_seed(5))
+            >= 0.5).to(DEV)
+
+    def step_of(net):
+        crit, opt, _ = build_train_tools(cfg, net)
+        step = make_seg_train_step(net, opt, crit, cfg)
+        st = TrainState(net, opt)
+        seen = {}
+
+        def one():
+            hook = net.register_forward_hook(
+                lambda _m, _i, out: seen.__setitem__("logits", out.detach()))
+            _, loss_, _ = step(st, batch, lr, dropout_mask=mask)
+            hook.remove()
+            return loss_
+
+        return one, seen
+
+    def record(net, loss_, seen):
+        return {"loss": float(loss_),
+                "logits": seen["logits"].double().cpu(),
+                "grads": {k: p.grad.double().cpu()
+                          for k, p in net.named_parameters()},
+                "params": {k: p.detach().double().cpu()
+                           for k, p in net.named_parameters()},
+                "buffers": {k: b_.double().cpu()
+                            for k, b_ in net.named_buffers()}}
+
+    one, seen = step_of(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    loss = one()
+    torch.cuda.synchronize()
+    peak_train = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: v - before[k] for k, v in ops.launch_counts().items()
+                if v - before[k]}
+    got = record(model, loss, seen)
+    plain_one, plain_seen = step_of(twin)
+    with plain_ops():
+        ref = record(twin, plain_one(), plain_seen)
+    w, ok = step_disagreement(got, ref, TOL_STEP_PLAIN, lr)
+    del ref, got
+    model.eval()
+    twin.load_state_dict(model.state_dict())
+    twin.eval()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits = model(eval_batch["pos"], eval_batch["x"]).double()
+        torch.cuda.synchronize()
+        peak_eval = torch.cuda.max_memory_allocated() / 1e9
+        with plain_ops():
+            plain = twin(eval_batch["pos"], eval_batch["x"]).double()
+        e_plain = float((logits - plain).abs().max())
+        close = bool(torch.allclose(logits, plain, rtol=TOL_UNFUSED[0],
+                                    atol=TOL_UNFUSED[1]))
+        del twin, plain
+        torch.cuda.empty_cache()
+        eval_ms = cuda_ms(lambda: model(eval_batch["pos"], eval_batch["x"]),
+                          300.0)
+    train_ms = cuda_ms(one, 300.0)
+    blocks = list(cfg.model.encoder_args.blocks)
+    want = {"fps": 1, "ball_group": 4 + sum(blocks) - len(blocks),
+            "ball_group_bwd": 4 + sum(blocks) - len(blocks), "knn": 4,
+            "gather_rows": 8, "gather_rows_bwd": 4}
+    emit("seg_big_model", cfg=name,
+         params=sum(p.numel() for p in model.parameters()),
+         width=cfg.model.encoder_args.width, blocks=blocks,
+         loss=float(loss), against_plain_versions_on_the_card=w,
+         launches=launches, expected=want, eval_vs_plain_max_abs=e_plain,
+         peak_memory_gb={"train_step": peak_train, "eval_forward": peak_eval},
+         ms={"train_step": train_ms, "eval_forward": eval_ms},
+         batch=SEG_B, points=N_SEG,
+         tolerance={"train_step": TOL_STEP_PLAIN,
+                    "eval_vs_plain": list(TOL_UNFUSED)})
+    if not (ok and close and launches == want and np.isfinite(float(loss))):
+        raise AssertionError(f"{name}: step {w}, eval {e_plain}, launches "
+                             f"{launches} != {want}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def write_sphere_tree(root: str, areas, rooms: int = None,
+                      points: int = None, seed: int = 0) -> str:
+    """A seeded S3DIS tree at ``root`` (``raw/Area_<a>_room_<j>.npy``,
+    rows x, y, z, r, g, b, label): ``rooms`` (default SPHERE_ROOMS) rooms of
+    surfaces an area (``scripts/surface_rooms.py``, ``points`` raw points
+    each, default SPHERE_ROOM_POINTS, 4.5 m apart along x), labelled by
+    height as the JAX package's sphere tests label theirs (13 classes over
+    the 3 m). Returns ``root``."""
+    import numpy as np
+    from scripts.surface_rooms import surface_room
+    rooms = SPHERE_ROOMS if rooms is None else rooms
+    points = SPHERE_ROOM_POINTS if points is None else points
+    raw = os.path.join(root, "raw")
+    os.makedirs(raw, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for a in areas:
+        for j in range(rooms):
+            pos, rgb = surface_room(points, rng)
+            label = np.clip(pos[:, 2] / 3.0 * 13, 0, 12).astype(np.float32)
+            pos[:, 0] += 4.5 * j
+            np.save(os.path.join(raw, f"Area_{a}_room_{j + 1}.npy"),
+                    np.concatenate([pos, rgb, label[:, None]], 1))
+    return root
+
+
+def sphere_kernels(gen, first_pos, captured_bg, captured_eval,
+                   captured_train, rows) -> None:
+    """Every kernel of the sphere path against its plain version at the
+    shapes the model hands it, each row's times summed over its calls under
+    ``sphere_shapes`` in ``rows`` where given: FPS 16384 -> 4096 on the
+    first batch's spheres (row 1, the pruned kernel; their padding copies
+    included); the ball group forward and backward at the four SA stages
+    of the unfused train step (rows 2, 4, ``captured_bg``); the kNN and the
+    row gather and its scatter-add at the decoder's four FP levels (rows
+    11, 14, 15); the fused eval SA at the four stages of the fused eval
+    forward (row 3, ``captured_eval``); the four train-BN passes at the four
+    stages of the fused train step (rows 16-19, ``captured_train``)."""
+    from adaptpoint_tpu_torch.ops import fpsample as fps
+
+    out, layouts = {}, {}
+    b, n = first_pos.shape[:2]
+    m = n // 4
+    got = fps.furthest_point_sample_cuda(first_pos, m)
+    mism = int((got != fps.furthest_point_sample_plain(first_pos, m)).sum())
+    emit("kernel", name="fps", case="sphere", shape=[b, n, m],
+         tiling=list(fps.fps_tiling(n)), mismatches=mism, tolerance="exact")
+    if mism:
+        raise AssertionError(f"FPS kernel disagrees at {mism} indices "
+                             f"(spheres, B={b}, {n} -> {m})")
+    row = dict(ms=cuda_ms(lambda: fps.furthest_point_sample_cuda(
+        first_pos, m), 100.0),
+        plain_ms=cuda_ms(lambda: fps.furthest_point_sample_plain(
+            first_pos, m), 50.0), max_abs_err=0,
+        **device_host(lambda: fps.furthest_point_sample_cuda(first_pos, m),
+                      reps=3),
+        **bound_row((b * n * 12 + b * m * 4) / PEAK_BYTES,
+                    (m - 1) * b * n * 10 / PEAK_F32))
+    row["ns_a_step"] = row["ms"] * 1e6 / (m - 1)
+    out["fps"] = row
+
+    if len(captured_bg) != len(SPHERE_STAGES):
+        raise AssertionError(f"{len(captured_bg)} ball-group calls a step")
+    stages, inputs = [], []
+    for r, k, xyz, qidx, feats, rel, ndp in captured_bg:
+        if k != K or not (rel and ndp):
+            raise AssertionError(f"a ball group at K={k} {rel} {ndp}")
+        stages.append((xyz.shape[1], qidx.shape[1], feats.shape[2], 0, 0, r))
+        inputs.append((xyz, qidx, feats))
+        layouts[f"ball group {len(stages)}"] = check_bg_layout(
+            xyz.shape[0], xyz.shape[1], qidx.shape[1], feats.shape[2], K)
+    if [s_[:3] for s_ in stages] != [s_[:3] for s_ in SPHERE_STAGES]:
+        raise AssertionError(f"the ball-group calls' shapes {stages}")
+    out["ball_group"], _ = check_stages_forward(gen, stages, inputs, None)
+    out["ball_group_bwd"] = check_stages_backward(gen, stages, inputs)
+    del inputs
+
+    out["knn"], out["gather_rows"], out["gather_rows_bwd"] = fp_level_rows(
+        gen, "sphere", first_pos, got, SPHERE_LEVELS)
+    out["sa_eval"] = captured_sa_eval_rows(captured_eval, "sphere", layouts)
+    if [(c_[0].shape[1], c_[1].shape[1], c_[2].shape[2])
+            for c_ in captured_train] != [s_[:3] for s_ in SPHERE_STAGES]:
+        raise AssertionError("the fused train step's stages")
+    for i, c_ in enumerate(captured_train):
+        xyz, qidx, feats, w1 = c_[:4]
+        layouts[f"train-BN stage {i + 1}"] = check_trainbn_layout(
+            xyz.shape[0], qidx.shape[1], K, feats.shape[2], w1.shape[1],
+            c_[6].shape[1], f"sphere stage {i + 1}")
+    out.update(check_sa_trainbn(gen, captured_train, op_launches=False))
+    emit("sphere_layouts", layouts=layouts)
+    for name, r_ in out.items():
+        if rows is not None:
+            rows[name]["sphere_shapes"] = r_
+    emit("sphere_kernels", note="the sphere path's shapes at B = 8, "
+         "N = 16384: FPS 16384 -> 4096, the ball group at the four SA "
+         "stages, the FP levels' kNN and gathers, the fused eval stages and "
+         "the four fused train-BN stages; ms summed over calls", rows=out)
+
+
+def phase_sphere(gen, rows):
+    """The S3DIS sphere protocol at full width through the entry points a
+    user calls (``cfgs/s3dis/pointnext-s_sphere.yaml``: PointNeXt-S,
+    ``S3DISSphere``, ``MaskedCrossEntropy``, ``validate_sphere``; seeded
+    weights) on a seeded area tree of rooms of surfaces
+    (``write_sphere_tree``; the cfg's schedule cut to SPHERE_TRAIN_STEPS and
+    SPHERE_VAL_STEPS spheres): the loaders built from the cfg, with their
+    build time and the schedule's time a sphere; the first masked train
+    step at B = 8, N = 16384 on the card against the same step through the
+    plain versions on the card; the same step on the fused train-BN route
+    (every stage passes the gate) against the unfused one from the same
+    weights, batch and dropout mask; two more steps; the eval logits of
+    both routes against their plain versions on the card, and the fused
+    ones against the unfused; ``validate_sphere`` over a padded last
+    batch, with its host time; the launches of each; then every kernel of the path at its shapes
+    (``sphere_kernels``) and ms per train step and eval forward on both
+    routes with the profiler's device-busy time and peak memory. Returns
+    the launch counts of this path's run."""
+    import tempfile
+    import numpy as np
+    import torch
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.datasets import build_dataloader_from_cfg
+    from adaptpoint_tpu_torch.engine import TrainState, build_train_tools
+    from adaptpoint_tpu_torch.engine.seg_main import (
+        make_seg_train_step, make_sphere_logits_step, seg_batch,
+        validate_sphere)
+    from adaptpoint_tpu_torch.models import build_model_from_cfg
+    from adaptpoint_tpu_torch.utils import EasyConfig
+
+    cfg = EasyConfig()
+    cfg.load(os.path.join(ROOT, "cfgs", "s3dis", "pointnext-s_sphere.yaml"),
+             recursive=True)
+    cfg.model.in_channels = cfg.model.encoder_args.in_channels
+    lr = float(cfg.lr)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(prefix="sphere_", dir=os.path.join(
+        ROOT, "build"))
+    t0 = time.perf_counter()
+    write_sphere_tree(tmp.name, (1, 5))
+    tree_s = time.perf_counter() - t0
+    common = cfg.dataset.common
+    common.data_root, common.num_points = tmp.name, N_SPHERE
+    common.num_steps, common.num_epochs = SPHERE_TRAIN_STEPS, 1
+    cfg.dataset.val.num_steps = SPHERE_VAL_STEPS
+    t0 = time.perf_counter()
+    train_loader = build_dataloader_from_cfg(
+        SEG_B, cfg.dataset, cfg.dataloader,
+        datatransforms_cfg=cfg.datatransforms, split="train", seed=1)
+    val_loader = build_dataloader_from_cfg(
+        SEG_B, cfg.dataset, cfg.dataloader,
+        datatransforms_cfg=cfg.datatransforms, split="val", seed=1)
+    build_s = time.perf_counter() - t0
+    ds = train_loader.dataset
+    t0 = time.perf_counter()
+    ds._build_schedule(1, 0)  # the same draws again, timed alone
+    sphere_ms = 1e3 * (time.perf_counter() - t0) / SPHERE_TRAIN_STEPS
+    t0 = time.perf_counter()
+    loader_batches = list(train_loader)
+    batches = [seg_batch(b_, DEV, cfg) for b_ in loader_batches]
+    batch_s = time.perf_counter() - t0
+    real = [int(v) for b_ in loader_batches for v in b_["mask"].sum(1)]
+    emit("sphere_data", tree_seconds=tree_s, loaders_seconds=build_s,
+         schedule_ms_a_sphere=sphere_ms,
+         cfg_schedule_seconds_estimate=sphere_ms * 100 * 500 / 1e3,
+         batches_seconds=batch_s, train_batches=len(batches),
+         val_batches=len(val_loader),
+         areas={"train": ds._area_names,
+                "val": val_loader.dataset._area_names},
+         subsampled_points=[int(p.shape[0]) for p in ds.sub_points],
+         real_points_a_sphere=real,
+         note="schedule: 100 x 500 spheres in the cfg, cut to "
+              f"{SPHERE_TRAIN_STEPS}; its seconds estimated from the "
+              "timed spheres")
+    if len(batches) != 3 or any(set(b_) != {"pos", "x", "y", "mask"}
+                                for b_ in batches):
+        raise AssertionError(f"sphere batches: {len(batches)}")
+
+    model = build_model_from_cfg(cfg.model, seed=1)
+    n_params = sum(p.numel() for p in model.parameters())
+    host_gen = torch.Generator().manual_seed(2)
+    mask = torch.rand((SEG_B, N_SPHERE,
+                       model.head.head[0].conv.out_channels),
+                      generator=host_gen) >= 0.5
+    first = batches[0]
+
+    def copy_of(net):
+        twin = build_model_from_cfg(cfg.model)
+        twin.load_state_dict(net.state_dict())
+        return twin
+
+    def first_step(net, fused=False, step=None, st=None):
+        if step is None:
+            crit, opt, _ = build_train_tools(cfg, net)
+            step = make_seg_train_step(net, opt, crit, cfg,
+                                       fused_train_bn=fused)
+            st = TrainState(net, opt)
+        seen = {}
+        hook = net.register_forward_hook(
+            lambda _m, _i, out: seen.__setitem__("logits", out.detach()))
+        _, loss_, _ = step(st, first, lr, dropout_mask=mask.to(DEV))
+        hook.remove()
+        return {"loss": float(loss_),
+                "logits": seen["logits"].double().cpu(),
+                "grads": {k: p.grad.double().cpu()
+                          for k, p in net.named_parameters()},
+                "params": {k: p.detach().double().cpu()
+                           for k, p in net.named_parameters()},
+                "buffers": {k: b_.double().cpu()
+                            for k, b_ in net.named_buffers()}}
+
+    plain_twin, fused_twin = copy_of(model), copy_of(model)
+    zero = dict.fromkeys(ops.KERNEL_MODULES, 0)
+    want = {**zero, "fps": 1, "ball_group": 4, "ball_group_bwd": 4,
+            "knn": 4, "gather_rows": 8, "gather_rows_bwd": 4}
+    want_fused = {**want, "ball_group": 0, "ball_group_bwd": 0,
+                  "sa_trainbn_stats": 4, "sa_trainbn_fwd": 4,
+                  "sa_trainbn_bwd_w2": 4, "sa_trainbn_bwd_x": 4}
+    ops.reset_launch_counts()  # this path's run starts here
+    criterion, optimizer, _ = build_train_tools(cfg, model)
+    train_step = make_seg_train_step(model, optimizer, criterion, cfg)
+    state = TrainState(model, optimizer)
+    captured_bg = []
+    t0 = time.perf_counter()
+    with captured_ball_group(captured_bg):
+        got = first_step(model, step=train_step, st=state)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    per_step = ops.launch_counts()
+    captured_train = []
+    with captured_trainbn(captured_train):
+        fused = first_step(fused_twin, fused=True)
+    torch.cuda.synchronize()
+    fused_step = {k: v - per_step[k] for k, v in ops.launch_counts().items()}
+    run_counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    with plain_ops():
+        ref_plain = first_step(plain_twin)
+    plain_s = time.perf_counter() - t0
+    if ops.launch_counts() != run_counts:
+        raise AssertionError("a plain-version step launched a kernel")
+    del plain_twin, fused_twin
+    w_plain, ok_plain = step_disagreement(got, ref_plain, TOL_STEP_PLAIN, lr)
+    w_fused, ok_fused = step_disagreement(fused, got, TOL_PARTSEG_STEP, lr)
+    emit("sphere_first_step", params=n_params, loss=got["loss"],
+         plain_loss=ref_plain["loss"], fused_loss=fused["loss"],
+         logits_absmax=float(ref_plain["logits"].abs().max()),
+         against_plain_versions_on_the_card=w_plain,
+         fused_against_unfused=w_fused, launches=per_step, expected=want,
+         fused_launches=fused_step, fused_expected=want_fused,
+         fused_stages=[list(c[0].shape[:2]) + [c[1].shape[1], c[2].shape[2],
+                                               c[3].shape[1], c[6].shape[1]]
+                       for c in captured_train],
+         seconds={"first_step": first_s, "plain_step": plain_s},
+         tolerance={"against_plain_versions_on_the_card": TOL_STEP_PLAIN,
+                    "fused_against_unfused": TOL_PARTSEG_STEP})
+    if per_step != want or fused_step != want_fused:
+        raise AssertionError(f"launches in one sphere train step {per_step} "
+                             f"!= {want}, fused {fused_step} != "
+                             f"{want_fused}")
+    if not (ok_plain and ok_fused and np.isfinite(got["loss"])):
+        raise AssertionError(f"the first sphere train step disagrees: with "
+                             f"the plain versions {w_plain}, fused with "
+                             f"unfused {w_fused}")
+    del got, ref_plain, fused
+
+    dev_gen = torch.Generator(device=DEV).manual_seed(3)
+    losses = []
+    for b_ in batches[1:]:
+        state, loss, _ = train_step(state, b_, lr, generator=dev_gen)
+        losses.append(loss)
+    losses = torch.stack(losses).cpu().tolist()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"sphere train steps: loss {losses}")
+
+    # the eval logits on both routes, then validate_sphere
+    val_batches = list(val_loader)
+    eval_batch = seg_batch(val_batches[0], DEV, cfg)
+    unfused_logits = make_sphere_logits_step(model)
+    fused_logits = make_sphere_logits_step(model, fused_eval=True)
+    eval_counts, captured_eval = {}, []
+    before = ops.launch_counts()
+    unf = unfused_logits(state, eval_batch).double()
+    eval_counts["unfused"] = {k: v - before[k] for k, v in
+                              ops.launch_counts().items() if v - before[k]}
+    with plain_ops():
+        plain = unfused_logits(state, eval_batch).double()
+    before = ops.launch_counts()
+    with captured_sa_eval(captured_eval):
+        fus = fused_logits(state, eval_batch).double()
+    eval_counts["fused"] = {k: v - before[k] for k, v in
+                            ops.launch_counts().items() if v - before[k]}
+    with plain_ops():
+        fus_plain = fused_logits(state, eval_batch).double()
+    e_plain = float((unf - plain).abs().max())
+    scaled = float(((fus - unf).abs() / (1.0 + unf.abs())).max())
+    scaled_plain = float(((fus - fus_plain).abs()
+                          / (1.0 + fus_plain.abs())).max())
+    agree = float((fus.argmax(-1) == unf.argmax(-1)).double().mean())
+    want_eval = {"unfused": {"fps": 1, "ball_group": 4, "knn": 4,
+                             "gather_rows": 8},
+                 "fused": {"fps": 1, "sa_eval": 4, "knn": 4,
+                           "gather_rows": 8}}
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    perf = validate_sphere(unfused_logits, state, val_loader, cfg)
+    torch.cuda.synchronize()
+    validate_s = time.perf_counter() - t0
+    perf["launches"] = {k: v - before[k] for k, v in
+                        ops.launch_counts().items() if v - before[k]}
+    # the vote's host part alone: np.add.at over one batch's logits
+    logits_host = unf.float().cpu().numpy()
+    sums = np.zeros((val_loader.dataset.sub_points[0].shape[0], 13))
+    inds = np.asarray(val_batches[0]["input_inds"])
+    t0 = time.perf_counter()
+    for b_ in range(SEG_B):
+        np.add.at(sums, inds[b_], logits_host[b_])
+    add_at_ms = 1e3 * (time.perf_counter() - t0)
+    launches = ops.launch_counts()  # this path's run ends here
+    emit("sphere_eval", batch=SEG_B, points=N_SPHERE,
+         unfused_vs_plain_max_abs=e_plain, fused_vs_unfused_max_scaled=scaled,
+         fused_vs_its_plain_versions_max_scaled=scaled_plain,
+         argmax_share_equal=agree, logits_absmax=float(unf.abs().max()),
+         launches=eval_counts, expected=want_eval, validate=perf,
+         validate_seconds=validate_s, add_at_ms_a_batch=add_at_ms,
+         val_real_rows=[int(b_["n_valid"]) for b_ in val_batches],
+         train_losses=losses, launches_total=launches,
+         tolerance={"unfused_vs_plain": list(TOL_UNFUSED),
+                    "fused_vs_unfused": f"|fused - unfused| <= {TOL_SA} * "
+                    f"(1 + |unfused|), argmax equal on >= "
+                    f"{SEG_ARGMAX_SHARE} of the points",
+                    "fused_vs_its_plain_versions": f"<= {TOL_SA} * (1 + "
+                    f"|plain|)"})
+    want_val = {k: len(val_batches) * v
+                for k, v in want_eval["unfused"].items()}
+    if (eval_counts != want_eval
+            or not torch.allclose(unf, plain, rtol=TOL_UNFUSED[0],
+                                  atol=TOL_UNFUSED[1])
+            or scaled > TOL_SA or agree < SEG_ARGMAX_SHARE
+            or scaled_plain > TOL_SA or perf["launches"] != want_val
+            or int(val_batches[-1]["n_valid"]) >= SEG_B
+            or not all(np.isfinite(perf[k]) and 0 <= perf[k] <= 100
+                       for k in ("miou", "macc", "oa"))):
+        raise AssertionError(f"sphere eval: launches {eval_counts}, plain "
+                             f"{e_plain}, fused {scaled} / {agree}, "
+                             f"validate {perf}")
+    del unf, plain, fus, fus_plain
+
+    sphere_kernels(gen, first["pos"], captured_bg, captured_eval,
+                   captured_train, rows)
+    del captured_bg, captured_eval, captured_train
+    torch.cuda.empty_cache()
+
+    # ms per train step and per eval forward on both routes
+    readings = {}
+    for route, fused_route in (("unfused", False), ("fused", True)):
+        crit, opt, _ = build_train_tools(cfg, model)
+        step = make_seg_train_step(model, opt, crit, cfg,
+                                   fused_train_bn=fused_route)
+        st = TrainState(model, opt)
+        it = [0]
+
+        def go():
+            step(st, batches[it[0] % len(batches)], lr, generator=dev_gen)
+            it[0] += 1
+
+        r_ = step_readings(go, reps=4)
+        r_["clouds_per_s"] = SEG_B * 1e3 / r_["ms_per_step"]
+        readings[("train", route)] = r_
+        fwd = make_sphere_logits_step(model, fused_eval=fused_route)
+        r_ = step_readings(lambda: fwd(st, eval_batch), reps=4)
+        r_["clouds_per_s"] = SEG_B * 1e3 / r_["ms_per_step"]
+        readings[("eval", route)] = r_
+        del opt, st
+        torch.cuda.empty_cache()
+    for (what, route), r_ in readings.items():
+        emit("sphere_throughput", what=what, route=route, batch=SEG_B,
+             points=N_SPHERE, reading=r_)
+    tmp.cleanup()
     return launches
 
 
@@ -6979,34 +7573,47 @@ def phase_seg_cli():
     ``mode=val`` on the best checkpoint, each giving exactly the best
     epoch's mIoU, mAcc and OA (``scalars.jsonl``); ``mode=resume`` on the
     latest checkpoint to one epoch more (exactly that epoch run, from the
-    saved epoch and ``best_val``). Returns the launch counts of the four
+    saved epoch and ``best_val``). Then the sphere protocol
+    (``cfgs/s3dis/pointnext-s_sphere.yaml`` at full width, B = 8 spheres of
+    N_SPHERE points, on a seeded tree of rooms of surfaces,
+    ``write_sphere_tree``): two epochs of two steps, ``mode=test`` on the
+    best checkpoint giving the best epoch's metrics, ``mode=resume`` to a
+    third epoch; and ``mode=test_6fold`` on ``pointnext-b.yaml`` over six
+    seeded areas, one checkpoint of seeded weights an area, each area's
+    and the overall metrics logged. The three chains of children run side
+    by side, each chain in order but the crops' ``mode=test`` and
+    ``mode=val``, which run side by side. Returns the launch counts of the
     children."""
+    import concurrent.futures
     import re
+    import tempfile
     import numpy as np
     import torch
+    from adaptpoint_tpu_torch.models import build_model_from_cfg
+    from adaptpoint_tpu_torch.utils import EasyConfig
 
     root = os.path.join(ROOT, "build", "chip_smoke", "seg_cli")
     data = ["dataset.common.NAME=SyntheticScene",
             f"dataset.common.num_points={N_SEG}",
             f"dataset.common.size={SEG_CLI_SIZE}", f"batch_size={SEG_B}",
             f"val_batch_size={SEG_B}", "seed=1"]
-    total = {}
+    total, lock = {}, threading.Lock()
 
-    def run(extra):
+    def run(extra, cfg="cfgs/s3dis/pointnext-b.yaml", args=data, at=root):
         t0 = time.perf_counter()
         out = subprocess.run(
             [sys.executable, "-m", "adaptpoint_tpu_torch.seg", "--cfg",
-             "cfgs/s3dis/pointnext-b.yaml"] + data + extra
-            + [f"root_dir={root}"], cwd=ROOT, capture_output=True, text=True,
-            timeout=600)
+             cfg] + args + extra + [f"root_dir={at}"], cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
         seconds = time.perf_counter() - t0
         if out.returncode != 0:
             raise AssertionError(f"the CLI exited {out.returncode}:\n"
                                  f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
         counts = json.loads(out.stdout.strip().splitlines()[-1])[
             "launch_counts"]
-        for k, v in counts.items():
-            total[k] = total.get(k, 0) + v
+        with lock:
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
         log = out.stdout
         return dict(seconds=seconds, log=log, counts=counts,
                     epochs=[int(e) for e in re.findall(r"Epoch (\d+) LR",
@@ -7016,25 +7623,116 @@ def phase_seg_cli():
                     test=re.findall(r"test: miou ([0-9.]+) macc ([0-9.]+) "
                                     r"oa ([0-9.]+)", log))
 
-    first = run([f"epochs={SEG_CLI_EPOCHS}"])
-    run_dir = re.findall(r"run dir: (.+)", first["log"])[0].strip()
-    name = os.path.basename(run_dir)
-    vals = {}
-    for line in open(os.path.join(run_dir, "scalars.jsonl")):
-        r_ = json.loads(line)
-        vals.setdefault(r_["tag"], {})[r_["step"]] = r_["value"]
-    best_epoch = max(vals["val_miou"], key=vals["val_miou"].get)
-    # as the test run's log prints them
-    best_metrics = tuple(f"{vals[f'val_{k}'][best_epoch]:.2f}"
-                         for k in ("miou", "macc", "oa"))
-    best = os.path.join(run_dir, "checkpoint", f"{name}_ckpt_best.pth")
-    latest = os.path.join(run_dir, "checkpoint", f"{name}_ckpt_latest.pth")
-    tested = run(["mode=test", f"pretrained_path={best}"])
-    validated = run(["mode=val", f"pretrained_path={best}"])
-    saved = torch.load(latest, map_location="cpu", weights_only=True)
-    resumed = run([f"epochs={SEG_CLI_EPOCHS + 1}", "mode=resume",
-                   f"pretrained_path={latest}"])
-    after = torch.load(latest, map_location="cpu", weights_only=True)
+    def b_chain():
+        """PointNeXt-B on crops: train, test, val, resume."""
+        first = run([f"epochs={SEG_CLI_EPOCHS}"])
+        run_dir = re.findall(r"run dir: (.+)", first["log"])[0].strip()
+        name = os.path.basename(run_dir)
+        vals = {}
+        for line in open(os.path.join(run_dir, "scalars.jsonl")):
+            r_ = json.loads(line)
+            vals.setdefault(r_["tag"], {})[r_["step"]] = r_["value"]
+        best_epoch = max(vals["val_miou"], key=vals["val_miou"].get)
+        # as the test run's log prints them
+        best_metrics = tuple(f"{vals[f'val_{k}'][best_epoch]:.2f}"
+                             for k in ("miou", "macc", "oa"))
+        best = os.path.join(run_dir, "checkpoint", f"{name}_ckpt_best.pth")
+        latest = os.path.join(run_dir, "checkpoint",
+                              f"{name}_ckpt_latest.pth")
+        # both only read the best checkpoint, each into a run dir of its own
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            val_job = pool.submit(run, ["mode=val",
+                                        f"pretrained_path={best}"])
+            tested = run(["mode=test", f"pretrained_path={best}"])
+            validated = val_job.result()
+        saved = torch.load(latest, map_location="cpu", weights_only=True)
+        resumed = run([f"epochs={SEG_CLI_EPOCHS + 1}", "mode=resume",
+                       f"pretrained_path={latest}"])
+        after = torch.load(latest, map_location="cpu", weights_only=True)
+        return {"first": first, "run_dir": run_dir, "vals": vals,
+                "best_epoch": best_epoch, "best_metrics": best_metrics,
+                "tested": tested, "validated": validated, "saved": saved,
+                "resumed": resumed, "after": after}
+
+    def sphere_chain():
+        """The sphere cfg: train, test on its best checkpoint, resume."""
+        sphere_root = os.path.join(root, "sphere")
+        sphere = ["dataset.common.data_root=" + write_sphere_tree(
+            os.path.join(tmp.name, "spheres"), (1, 5)),
+            f"dataset.common.num_points={N_SPHERE}",
+            f"dataset.common.num_steps={2 * SEG_B}",
+            "dataset.common.num_epochs=3",
+            f"dataset.val.num_steps={SEG_B}", f"batch_size={SEG_B}",
+            f"val_batch_size={SEG_B}", "seed=1"]
+        s_cfg = "cfgs/s3dis/pointnext-s_sphere.yaml"
+        s_first = run([f"epochs={SEG_CLI_EPOCHS}"], s_cfg, sphere,
+                      sphere_root)
+        s_dir = re.findall(r"run dir: (.+)", s_first["log"])[0].strip()
+        s_name = os.path.basename(s_dir)
+        s_vals = {}
+        for line in open(os.path.join(s_dir, "scalars.jsonl")):
+            r_ = json.loads(line)
+            s_vals.setdefault(r_["tag"], {})[r_["step"]] = r_["value"]
+        s_best = max(s_vals["val_miou"], key=s_vals["val_miou"].get)
+        s_metrics = tuple(f"{s_vals[f'val_{k}'][s_best]:.2f}"
+                          for k in ("miou", "macc", "oa"))
+        s_tested = run(["mode=test", "pretrained_path=" + os.path.join(
+            s_dir, "checkpoint", f"{s_name}_ckpt_best.pth")], s_cfg, sphere,
+            sphere_root)
+        s_latest = os.path.join(s_dir, "checkpoint",
+                                f"{s_name}_ckpt_latest.pth")
+        s_resumed = run([f"epochs={SEG_CLI_EPOCHS + 1}", "mode=resume",
+                         f"pretrained_path={s_latest}"], s_cfg, sphere,
+                        sphere_root)
+        s_after = torch.load(s_latest, map_location="cpu", weights_only=True)
+        return {"s_first": s_first, "s_vals": s_vals, "s_best": s_best,
+                "s_metrics": s_metrics, "s_tested": s_tested,
+                "s_resumed": s_resumed, "s_after": s_after}
+
+    def six_chain():
+        """``mode=test_6fold`` over six areas, a checkpoint of seeded
+        weights each."""
+        six = write_sphere_tree(os.path.join(tmp.name, "six"), range(1, 7),
+                                rooms=1)
+        b_cfg = EasyConfig()
+        b_cfg.load(os.path.join(ROOT, "cfgs", "s3dis", "pointnext-b.yaml"),
+                   recursive=True)
+        b_cfg.model.in_channels = b_cfg.model.encoder_args.in_channels
+        for area in range(1, 7):
+            torch.save({"model": build_model_from_cfg(
+                b_cfg.model, device="cpu", seed=area).state_dict()},
+                os.path.join(tmp.name, f"area{area}.pth"))
+        folds = run(["mode=test_6fold", "pretrained_path=" + os.path.join(
+            tmp.name, "area{area}.pth")], args=[
+            f"dataset.common.data_root={six}", "seed=1"],
+            at=os.path.join(root, "six"))
+        per_area = re.findall(r"Area (\d): miou ([0-9.]+) macc ([0-9.]+) oa "
+                              r"([0-9.]+)", folds["log"])
+        overall = re.findall(r"6-fold overall: miou ([0-9.]+) macc "
+                             r"([0-9.]+) oa ([0-9.]+)", folds["log"])
+        return {"folds": folds, "per_area": per_area, "overall": overall}
+
+    tmp = tempfile.TemporaryDirectory(prefix="sphere_cli_",
+                                      dir=os.path.join(ROOT, "build"))
+    # the three chains in turns would take most of this phase's time in
+    # the children's start-up (~25 s each on the card's host), so they run
+    # side by side, each chain's children in order
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(chain) for chain in (b_chain, sphere_chain,
+                                                 six_chain)]
+        results = {}
+        for job in jobs:
+            results.update(job.result())
+    tmp.cleanup()
+    (first, run_dir, vals, best_epoch, best_metrics, tested, validated, saved,
+     resumed, after) = (results[k] for k in ("first", "run_dir", "vals",
+                                              "best_epoch", "best_metrics",
+                                              "tested", "validated", "saved",
+                                              "resumed", "after"))
+    (s_first, s_vals, s_best, s_metrics, s_tested, s_resumed, s_after, folds,
+     per_area, overall) = (results[k] for k in (
+        "s_first", "s_vals", "s_best", "s_metrics", "s_tested", "s_resumed",
+        "s_after", "folds", "per_area", "overall"))
     emit("seg_cli",
          train=dict(seconds=first["seconds"], epochs=first["epochs"],
                     train_seconds=first["train_seconds"],
@@ -7069,6 +7767,32 @@ def phase_seg_cli():
             saved["best_val"]):
         raise AssertionError(f"the resumed run: epochs {resumed['epochs']}, "
                              f"checkpoint epoch {after['epoch']}")
+
+    emit("seg_cli_sphere",
+         train=dict(seconds=s_first["seconds"], epochs=s_first["epochs"],
+                    train_seconds=s_first["train_seconds"], val=s_vals,
+                    launches=s_first["counts"]),
+         best_epoch=s_best, best_epoch_metrics=s_metrics,
+         tested=dict(seconds=s_tested["seconds"], metrics=s_tested["test"],
+                     launches=s_tested["counts"]),
+         resumed=dict(seconds=s_resumed["seconds"],
+                      epochs=s_resumed["epochs"],
+                      latest_epoch=int(s_after["epoch"]),
+                      launches=s_resumed["counts"]),
+         test_6fold=dict(seconds=folds["seconds"], areas=per_area,
+                         overall=overall, launches=folds["counts"]))
+    if s_first["epochs"] != list(range(1, SEG_CLI_EPOCHS + 1)) or \
+            s_tested["test"] != [s_metrics] or \
+            s_resumed["epochs"] != [SEG_CLI_EPOCHS + 1] or \
+            int(s_after["epoch"]) != SEG_CLI_EPOCHS + 1:
+        raise AssertionError(f"the sphere CLI: epochs {s_first['epochs']}, "
+                             f"test {s_tested['test']} against {s_metrics}, "
+                             f"resumed {s_resumed['epochs']}")
+    if [int(a[0]) for a in per_area] != list(range(1, 7)) or \
+            len(overall) != 1 or not all(
+            0 <= float(v) <= 100 for row in per_area + overall
+            for v in row[-3:]):
+        raise AssertionError(f"test_6fold: {per_area}, {overall}")
     return total
 
 
@@ -7079,10 +7803,11 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="kernels,serve,train,train_fused,cli,adapt,"
                             "adapt_bf16,window,adapt_cli,modelnet_cli,"
-                            "partseg,partseg_cli,seg,seg_cli",
+                            "partseg,partseg_cli,seg,sphere,seg_cli",
                     help="comma-separated subset of kernels,serve,train,"
                          "train_fused,cli,adapt,adapt_bf16,window,adapt_cli,"
-                         "modelnet_cli,partseg,partseg_cli,seg,seg_cli for a "
+                         "modelnet_cli,partseg,partseg_cli,seg,sphere,"
+                         "seg_cli for a "
                          "partial run, which prints no "
                          "final result (default: all); attention alone runs "
                          "the kernel phase's attention checks and times, "
@@ -7104,7 +7829,8 @@ def main(argv=None) -> int:
                           for c in args.op_launches.split(",")}), flush=True)
         return 0
     OP_CHECKS_WANTED.update(c for c, phase in (("window", "window"),
-                                               ("fps", "seg"))
+                                               ("fps", "seg"),
+                                               ("trainbn", "train_fused"))
                             if phase in phases)
     from adaptpoint_tpu_torch import resolve_device
     from adaptpoint_tpu_torch.ops import _build
@@ -7122,26 +7848,39 @@ def main(argv=None) -> int:
              for n, log in _build.build_logs.items()}
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
+    phase_seconds, last = {}, [time.perf_counter()]
+
+    def lap():
+        """Seconds since the previous lap (a phase's time)."""
+        now = time.perf_counter()
+        seconds, last[0] = now - last[0], now
+        return seconds
+
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows = phase_kernels(gen) if "kernels" in phases else None
     if "attention" in phases and rows is None:
         check_attention(gen, {})
     mn_rows = (phase_modelnet_kernels(gen)
                if phases & {"kernels", "modelnet_kernels"} else {})
+    phase_seconds["kernels"] = lap()
     by_path = {}
     if "serve" in phases:
         out_dir = os.path.join(ROOT, "build", "chip_smoke")
         models, by_path["serve"] = phase_serve(gen, out_dir)
         phase_throughput(models, gen)
         del models
+        phase_seconds["serve"] = lap()
     if "train" in phases:
         by_path["train"] = phase_train(gen)
+        phase_seconds["train"] = lap()
     if "train_fused" in phases:
         torch.cuda.empty_cache()
         by_path["train_fused"] = phase_train_fused(gen, rows)
+        phase_seconds["train_fused"] = lap()
     if "cli" in phases:
         torch.cuda.empty_cache()
         by_path["cli"] = phase_cli()
+        phase_seconds["cli"] = lap()
     f32_run = None
     if phases & {"adapt", "adapt_bf16"}:
         torch.cuda.empty_cache()
@@ -7152,30 +7891,43 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             by_path["adapt_bf16"], _ = phase_adapt(gen, ctx, "bf16", f32_run)
         del ctx
+        phase_seconds["adapt"] = lap()
     if "window" in phases:
         torch.cuda.empty_cache()
         by_path["window"], window_rows, _ = phase_window(gen)
         if rows is not None:
             rows.update(window_rows)
+        phase_seconds["window"] = lap()
     if "adapt_cli" in phases:
         torch.cuda.empty_cache()
         by_path["adapt_cli"] = phase_adapt_cli()
+        phase_seconds["adapt_cli"] = lap()
     if "modelnet_cli" in phases:
         torch.cuda.empty_cache()
         by_path["modelnet_cli"] = phase_modelnet_cli()
+        phase_seconds["modelnet_cli"] = lap()
     if "partseg" in phases:
         torch.cuda.empty_cache()
         by_path["partseg"] = phase_partseg(gen, rows)
+        phase_seconds["partseg"] = lap()
     if "partseg_cli" in phases:
         torch.cuda.empty_cache()
         by_path["partseg_cli"] = phase_partseg_cli()
+        phase_seconds["partseg_cli"] = lap()
     if "seg" in phases:
         torch.cuda.empty_cache()
         by_path["seg"] = phase_seg(gen, rows)
+        phase_seconds["seg"] = lap()
+    if "sphere" in phases:
+        torch.cuda.empty_cache()
+        by_path["sphere"] = phase_sphere(gen, rows)
+        phase_seconds["sphere"] = lap()
     if "seg_cli" in phases:
         torch.cuda.empty_cache()
         by_path["seg_cli"] = phase_seg_cli()
-    emit("done", seconds=time.perf_counter() - t_start)
+        phase_seconds["seg_cli"] = lap()
+    emit("done", seconds=time.perf_counter() - t_start,
+         phase_seconds=phase_seconds)
     if rows is None or set(by_path) != set(PATH_KERNELS):
         print(f"partial run ({sorted(phases)}): no final result",
               file=sys.stderr)
@@ -7231,7 +7983,8 @@ def main(argv=None) -> int:
             "library_ms": r.get("library_ms")})
         if name in mn_rows:
             kernels[-1]["modelnet_shapes"] = mn_rows[name]
-        for extra in ("partseg_shapes", "seg_shapes", "resample_shape", "feature_shape",
+        for extra in ("partseg_shapes", "seg_shapes", "sphere_shapes",
+                      "resample_shape", "feature_shape",
                       "gan_classifier_shapes", "gan_step_shapes", "shape",
                       "ms_forward_only", "bound_parts_ms", "composite_ms",
                       "device_ms", "host_us", "library_device_ms",

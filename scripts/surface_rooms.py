@@ -1,11 +1,13 @@
-"""Seeded rooms of surfaces, the shape of S3DIS crops, for timing and
-checking the S3DIS path without its data.
+"""Seeded rooms of surfaces, the shape of S3DIS crops, and spheres padded
+by resampling, the shape of the sphere protocol's short spheres, for
+timing and checking the S3DIS paths without their data.
 
 ``datasets.s3dis.SyntheticScene`` fills its room's volume; a real crop is
 surfaces, which is what FPS's pruning (kernel row 1) and the stage-1
 features' mean see. ``chip_smoke.py``, ``scripts/torch_fps_knn_timing.py``
-and the port's tests make such crops with :func:`surface_room`; nothing of
-the package reads it. numpy only.
+and the port's tests make such crops with :func:`surface_room` and such
+spheres with :func:`padded_sphere`; nothing of the package reads it. numpy
+only.
 """
 from __future__ import annotations
 
@@ -40,3 +42,14 @@ def surface_room(n: int, rng: np.random.Generator, tables: int = 3,
         pos[sel, other[1]] = rng.uniform(b0, b1, m)
     rgb = np.clip(base[which] + rng.uniform(-40, 40, (n, 3)), 0, 255)
     return pos.astype(np.float32), rgb.astype(np.float32)
+
+
+def padded_sphere(n: int, n_real: int, rng: np.random.Generator):
+    """``n`` points of which only ``n_real`` are distinct, as
+    ``S3DISSphere`` pads a sphere near a wall: ``n_real`` points of a room
+    of surfaces, then copies of randomly drawn ones up to ``n``, in a
+    random order, centred on their mean. Returns pos (n, 3) float32."""
+    real = surface_room(n_real, rng)[0]
+    pts = np.concatenate([real, real[rng.choice(n_real, n - n_real)]])
+    pts = pts[rng.permutation(n)]
+    return (pts - pts.mean(0)).astype(np.float32)

@@ -12,7 +12,10 @@ card holds the kernel's indices to the plain FPS (``chip_smoke.py``
 - a step-by-step mirror of the kernel's dataflow (Morton buckets, the
   bound, (minimum, lowest index) keys) gives the plain FPS's indices on a
   uniform room, a room of surfaces and a cloud of duplicated points, and
-  touches few buckets late in the run;
+  touches few buckets late in the run; and on a sphere of the sphere
+  protocol padded by resampling (16384 points, 3000 distinct, npoint 4096),
+  where every step past the 3000th finds all minima 0 and must pick the
+  lowest index, 0, with no bucket below its bound;
 - the plan (``fpsample.pruned_plan``, the host copy of the kernel's) and
   the chooser past 16384 points, with no ceiling on N;
 - the rooms of surfaces the card's checks and timings use
@@ -29,7 +32,7 @@ from hypothesis import strategies as st
 import jax.numpy as jnp
 
 from adaptpoint_tpu.ops.geometry import furthest_point_sample_xla
-from scripts.surface_rooms import surface_room
+from scripts.surface_rooms import padded_sphere, surface_room
 from adaptpoint_tpu_torch.ops import fpsample
 from adaptpoint_tpu_torch.ops.geometry import _sq_dist
 
@@ -163,6 +166,18 @@ def test_the_pruned_dataflow_gives_the_plain_fps(kind, bucket):
     # every bucket at the first step; late steps touch a small share
     assert touched[0] == nb
     assert np.mean(touched[len(touched) // 2:]) < 0.25 * nb
+
+
+def test_the_pruned_dataflow_on_a_padded_sphere():
+    n, real, npoint = 16384, 3000, 4096
+    xyz = torch.from_numpy(padded_sphere(n, real, np.random.default_rng(4)))
+    assert len(np.unique(xyz.numpy(), axis=0)) == real
+    got, touched = pruned_fps_mirror(xyz, npoint, 32)
+    ref = fpsample.furthest_point_sample_plain(xyz[None], npoint)[0]
+    assert torch.equal(got, ref)
+    assert len(set(ref[:real].tolist())) == real
+    assert (ref[real:] == 0).all()
+    assert touched[0] == n // 32 and max(touched[real:]) == 0
 
 
 # ------------------------------------------------------------- the plan

@@ -10,6 +10,7 @@ import ast
 import importlib
 import os
 import shutil
+import subprocess
 import sys
 
 import pytest
@@ -164,6 +165,57 @@ def test_adaptpoint_modules_are_covered_and_import_without_a_toolchain():
             "/usr/local/cuda/bin/nvcc"):
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.load("window")
+
+
+SPHERE_MODULES = ["ops.cpu", "ops.cpu.kdtree_knn", "ops.cpu.grid_subsample",
+                  "datasets.s3dis", "datasets.vis3d", "engine.seg_main",
+                  "loss", "transforms.point_transforms", "seg"]
+
+
+def test_the_host_libraries_are_the_ports_own():
+    """The sphere protocol's modules are among the scanned files and import
+    nothing forbidden. No file of the port names the JAX package's C++
+    directory (``adaptpoint_tpu/cpp``) or its libraries; the host kd-tree
+    and grid subsampling compile from the port's own sources
+    (``ops/cpu/*.cpp``) into ``build/adaptpoint_tpu_torch``, and a process
+    that uses them loads no library of the JAX package."""
+    scanned = {os.path.relpath(p, os.path.join(REPO, "adaptpoint_tpu_torch"))
+               for p in _port_files()[1:]}
+    for name in SPHERE_MODULES:
+        rel = name.replace(".", os.sep)
+        assert rel + ".py" in scanned or os.path.join(
+            rel, "__init__.py") in scanned, name
+        for imported in _imported_modules(importlib.import_module(
+                "adaptpoint_tpu_torch." + name).__file__):
+            assert imported.split(".")[0] not in FORBIDDEN, (name, imported)
+    sources = [os.path.join(d, n) for d, _, names in os.walk(
+        os.path.join(REPO, "adaptpoint_tpu_torch")) for n in names
+        if n.endswith((".py", ".cpp", ".cu", ".cuh"))]
+    sources.append(os.path.join(REPO, "chip_smoke.py"))
+    bad = [(os.path.relpath(p, REPO), needle) for p in sources
+           for needle in ("adaptpoint_tpu/cpp", "adaptpoint_tpu\\cpp",
+                          "libkdtreeknn", "libgridsubsample")
+           if needle in open(p).read()]
+    assert not bad, bad
+    for name in ("kdtree_knn.cpp", "grid_subsampling.cpp"):
+        text = open(os.path.join(REPO, "adaptpoint_tpu_torch", "ops", "cpu",
+                                 name)).read()
+        assert 'extern "C"' in text and "torch/" not in text
+    probe = ("import numpy as np, sys\n"
+             "from adaptpoint_tpu_torch.ops.cpu import KDTree, "
+             "grid_subsample\n"
+             "p = np.random.default_rng(0).random((500, 3), np.float32)\n"
+             "KDTree(p).query(p[:4], 2); grid_subsample(p, None, 0.1)\n"
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'flax', 'adaptpoint_tpu')))\n"
+             "print(open('/proc/self/maps').read())\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, text=True,
+                         capture_output=True, check=True).stdout
+    first, maps = out.split("\n", 1)
+    assert first == "[]"
+    assert "adaptpoint_tpu/cpp" not in maps
+    for lib in ("libkdtree_knn-", "libgrid_subsampling-"):
+        assert os.path.join("build", "adaptpoint_tpu_torch", lib) in maps
 
 
 def test_port_tests_leave_the_environment_as_they_found_it():

@@ -2,10 +2,11 @@
 (``TRAINBN_OPS``, ``WINDOW_OPS``, the ball group's and rows 13 and 15's), on
 the CPU with made-up profiles.
 
-- ``ops_between_marks``: the ops between the two spin-kernel marks around
-  the call, by device start time. A record from the warm-up step that falls
-  into the profiled step lies before the first mark and is not counted; a
-  profile that lost a mark holds nothing (None).
+- ``ops_between_marks``: the ops between the two runs of spin-kernel marks
+  around the call, by device start time. A run holds while one of its
+  spins was recorded. A record from the warm-up step that falls into the
+  profiled step lies before the first run and is not counted; a profile
+  that lost a whole run holds nothing (None).
 - ``held_op_launches``: a profile without its marks is taken again, an op
   beyond the expected ones fails at once, and one of up to
   ``TRAINBN_OP_ATTEMPTS`` profiles must hold every expected op; an op a call
@@ -65,6 +66,30 @@ def test_events_are_ordered_by_device_start():
                          ids=["empty", "no_marks", "first_dropped",
                               "last_dropped", "three_marks"])
 def test_a_profile_without_both_marks_holds_nothing(names):
+    assert cs.ops_between_marks(_events(names)) is None
+
+
+@pytest.mark.parametrize("before,after", [(3, 3), (1, 3), (3, 1), (2, 2),
+                                          (1, 1)],
+                         ids=["whole_runs", "first_run_short",
+                              "second_run_short", "both_short",
+                              "one_spin_each"])
+def test_a_run_of_marks_holds_while_one_of_its_spins_is_recorded(before,
+                                                                 after):
+    # op_profile puts OP_MARK_RUN spins on either side of the call; the
+    # profiler may drop some of them
+    names = [RED] + [SPIN] * before + _call() + [SPIN] * after
+    assert cs.ops_between_marks(_events(names)) == _counted(_call())
+
+
+@pytest.mark.parametrize("names", [
+    [RED] + _call() + [SPIN] * 3,
+    [SPIN] * 3 + _call(),
+    [SPIN] * 6,
+    [SPIN] * 3 + _call()[:2] + [SPIN] + _call()[2:] + [SPIN] * 3],
+    ids=["first_run_dropped", "second_run_dropped", "call_dropped",
+         "three_runs"])
+def test_spins_not_in_two_runs_hold_nothing(names):
     assert cs.ops_between_marks(_events(names)) is None
 
 

@@ -22,6 +22,15 @@ their plain versions at the same shapes on the card.
   fused train-BN route only where its ``N // stride`` centers are a
   multiple of 8, so of S3DIS's four stages only the first (6000 centers);
   1500, 375 and 93 take the ball-group route in both packages.
+- The sphere protocol (``pointnext-s_sphere.yaml``, B = 8 spheres of
+  N = 16384 points): its four stages 16384 -> 4096 -> 1024 -> 256 -> 64 all
+  pass the train-BN gate, and every chooser of the path takes them: FPS
+  (the pruned kernel at 16384, the chain below), the ball group, row 3's
+  tiling, ``satrainbn.plan_host`` for the five passes, the element counts,
+  and the kNN at the four FP levels.
+- PointNeXt-L and -XL (``pointnext-{l,xl}.yaml``) at B = 8, N = 24000:
+  the ball group at every SA stage and InvResMLP block (XL: width 64,
+  blocks [1, 4, 7, 4, 4]) and the kNN at their FP levels.
 """
 import os
 
@@ -61,9 +70,9 @@ def load_cfg(name):
     return cfg
 
 
-def model_shapes(cfg):
+def model_shapes(cfg, n=N):
     model = build_model_from_cfg(cfg.model, device="cpu", seed=0)
-    stages, blocks, n = [], [], N
+    stages, blocks = [], []
     for stage in model.encoder.encoder:
         for blk in stage:
             if isinstance(blk, SetAbstraction) and blk.use_fused:
@@ -227,3 +236,100 @@ def test_a_train_forward_takes_the_routes_the_gate_gives():
         ops.sa_trainbn, ops.ball_group = orig_t, orig_b
     assert calls == {"trainbn": [80], "ball_group": [20, 5, 1]}
     assert torch.isfinite(out).all()
+
+
+# ------------------------------------------- the sphere protocol's shapes
+
+N_SPHERE = 16384
+# (N -> M, C in, C out, radius): pointnext-s_sphere.yaml's SA stages
+SPHERE_STAGES = [(16384, 4096, 32, 64, 0.1), (4096, 1024, 64, 128, 0.2),
+                 (1024, 256, 128, 256, 0.4), (256, 64, 256, 512, 0.8)]
+SPHERE_LEVELS = [(256, 64, 512), (1024, 256, 256), (4096, 1024, 128),
+                 (16384, 4096, 64)]
+
+
+def sphere_model():
+    model, stages, blocks = model_shapes(load_cfg("pointnext-s_sphere.yaml"),
+                                         N_SPHERE)
+    sas = [m for m in model.modules() if isinstance(m, SetAbstraction)
+           and m.use_fused]
+    return model, stages, blocks, sas
+
+
+def test_the_sphere_shapes_are_the_models():
+    _, stages, blocks, _ = sphere_model()
+    assert not blocks
+    assert [s[:4] for s in stages] == [s[:4] for s in SPHERE_STAGES]
+    assert [s[4] for s in stages] == pytest.approx(
+        [s[4] for s in SPHERE_STAGES])
+
+
+@pytest.mark.parametrize("i", range(4), ids=lambda i: f"stage{i + 1}")
+def test_the_sphere_stages_fit_every_chooser(i):
+    """Stage ``i`` of B = 8 spheres: its FPS, the ball group (the unfused
+    route), row 3 (fused eval) and rows 16-19 (fused train-BN: the gate
+    passes every stage, ``N // 4`` a multiple of 8)."""
+    model, _, _, sas = sphere_model()
+    n, m, c, cout, _ = SPHERE_STAGES[i]
+    sa = sas[i]
+    model.train()
+    assert sa._fused_trainbn_ok(n)
+    kind = "pruned" if n > 4096 else None
+    tiling = fpsample.fps_tiling(n)
+    assert (tiling[2] == "pruned") == (kind == "pruned")
+    if kind:
+        assert fpsample.pruned_plan(n).smem_minima
+    t = ballgroup.fwd_tiling(B, n, m, c, K)
+    assert ballgroup.fwd_smem_bytes(t.tm, K, n, t.use_xs, t.cap) <= LIMIT
+    assert ballgroup.bwd_smem_bytes(K) <= TWO
+    _build.check_int32("ball_group", feats=B * n * c,
+                       dpfj=B * K * m * (3 + c))
+    mid = sa.convs[0].conv.out_channels
+    Wp, midp, coutp = (saeval._round16(v) for v in (c + 3, mid, cout))
+    f = saeval._fwd_tiling(K, Wp, midp, coutp, n, B, m)
+    assert saeval._fwd_smem_bytes(f.tm, K, Wp, midp, coutp, f.np, f.kc, n,
+                                  f.use_xs) <= LIMIT
+    _build.check_int32("sa_eval", feats=B * n * c,
+                       slots=B * m * K * max(Wp, midp, coutp))
+    for kind_ in ("STATS", "FWD", "BWD_Y2", "BWD_GH", "BWD_X"):
+        k = getattr(satrainbn, kind_)
+        mid_, cout_ = ((1, 1) if k == satrainbn.STATS else
+                       (mid, 1 if k == satrainbn.BWD_X else cout))
+        assert satrainbn.plan_host(k, B, m, K, c, mid_, cout_).smem <= LIMIT
+    _build.check_int32("sa_trainbn", feats=B * n * c,
+                       rows=B * m * K * max(c + 3, mid, cout))
+
+
+@pytest.mark.parametrize("level", SPHERE_LEVELS,
+                         ids=lambda lv: f"{lv[0]}-{lv[1]}")
+def test_the_knn_takes_the_sphere_fp_levels(level):
+    nq, ns, c = level
+    assert knn.knn_variant(3, ns, 3).kind == "thread"
+    _build.check_int32("knn", xyz=B * ns * 3, query=B * nq * 3,
+                       idx=B * nq * 3)
+    _build.check_int32("gather", rows=B * nq * 3 * c)
+
+
+# ------------------------------------------ PointNeXt-L and -XL on crops
+
+@pytest.mark.parametrize("name,blocks,width", [
+    ("pointnext-l.yaml", [1, 3, 5, 3, 3], 32),
+    ("pointnext-xl.yaml", [1, 4, 7, 4, 4], 64)])
+def test_l_and_xl_fit_the_choosers_at_the_crop(name, blocks, width):
+    """Every ball-group call of the model's B = 8, N = 24000 step (its SA
+    stages and InvResMLP blocks, query = support) and its FP levels' kNN."""
+    cfg = load_cfg(name)
+    assert cfg.model.encoder_args.blocks == blocks
+    assert cfg.model.encoder_args.width == width
+    _, stages, inv = model_shapes(cfg)
+    assert [s[:2] for s in stages] == [s[:2] for s in SA_STAGES]
+    assert [s[2] for s in stages] == [width * 2 ** j for j in range(4)]
+    assert len(inv) == sum(blocks) - len(blocks)
+    for n, m, c in ([(s[0], s[1], s[2]) for s in stages]
+                    + [(b[0], b[0], b[1]) for b in inv]):
+        t = ballgroup.fwd_tiling(B, n, m, c, K)
+        assert ballgroup.fwd_smem_bytes(t.tm, K, n, t.use_xs, t.cap) <= LIMIT
+        _build.check_int32("ball_group", feats=B * n * c,
+                           dpfj=B * K * m * (3 + c))
+    for nq, ns, _ in FP_LEVELS:
+        assert knn.knn_variant(3, ns, 3).kind == "thread"
