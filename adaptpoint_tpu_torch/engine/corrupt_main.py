@@ -9,7 +9,11 @@ deforms each batch's xyz on the device before the step's resampling
 the host in numpy, as the reference does, and trains on the two labels
 weighted by lambda (:func:`make_train_step_mixed`,
 :func:`train_one_epoch_rsmix`); ``wolfmix`` does both, with its parameters
-nested under ``cfg.wolfmix``. Every 20 epochs, and on the best and the
+nested under ``cfg.wolfmix``; a ``wolfmix`` that is not a mapping with
+both (``wolfmix: True``, as ``cfgs/modelnetc/pointnet++_wolfmix.yaml``
+sets it) is refused before anything is built (:func:`check_wolfmix`: the
+JAX package fails on it at its first epoch). Every 20 epochs, and on the
+best and the
 latest checkpoints at the end, the ScanObjectNN-C or (``mode: modelnetc``)
 ModelNet-C sweep runs; a missing tree is logged and the sweep skipped.
 ``test=True`` with ``pretrained_path`` only sweeps the checkpoint;
@@ -44,7 +48,24 @@ from .cls_trainer import (TrainState, build_train_tools, make_eval_step,
                           make_train_step, train_one_epoch, validate)
 
 __all__ = ["main", "make_train_step_pointwolf", "make_train_step_mixed",
-           "train_one_epoch_rsmix"]
+           "train_one_epoch_rsmix", "check_wolfmix"]
+
+
+def check_wolfmix(cfg) -> None:
+    """Raise ValueError where ``cfg.wolfmix`` is set but is not a mapping
+    holding ``rsmix_params`` and ``pointwolf``: a bare ``wolfmix: True``
+    leaves WolfMix without parameters, and the JAX package fails on it
+    (``cfg.wolfmix.rsmix_params``) at its first epoch."""
+    wm = cfg.get("wolfmix")
+    if wm is None:
+        return
+    if not hasattr(wm, "get") or wm.get("rsmix_params") is None \
+            or wm.get("pointwolf") is None:
+        raise ValueError(
+            f"wolfmix must be a mapping with rsmix_params and pointwolf "
+            f"(the WolfMix epoch reads its parameters from cfg.wolfmix), got "
+            f"wolfmix: {wm!r}; nest the cfg's top-level pointwolf and "
+            f"rsmix_params under wolfmix, or drop wolfmix")
 
 
 def _wolf_args(pw) -> tuple:
@@ -178,6 +199,8 @@ def _corruption_eval(cfg, eval_step, state, epoch) -> None:
 def main(cfg, device: Optional[str] = None) -> Optional[float]:
     """Run the corruption-mode trainer on ``device`` (``None``: the card).
     Returns the best validation OA (``None`` where ``test`` only swept)."""
+    if not (cfg.get("pretrained_path") and cfg.get("test")):
+        check_wolfmix(cfg)
     dev = resolve_device(device)
     seed = cfg.get("seed") or 0
     rng = set_random_seed(seed, dev,

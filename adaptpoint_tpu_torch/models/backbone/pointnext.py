@@ -427,6 +427,9 @@ def _to_full_list(param, blocks, strides, param_scaling=1):
 class PointNextEncoder(nn.Module):
     """PointNeXt encoder (parity: pointnext.py PointNextEncoder)."""
 
+    # BaseCls hands it the fused switches and the shared FPS indices
+    fused_routes = True
+
     def __init__(self, in_channels: int = 4, width: int = 32,
                  blocks: Sequence[int] = (1, 4, 7, 4, 4),
                  strides: Sequence[int] = (4, 4, 4, 4),

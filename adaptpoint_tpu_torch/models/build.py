@@ -23,9 +23,12 @@ MODELS = Registry("models")
 
 def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded torch-default init: U(+-1/sqrt(fan_in)) for every conv/linear
-    weight and bias (kaiming-uniform with a=sqrt(5)); BN keeps 1/0/0/1."""
+    weight and bias (kaiming-uniform with a=sqrt(5)); BN keeps 1/0/0/1, and
+    a layer marked ``zero_init`` (PointNet's T-Net output) its zeros."""
     with torch.no_grad():
         for mod in model.modules():
+            if getattr(mod, "zero_init", False):
+                continue
             if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Linear)):
                 bound = 1.0 / math.sqrt(mod.weight[0].numel())
                 mod.weight.uniform_(-bound, bound, generator=generator)

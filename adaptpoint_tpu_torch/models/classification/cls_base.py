@@ -105,9 +105,17 @@ class BaseCls(nn.Module):
         """``first_fps_idx`` (B, >= first stage's M): FPS indices of ``pos``
         the caller already has, shared with the encoder's first subsampling
         stage. ``fused_train_bn``: in training the encoder's standard SA
-        stages take the fused train-BN route (``ops.sa_trainbn``)."""
-        feat = self.encoder.forward_cls_feat(pos, x, fused_eval,
-                                             first_fps_idx, fused_train_bn)
+        stages take the fused train-BN route (``ops.sa_trainbn``).
+        ``fused_eval``, ``first_fps_idx`` and ``fused_train_bn`` reach only
+        an encoder with fused stages (``fused_routes``: PointNeXt); the
+        others take ``(pos, x)`` and ignore the switches, as the JAX
+        package's do."""
+        if getattr(self.encoder, "fused_routes", False):
+            feat = self.encoder.forward_cls_feat(pos, x, fused_eval,
+                                                 first_fps_idx,
+                                                 fused_train_bn)
+        else:
+            feat = self.encoder.forward_cls_feat(pos, x)
         if self.prediction is None:
             return feat
         return self.prediction(feat, dropout_mask, generator)

@@ -171,8 +171,11 @@ class ConvBlock(nn.Sequential):
     ``kind`` picks the reference module holding the weight: ``conv2d``
     (out, in, 1, 1) for grouped SA convs, ``conv1d`` (out, in, 1) for the
     stem and skip convs, ``linear`` (out, in) for head layers. The conv has
-    a bias only when no norm follows (reference ``create_convblock*``).
-    Only the ``conv-norm-act`` order is ported. The conv follows the compute
+    a bias only when no norm follows (reference ``create_convblock*``), or
+    where ``bias`` says so (PointMLP's ``bias: True`` convs before a norm);
+    ``bias=False`` drops it behind no norm too. ``order`` is
+    ``conv-norm-act`` (slots conv, BatchNorm, act) or ``conv-act-norm``
+    (conv, act, BatchNorm: BallDGCNN's default). The conv follows the compute
     policy (:func:`dense`), unless ``policy`` is False: then it computes in
     the promoted type of its input and its parameters, as a flax ``Dense``
     without a ``dtype`` does (the SA stage's skip conv, the head's last
@@ -182,24 +185,23 @@ class ConvBlock(nn.Sequential):
     def __init__(self, in_channels: int, out_channels: int,
                  norm_args: Optional[dict] = None,
                  act_args: Optional[dict] = None, kind: str = "conv2d",
-                 order: str = "conv-norm-act", policy: bool = True):
-        if order != "conv-norm-act":
+                 order: str = "conv-norm-act", policy: bool = True,
+                 bias: Optional[bool] = None):
+        if order not in ("conv-norm-act", "conv-act-norm"):
             raise ValueError(f"conv order {order} is not ported yet")
         norm = norm_kind(norm_args)
-        bias = norm is None
+        bias = norm is None if bias is None else bias
         conv = {"conv2d": lambda: nn.Conv2d(in_channels, out_channels, 1,
                                             bias=bias),
                 "conv1d": lambda: nn.Conv1d(in_channels, out_channels, 1,
                                             bias=bias),
                 "linear": lambda: nn.Linear(in_channels, out_channels,
                                             bias=bias)}[kind]()
-        mods = [conv]
-        if norm is not None:
-            mods.append(BatchNorm(out_channels, eps=1e-5, momentum=0.1))
+        bn = (BatchNorm(out_channels, eps=1e-5, momentum=0.1)
+              if norm is not None else None)
         act = create_act(act_args)
-        if act is not None:
-            mods.append(act)
-        super().__init__(*mods)
+        tail = [bn, act] if order == "conv-norm-act" else [act, bn]
+        super().__init__(conv, *(m for m in tail if m is not None))
         self.policy = policy
 
     @property
@@ -208,8 +210,7 @@ class ConvBlock(nn.Sequential):
 
     @property
     def bn(self) -> Optional[nn.BatchNorm1d]:
-        return self[1] if len(self) > 1 and isinstance(
-            self[1], nn.BatchNorm1d) else None
+        return next((m for m in self if isinstance(m, nn.BatchNorm1d)), None)
 
     def weight_matrix(self) -> torch.Tensor:
         """The conv weight as an (out, in) matrix."""

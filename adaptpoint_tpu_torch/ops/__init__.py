@@ -22,7 +22,7 @@ __all__ = ["furthest_point_sample", "ball_group", "ball_group_max",
            "ball_group_max_windowed", "sa_eval",
            "sa_train", "sa_trainbn", "gather_rows",
            "fps", "ball_query", "index_points", "fps_prefix_idx",
-           "square_distance", "knn_point", "three_nn", "three_interpolation",
+           "square_distance", "knn_idx", "knn_point", "three_nn", "three_interpolation",
            "fused_self_attention", "launch_counts", "reset_launch_counts",
            "KERNEL_MODULES"]
 
@@ -42,6 +42,7 @@ KERNEL_MODULES = {"fps": (fpsample, "LAUNCHES"),
                   "mha": (attention, "LAUNCHES"),
                   "mha_bwd": (attention, "LAUNCHES_BWD"),
                   "knn": (knn, "LAUNCHES"),
+                  "knn_tiled": (knn, "LAUNCHES_TILED"),
                   "fpinterp": (fpinterp, "LAUNCHES"),
                   "fpinterp_bwd": (fpinterp, "LAUNCHES_BWD"),
                   "sa_trainbn_stats": (satrainbn, "LAUNCHES_STATS"),
@@ -216,6 +217,18 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return index_points_plain(points, idx)
 
 
+def knn_idx(nsample: int, xyz: torch.Tensor,
+            new_xyz: torch.Tensor) -> torch.Tensor:
+    """The indices of :func:`knn_point` alone, (B, M, nsample) int32: for
+    callers that use only the graph (DGCNN, PointMLP's grouper), where the
+    JAX package's compiler drops the unused distances."""
+    support = xyz.detach().float().contiguous()
+    query = new_xyz.detach().float().contiguous()
+    if _on_cuda(xyz):
+        return knn.knn_idx_cuda(int(nsample), support, query)
+    return knn.knn_idx_plain(int(nsample), support, query)
+
+
 def knn_point(nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
     """The ``nsample`` nearest of xyz (B, N, C) to each of new_xyz (B, M, C):
     ``(d2, idx)``, both (B, M, nsample), nearest first, ties to the lowest
@@ -225,12 +238,7 @@ def knn_point(nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
     and carry no gradient. ``d2`` is recomputed from the gathered rows in
     the expanded form of ``square_distance``, so it is differentiable in
     both clouds on either device."""
-    support = xyz.detach().float().contiguous()
-    query = new_xyz.detach().float().contiguous()
-    if _on_cuda(xyz):
-        idx = knn.knn_idx_cuda(int(nsample), support, query)
-    else:
-        idx = knn.knn_idx_plain(int(nsample), support, query)
+    idx = knn_idx(nsample, xyz, new_xyz)
     nbr = index_points(xyz, idx).float()  # (B, M, K, C)
     q = new_xyz.float()
     cross = torch.einsum("bmc,bmkc->bmk", q, nbr)

@@ -41,6 +41,25 @@
 //     warp-wide broadcast load.
 // Nothing but the k indices leaves the block. Shared memory holds
 // N * (C + 1) floats: N <= knn_max_points(C) (14,528 at C = 3).
+//
+// Past knn_max_points(C) (DGCNN's feature-space graphs: N = 1024 at C = 64
+// and 128, where the staged support would need 266 and 529 KB) the tiled
+// instance, knn_tiled_kernel, takes the same warp-a-query scan and streams
+// the support through shared memory instead: tiles of T points as C + 1
+// planes of T + 1 floats (the pad keeps both the coalesced staging stores
+// and the scan's reads free of bank conflicts), |x|^2 computed in channel
+// order once the tile is in. Lane l scans tile points l, l + 32, ..., so
+// across tiles each lane still meets its points in increasing index order
+// and its sorted list, kept in registers from tile to tile, breaks ties as
+// the staged instance does: the indices equal the plain version's bit for
+// bit. The warp's query (C floats) and |q|^2 stay in shared memory and
+// registers for the whole scan. T (knn_tile_points) is the largest of 256,
+// 128, 64, 32 whose tile and 8 queries leave room for two blocks an SM, 32
+// up to the block's limit past that; C <= knn_tiled_max_channels() (1,416).
+// A block reads its cloud's support once per 8 queries, from L2 at these
+// sizes. The bound is operations, M * N * (2C + 2) a cloud (C products and
+// C - 1 sums of q.x, |q|^2 + |x|^2, the doubling, the difference), without
+// FMAs; its pace is set by shared memory, two loads a multiply-add.
 #include <cuda_runtime.h>
 #include <climits>
 #include <cmath>
@@ -51,6 +70,16 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreadQueries = 128;  // a block of the thread-a-query variant
 constexpr int kWarpsPerBlock = 8;    // the warp-a-query variant
 constexpr size_t kMaxSmem = 227 * 1024;
+// the most a tiled block may use for two blocks to share an SM:
+// (228 KB - 2 x 1 KB the hardware keeps per block) / 2
+constexpr size_t kTwoBlocksSmem = 115712;
+
+// Shared memory of a tiled block: C + 1 planes of T + 1 floats, then the
+// block's queries (C floats each).
+size_t tiled_smem(int T, int C) {
+  return ((size_t)(C + 1) * (T + 1) + (size_t)kWarpsPerBlock * C) *
+         sizeof(float);
+}
 
 // Sorted insertion of (d, j) into (ld, li)[0..L): only where d is strictly
 // smaller than the last entry; behind entries of equal distance.
@@ -219,6 +248,101 @@ knn_warp_kernel(const float* __restrict__ xyz, const float* __restrict__ query,
       mine == INT_MAX ? first : mine;
 }
 
+// A warp a query over a support streamed in tiles of T points (see the
+// note at the top). Every thread of the block takes part in the staging, so
+// a warp past M keeps going without scanning.
+template <int L>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+knn_tiled_kernel(const float* __restrict__ xyz, const float* __restrict__ query,
+                 int N, int M, int C, int K, int T, int* __restrict__ idx) {
+  extern __shared__ float4 sm4[];
+  float* tile = reinterpret_cast<float*>(sm4);  // C + 1 planes of T + 1
+  const int P = T + 1;
+  float* q = tile + (size_t)(C + 1) * P + (threadIdx.x >> 5) * C;
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const bool live = m < M;
+  if (live) {
+    const float* Q = query + ((size_t)b * M + m) * C;
+    for (int c = lane; c < C; c += 32) q[c] = Q[c];
+  }
+  __syncwarp();
+  float q2 = 0.0f;
+  if (live) {
+    for (int c = 0; c < C; ++c) {
+      const float sq = __fmul_rn(q[c], q[c]);
+      q2 = c == 0 ? sq : __fadd_rn(q2, sq);
+    }
+  }
+  float ld[L];
+  int li[L];
+#pragma unroll
+  for (int t = 0; t < L; ++t) {
+    ld[t] = INFINITY;
+    li[t] = INT_MAX;
+  }
+  const float* X = xyz + (size_t)b * N * C;
+  for (int base = 0; base < N; base += T) {
+    const int n = N - base < T ? N - base : T;
+    __syncthreads();  // the previous tile is scanned
+    // coalesced: consecutive threads take consecutive floats of the tile's
+    // rows; plane c of point i at c * P + i
+    const float* src = X + (size_t)base * C;
+    for (int e = threadIdx.x; e < n * C; e += blockDim.x) {
+      const int i = e / C, c = e - i * C;
+      tile[(size_t)c * P + i] = src[e];
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      float acc = 0.0f;
+      for (int c = 0; c < C; ++c) {
+        const float v = tile[(size_t)c * P + i];
+        const float sq = __fmul_rn(v, v);
+        acc = c == 0 ? sq : __fadd_rn(acc, sq);
+      }
+      tile[(size_t)C * P + i] = acc;
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int i = lane; i < n; i += 32) {  // increasing index within a lane
+      float cross = 0.0f;
+      for (int c = 0; c < C; ++c) {
+        const float pr = __fmul_rn(q[c], tile[(size_t)c * P + i]);
+        cross = c == 0 ? pr : __fadd_rn(cross, pr);
+      }
+      const float d = __fsub_rn(__fadd_rn(q2, tile[(size_t)C * P + i]),
+                                __fmul_rn(2.0f, cross));
+      insert<L>(ld, li, d, base + i);
+    }
+  }
+  if (!live) return;
+  // k_eff rounds of a warp argmin over the lists' heads, as knn_warp_kernel
+  const int k_eff = K < N ? K : N;
+  int mine = INT_MAX, first = INT_MAX;
+  for (int p = 0; p < k_eff; ++p) {
+    const unsigned key = li[0] == INT_MAX ? kFull : ordered(ld[0]);
+    const unsigned kmin = __reduce_min_sync(kFull, key);
+    const unsigned jmin = __reduce_min_sync(
+        kFull, key == kmin ? (unsigned)li[0] : kFull);
+    if (kmin == kFull) break;
+    if (p == 0) first = (int)jmin;
+    if (lane == p) mine = (int)jmin;
+    if ((unsigned)li[0] == jmin) {
+#pragma unroll
+      for (int t = 0; t < L - 1; ++t) {
+        ld[t] = ld[t + 1];
+        li[t] = li[t + 1];
+      }
+      ld[L - 1] = INFINITY;
+      li[L - 1] = INT_MAX;
+    }
+  }
+  if (first == INT_MAX) first = 0;
+  if (lane < K) idx[((size_t)b * M + m) * K + lane] =
+      mine == INT_MAX ? first : mine;
+}
+
 template <int L>
 cudaError_t launch_thread(const float* xyz, const float* query, int B, int N,
                           int M, int K, int* idx, cudaStream_t stream) {
@@ -264,6 +388,21 @@ cudaError_t launch_warp_l(const float* xyz, const float* query, int B, int N,
   }
 }
 
+template <int L>
+cudaError_t launch_tiled(const float* xyz, const float* query, int B, int N,
+                         int M, int C, int K, int T, int* idx,
+                         cudaStream_t stream) {
+  const size_t smem = tiled_smem(T, C);
+  cudaError_t e = cudaFuncSetAttribute(
+      knn_tiled_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((M + kWarpsPerBlock - 1) / kWarpsPerBlock, B);
+  knn_tiled_kernel<L><<<grid, kWarpsPerBlock * 32, smem, stream>>>(
+      xyz, query, N, M, C, K, T, idx);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -271,6 +410,46 @@ extern "C" {
 // Largest N the kernel takes at C channels (shared-memory planes).
 int knn_max_points(int C) {
   return (int)(kMaxSmem / ((size_t)(C + 1) * sizeof(float)));
+}
+
+// Points a tile of the tiled instance at C channels: the largest of 256,
+// 128, 64, 32 whose block leaves room for two blocks an SM, else 32 where
+// one block fits; 0 past knn_tiled_max_channels().
+int knn_tile_points(int C) {
+  if (C <= 0) return 0;
+  for (int T = 256; T >= 32; T >>= 1)
+    if (tiled_smem(T, C) <= kTwoBlocksSmem) return T;
+  return tiled_smem(32, C) <= kMaxSmem ? 32 : 0;
+}
+
+// Widest C the tiled instance takes.
+int knn_tiled_max_channels() {
+  int C = 1;
+  while (tiled_smem(32, C + 1) <= kMaxSmem) ++C;
+  return C;
+}
+
+// The tiled instance: xyz (B,N,C), query (B,M,C) f32, contiguous -> idx
+// (B,M,K) i32, T = knn_tile_points(C), L = 1, 2, 4, 8, 16 or 32 >=
+// min(K, ceil(N / 32)). Any N >= 1. Returns cudaError_t.
+int knn_tiled_launch(const float* xyz, const float* query, int B, int N,
+                     int M, int C, int K, int T, int L, int* idx,
+                     cudaStream_t stream) {
+  if (B <= 0 || N <= 0 || M <= 0 || C <= 0 || K <= 0 || K > 32 ||
+      B > 65535 || T != knn_tile_points(C) || T == 0 ||
+      L < (K < (N + 31) / 32 ? K : (N + 31) / 32))
+    return cudaErrorInvalidValue;
+  switch (L) {
+    case 1: return launch_tiled<1>(xyz, query, B, N, M, C, K, T, idx, stream);
+    case 2: return launch_tiled<2>(xyz, query, B, N, M, C, K, T, idx, stream);
+    case 4: return launch_tiled<4>(xyz, query, B, N, M, C, K, T, idx, stream);
+    case 8: return launch_tiled<8>(xyz, query, B, N, M, C, K, T, idx, stream);
+    case 16:
+      return launch_tiled<16>(xyz, query, B, N, M, C, K, T, idx, stream);
+    case 32:
+      return launch_tiled<32>(xyz, query, B, N, M, C, K, T, idx, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // xyz (B,N,C) f32 support, query (B,M,C) f32, contiguous -> idx (B,M,K) i32.

@@ -8,7 +8,9 @@ recomputes the distances differentiably from the gathered rows, as the JAX
 package does around its kernel. Bound on the H100: operations (M x N
 distances, one pass over the support a query with a sorted list of the
 nearest in registers); :func:`knn_variant` picks a thread or a warp a query
-by (k, N, C). See the source's note.
+by (k, N, C), and past :func:`knn_max_points` (the support staged whole in
+shared memory) the tiled instance, which streams the support through shared
+memory in tiles of :func:`knn_tile_points` points. See the source's note.
 
 The distance is the expanded form ``(|q|^2 + |x|^2) - 2 q.x`` of
 ``geometry.square_distance``, here written out with one elementwise op per
@@ -27,11 +29,16 @@ import torch
 from . import _build
 
 __all__ = ["knn_idx_cuda", "knn_idx_plain", "expanded_sq_dist", "LAUNCHES",
-           "MAX_K", "knn_max_points", "knn_variant", "KnnVariant"]
+           "LAUNCHES_TILED", "MAX_K", "knn_max_points", "knn_variant",
+           "KnnVariant", "knn_tile_points", "TILED_MAX_CHANNELS",
+           "tiled_smem_bytes"]
 
-LAUNCHES = 0  # kernel launches of knn_idx_cuda
+LAUNCHES = 0  # launches of the staged instances (thread and warp)
+LAUNCHES_TILED = 0  # launches of the tiled instance
 MAX_K = 32
 _MAX_SMEM = 227 * 1024  # csrc/knn.cu kMaxSmem
+_TWO_BLOCKS_SMEM = 115712  # csrc/knn.cu kTwoBlocksSmem
+_WARPS = 8  # queries a warp-a-query block
 _THREAD_MAX_K = 8  # the thread-a-query variant's longest list
 
 
@@ -41,9 +48,33 @@ def knn_max_points(c: int) -> int:
     return _MAX_SMEM // ((c + 1) * 4)
 
 
+def tiled_smem_bytes(t: int, c: int) -> int:
+    """Shared memory of a tiled block: C + 1 planes of T + 1 floats and the
+    block's 8 queries (csrc/knn.cu ``tiled_smem``)."""
+    return ((c + 1) * (t + 1) + _WARPS * c) * 4
+
+
+def knn_tile_points(c: int) -> int:
+    """Points a tile of the tiled instance at ``c`` channels (csrc/knn.cu
+    ``knn_tile_points``): the largest of 256, 128, 64, 32 that leaves room
+    for two blocks an SM, else 32 where one block fits; 0 past
+    TILED_MAX_CHANNELS."""
+    if c < 1:
+        return 0
+    for t in (256, 128, 64, 32):
+        if tiled_smem_bytes(t, c) <= _TWO_BLOCKS_SMEM:
+            return t
+    return 32 if tiled_smem_bytes(32, c) <= _MAX_SMEM else 0
+
+
+# widest C the tiled instance takes (csrc/knn.cu knn_tiled_max_channels)
+TILED_MAX_CHANNELS = (_MAX_SMEM - 33 * 4) // (33 * 4 + _WARPS * 4)
+
+
 class KnnVariant(NamedTuple):
-    """``thread`` (a thread a query) or ``warp`` (a warp a query), and the
-    length of the sorted list each thread keeps."""
+    """``thread`` (a thread a query), ``warp`` (a warp a query, the support
+    staged whole) or ``tiled`` (a warp a query, the support in tiles), and
+    the length of the sorted list each thread keeps."""
     kind: str
     list_len: int
 
@@ -52,16 +83,20 @@ def knn_variant(k: int, n: int, c: int) -> KnnVariant:
     """The kernel's variant for ``k`` neighbours among ``n`` support points
     of ``c`` channels: a thread a query with a list of k (1-4) or 8 at C = 3
     and k <= 8; else a warp a query, each lane's list min(k, ceil(n / 32))
-    rounded up to a power of two. Raises ValueError outside 1 <= k <= MAX_K,
-    c >= 1 and 1 <= n <= knn_max_points(c)."""
-    if not 1 <= k <= MAX_K or c < 1 or not 1 <= n <= knn_max_points(c):
-        raise ValueError(f"the kNN kernel takes 1 <= k <= {MAX_K}, C >= 1 "
-                         f"and 1 <= N <= knn_max_points(C), got k={k} N={n} "
-                         f"C={c}")
+    rounded up to a power of two, on the staged support up to
+    ``knn_max_points(c)`` and on the tiled one past it. Raises ValueError
+    outside 1 <= k <= MAX_K, 1 <= c <= TILED_MAX_CHANNELS and n >= 1."""
+    if not 1 <= k <= MAX_K or not 1 <= c <= TILED_MAX_CHANNELS or n < 1:
+        raise ValueError(f"the kNN kernel takes 1 <= k <= {MAX_K}, "
+                         f"1 <= C <= {TILED_MAX_CHANNELS} and N >= 1, got "
+                         f"k={k} N={n} C={c}")
+    need = min(k, -(-n // 32))
+    list_len = 1 << (need - 1).bit_length()
+    if n > knn_max_points(c):
+        return KnnVariant("tiled", list_len)
     if c == 3 and k <= _THREAD_MAX_K:
         return KnnVariant("thread", k if k <= 4 else 8)
-    need = min(k, -(-n // 32))
-    return KnnVariant("warp", 1 << (need - 1).bit_length())
+    return KnnVariant("warp", list_len)
 
 
 def _sum_sq(x: torch.Tensor) -> torch.Tensor:
@@ -111,14 +146,21 @@ def _lib():
     lib.knn_launch.restype = ctypes.c_int
     lib.knn_max_points.argtypes = [i]
     lib.knn_max_points.restype = ctypes.c_int
+    lib.knn_tiled_launch.argtypes = [p, p, i, i, i, i, i, i, i, p, p]
+    lib.knn_tiled_launch.restype = ctypes.c_int
+    lib.knn_tile_points.argtypes = [i]
+    lib.knn_tile_points.restype = ctypes.c_int
+    lib.knn_tiled_max_channels.argtypes = []
+    lib.knn_tiled_max_channels.restype = ctypes.c_int
     return lib
 
 
 def knn_idx_cuda(k: int, xyz: torch.Tensor,
                  query: torch.Tensor) -> torch.Tensor:
     """The kernel on contiguous f32 CUDA tensors: xyz (B, N, C), query
-    (B, M, C) -> idx (B, M, k) int32, ``1 <= k <= 32``."""
-    global LAUNCHES
+    (B, M, C) -> idx (B, M, k) int32, ``1 <= k <= 32``; the tiled instance
+    where N > knn_max_points(C)."""
+    global LAUNCHES, LAUNCHES_TILED
     for name, t in (("xyz", xyz), ("query", query)):
         if t.device.type != "cuda":
             raise ValueError(f"the kNN kernel needs CUDA tensors, {name} is "
@@ -138,10 +180,17 @@ def knn_idx_cuda(k: int, xyz: torch.Tensor,
     var = knn_variant(k, N, C)
     lib = _lib()
     idx = torch.empty((B, M, k), dtype=torch.int32, device=xyz.device)
+    stream = torch.cuda.current_stream(xyz.device).cuda_stream
+    if var.kind == "tiled":
+        err = lib.knn_tiled_launch(xyz.data_ptr(), query.data_ptr(), B, N, M,
+                                   C, k, knn_tile_points(C), var.list_len,
+                                   idx.data_ptr(), stream)
+        _build.check(lib, err, "knn (tiled)")
+        LAUNCHES_TILED += 1
+        return idx
     err = lib.knn_launch(xyz.data_ptr(), query.data_ptr(), B, N, M, C, k,
                          int(var.kind == "warp"), var.list_len,
-                         idx.data_ptr(),
-                         torch.cuda.current_stream(xyz.device).cuda_stream)
+                         idx.data_ptr(), stream)
     _build.check(lib, err, "knn")
     LAUNCHES += 1
     return idx

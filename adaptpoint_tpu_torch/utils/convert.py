@@ -8,7 +8,10 @@ its own copy of the PointNeXt SA-stage, InvResMLP depth-block
 (``encoder.encoder.{s}.{b > 0}``: ``convs.convs.{j}``, the local
 aggregation's convs, and ``pwconv.{i}``), ClsHead and segmentation rules
 (SegHead, the FP decoder stages and the part decoder's ``global_conv1``,
-``global_conv2`` and ``convc``) of
+``global_conv2`` and ``convc``), and the baselines' rules (DGCNN and
+BallDGCNN, whose conv-act-norm blocks hold their BatchNorm at slot 2;
+PointNet++'s SA stages; PointNet's T-Nets and trunk; PointMLP's embedding,
+affine parameters, transfer and residual convs) of
 ``adaptpoint_tpu/utils/torch_convert.py`` ``export_reference_state_dict``:
 
 - ``Dense`` kernels ``(in, out)`` transpose to ``(out, in)`` and reshape to
@@ -55,6 +58,22 @@ _SEGHEAD = re.compile(r"^head\.head\.(\d+)\.([01])\.(.+)$")
 _DEC = re.compile(r"^decoder\.decoder\.(\d+)\.0\.convs\.(\d+)\.([01])\.(.+)$")
 _DEC_GLOBAL = re.compile(
     r"^decoder\.(global_conv[12]|convc)\.0\.0\.(weight|bias)$")
+_PN2 = re.compile(r"^encoder\.SA_modules\.(\d+)\.local_aggregations\.0\."
+                  r"SA_CONFIG_operator\.convs\.(\d+)\.([01])\.(.+)$")
+_DGCNN = re.compile(r"^encoder\.(head|backbone\.(\d+))\.gconv\.nn\.([012])"
+                    r"\.(.+)$")
+_DGCNN_FUSION = re.compile(r"^encoder\.fusion_block\.([012])\.(.+)$")
+_PNET_STN = re.compile(r"^encoder\.(stn|fstn)\.(conv|fc|bn)(\d)\.(.+)$")
+_PNET_TRUNK = re.compile(r"^encoder\.(conv|bn)(0_[12]|[123])\.(.+)$")
+# the trunk's layers in call order: flax names them _MLPBN_0 ... _MLPBN_4
+_PNET_TRUNK_SLOT = {"0_1": 0, "0_2": 1, "1": 2, "2": 3, "3": 4}
+_PMLP_EMB = re.compile(r"^encoder\.embedding\.net\.([01])\.(.+)$")
+_PMLP_AFF = re.compile(r"^encoder\.local_grouper_list\.(\d+)\."
+                       r"(affine_alpha|affine_beta)$")
+_PMLP_TRANSFER = re.compile(r"^encoder\.pre_blocks_list\.(\d+)\.transfer\."
+                            r"net\.([01])\.(.+)$")
+_PMLP_RES = re.compile(r"^encoder\.(pre|pos)_blocks_list\.(\d+)\."
+                       r"operation\.(\d+)\.net([12])\.([01])\.(.+)$")
 _BN = {"weight": ("params", "scale"), "bias": ("params", "bias"),
        "running_mean": ("batch_stats", "mean"),
        "running_var": ("batch_stats", "var")}
@@ -84,6 +103,68 @@ def _pair(sub: str, leaf: str, dense: str, bn: str):
     elif leaf == "num_batches_tracked":
         return "count", "", False
     raise KeyError(leaf)
+
+
+def _convblock_any(sub: str, leaf: str, base: str):
+    """A ConvBlock of either order: conv-norm-act keeps its BatchNorm at
+    slot 1 (flax ``NormAct_0``), conv-act-norm at slot 2 (``NormAct_1``)."""
+    bn = f"{base}/NormAct_{1 if sub == '2' else 0}/BatchNorm_0"
+    return _pair(sub, leaf, f"{base}/Dense_0", bn)
+
+
+def _translate_baselines(key: str) -> Tuple[str, str, bool]:
+    """The rules of DGCNN / BallDGCNN, PointNet++, PointNet and PointMLP."""
+    m = _PN2.match(key)
+    if m:
+        s, j, sub, leaf = m.groups()
+        base = f"encoder/sa{s}/ConvBlock_{j}"
+        return _pair(sub, leaf, f"{base}/Dense_0",
+                     f"{base}/NormAct_0/BatchNorm_0")
+    m = _DGCNN.match(key)
+    if m:
+        _, block, sub, leaf = m.groups()
+        name = "head" if block is None else f"block{block}"
+        return _convblock_any(sub, leaf, f"encoder/{name}/ConvBlock_0")
+    m = _DGCNN_FUSION.match(key)
+    if m:
+        return _convblock_any(m.group(1), m.group(2), "encoder/fusion")
+    m = _PNET_STN.match(key)
+    if m:
+        tnet, kind, i, leaf = m.groups()
+        base = f"encoder/{tnet}"
+        if kind == "fc" and i == "3":  # the bare last Dense
+            return _pair("0", leaf, f"{base}/Dense_0", "")
+        # conv1-3 and fc1-2 are _MLPBN_0-4, bn{i} their BatchNorms
+        slot = int(i) - 1 + (3 if kind == "fc" else 0)
+        mlp = f"{base}/_MLPBN_{slot}"
+        return _pair("1" if kind == "bn" else "0", leaf, f"{mlp}/Dense_0",
+                     f"{mlp}/BatchNorm_0")
+    m = _PNET_TRUNK.match(key)
+    if m:
+        kind, i, leaf = m.groups()
+        mlp = f"encoder/_MLPBN_{_PNET_TRUNK_SLOT[i]}"
+        return _pair("1" if kind == "bn" else "0", leaf, f"{mlp}/Dense_0",
+                     f"{mlp}/BatchNorm_0")
+    m = _PMLP_EMB.match(key)
+    if m:
+        return _pair(m.group(1), m.group(2), "encoder/embedding/Dense_0",
+                     "encoder/embedding/BatchNorm_0")
+    m = _PMLP_AFF.match(key)
+    if m:
+        return "params", f"encoder/grouper{m.group(1)}/{m.group(2)}", False
+    m = _PMLP_TRANSFER.match(key)
+    if m:
+        base = f"encoder/pre{m.group(1)}_transfer"
+        return _pair(m.group(2), m.group(3), f"{base}/Dense_0",
+                     f"{base}/BatchNorm_0")
+    m = _PMLP_RES.match(key)
+    if m:
+        kind, i, j, net, sub, leaf = m.groups()
+        base = f"encoder/{kind}{i}_res{j}"
+        if net == "1":  # the expansion conv: the block's _ConvBNAct_0
+            base += "/_ConvBNAct_0"
+        return _pair(sub, leaf, f"{base}/Dense_0", f"{base}/BatchNorm_0")
+    raise KeyError(key)
 
 
 def _translate(key: str, keys) -> Tuple[str, str, bool]:
@@ -139,7 +220,7 @@ def _translate(key: str, keys) -> Tuple[str, str, bool]:
         # the part decoder's category convs: a conv with a bias, no norm
         name, leaf = m.groups()
         return _pair("0", leaf, f"decoder/{name}/Dense_0", "")
-    raise KeyError(key)
+    return _translate_baselines(key)
 
 
 # augmentor sites under ``predict_prob_layer.``: reference prefix (conv at

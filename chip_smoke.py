@@ -37,7 +37,12 @@ Phases, one JSON object a line:
    scatter-add at the resampling shape, a feature shape and every gather of a
    ``gan_step``; the kNN at the five shapes of a ``gan_step``, beside the
    stand-in ``torch.topk(torch.cdist(q, x))``, and at twelve edges (C = 35,
-   k = 32, ragged query counts, B = 1, ties, k > N, both variants); the flash
+   k = 32, ragged query counts, B = 1, ties, k > N, both variants); its tiled
+   instance (past ``knn_max_points(C)``) at DGCNN's three feature-space calls
+   (B = 32, N = M = 1024, k = 20, C = 64, 64, 128; timed beside the plain
+   version and the stand-in) and at KNN_TILED_EDGES (N = knn_max_points(C)
+   and one more at C = 64, 128, 256, ties, B = 1, C = 3 past 14528 points,
+   the widest C, k = 1; ``--phases knn_tiled`` runs this part alone); the flash
    attention forward and backward, directly and through autograd, for bf16 and
    f32 inputs, at (128, 2048, 16) and at every head dim across the tiles' edges
    (N = 1, 40, 127, 128, 129, 2047), two backward runs bit for bit equal, timed
@@ -221,6 +226,20 @@ Phases, one JSON object a line:
    sphere cfg's ``train`` (two epochs), ``mode=test`` on its best checkpoint
    and ``mode=resume``; ``mode=test_6fold`` over six seeded areas; the
    launch counts of the children.
+19. ``baselines``: the corruption protocols' baseline classifiers at full
+   width (BASELINES: ``cfgs/scanobjectnn/{dgcnn,pointnet++,pointnet,
+   pointmlp}.yaml``, ``cfgs/modelnetc/dgcnn.yaml``) with seeded weights on a
+   seeded (32, 2048) batch: one train step and one eval forward each against
+   the same through the plain versions on the card (DGCNN's kNN graphs
+   shared, each graph's rows that the plain run would have chosen alike
+   reported), the launches of each against BASELINES, ms, device-busy ms,
+   idle share and peak memory of each; then rows 14 and 15 at DGCNN's edges
+   (its xyz graph, C = 4, 64, 128). Prints its seconds.
+20. ``baselines_cli``: ``python -m adaptpoint_tpu_torch.main --cfg
+   cfgs/scanobjectnn/dgcnn.yaml`` in a child on SyntheticCls for one epoch,
+   then ``cfgs/modelnetc/dgcnn.yaml`` (``mode: modelnetc``) in this process
+   for one epoch and its ModelNet-C sweep (1 clean + 7 x 5 splits, mCE);
+   the launch counts of both. Prints its seconds.
 
 Then the card's name and power limit as nvidia-smi prints them, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` as the
@@ -421,7 +440,11 @@ PATH_KERNELS = {
                 "gather_rows_bwd"),
     "sphere": ("fps", "ball_group", "ball_group_bwd", "knn", "gather_rows",
                "gather_rows_bwd", "sa_eval", "sa_trainbn_stats",
-               "sa_trainbn_fwd", "sa_trainbn_bwd_w2", "sa_trainbn_bwd_x")}
+               "sa_trainbn_fwd", "sa_trainbn_bwd_w2", "sa_trainbn_bwd_x"),
+    "baselines": ("fps", "ball_group", "ball_group_bwd", "knn", "knn_tiled",
+                  "gather_rows", "gather_rows_bwd"),
+    "baselines_cli": ("fps", "knn", "knn_tiled", "gather_rows",
+                      "gather_rows_bwd")}
 # names of the hand-written kernels as the profiler prints them
 OWN_KERNELS = ("fps_kernel", "ball_group_kernel", "ball_group_bwd_kernel",
                "ball_group_max_kernel", "ball_group_max_bwd_kernel",
@@ -430,6 +453,7 @@ OWN_KERNELS = ("fps_kernel", "ball_group_kernel", "ball_group_bwd_kernel",
                "mha_cast_bf16_kernel", "mha_fwd_kernel",
                "mha_bwd_prep_kernel", "mha_bwd_kernel",
                "mha_dq_reduce_kernel", "knn_thread_kernel", "knn_warp_kernel",
+               "knn_tiled_kernel",
                "fpinterp_fwd_kernel", "fpinterp_bwd_scatter_kernel",
                "fpinterp_bwd_staged_kernel", "fpinterp_bwd_dw_kernel")
 # adapt phase: the augmentor's four groupers at N=2048: (N -> M, C, radius),
@@ -1205,6 +1229,108 @@ def check_knn_edges(gen) -> None:
     case("k > N, C = 35", 16, pts(2, 7, 35), pts(2, 10, 35))
 
 
+# DGCNN's feature-space kNN calls on ScanObjectNN (cfgs/scanobjectnn/
+# dgcnn.yaml, B = 32, N = M = 1024, k = 20): C of each call past the xyz one
+DGCNN_KNN_C = (64, 64, 128)
+# the tiled instance off those shapes: (tag, B, N, M, C, k, kind of support)
+KNN_TILED_EDGES = [
+    ("N = knn_max_points(64)", 2, None, 77, 64, 20, "at"),
+    ("N = knn_max_points(64) + 1", 2, None, 77, 64, 20, "past"),
+    ("N = knn_max_points(128)", 2, None, 77, 128, 20, "at"),
+    ("N = knn_max_points(128) + 1", 2, None, 77, 128, 20, "past"),
+    ("N = knn_max_points(256)", 2, None, 77, 256, 20, "at"),
+    ("N = knn_max_points(256) + 1", 2, None, 77, 256, 20, "past"),
+    ("ties, every point twice", 2, 1000, 50, 64, 20, "twice"),
+    ("M = 13, B = 1, k = 32", 1, 1500, 13, 128, 32, "random"),
+    ("C = 3 past 14528 points", 2, 14600, 40, 3, 24, "random"),
+    ("widest C, N = 42, k = 32", 2, 42, 9, None, 32, "random"),
+    ("k = 1", 2, 1200, 33, 96, 1, "random")]
+
+
+def check_knn_tiled(gen, rows) -> None:
+    """The tiled kNN instance (row 11 past knn_max_points(C)) against the
+    plain version, index for index: the host's copies of its tile and
+    widest C against the library's, DGCNN's three feature-space calls at
+    B = 32, N = M = 1024, k = 20 (timed beside the plain version, the
+    stand-in topk(cdist) and the operation bound), and KNN_TILED_EDGES.
+    Adds ``rows["knn_tiled"]``: ms summed over the three calls."""
+    import torch
+    from adaptpoint_tpu_torch.ops import knn
+    lib = knn._lib()
+    for c in (1, 3, 64, 128, 256, 512, 1416, 1417):
+        if lib.knn_tile_points(c) != knn.knn_tile_points(c):
+            raise AssertionError(f"the tiled kNN's tile at C={c} differs "
+                                 f"from the wrapper's")
+    if lib.knn_tiled_max_channels() != knn.TILED_MAX_CHANNELS:
+        raise AssertionError("the tiled kNN's widest C differs from the "
+                             "wrapper's")
+
+    def case(tag, k, support, query):
+        b, n, c = support.shape
+        var = knn.knn_variant(k, n, c)
+        before = knn.LAUNCHES_TILED
+        got = knn.knn_idx_cuda(k, support, query)
+        ref = knn.knn_idx_plain(k, support, query)
+        torch.cuda.synchronize()
+        mism = int((got != ref).sum())
+        emit("kernel", name="knn_tiled", case=tag,
+             shape=[b, n, query.shape[1], c, k], variant=list(var),
+             tile_points=knn.knn_tile_points(c), mismatches=mism,
+             tolerance="exact")
+        if mism or (knn.LAUNCHES_TILED - before) != (var.kind == "tiled"):
+            raise AssertionError(f"tiled kNN disagrees at {mism} indices "
+                                 f"({tag}, N={n}, C={c}, k={k}, {var})")
+
+    acc = dict(ms=0.0, plain_ms=0.0, stand_in_ms=0.0, t_b=0.0, t_o=0.0,
+               device_ms=0.0, host_us=0.0)
+    shapes = []
+    n = m = N0
+    k = 20
+    for c in DGCNN_KNN_C:
+        feats = torch.randn((B, n, c), generator=gen, device=DEV)
+        feats = torch.nn.functional.leaky_relu(feats, 0.2)  # as a block's
+        case(f"DGCNN C = {c}", k, feats, feats)
+        t_b = (2 * B * n * c * 4 + B * m * k * 4) / PEAK_BYTES
+        # a pair: C products and C - 1 sums of q.x, |q|^2 + |x|^2, the
+        # doubling and the difference; each point's norm once (2C - 1)
+        t_o = B * (m * n * (2 * c + 2) + (n + m) * (2 * c - 1)) / PEAK_F32
+        row = dict(shape=[B, n, m, c, k],
+                   ms=cuda_ms(lambda: knn.knn_idx_cuda(k, feats, feats)),
+                   plain_ms=cuda_ms(lambda: knn.knn_idx_plain(k, feats,
+                                                              feats), 50.0),
+                   **device_host(lambda: knn.knn_idx_cuda(k, feats, feats)),
+                   **bound_row(t_b, t_o))
+        # a stand-in, not a library call for the same function: other
+        # arithmetic (cdist) and its own tie rule
+        row["stand_in_ms"] = cuda_ms(lambda: torch.topk(
+            torch.cdist(feats, feats), k, dim=-1, largest=False))
+        emit("stage_times", knn_tiled=row)
+        shapes.append(row)
+        for key in ("ms", "plain_ms", "stand_in_ms"):
+            acc[key] += row[key]
+        acc["t_b"] += t_b
+        acc["t_o"] += t_o
+        for key in ("device_ms", "host_us"):  # None: not measured
+            acc[key] = (None if acc[key] is None or row[key] is None
+                        else acc[key] + row[key])
+    for tag, b, n_, m_, c, k_, kind in KNN_TILED_EDGES:
+        c = knn.TILED_MAX_CHANNELS if c is None else c
+        if kind in ("at", "past"):
+            n_ = knn.knn_max_points(c) + (kind == "past")
+        if kind == "twice":
+            half = torch.randn((b, n_ // 2, c), generator=gen, device=DEV)
+            support = half.repeat(1, 2, 1).contiguous()
+            support[:, ::7] = 0.0
+        else:
+            support = torch.randn((b, n_, c), generator=gen, device=DEV)
+        query = torch.cat([support[:, :m_ // 2], torch.randn(
+            (b, m_ - m_ // 2, c), generator=gen, device=DEV)], 1).contiguous()
+        case(tag, k_, support, query)
+    acc.update(bound_row(acc.pop("t_b"), acc.pop("t_o")))
+    acc.update(max_abs_err=0.0, library_ms=None, dgcnn_shapes=shapes)
+    rows["knn_tiled"] = acc
+
+
 def phase_kernels(gen):
     import torch
     from adaptpoint_tpu_torch.ops import fpsample as fps
@@ -1236,6 +1362,7 @@ def phase_kernels(gen):
         ns_a_step=rows["fps"]["ms"] * 1e6 / 511,
         **device_host(lambda: fps.furthest_point_sample_cuda(xyz, 512)))
     check_fps_edges(gen)
+    check_knn_tiled(gen, rows)
 
     rows["ball_group"], rows["sa_eval"] = check_stages_forward(
         gen, STAGES, inputs, inputs)
@@ -7184,6 +7311,326 @@ def seg_big_model(name, batch, eval_batch, lr) -> None:
     torch.cuda.empty_cache()
 
 
+# the baselines phase's cfgs (cfgs/<path>) and the kernel launches of one
+# B = 32 train step (the resampling's FPS and row gather included) and of
+# one eval forward of each
+BASELINES = {
+    "scanobjectnn/dgcnn.yaml": (
+        {"fps": 1, "gather_rows": 5, "gather_rows_bwd": 3, "knn": 1,
+         "knn_tiled": 3},
+        {"gather_rows": 4, "knn": 1, "knn_tiled": 3}),
+    "scanobjectnn/pointnet++.yaml": (
+        {"fps": 2, "gather_rows": 1, "ball_group": 2, "ball_group_bwd": 1},
+        {"fps": 1, "ball_group": 2}),
+    "scanobjectnn/pointnet.yaml": ({"fps": 1, "gather_rows": 1}, {}),
+    "scanobjectnn/pointmlp.yaml": (
+        {"fps": 5, "gather_rows": 13, "gather_rows_bwd": 8, "knn": 4},
+        {"fps": 4, "gather_rows": 12, "knn": 4}),
+    "modelnetc/dgcnn.yaml": (
+        {"fps": 1, "gather_rows": 4, "gather_rows_bwd": 2, "knn": 1,
+         "knn_tiled": 2},
+        {"gather_rows": 3, "knn": 1, "knn_tiled": 2})}
+# DGCNN's edges (rows 14, 15) at C of its EdgeConv inputs: the cloud's 4
+# channels, then block outputs
+DGCNN_EDGE_C = (4, 64, 128)
+# baselines_cli: SyntheticCls clouds a split for the ScanObjectNN DGCNN run
+# (8 steps at B = 32) and for the ModelNet-C one, MN_C_SIZE a sweep's split
+BL_CLI_SIZE, BL_MN_SIZE = 256, 128
+
+
+def phase_baselines(gen, rows):
+    """The corruption protocols' baseline classifiers at full width
+    (BASELINES: ``cfgs/scanobjectnn/{dgcnn,pointnet++,pointnet,pointmlp}
+    .yaml`` and ``cfgs/modelnetc/dgcnn.yaml``), seeded weights, on one
+    seeded (32, 2048) blob batch resampled to 1024 points: for each, one
+    train step through ``make_train_step`` on the card against the same step
+    through the plain versions on the card (the resampling columns and
+    dropout masks shared, DGCNN's kNN graphs too: the card's run records them
+    and the plain run takes them, and notes call by call the share of rows
+    whose own neighbours agree), one eval forward the same way, the launches
+    of each against BASELINES, and ms, busy ms, idle share and peak memory
+    of each (``step_readings``). Then rows 14 and 15 at DGCNN's edge shapes
+    (the step's xyz graph, C = DGCNN_EDGE_C). Returns the kernel launches of
+    the path's steps and forwards."""
+    import numpy as np
+    import torch
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.engine import (TrainState, build_train_tools,
+                                             make_train_step)
+    from adaptpoint_tpu_torch.models import build_model_from_cfg
+    from adaptpoint_tpu_torch.models.backbone.dgcnn import (DGCNN, GraphTape,
+                                                            graph_tape)
+    from adaptpoint_tpu_torch.models.layers.blocks import Dropout
+    from adaptpoint_tpu_torch.utils import EasyConfig
+
+    class Agreeing(GraphTape):
+        """Replays ``graphs``; notes, call by call, the share of rows whose
+        own neighbours (from this run's features) equal the replayed ones as
+        sets."""
+
+        def __init__(self, graphs):
+            super().__init__(graphs)
+            self.agree = []
+
+        def take(self, compute):
+            shared = super().take(compute)
+            own = compute()
+            self.agree.append(float((own.sort(-1).values
+                                     == shared.sort(-1).values).all(-1)
+                                    .double().mean()))
+            return shared
+
+    def tape_on(net, tape):
+        for m in net.modules():
+            if isinstance(m, DGCNN):
+                m.tape = tape
+
+    batch_np = blob_batches(np.random.default_rng(11), 1, B, N_TRAIN)[0]
+    batch = {"x": torch.from_numpy(batch_np["x"]).to(DEV),
+             "y": torch.from_numpy(batch_np["y"]).to(DEV)}
+    cols = torch.randperm(N_FPS, generator=torch.Generator().manual_seed(
+        12))[:N0].to(DEV)
+    total = dict.fromkeys(ops.KERNEL_MODULES, 0)
+    xyz_graph = None
+    for name, (want_train, want_eval) in BASELINES.items():
+        cfg = EasyConfig()
+        cfg.load(os.path.join(ROOT, "cfgs", name), recursive=True)
+        lr = float(cfg.lr)
+        model = build_model_from_cfg(cfg.model, seed=4)
+        twin = build_model_from_cfg(cfg.model)
+        twin.load_state_dict(model.state_dict())
+        head = list(model.prediction.head)
+        masks = [(torch.rand((B, head[i - 1].conv.out_features),
+                             generator=torch.Generator().manual_seed(5 + i))
+                  >= head[i].p).to(DEV)
+                 for i in range(1, len(head)) if isinstance(head[i], Dropout)]
+
+        def step_of(net):
+            crit, opt, _ = build_train_tools(cfg, net)
+            step = make_train_step(net, opt, crit, cfg)
+            st = TrainState(net, opt)
+            seen = {}
+
+            def one():
+                hook = net.register_forward_hook(
+                    lambda _m, _i, out: seen.__setitem__("logits",
+                                                         out.detach()))
+                _, loss_, _ = step(st, batch, cols, lr, dropout_mask=masks)
+                hook.remove()
+                return loss_
+
+            return one, seen
+
+        def record(net, loss_, seen):
+            return {"loss": float(loss_),
+                    "logits": seen["logits"].double().cpu(),
+                    "grads": {k: p.grad.double().cpu()
+                              for k, p in net.named_parameters()},
+                    "params": {k: p.detach().double().cpu()
+                               for k, p in net.named_parameters()},
+                    "buffers": {k: b_.double().cpu()
+                                for k, b_ in net.named_buffers()}}
+
+        in_ch = int(cfg.model.encoder_args.in_channels)
+        pts = batch["x"][:, :N0]
+        pos, x = pts[..., :3].contiguous(), pts[..., :in_ch].contiguous()
+        # ---- the main path: one train step, one eval forward
+        one, seen = step_of(model)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with graph_tape(model) as tape:
+            loss = one()
+        torch.cuda.synchronize()
+        launches_train = nonzero_counts(ops.launch_counts())
+        model.eval()
+        ops.reset_launch_counts()
+        with torch.no_grad(), graph_tape(model) as etape:
+            logits = model(pos, x).double()
+        torch.cuda.synchronize()
+        launches_eval = nonzero_counts(ops.launch_counts())
+        for k, v in launches_train.items():
+            total[k] += v
+        for k, v in launches_eval.items():
+            total[k] += v
+        if name == "scanobjectnn/dgcnn.yaml":
+            xyz_graph = tape.graphs[0]
+        model.train()
+        got = record(model, loss, seen)
+        # ---- the same through the plain versions on the card
+        plain_one, plain_seen = step_of(twin)
+        shared = Agreeing(tape.graphs)
+        tape_on(twin, shared)
+        with plain_ops():
+            ref = record(twin, plain_one(), plain_seen)
+        w, ok = step_disagreement(got, ref, TOL_STEP_PLAIN, lr)
+        del ref, got
+        twin.load_state_dict(model.state_dict())
+        twin.eval()
+        model.eval()
+        shared_eval = Agreeing(etape.graphs)
+        tape_on(twin, shared_eval)
+        with torch.no_grad(), plain_ops():
+            plain = twin(pos, x).double()
+        tape_on(twin, None)
+        e_plain = float((logits - plain).abs().max())
+        close = bool(torch.allclose(logits, plain, rtol=TOL_UNFUSED[0],
+                                    atol=TOL_UNFUSED[1]))
+        del twin, plain
+        torch.cuda.empty_cache()
+        # ---- times (launch counts are read above)
+        model.train()
+        train_r = step_readings(one, reps=5)
+
+        def forward():
+            with torch.no_grad():
+                return model(pos, x)
+        model.eval()
+        eval_r = step_readings(forward, reps=5)
+        emit("baselines", cfg=name,
+             params=sum(p.numel() for p in model.parameters()),
+             loss=float(loss), against_plain_versions_on_the_card=w,
+             eval_vs_plain_max_abs=e_plain,
+             graphs_shared=len(tape.graphs) + len(etape.graphs),
+             own_graph_rows_agreeing={"train": shared.agree,
+                                      "eval": shared_eval.agree},
+             launches={"train_step": launches_train,
+                       "eval_forward": launches_eval},
+             expected={"train_step": want_train, "eval_forward": want_eval},
+             train_step=train_r, eval_forward=eval_r, batch=B, points=N0,
+             tolerance={"train_step": TOL_STEP_PLAIN,
+                        "eval_vs_plain": list(TOL_UNFUSED)})
+        if not (ok and close and np.isfinite(float(loss))
+                and launches_train == want_train
+                and launches_eval == want_eval):
+            raise AssertionError(f"{name}: step {w}, eval {e_plain}, "
+                                 f"launches {launches_train} / "
+                                 f"{launches_eval}, expected {want_train} "
+                                 f"/ {want_eval}")
+        del model, one, seen, loss, logits
+        torch.cuda.empty_cache()
+    # rows 14 and 15 at DGCNN's edges: its xyz graph over C channels
+    edge_rows = []
+    for c in DGCNN_EDGE_C:
+        f_row, b_row = check_gather(gen, f"DGCNN edges, C = {c}", N0, c,
+                                    xyz_graph, dtypes=("float32",),
+                                    min_total_ms=100.0)
+        edge_rows.append({"forward": f_row, "backward": b_row})
+    emit("baselines_edges", rows=edge_rows)
+    if rows is not None:
+        rows["gather_rows"]["dgcnn_shapes"] = [r["forward"]
+                                               for r in edge_rows]
+        rows["gather_rows_bwd"]["dgcnn_shapes"] = [r["backward"]
+                                                   for r in edge_rows]
+    return total
+
+
+def phase_baselines_cli():
+    """The baselines through the CLI: ``python -m adaptpoint_tpu_torch.main
+    --cfg cfgs/scanobjectnn/dgcnn.yaml`` in a child process on SyntheticCls
+    (2048 points, 15 classes, BL_CLI_SIZE clouds a split) for one epoch,
+    then, in this process, ``--cfg cfgs/modelnetc/dgcnn.yaml`` (``mode:
+    modelnetc``) on SyntheticCls (40 classes) for one epoch with its
+    ModelNet-C sweep over a tree of MN_C_SIZE clouds a split made here (the
+    h5 read replaced where h5py is missing). Finite OAs, the sweep's 1 + 7 x
+    5 splits and its mCE. Returns the launch counts of both runs."""
+    import glob
+    import importlib.util
+    import logging
+    import re
+    import numpy as np
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.datasets import modelnet
+    from adaptpoint_tpu_torch.main import main as cli_main
+    root = os.path.join(ROOT, "build", "chip_smoke", "baselines_cli")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "adaptpoint_tpu_torch.main", "--cfg",
+         "cfgs/scanobjectnn/dgcnn.yaml", "dataset.common.NAME=SyntheticCls",
+         "dataset.common.num_points=2048", "dataset.common.num_classes=15",
+         f"dataset.common.size={BL_CLI_SIZE}", "epochs=1", "seed=1",
+         f"root_dir={root}"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    sonn_seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"the CLI exited {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    sonn_counts = json.loads(out.stdout.strip().splitlines()[-1])[
+        "launch_counts"]
+    sonn_oas = [float(v) for v in re.findall(r"OA: ([0-9.]+)", out.stdout)]
+
+    tree = os.path.join(root, "modelnet_c")
+    os.makedirs(tree, exist_ok=True)
+    arrays = modelnet_c_arrays(N0, MN_C_SIZE)
+    has_h5py = importlib.util.find_spec("h5py") is not None
+    for split, (pts, lab) in arrays.items():
+        path = os.path.join(tree, f"{split}.h5")
+        if has_h5py:
+            import h5py
+            with h5py.File(path, "w") as f:
+                f["data"], f["label"] = pts, lab[:, None]
+        else:
+            open(path, "wb").close()  # ModelNetC asks for the file
+    read = modelnet.load_h5_cached
+    if not has_h5py:
+        modelnet.load_h5_cached = lambda path: arrays[
+            os.path.splitext(os.path.basename(path))[0]]
+    root_log = logging.getLogger()
+    saved = (root_log.level, list(root_log.handlers))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            mn_best = cli_main([
+                "--cfg", os.path.join(ROOT, "cfgs", "modelnetc",
+                                      "dgcnn.yaml"),
+                "dataset.common.NAME=SyntheticCls",
+                f"dataset.common.num_points={N0}",
+                "dataset.common.num_classes=40",
+                f"dataset.common.size={BL_MN_SIZE}", "epochs=1", "seed=1",
+                "val_batch_size=64", f"modelnet_c_dir={tree}",
+                f"root_dir={root}"])
+    finally:
+        modelnet.load_h5_cached = read
+        for handler in list(root_log.handlers):
+            root_log.removeHandler(handler)
+            handler.close()
+        root_log.setLevel(saved[0])
+        for handler in saved[1]:
+            root_log.addHandler(handler)
+    mn_seconds = time.perf_counter() - t0
+    mn_counts = ops.launch_counts()
+    run_dir = sorted(glob.glob(os.path.join(root, "modelnetc", "*")),
+                     key=os.path.getmtime)[-1]
+    report = open(os.path.join(run_dir, "outcorruption.txt")).read()
+    split_lines = [ln for ln in report.splitlines()
+                   if ln.startswith("{'acc'")]
+    agg = [ln for ln in report.splitlines() if ln.startswith("{'mCE'")]
+    emit("baselines_cli", sonn_dgcnn=dict(seconds=sonn_seconds, oas=sonn_oas,
+                                          launches=sonn_counts),
+         modelnetc_dgcnn=dict(seconds=mn_seconds, best_val=mn_best,
+                              sweep_splits=len(split_lines),
+                              aggregate=agg, launches=nonzero_counts(
+                                  mn_counts),
+                              h5_read="h5py" if has_h5py else
+                              "replaced: arrays made by chip_smoke.py"),
+         run_dir=os.path.relpath(run_dir, ROOT))
+    if not sonn_oas or not all(np.isfinite(v) and 0 <= v <= 100
+                               for v in sonn_oas):
+        raise AssertionError(f"the DGCNN CLI run's OAs: {sonn_oas}")
+    # a sweep on the latest checkpoint and, where an epoch improved on OA 0,
+    # one on the best, each 1 + 7 x 5 splits and an aggregate
+    if not agg or len(split_lines) != (1 + 7 * 5) * len(agg) \
+            or mn_best is None or not 0 <= mn_best <= 100:
+        raise AssertionError(f"the ModelNet-C DGCNN run: {len(split_lines)} "
+                             f"splits, aggregate {agg}, best {mn_best}")
+    return {k: sonn_counts.get(k, 0) + mn_counts.get(k, 0)
+            for k in set(sonn_counts) | set(mn_counts)}
+
+
+def nonzero_counts(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
 def write_sphere_tree(root: str, areas, rooms: int = None,
                       points: int = None, seed: int = 0) -> str:
     """A seeded S3DIS tree at ``root`` (``raw/Area_<a>_room_<j>.npy``,
@@ -7803,14 +8250,16 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="kernels,serve,train,train_fused,cli,adapt,"
                             "adapt_bf16,window,adapt_cli,modelnet_cli,"
-                            "partseg,partseg_cli,seg,sphere,seg_cli",
+                            "partseg,partseg_cli,seg,sphere,seg_cli,"
+                            "baselines,baselines_cli",
                     help="comma-separated subset of kernels,serve,train,"
                          "train_fused,cli,adapt,adapt_bf16,window,adapt_cli,"
                          "modelnet_cli,partseg,partseg_cli,seg,sphere,"
-                         "seg_cli for a "
+                         "seg_cli,baselines,baselines_cli for a "
                          "partial run, which prints no "
                          "final result (default: all); attention alone runs "
                          "the kernel phase's attention checks and times, "
+                         "knn_tiled alone its tiled kNN checks and times, "
                          "modelnet_kernels alone its checks at the ModelNet "
                          "path's shapes")
     ap.add_argument("--op-launches", help=argparse.SUPPRESS)
@@ -7860,6 +8309,8 @@ def main(argv=None) -> int:
     rows = phase_kernels(gen) if "kernels" in phases else None
     if "attention" in phases and rows is None:
         check_attention(gen, {})
+    if "knn_tiled" in phases and rows is None:
+        check_knn_tiled(gen, {})
     mn_rows = (phase_modelnet_kernels(gen)
                if phases & {"kernels", "modelnet_kernels"} else {})
     phase_seconds["kernels"] = lap()
@@ -7926,6 +8377,16 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         by_path["seg_cli"] = phase_seg_cli()
         phase_seconds["seg_cli"] = lap()
+    if "baselines" in phases:
+        torch.cuda.empty_cache()
+        by_path["baselines"] = phase_baselines(gen, rows)
+        phase_seconds["baselines"] = lap()
+        emit("baselines_seconds", seconds=phase_seconds["baselines"])
+    if "baselines_cli" in phases:
+        torch.cuda.empty_cache()
+        by_path["baselines_cli"] = phase_baselines_cli()
+        phase_seconds["baselines_cli"] = lap()
+        emit("baselines_cli_seconds", seconds=phase_seconds["baselines_cli"])
     emit("done", seconds=time.perf_counter() - t_start,
          phase_seconds=phase_seconds)
     if rows is None or set(by_path) != set(PATH_KERNELS):
@@ -7950,6 +8411,7 @@ def main(argv=None) -> int:
                "mha": ("attention.cu", pallas + "attention.py:128"),
                "mha_bwd": ("attention.cu", pallas + "attention.py:158"),
                "knn": ("knn.cu", pallas + "knn.py:107"),
+               "knn_tiled": ("knn.cu", pallas + "knn.py:107"),
                "fpinterp": ("fpinterp.cu", pallas + "fpinterp.py:149"),
                "fpinterp_bwd": ("fpinterp.cu", pallas + "fpinterp.py:178"),
                "sa_trainbn_stats": ("satrainbn.cu",
@@ -7971,7 +8433,8 @@ def main(argv=None) -> int:
     kernels = []
     for name, (src, replaces) in sources.items():
         r = rows[name]
-        launches = {path: counts[name] for path, counts in by_path.items()}
+        launches = {path: counts.get(name, 0)
+                    for path, counts in by_path.items()}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"adaptpoint_tpu_torch/ops/csrc/{src}",
@@ -7993,7 +8456,7 @@ def main(argv=None) -> int:
                       "ms_with_d_w", "bound_ms_with_d_w", "full_n_op_ms",
                       "bound_ms_f32_cores",
                       "ns_a_step", "gan_step_shape", "stand_in_ms", "bf16",
-                      "op_launches_bf16", "op_launches"):
+                      "op_launches_bf16", "op_launches", "dgcnn_shapes"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(smi, flush=True)

@@ -14,8 +14,9 @@ kernels' launch shapes.
   every point twice (ties to the lower index).
 - ``fps_tiling`` (the chain kernel's threads a cloud by N and points a
   thread up to 4096 points, the pruned kernel past it, any N) and
-  ``knn_variant`` (a thread or a warp a query by k, N, C; the list length),
-  including the shapes at which each refuses.
+  ``knn_variant`` (a thread or a warp a query by k, N, C; the list length;
+  the tiled instance past the staged support), including the shapes at
+  which each refuses.
 - Both wrappers raise on CPU tensors and count no launch.
 """
 import numpy as np
@@ -147,12 +148,17 @@ def test_knn_variant_by_k_n_c(k, n, c, want):
 
 
 def test_knn_variant_refusals():
+    """Past knn_max_points(C) the support no longer fits shared memory
+    whole and the tiled instance takes it (any N); what is refused is k
+    outside 1-32, N < 1 and C outside 1 to the tiled instance's widest."""
     assert knn.knn_max_points(3) == 227 * 1024 // 16 == 14528
     assert knn.knn_max_points(35) == 227 * 1024 // 144
     knn.knn_variant(32, knn.knn_max_points(3), 3)
+    for n, c in ((knn.knn_max_points(3) + 1, 3),
+                 (knn.knn_max_points(35) + 1, 35)):
+        assert knn.knn_variant(3, n, c).kind == "tiled"
     for k, n, c in ((0, 10, 3), (33, 10, 3), (3, 0, 3), (3, 10, 0),
-                    (3, knn.knn_max_points(3) + 1, 3),
-                    (3, knn.knn_max_points(35) + 1, 35)):
+                    (3, 10, knn.TILED_MAX_CHANNELS + 1)):
         with pytest.raises(ValueError):
             knn.knn_variant(k, n, c)
 

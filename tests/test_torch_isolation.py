@@ -377,7 +377,7 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
                            "ball_group_max_windowed_bwd", "sa_eval",
                            "sa_train", "sa_train_bwd", "gather_rows",
                            "gather_rows_bwd", "mha", "mha_bwd", "knn",
-                           "fpinterp", "fpinterp_bwd", "sa_trainbn_stats",
+                           "knn_tiled", "fpinterp", "fpinterp_bwd", "sa_trainbn_stats",
                            "sa_trainbn_fwd", "sa_trainbn_bwd_w2",
                            "sa_trainbn_bwd_x"}
     assert not any(before.values())
