@@ -44,22 +44,44 @@
 //
 // Past knn_max_points(C) (DGCNN's feature-space graphs: N = 1024 at C = 64
 // and 128, where the staged support would need 266 and 529 KB) the tiled
-// instance, knn_tiled_kernel, takes the same warp-a-query scan and streams
-// the support through shared memory instead: tiles of T points as C + 1
-// planes of T + 1 floats (the pad keeps both the coalesced staging stores
-// and the scan's reads free of bank conflicts), |x|^2 computed in channel
-// order once the tile is in. Lane l scans tile points l, l + 32, ..., so
-// across tiles each lane still meets its points in increasing index order
-// and its sorted list, kept in registers from tile to tile, breaks ties as
-// the staged instance does: the indices equal the plain version's bit for
-// bit. The warp's query (C floats) and |q|^2 stay in shared memory and
-// registers for the whole scan. T (knn_tile_points) is the largest of 256,
-// 128, 64, 32 whose tile and 8 queries leave room for two blocks an SM, 32
-// up to the block's limit past that; C <= knn_tiled_max_channels() (1,416).
-// A block reads its cloud's support once per 8 queries, from L2 at these
-// sizes. The bound is operations, M * N * (2C + 2) a cloud (C products and
-// C - 1 sums of q.x, |q|^2 + |x|^2, the doubling, the difference), without
-// FMAs; its pace is set by shared memory, two loads a multiply-add.
+// instance, knn_tiled_kernel, takes the call. It is built like a matrix
+// product, since that is what its distances are:
+//   - a block takes kTQ = 64 queries of one cloud and streams the support
+//     in tiles of kTP = 64 points; each thread holds a 4 x 4 micro-tile of
+//     (query, point) cross products in registers, and per four channels
+//     reads four queries and four points as float4s: half a shared-memory
+//     load a multiply-add (the warp-a-query scan made two). Every
+//     accumulator still takes its products one channel after another, each
+//     product and sum rounded on its own (no FMA), so the distances are the
+//     plain version's bit for bit;
+//   - the ring: kStages = 2 slots of (64 queries + 64 points) x kCK = 64
+//     channels, filled by cp.async (16-byte copies where C % 4 == 0, else
+//     4-byte ones) a stage ahead of the products; rows padded to 68 floats,
+//     so the 8 rows a warp reads at once fall in distinct banks. C is taken
+//     in chunks of 64, so shared memory (86.5 KB, two blocks an SM) does not
+//     grow with C;
+//   - each point's and each query's |.|^2 is summed once per block, in
+//     channel order across the chunks, by two of the eight warps;
+//   - after a tile's last chunk the 64 x 64 distances go to shared memory
+//     and each warp merges 8 queries' rows into their lists. A query's list
+//     is the 32 nearest so far, one (distance, index) pair a lane, sorted by
+//     distance then index. It starts as the first tile's first 32 points,
+//     sorted by a bitonic network; later a row of 32 candidates is compared
+//     with the list's k-th entry, and only those before it are inserted (a
+//     ballot for the rank, a shuffle up for the shift), about k ln(N / 32)
+//     a query after the first 32 on data in random order (69 at k = 20,
+//     N = 1024). The order is the pair's, so the scan order does not matter
+//     and ties go to the lower index as in the plain version.
+// 256 threads a block, two blocks an SM (launch bounds); a block reads its
+// cloud's support once per 64 queries. The bound is operations,
+// M * N * (2C + 2) a cloud (C products and C - 1 sums of q.x, |q|^2 + |x|^2,
+// the doubling, the difference); without FMAs each is an instruction, so
+// half the f32 peak is the ceiling. Where the time goes is read from
+// variants of this file (scripts/knn_tiled_variants.py: no selection, the
+// first tile's merge alone, candidates filtered but not inserted, other
+// stages) timed by scripts/torch_fps_knn_timing.py --unchecked; PERF.md
+// keeps the readings. The ring takes any C: the only ceiling is the
+// launcher's int.
 #include <cuda_runtime.h>
 #include <climits>
 #include <cmath>
@@ -70,16 +92,22 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreadQueries = 128;  // a block of the thread-a-query variant
 constexpr int kWarpsPerBlock = 8;    // the warp-a-query variant
 constexpr size_t kMaxSmem = 227 * 1024;
-// the most a tiled block may use for two blocks to share an SM:
-// (228 KB - 2 x 1 KB the hardware keeps per block) / 2
-constexpr size_t kTwoBlocksSmem = 115712;
+// the tiled instance's plan (ops/knn.py knn_tiled_plan holds a copy)
+constexpr int kTQ = 64;              // queries a block
+constexpr int kTP = 64;              // points a tile
+constexpr int kCK = 64;              // channels a stage
+constexpr int kStages = 2;           // stages in the ring
+constexpr int kRow = kCK + 4;        // a staged row, padded (see the note)
+constexpr int kDRow = kTP + 8;       // a row of the distance tile
+constexpr int kStageFloats = (kTQ + kTP) * kRow;
+constexpr int kTiledThreads = 256;   // 8 warps, a 4 x 4 micro-tile a thread
+constexpr int kWarpQueries = kTQ / (kTiledThreads / 32);
+static_assert(kTQ == 64 && kTP == 64, "the micro-tile map covers 64 x 64");
 
-// Shared memory of a tiled block: C + 1 planes of T + 1 floats, then the
-// block's queries (C floats each).
-size_t tiled_smem(int T, int C) {
-  return ((size_t)(C + 1) * (T + 1) + (size_t)kWarpsPerBlock * C) *
-         sizeof(float);
-}
+// Shared memory of a tiled block: the ring, the distance tile, the norms.
+constexpr size_t kTiledSmem =
+    ((size_t)kStages * kStageFloats + (size_t)kTQ * kDRow + kTQ + kTP) *
+    sizeof(float);
 
 // Sorted insertion of (d, j) into (ld, li)[0..L): only where d is strictly
 // smaller than the last entry; behind entries of equal distance.
@@ -248,99 +276,258 @@ knn_warp_kernel(const float* __restrict__ xyz, const float* __restrict__ query,
       mine == INT_MAX ? first : mine;
 }
 
-// A warp a query over a support streamed in tiles of T points (see the
-// note at the top). Every thread of the block takes part in the staging, so
-// a warp past M keeps going without scanning.
-template <int L>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// ---------------------------------------------------------------------------
+// The tiled instance (see the note at the top).
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// One stage of the ring: the block's kTQ queries, then the tile's kTP points,
+// channels c0 .. c0 + kCK of each, a padded row each; rows and channels past
+// the arrays are zero-filled. kVec: 16-byte copies (C % 4 == 0 and aligned
+// arrays), else 4-byte ones. The divisions are by constants (shifts).
+template <bool kVec>
+__device__ __forceinline__ void load_stage(float* st, const float* Q,
+                                           const float* X, int M, int N,
+                                           int C, int m0, int base, int c0) {
+  constexpr int kPer = kVec ? kCK / 4 : kCK;  // copies a row
+  for (int e = threadIdx.x; e < (kTQ + kTP) * kPer; e += kTiledThreads) {
+    const int r = e / kPer, c = (e % kPer) * (kVec ? 4 : 1);
+    const bool isq = r < kTQ;
+    const int row = isq ? m0 + r : base + r - kTQ;
+    const bool ok = row < (isq ? M : N) && c0 + c < C;
+    const float* src = (isq ? Q : X) + (ok ? (size_t)row * C + c0 + c : 0);
+    if (kVec)
+      cp_async16(st + r * kRow + c, src, ok);
+    else
+      cp_async4(st + r * kRow + c, src, ok);
+  }
+}
+
+// (d, j) strictly before (e, i): nearer, or as near with a lower index.
+__device__ __forceinline__ bool before(float d, int j, float e, int i) {
+  return d < e || (d == e && j < i);
+}
+
+// The warp's 32 (distance, index) pairs, one a lane, sorted ascending by
+// `before` across the lanes (a bitonic network of 15 exchanges).
+__device__ __forceinline__ void warp_sort(float& d, int& j, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const float od = __shfl_xor_sync(kFull, d, stride);
+      const int oj = __shfl_xor_sync(kFull, j, stride);
+      const bool keep_min = ((lane & stride) == 0) == ((lane & size) == 0);
+      if (keep_min ? before(od, oj, d, j) : before(d, j, od, oj)) {
+        d = od;
+        j = oj;
+      }
+    }
+  }
+}
+
+// Insert (v, i) into the warp's sorted list (lane l holds its l-th entry):
+// its rank is the number of entries before it; the entries from there on
+// move up one lane and the last falls off. A rank of 32 changes nothing.
+__device__ __forceinline__ void warp_insert(float& d, int& j, float v, int i,
+                                            int lane) {
+  const int rank = __popc(__ballot_sync(kFull, before(d, j, v, i)));
+  const float ud = __shfl_up_sync(kFull, d, 1);
+  const int uj = __shfl_up_sync(kFull, j, 1);
+  if (lane == rank) {
+    d = v;
+    j = i;
+  } else if (lane > rank) {
+    d = ud;
+    j = uj;
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kTiledThreads, 2)
 knn_tiled_kernel(const float* __restrict__ xyz, const float* __restrict__ query,
-                 int N, int M, int C, int K, int T, int* __restrict__ idx) {
+                 int N, int M, int C, int K, int* __restrict__ idx) {
   extern __shared__ float4 sm4[];
-  float* tile = reinterpret_cast<float*>(sm4);  // C + 1 planes of T + 1
-  const int P = T + 1;
-  float* q = tile + (size_t)(C + 1) * P + (threadIdx.x >> 5) * C;
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int m = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const bool live = m < M;
-  if (live) {
-    const float* Q = query + ((size_t)b * M + m) * C;
-    for (int c = lane; c < C; c += 32) q[c] = Q[c];
-  }
-  __syncwarp();
-  float q2 = 0.0f;
-  if (live) {
-    for (int c = 0; c < C; ++c) {
-      const float sq = __fmul_rn(q[c], q[c]);
-      q2 = c == 0 ? sq : __fadd_rn(q2, sq);
-    }
-  }
-  float ld[L];
-  int li[L];
-#pragma unroll
-  for (int t = 0; t < L; ++t) {
-    ld[t] = INFINITY;
-    li[t] = INT_MAX;
-  }
+  float* ring = reinterpret_cast<float*>(sm4);
+  float* D = ring + kStages * kStageFloats;  // kTQ rows of kDRow
+  float* q2s = D + kTQ * kDRow;
+  float* x2s = q2s + kTQ;
+  const int b = blockIdx.y, m0 = blockIdx.x * kTQ;
+  const float* Q = query + (size_t)b * M * C;
   const float* X = xyz + (size_t)b * N * C;
-  for (int base = 0; base < N; base += T) {
-    const int n = N - base < T ? N - base : T;
-    __syncthreads();  // the previous tile is scanned
-    // coalesced: consecutive threads take consecutive floats of the tile's
-    // rows; plane c of point i at c * P + i
-    const float* src = X + (size_t)base * C;
-    for (int e = threadIdx.x; e < n * C; e += blockDim.x) {
-      const int i = e / C, c = e - i * C;
-      tile[(size_t)c * P + i] = src[e];
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      float acc = 0.0f;
-      for (int c = 0; c < C; ++c) {
-        const float v = tile[(size_t)c * P + i];
-        const float sq = __fmul_rn(v, v);
-        acc = c == 0 ? sq : __fadd_rn(acc, sq);
-      }
-      tile[(size_t)C * P + i] = acc;
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int i = lane; i < n; i += 32) {  // increasing index within a lane
-      float cross = 0.0f;
-      for (int c = 0; c < C; ++c) {
-        const float pr = __fmul_rn(q[c], tile[(size_t)c * P + i]);
-        cross = c == 0 ? pr : __fadd_rn(cross, pr);
-      }
-      const float d = __fsub_rn(__fadd_rn(q2, tile[(size_t)C * P + i]),
-                                __fmul_rn(2.0f, cross));
-      insert<L>(ld, li, d, base + i);
-    }
-  }
-  if (!live) return;
-  // k_eff rounds of a warp argmin over the lists' heads, as knn_warp_kernel
-  const int k_eff = K < N ? K : N;
-  int mine = INT_MAX, first = INT_MAX;
-  for (int p = 0; p < k_eff; ++p) {
-    const unsigned key = li[0] == INT_MAX ? kFull : ordered(ld[0]);
-    const unsigned kmin = __reduce_min_sync(kFull, key);
-    const unsigned jmin = __reduce_min_sync(
-        kFull, key == kmin ? (unsigned)li[0] : kFull);
-    if (kmin == kFull) break;
-    if (p == 0) first = (int)jmin;
-    if (lane == p) mine = (int)jmin;
-    if ((unsigned)li[0] == jmin) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  // the micro-tile: points tx + 16 jj, queries ty + 16 ii; a warp spans
+  // 8 point columns and 4 query rows
+  const int tx = (lane & 7) + ((warp & 1) << 3);
+  const int ty = (lane >> 3) + ((warp >> 1) << 2);
+  const int nK = (C + kCK - 1) / kCK;
+  const int total = (N + kTP - 1) / kTP * nK;
 #pragma unroll
-      for (int t = 0; t < L - 1; ++t) {
-        ld[t] = ld[t + 1];
-        li[t] = li[t + 1];
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < total)
+      load_stage<kVec>(ring + s * kStageFloats, Q, X, M, N, C, m0,
+                       s / nK * kTP, s % nK * kCK);
+    cp_async_commit();
+  }
+  float acc[4][4];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = -0.0f;  // -0 + x == x
+  float nrm = -0.0f;  // threads 0-63: |q|^2 (first tile), 64-127: |x|^2
+  float ld[kWarpQueries];  // the sorted lists of the warp's queries
+  int li[kWarpQueries];
+  for (int s = 0; s < total; ++s) {
+    const int tile = s / nK, kc = s - tile * nK;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage s is in; stage s - 1's slot is free
+    {
+      const int sn = s + kStages - 1;
+      if (sn < total)
+        load_stage<kVec>(ring + sn % kStages * kStageFloats, Q, X, M, N, C,
+                         m0, sn / nK * kTP, sn % nK * kCK);
+      cp_async_commit();
+    }
+    const float* st = ring + s % kStages * kStageFloats;
+    const float* Qs = st;
+    const float* Xs = st + kTQ * kRow;
+    const int cc = min(kCK, C - kc * kCK);
+    // the norms, each a sum in channel order carried across the chunks
+    if (t < kTQ + kTP && (t >= kTQ || tile == 0)) {
+      const float* row = st + t * kRow;
+      if (kVec) {
+        for (int c = 0; c < cc; c += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(row + c);
+          nrm = __fadd_rn(nrm, __fmul_rn(v.x, v.x));
+          nrm = __fadd_rn(nrm, __fmul_rn(v.y, v.y));
+          nrm = __fadd_rn(nrm, __fmul_rn(v.z, v.z));
+          nrm = __fadd_rn(nrm, __fmul_rn(v.w, v.w));
+        }
+      } else {
+        for (int c = 0; c < cc; ++c)
+          nrm = __fadd_rn(nrm, __fmul_rn(row[c], row[c]));
       }
-      ld[L - 1] = INFINITY;
-      li[L - 1] = INT_MAX;
+      if (kc == nK - 1) {
+        (t < kTQ ? q2s[t] : x2s[t - kTQ]) = nrm;
+        nrm = -0.0f;
+      }
+    }
+    // the cross products, one channel after another in every accumulator
+    if (kVec) {
+#pragma unroll 2
+      for (int c = 0; c < cc; c += 4) {
+        float4 a[4], x[4];
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+          a[ii] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * ii) * kRow + c);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          x[jj] = *reinterpret_cast<const float4*>(Xs + (tx + 16 * jj) * kRow + c);
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            float r = acc[ii][jj];
+            r = __fadd_rn(r, __fmul_rn(a[ii].x, x[jj].x));
+            r = __fadd_rn(r, __fmul_rn(a[ii].y, x[jj].y));
+            r = __fadd_rn(r, __fmul_rn(a[ii].z, x[jj].z));
+            acc[ii][jj] = __fadd_rn(r, __fmul_rn(a[ii].w, x[jj].w));
+          }
+      }
+    } else {
+      for (int c = 0; c < cc; ++c) {
+        float a[4], x[4];
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) a[ii] = Qs[(ty + 16 * ii) * kRow + c];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) x[jj] = Xs[(tx + 16 * jj) * kRow + c];
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            acc[ii][jj] = __fadd_rn(acc[ii][jj], __fmul_rn(a[ii], x[jj]));
+      }
+    }
+    if (kc != nK - 1) continue;
+    // the tile's distances into D, then each warp merges its queries' rows
+    __syncthreads();  // the norms are in
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        D[(ty + 16 * ii) * kDRow + tx + 16 * jj] =
+            __fsub_rn(__fadd_rn(q2s[ty + 16 * ii], x2s[tx + 16 * jj]),
+                      __fmul_rn(2.0f, acc[ii][jj]));
+        acc[ii][jj] = -0.0f;
+      }
+    __syncthreads();
+    const int base = tile * kTP;
+    const int n = min(kTP, N - base);
+#pragma unroll
+    for (int qi = 0; qi < kWarpQueries; ++qi) {
+      const int q = warp * kWarpQueries + qi;
+      if (m0 + q >= M) continue;  // the whole warp
+#pragma unroll
+      for (int h = 0; h < kTP / 32; ++h) {
+        const int p = h * 32 + lane;
+        const float v = D[q * kDRow + p];
+        // NaN and +inf are never candidates
+        const bool ok = p < n && v < INFINITY;
+        if (tile == 0 && h == 0) {  // the list starts as these 32, sorted
+          float d = ok ? v : INFINITY;
+          int j = ok ? base + p : INT_MAX;
+          warp_sort(d, j, lane);
+          ld[qi] = d;
+          li[qi] = j;
+          continue;
+        }
+        // only what comes before the k-th entry can enter; the threshold is
+        // read once a row of 32 (one that has since moved up lets more
+        // through, which warp_insert places at rank >= K or drops)
+        const float td = __shfl_sync(kFull, ld[qi], K - 1);
+        const int tj = __shfl_sync(kFull, li[qi], K - 1);
+        unsigned mask = __ballot_sync(kFull, ok && before(v, base + p, td, tj));
+        while (mask) {
+          const int src = __ffs(mask) - 1;
+          mask &= mask - 1;
+          warp_insert(ld[qi], li[qi], __shfl_sync(kFull, v, src),
+                      base + h * 32 + src, lane);
+        }
+      }
     }
   }
-  if (first == INT_MAX) first = 0;
-  if (lane < K) idx[((size_t)b * M + m) * K + lane] =
-      mine == INT_MAX ? first : mine;
+  // lane l < K writes the l-th nearest; a slot without a candidate (k > N,
+  // or NaN / inf distances) repeats the nearest, index 0 if there is none
+#pragma unroll
+  for (int qi = 0; qi < kWarpQueries; ++qi) {
+    const int m = m0 + warp * kWarpQueries + qi;
+    if (m >= M) continue;
+    const int first = __shfl_sync(kFull, li[qi], 0);
+    const int f = first == INT_MAX ? 0 : first;
+    if (lane < K)
+      idx[((size_t)b * M + m) * K + lane] = li[qi] == INT_MAX ? f : li[qi];
+  }
 }
 
 template <int L>
@@ -388,18 +575,16 @@ cudaError_t launch_warp_l(const float* xyz, const float* query, int B, int N,
   }
 }
 
-template <int L>
+template <bool kVec>
 cudaError_t launch_tiled(const float* xyz, const float* query, int B, int N,
-                         int M, int C, int K, int T, int* idx,
-                         cudaStream_t stream) {
-  const size_t smem = tiled_smem(T, C);
+                         int M, int C, int K, int* idx, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      knn_tiled_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      knn_tiled_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kTiledSmem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((M + kWarpsPerBlock - 1) / kWarpsPerBlock, B);
-  knn_tiled_kernel<L><<<grid, kWarpsPerBlock * 32, smem, stream>>>(
-      xyz, query, N, M, C, K, T, idx);
+  const dim3 grid((M + kTQ - 1) / kTQ, B);
+  knn_tiled_kernel<kVec><<<grid, kTiledThreads, kTiledSmem, stream>>>(
+      xyz, query, N, M, C, K, idx);
   return cudaGetLastError();
 }
 
@@ -412,44 +597,27 @@ int knn_max_points(int C) {
   return (int)(kMaxSmem / ((size_t)(C + 1) * sizeof(float)));
 }
 
-// Points a tile of the tiled instance at C channels: the largest of 256,
-// 128, 64, 32 whose block leaves room for two blocks an SM, else 32 where
-// one block fits; 0 past knn_tiled_max_channels().
-int knn_tile_points(int C) {
-  if (C <= 0) return 0;
-  for (int T = 256; T >= 32; T >>= 1)
-    if (tiled_smem(T, C) <= kTwoBlocksSmem) return T;
-  return tiled_smem(32, C) <= kMaxSmem ? 32 : 0;
-}
-
-// Widest C the tiled instance takes.
-int knn_tiled_max_channels() {
-  int C = 1;
-  while (tiled_smem(32, C + 1) <= kMaxSmem) ++C;
-  return C;
+// The tiled instance's plan: queries a block, points a tile, channels a
+// stage, stages in the ring, shared memory a block (bytes).
+void knn_tiled_plan(int* out) {
+  out[0] = kTQ;
+  out[1] = kTP;
+  out[2] = kCK;
+  out[3] = kStages;
+  out[4] = (int)kTiledSmem;
 }
 
 // The tiled instance: xyz (B,N,C), query (B,M,C) f32, contiguous -> idx
-// (B,M,K) i32, T = knn_tile_points(C), L = 1, 2, 4, 8, 16 or 32 >=
-// min(K, ceil(N / 32)). Any N >= 1. Returns cudaError_t.
+// (B,M,K) i32; any N >= 1 and C >= 1. Returns cudaError_t.
 int knn_tiled_launch(const float* xyz, const float* query, int B, int N,
-                     int M, int C, int K, int T, int L, int* idx,
-                     cudaStream_t stream) {
+                     int M, int C, int K, int* idx, cudaStream_t stream) {
   if (B <= 0 || N <= 0 || M <= 0 || C <= 0 || K <= 0 || K > 32 ||
-      B > 65535 || T != knn_tile_points(C) || T == 0 ||
-      L < (K < (N + 31) / 32 ? K : (N + 31) / 32))
+      B > 65535)
     return cudaErrorInvalidValue;
-  switch (L) {
-    case 1: return launch_tiled<1>(xyz, query, B, N, M, C, K, T, idx, stream);
-    case 2: return launch_tiled<2>(xyz, query, B, N, M, C, K, T, idx, stream);
-    case 4: return launch_tiled<4>(xyz, query, B, N, M, C, K, T, idx, stream);
-    case 8: return launch_tiled<8>(xyz, query, B, N, M, C, K, T, idx, stream);
-    case 16:
-      return launch_tiled<16>(xyz, query, B, N, M, C, K, T, idx, stream);
-    case 32:
-      return launch_tiled<32>(xyz, query, B, N, M, C, K, T, idx, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  const bool vec = C % 4 == 0 && (size_t)xyz % 16 == 0 &&
+                   (size_t)query % 16 == 0;
+  return vec ? launch_tiled<true>(xyz, query, B, N, M, C, K, idx, stream)
+             : launch_tiled<false>(xyz, query, B, N, M, C, K, idx, stream);
 }
 
 // xyz (B,N,C) f32 support, query (B,M,C) f32, contiguous -> idx (B,M,K) i32.

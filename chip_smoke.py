@@ -40,9 +40,15 @@ Phases, one JSON object a line:
    k = 32, ragged query counts, B = 1, ties, k > N, both variants); its tiled
    instance (past ``knn_max_points(C)``) at DGCNN's three feature-space calls
    (B = 32, N = M = 1024, k = 20, C = 64, 64, 128; timed beside the plain
-   version and the stand-in) and at KNN_TILED_EDGES (N = knn_max_points(C)
+   version and the stand-in) and at KNN_TILED_EDGES and
+   KNN_TILED_PLAN_EDGES (N = knn_max_points(C)
    and one more at C = 64, 128, 256, ties, B = 1, C = 3 past 14528 points,
-   the widest C, k = 1; ``--phases knn_tiled`` runs this part alone); the flash
+   C = 1416, k = 1, N and M off the tiles, C = 67 and 132 off the
+   stages, C = 2100, runs of equal points, NaN and +inf rows, k = 32 over
+   N < 32 on the library's launcher directly), its plan against the
+   wrapper's copy and its device ops
+   a call (KNN_TILED_OPS, in the op-count child; ``--phases knn_tiled`` runs
+   this part alone); the flash
    attention forward and backward, directly and through autograd, for bf16 and
    f32 inputs, at (128, 2048, 16) and at every head dim across the tiles' edges
    (N = 1, 40, 127, 128, 129, 2047), two backward runs bit for bit equal, timed
@@ -1232,7 +1238,9 @@ def check_knn_edges(gen) -> None:
 # DGCNN's feature-space kNN calls on ScanObjectNN (cfgs/scanobjectnn/
 # dgcnn.yaml, B = 32, N = M = 1024, k = 20): C of each call past the xyz one
 DGCNN_KNN_C = (64, 64, 128)
-# the tiled instance off those shapes: (tag, B, N, M, C, k, kind of support)
+# the tiled instance off those shapes: (tag, B, N, M, C, k, kind of support);
+# "direct" calls the library's knn_tiled_launch below knn_max_points(C),
+# where the chooser keeps the support staged (k > N)
 KNN_TILED_EDGES = [
     ("N = knn_max_points(64)", 2, None, 77, 64, 20, "at"),
     ("N = knn_max_points(64) + 1", 2, None, 77, 64, 20, "past"),
@@ -1243,41 +1251,68 @@ KNN_TILED_EDGES = [
     ("ties, every point twice", 2, 1000, 50, 64, 20, "twice"),
     ("M = 13, B = 1, k = 32", 1, 1500, 13, 128, 32, "random"),
     ("C = 3 past 14528 points", 2, 14600, 40, 3, 24, "random"),
-    ("widest C, N = 42, k = 32", 2, 42, 9, None, 32, "random"),
+    ("C = 1416, N = 42, k = 32", 2, 42, 9, 1416, 32, "random"),
     ("k = 1", 2, 1200, 33, 96, 1, "random")]
+# the edges of the tiled plan (64-point tiles, 64-query blocks, 64-channel
+# stages, 4 x 4 micro-tiles, the warp lists), drawn from a generator of their
+# own so that every check after this one sees the inputs it saw before they
+# were added (ROADMAP C.11)
+KNN_TILED_PLAN_EDGES = [
+    ("N = 1021, M = 77: ragged tiles and blocks", 2, 1021, 77, 64, 20,
+     "random"),
+    ("C = 67: 4-byte copies, a 3-channel last stage", 2, 1100, 77, 67, 20,
+     "random"),
+    ("C = 132: a 4-channel last stage", 2, 900, 70, 132, 20, "random"),
+    ("C = 2100: 33 stages a tile", 2, 300, 20, 2100, 20, "random"),
+    ("runs of 3 equal points across tiles and micro-tiles", 2, 1021, 77, 64,
+     20, "runs"),
+    ("NaN and +inf rows, a NaN query", 2, 1100, 77, 64, 20, "bad"),
+    ("k = 32, N = 20 (direct)", 2, 20, 33, 64, 32, "direct"),
+    ("k = 32, N = 31, C = 3 (direct)", 2, 31, 65, 3, 32, "direct")]
 
 
 def check_knn_tiled(gen, rows) -> None:
     """The tiled kNN instance (row 11 past knn_max_points(C)) against the
-    plain version, index for index: the host's copies of its tile and
-    widest C against the library's, DGCNN's three feature-space calls at
-    B = 32, N = M = 1024, k = 20 (timed beside the plain version, the
-    stand-in topk(cdist) and the operation bound), and KNN_TILED_EDGES.
+    plain version, index for index: the host's copy of its plan against
+    the library's, DGCNN's three feature-space calls at B = 32,
+    N = M = 1024, k = 20 (timed beside the plain version, the stand-in
+    topk(cdist) and the operation bound), KNN_TILED_EDGES and
+    KNN_TILED_PLAN_EDGES, and its device
+    ops a call (KNN_TILED_OPS, in the op-count child).
     Adds ``rows["knn_tiled"]``: ms summed over the three calls."""
     import torch
-    from adaptpoint_tpu_torch.ops import knn
-    lib = knn._lib()
-    for c in (1, 3, 64, 128, 256, 512, 1416, 1417):
-        if lib.knn_tile_points(c) != knn.knn_tile_points(c):
-            raise AssertionError(f"the tiled kNN's tile at C={c} differs "
-                                 f"from the wrapper's")
-    if lib.knn_tiled_max_channels() != knn.TILED_MAX_CHANNELS:
-        raise AssertionError("the tiled kNN's widest C differs from the "
-                             "wrapper's")
+    from adaptpoint_tpu_torch.ops import _build, knn
+    plan = knn.lib_tiled_plan()
+    if plan != knn.knn_tiled_plan():
+        raise AssertionError(f"the tiled kNN's plan {plan} differs from the "
+                             f"wrapper's {knn.knn_tiled_plan()}")
 
-    def case(tag, k, support, query):
+    def direct(k, support, query):
+        # the library's launcher itself, past the chooser and the counter
+        b, n, c = support.shape
+        m = query.shape[1]
+        lib = knn._lib()
+        idx = torch.empty((b, m, k), dtype=torch.int32, device=DEV)
+        err = lib.knn_tiled_launch(
+            support.data_ptr(), query.data_ptr(), b, n, m, c, k,
+            idx.data_ptr(), torch.cuda.current_stream(DEV).cuda_stream)
+        _build.check(lib, err, "knn (tiled, direct)")
+        return idx
+
+    def case(tag, k, support, query, is_direct=False):
         b, n, c = support.shape
         var = knn.knn_variant(k, n, c)
         before = knn.LAUNCHES_TILED
-        got = knn.knn_idx_cuda(k, support, query)
+        got = (direct(k, support, query) if is_direct
+               else knn.knn_idx_cuda(k, support, query))
         ref = knn.knn_idx_plain(k, support, query)
         torch.cuda.synchronize()
         mism = int((got != ref).sum())
         emit("kernel", name="knn_tiled", case=tag,
              shape=[b, n, query.shape[1], c, k], variant=list(var),
-             tile_points=knn.knn_tile_points(c), mismatches=mism,
-             tolerance="exact")
-        if mism or (knn.LAUNCHES_TILED - before) != (var.kind == "tiled"):
+             direct=is_direct, mismatches=mism, tolerance="exact")
+        tiled = var.kind == "tiled" and not is_direct
+        if mism or (knn.LAUNCHES_TILED - before) != tiled:
             raise AssertionError(f"tiled kNN disagrees at {mism} indices "
                                  f"({tag}, N={n}, C={c}, k={k}, {var})")
 
@@ -1313,21 +1348,33 @@ def check_knn_tiled(gen, rows) -> None:
         for key in ("device_ms", "host_us"):  # None: not measured
             acc[key] = (None if acc[key] is None or row[key] is None
                         else acc[key] + row[key])
-    for tag, b, n_, m_, c, k_, kind in KNN_TILED_EDGES:
-        c = knn.TILED_MAX_CHANNELS if c is None else c
+    own = torch.Generator(device=DEV).manual_seed(11)
+    for (tag, b, n_, m_, c, k_, kind), g in (
+            [(e, gen) for e in KNN_TILED_EDGES]
+            + [(e, own) for e in KNN_TILED_PLAN_EDGES]):
         if kind in ("at", "past"):
             n_ = knn.knn_max_points(c) + (kind == "past")
         if kind == "twice":
-            half = torch.randn((b, n_ // 2, c), generator=gen, device=DEV)
+            half = torch.randn((b, n_ // 2, c), generator=g, device=DEV)
             support = half.repeat(1, 2, 1).contiguous()
             support[:, ::7] = 0.0
+        elif kind == "runs":  # points 3i, 3i + 1, 3i + 2 equal (63-65 too)
+            third = torch.randn((b, -(-n_ // 3), c), generator=g,
+                                device=DEV)
+            support = third.repeat_interleave(3, 1)[:, :n_].contiguous()
         else:
-            support = torch.randn((b, n_, c), generator=gen, device=DEV)
-        query = torch.cat([support[:, :m_ // 2], torch.randn(
-            (b, m_ - m_ // 2, c), generator=gen, device=DEV)], 1).contiguous()
-        case(tag, k_, support, query)
+            support = torch.randn((b, n_, c), generator=g, device=DEV)
+        h = min(m_ // 2, n_)  # queries equal to support points
+        query = torch.cat([support[:, :h], torch.randn(
+            (b, m_ - h, c), generator=g, device=DEV)], 1).contiguous()
+        if kind == "bad":  # never selected; the NaN query gets index 0
+            support[:, [3, 64, 500]] = float("nan")
+            support[:, [10, 700], 5] = float("inf")
+            query[:, -1] = float("nan")
+        case(tag, k_, support, query, is_direct=kind == "direct")
     acc.update(bound_row(acc.pop("t_b"), acc.pop("t_o")))
-    acc.update(max_abs_err=0.0, library_ms=None, dgcnn_shapes=shapes)
+    acc.update(max_abs_err=0.0, library_ms=None, dgcnn_shapes=shapes,
+               op_launches=child_op_launches("knn_tiled"))
     rows["knn_tiled"] = acc
 
 
@@ -5302,13 +5349,15 @@ def window_op_launches_here() -> dict:
 # of them starts
 OP_CHECKS = {"window": lambda: window_op_launches_here(),
              "fps": lambda: fps_op_launches_here(),
-             "trainbn": lambda: trainbn_op_launches_here()}
+             "trainbn": lambda: trainbn_op_launches_here(),
+             "knn_tiled": lambda: knn_tiled_op_launches_here()}
 OP_CHECKS_WANTED = set()
 _OP_CHECKS_DONE = {}
 
 
 def child_op_launches(check: str) -> dict:
-    """An op-count check of OP_CHECKS (``window``, ``fps``, ``trainbn``)
+    """An op-count check of OP_CHECKS (``window``, ``fps``, ``trainbn``,
+    ``knn_tiled``)
     from a child process of its own (this script with ``--op-launches``),
     which also makes this run's other checks of OP_CHECKS_WANTED not yet
     made: in three runs of the whole script every profile of the windowed
@@ -5377,6 +5426,35 @@ def fps_op_launches_here() -> dict:
                          if len(v) > 1})
     if bad:
         raise AssertionError(f"the FPS call's device ops {bad}")
+    return {k: sum(ops.values()) for k, ops in found.items()}
+
+
+# row 11's tiled instance: its device ops a call at DGCNN's widths, the
+# kernel alone (the wrapper's output is torch.empty; no pre-pass, no memset)
+KNN_TILED_OPS = {"DGCNN C = 64": {"knn_tiled_kernel": 1},
+                 "DGCNN C = 128": {"knn_tiled_kernel": 1}}
+
+
+def knn_tiled_op_launches_here() -> dict:
+    """``--op-launches knn_tiled``: the device ops of one tiled kNN call at
+    B = 32, N = M = 1024, k = 20, C = 64 and 128, held as
+    ``held_op_launches`` holds them: each must be KNN_TILED_OPS's. Returns
+    the ops a call by case."""
+    import torch
+    from adaptpoint_tpu_torch.ops import knn
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    calls = {}
+    for case in KNN_TILED_OPS:
+        c = int(case.split("= ")[1])
+        x = torch.randn((B, N0, c), generator=gen, device=DEV)
+        calls[case] = lambda x=x: knn.knn_idx_cuda(20, x, x)
+    found, profiles, bad = held_op_launches(calls, KNN_TILED_OPS)
+    emit("knn_tiled_op_launches", found=found, expected=KNN_TILED_OPS,
+         profiles_taken={k: len(v) for k, v in profiles.items()},
+         profiles_short={k: v[:-1] for k, v in profiles.items()
+                         if len(v) > 1})
+    if bad:
+        raise AssertionError(f"the tiled kNN call's device ops {bad}")
     return {k: sum(ops.values()) for k, ops in found.items()}
 
 
@@ -8279,7 +8357,9 @@ def main(argv=None) -> int:
         return 0
     OP_CHECKS_WANTED.update(c for c, phase in (("window", "window"),
                                                ("fps", "seg"),
-                                               ("trainbn", "train_fused"))
+                                               ("trainbn", "train_fused"),
+                                               ("knn_tiled", "kernels"),
+                                               ("knn_tiled", "knn_tiled"))
                             if phase in phases)
     from adaptpoint_tpu_torch import resolve_device
     from adaptpoint_tpu_torch.ops import _build

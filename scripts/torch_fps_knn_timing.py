@@ -24,6 +24,20 @@ prints one JSON line. Inputs are seeded and the same for every root:
   that computes other arithmetic and breaks ties its own way, not a library
   call for the same function.
 
+- the tiled kNN instance (``knn_idx_cuda`` past ``knn_max_points(C)``) at
+  DGCNN's three feature-space calls on ScanObjectNN, B = 32, N = M = 1024,
+  k = 20, C = 64, 64, 128, on seeded leaky-ReLU'd features (the graph's
+  support is its queries), with the same stand-in beside it and the
+  operation bound, each call held index for index against the plain
+  version. A root's kernel is the one its checkout builds: a parent
+  checkout gives the parent's kernel.
+
+``--parts`` picks which of ``fps``, ``knn`` and ``knn_tiled`` run (all by
+default). ``--unchecked ROOT ...`` times the tiled calls of further roots
+without holding their outputs, after the checked roots: copies of the tree
+with one piece of the tiled kernel taken out or changed, as
+``scripts/knn_tiled_variants.py`` makes them.
+
 With ``--designs`` each root also times, at B = 8 on two kinds of cloud --
 uniform rooms (4 x 4 x 3 m filled as ``SyntheticScene`` fills them) and
 rooms of surfaces (``scripts/surface_rooms.py``: floor, ceiling, four walls
@@ -96,6 +110,9 @@ STEP_POINTS = 24000
 KNN_SHAPES = [(1024, 2048, 3, "FP decode"), (512, 1024, 3, "FP decode"),
               (256, 512, 3, "FP decode"), (128, 256, 3, "FP decode"),
               (128, 4, 24, "deformation head")]
+# DGCNN's feature-space kNN calls (cfgs/scanobjectnn/dgcnn.yaml): C of
+# each, B = 32, N = M = 1024, k = 20
+DGCNN_C, DGCNN_N, DGCNN_K = (64, 64, 128), 1024, 20
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12  # H100 SXM, dense
 
 
@@ -377,16 +394,49 @@ def knn_rows(fps, knn, gen) -> list:
     return rows
 
 
+def knn_tiled_rows(knn, gen, checked: bool = True) -> list:
+    """DGCNN's three tiled calls (see the module's note)."""
+    import torch
+    rows = []
+    n = m = DGCNN_N
+    k = DGCNN_K
+    for c in DGCNN_C:
+        feats = torch.nn.functional.leaky_relu(
+            torch.randn((B, n, c), generator=gen, device="cuda"), 0.2)
+        if checked:
+            got = knn.knn_idx_cuda(k, feats, feats)
+            ref = knn.knn_idx_plain(k, feats, feats)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"tiled kNN disagrees with its plain "
+                                     f"version at C={c}: "
+                                     f"{int((got != ref).sum())} indices")
+        rows.append({
+            "shape": [B, n, m, c, k], "checked": checked,
+            "variant": list(knn.knn_variant(k, n, c)),
+            # a pair: C products and C - 1 sums of q.x, |q|^2 + |x|^2, the
+            # doubling, the difference; each point's norm once (2C - 1)
+            "bound_ms": 1e3 * max(B * (m * n * (2 * c + 2)
+                                       + (n + m) * (2 * c - 1)) / PEAK_F32,
+                                  (2 * B * n * c * 4 + B * m * k * 4)
+                                  / PEAK_BYTES),
+            "knn": timings(lambda: knn.knn_idx_cuda(k, feats, feats)),
+            "stand_in_cdist_topk": timings(lambda: torch.topk(
+                torch.cdist(feats, feats), k, dim=-1, largest=False))})
+    return rows
+
+
 def total(values):
     values = list(values)
     return None if any(v is None for v in values) else sum(values)
 
 
-def child(root: str, clouds: str = "", rooms: str = "") -> dict:
+def child(root: str, clouds: str = "", rooms: str = "",
+          parts: str = "fps,knn,knn_tiled", checked: bool = True) -> dict:
     import torch
     sys.path.insert(0, os.path.abspath(root))
     from adaptpoint_tpu_torch.ops import _build, fpsample, knn
 
+    parts = set(parts.split(","))
     names = ["fps", "knn"]
     for n in names:  # built here, so that the build log reports them
         _build._lib_path(n).unlink(missing_ok=True)
@@ -397,12 +447,22 @@ def child(root: str, clouds: str = "", rooms: str = "") -> dict:
            "device": torch.cuda.get_device_name(0),
            "registers_spills": {n: ptxas_rows(_build.build_logs.get(n, ""))
                                 for n in names}}
+    if "knn_tiled" in parts:  # a generator of its own: the others' inputs
+        res["knn_tiled"] = knn_tiled_rows(  # stay as they were
+            knn, torch.Generator(device="cuda").manual_seed(0), checked)
+        res["knn_tiled_sums"] = {
+            f"{key}_{what}": total(r[key][what] for r in res["knn_tiled"])
+            for key in ("knn", "stand_in_cdist_topk")
+            for what in ("device_ms", "event_ms")}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    res["fps"] = fps_rows(fpsample, gen)
+    if "fps" in parts:
+        res["fps"] = fps_rows(fpsample, gen)
     if clouds:
         res["fps_designs"] = fps_design_rows(fpsample, clouds)
     if rooms:
         res["seg_steps"] = step_rows(rooms)
+    if "knn" not in parts or "fps" not in parts:
+        return res
     res["knn"] = knn_rows(fpsample, knn, gen)
     gan = res["fps"][2]
     res["fps_gan_step_device_ms"] = (None if gan["fps"]["device_ms"] is None
@@ -431,6 +491,11 @@ def main(argv=None) -> int:
                          "eval forward on both kinds of room")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the --designs and --steps rooms")
+    ap.add_argument("--parts", default="fps,knn,knn_tiled",
+                    help="comma-separated subset of fps,knn,knn_tiled")
+    ap.add_argument("--unchecked", nargs="*", default=[],
+                    help="roots whose tiled kNN calls are timed without "
+                         "holding their outputs, after --roots")
     ap.add_argument("--clouds", help=argparse.SUPPRESS)
     ap.add_argument("--rooms", help=argparse.SUPPRESS)
     ap.add_argument("--out", default=os.path.join(
@@ -442,7 +507,9 @@ def main(argv=None) -> int:
         return 2
     if args.child:
         print(json.dumps(child(args.child, args.clouds or "",
-                               args.rooms or "")), flush=True)
+                               args.rooms or "", args.parts,
+                               args.child not in args.unchecked)),
+              flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -462,9 +529,13 @@ def main(argv=None) -> int:
         path = os.path.join(os.path.dirname(args.out), "fps_step_rooms.npz")
         np.savez(path, **step_rooms(args.seed))
         extra += ["--rooms", path]
-    for root in args.roots:
+    runs = [(root, []) for root in args.roots] + [
+        (root, ["--unchecked", root, "--parts", "knn_tiled"])
+        for root in args.unchecked]
+    for root, flags in runs:
         got = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--child", root] + extra,
+                              "--child", root, "--parts", args.parts]
+                             + extra + flags,
                              capture_output=True, text=True)
         if got.returncode != 0:
             sys.stderr.write(got.stdout + got.stderr)

@@ -347,18 +347,20 @@ def test_knn_plain_matches_jax_past_the_staged_kernel(k, n, c, kind):
 @pytest.mark.parametrize("c", [3, 64, 128, 256])
 def test_knn_chooser_edges(c):
     """At knn_max_points(C) the support is staged whole; one point more
-    takes the tiled instance with the same list length rule; tiny supports
-    (k > N) stay staged."""
+    takes the tiled instance, whose list is MAX_K long whatever k and N;
+    tiny supports (k > N) stay staged. The tiled plan fits two blocks an
+    SM at every C, so the chooser takes C past 1416 (the ceiling of the
+    tiled instance's first draft) and refuses only past the launcher's
+    int."""
     top = knn.knn_max_points(c)
     at, past = knn.knn_variant(20, top, c), knn.knn_variant(20, top + 1, c)
-    assert at.kind == "warp" and past.kind == "tiled"
-    assert past.list_len == 1 << (min(20, -(-(top + 1) // 32)) - 1) \
-        .bit_length()
+    assert at.kind == "warp" and past == ("tiled", knn.MAX_K)
     assert knn.knn_variant(20, 5, c).kind == "warp"
-    t = knn.knn_tile_points(c)
-    assert t in (256, 128, 64, 32) and t % 32 == 0
-    assert knn.tiled_smem_bytes(t, c) <= 115712
-    if t < 256:
-        assert knn.tiled_smem_bytes(2 * t, c) > 115712
-    assert knn.knn_tile_points(knn.TILED_MAX_CHANNELS) == 32
-    assert knn.knn_tile_points(knn.TILED_MAX_CHANNELS + 1) == 0
+    plan = knn.knn_tiled_plan()  # the same at every C
+    assert (plan.queries, plan.points, plan.chunk) == (64, 64, 64)
+    assert plan.smem_bytes <= 115712  # two blocks an SM
+    for wide in (1417, 4 * c + 1500):
+        assert knn.knn_variant(20, top + 1, wide) == ("tiled", knn.MAX_K)
+    assert knn.TILED_MAX_CHANNELS == 2 ** 31 - 1
+    with pytest.raises(ValueError):
+        knn.knn_variant(20, top + 1, knn.TILED_MAX_CHANNELS + 1)
