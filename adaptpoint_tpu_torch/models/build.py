@@ -24,7 +24,10 @@ MODELS = Registry("models")
 def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded torch-default init: U(+-1/sqrt(fan_in)) for every conv/linear
     weight and bias (kaiming-uniform with a=sqrt(5)); BN keeps 1/0/0/1, and
-    a layer marked ``zero_init`` (PointNet's T-Net output) its zeros."""
+    a layer marked ``zero_init`` (PointNet's T-Net output) its zeros. Then a
+    module with its own distributions (``seeded_init_``: the ViT's
+    xavier-uniform Linears and normal tokens) draws them from the same
+    generator."""
     with torch.no_grad():
         for mod in model.modules():
             if getattr(mod, "zero_init", False):
@@ -34,6 +37,9 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 mod.weight.uniform_(-bound, bound, generator=generator)
                 if mod.bias is not None:
                     mod.bias.uniform_(-bound, bound, generator=generator)
+        for mod in model.modules():
+            if hasattr(mod, "seeded_init_"):
+                mod.seeded_init_(generator)
     return model
 
 

@@ -11,6 +11,7 @@ policy the hidden layers give bf16 and the last one f32 logits.
 """
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import Optional, Sequence
 
 import torch
@@ -109,13 +110,23 @@ class BaseCls(nn.Module):
         ``fused_eval``, ``first_fps_idx`` and ``fused_train_bn`` reach only
         an encoder with fused stages (``fused_routes``: PointNeXt); the
         others take ``(pos, x)`` and ignore the switches, as the JAX
-        package's do."""
+        package's do. An encoder with dropout of its own (``takes_dropout``:
+        PointViT) also takes ``generator`` and, where ``dropout_mask`` is a
+        mapping, its ``"encoder"`` masks (the head then takes its
+        ``"head"`` ones)."""
+        head_mask = dropout_mask
         if getattr(self.encoder, "fused_routes", False):
             feat = self.encoder.forward_cls_feat(pos, x, fused_eval,
                                                  first_fps_idx,
                                                  fused_train_bn)
+        elif getattr(self.encoder, "takes_dropout", False):
+            enc_mask = None
+            if isinstance(dropout_mask, Mapping):
+                enc_mask = dropout_mask.get("encoder")
+                head_mask = dropout_mask.get("head")
+            feat = self.encoder.forward_cls_feat(pos, x, enc_mask, generator)
         else:
             feat = self.encoder.forward_cls_feat(pos, x)
         if self.prediction is None:
             return feat
-        return self.prediction(feat, dropout_mask, generator)
+        return self.prediction(feat, head_mask, generator)

@@ -86,13 +86,15 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
 
 
 def norm_kind(norm_args: Optional[dict]) -> Optional[str]:
-    """'bn' when the args ask for batch norm, None for no norm."""
+    """'bn' when the args ask for batch norm, 'ln' for layer norm, None for
+    no norm."""
     if not norm_args or not norm_args.get("norm"):
         return None
     norm = norm_args["norm"].lower()
-    if not norm.startswith("bn"):
-        raise ValueError(f"norm {norm} is not ported yet (only bn)")
-    return "bn"
+    for kind in ("bn", "ln"):
+        if norm.startswith(kind):
+            return kind
+    raise ValueError(f"norm {norm} is not ported yet (only bn and ln)")
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -175,11 +177,12 @@ class ConvBlock(nn.Sequential):
     where ``bias`` says so (PointMLP's ``bias: True`` convs before a norm);
     ``bias=False`` drops it behind no norm too. ``order`` is
     ``conv-norm-act`` (slots conv, BatchNorm, act) or ``conv-act-norm``
-    (conv, act, BatchNorm: BallDGCNN's default). The conv follows the compute
-    policy (:func:`dense`), unless ``policy`` is False: then it computes in
-    the promoted type of its input and its parameters, as a flax ``Dense``
-    without a ``dtype`` does (the SA stage's skip conv, the head's last
-    layer).
+    (conv, act, BatchNorm: BallDGCNN's default). ``norm: ln`` puts a
+    ``LayerNorm`` (eps 1e-5, flax's) where the BatchNorm would be. The conv
+    follows the compute policy (:func:`dense`), unless ``policy`` is False:
+    then it computes in the promoted type of its input and its parameters,
+    as a flax ``Dense`` without a ``dtype`` does (the SA stage's skip conv,
+    the head's last layer).
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -197,8 +200,9 @@ class ConvBlock(nn.Sequential):
                                             bias=bias),
                 "linear": lambda: nn.Linear(in_channels, out_channels,
                                             bias=bias)}[kind]()
-        bn = (BatchNorm(out_channels, eps=1e-5, momentum=0.1)
-              if norm is not None else None)
+        bn = {None: lambda: None,
+              "bn": lambda: BatchNorm(out_channels, eps=1e-5, momentum=0.1),
+              "ln": lambda: nn.LayerNorm(out_channels, eps=1e-5)}[norm]()
         act = create_act(act_args)
         tail = [bn, act] if order == "conv-norm-act" else [act, bn]
         super().__init__(conv, *(m for m in tail if m is not None))
@@ -226,6 +230,10 @@ class ConvBlock(nn.Sequential):
         for mod in list(self)[1:]:
             if isinstance(mod, nn.BatchNorm1d):
                 y = mod(y.reshape(-1, y.shape[-1])).reshape(y.shape)
+            elif isinstance(mod, nn.LayerNorm):
+                # flax's LayerNorm gives the promoted type of its input and
+                # its f32 parameters: f32
+                y = mod(y.float())
             else:
                 y = mod(y)
         return y

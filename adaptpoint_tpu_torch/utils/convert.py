@@ -11,7 +11,9 @@ aggregation's convs, and ``pwconv.{i}``), ClsHead and segmentation rules
 ``global_conv2`` and ``convc``), and the baselines' rules (DGCNN and
 BallDGCNN, whose conv-act-norm blocks hold their BatchNorm at slot 2;
 PointNet++'s SA stages; PointNet's T-Nets and trunk; PointMLP's embedding,
-affine parameters, transfer and residual convs) of
+affine parameters, transfer and residual convs), and PointViT's (tokens,
+the positional MLP, the patch embed's convs and their bn or ln norms, the
+transformer blocks and the final norm) of
 ``adaptpoint_tpu/utils/torch_convert.py`` ``export_reference_state_dict``:
 
 - ``Dense`` kernels ``(in, out)`` transpose to ``(out, in)`` and reshape to
@@ -74,6 +76,20 @@ _PMLP_TRANSFER = re.compile(r"^encoder\.pre_blocks_list\.(\d+)\.transfer\."
                             r"net\.([01])\.(.+)$")
 _PMLP_RES = re.compile(r"^encoder\.(pre|pos)_blocks_list\.(\d+)\."
                        r"operation\.(\d+)\.net([12])\.([01])\.(.+)$")
+# PointViT (pointvit.py + layers/group_embed.py + layers/attention.py): the
+# patch-embed convs are flax's Dense_0 ... Dense_{L-1} in call order (in2d
+# has no parameters; a bn or ln norm is BatchNorm_m / LayerNorm_m), the
+# blocks keep torch's member names
+_VIT_TOKEN = re.compile(r"^encoder\.(cls_token|cls_pos|dist_token|dist_pos)$")
+_VIT_POS = re.compile(r"^encoder\.pos_embed\.(0\.0|1)\.(weight|bias)$")
+_VIT_EMBED = re.compile(r"^encoder\.patch_embed\.conv([12])\.(\d+)\.([01])\."
+                        r"(.+)$")
+_VIT_BLOCK = re.compile(r"^encoder\.blocks\.(\d+)\.(norm1|norm2|attn\.qkv|"
+                        r"attn\.proj|mlp\.fc1|mlp\.fc2)\.(weight|bias)$")
+_VIT_NORM = re.compile(r"^encoder\.norm\.(weight|bias)$")
+_VIT_BLOCK_DST = {"norm1": "norm1", "norm2": "norm2", "attn.qkv": "attn/qkv",
+                  "attn.proj": "attn/proj", "mlp.fc1": "fc1", "mlp.fc2": "fc2"}
+_LN = {"weight": "scale", "bias": "bias"}
 _BN = {"weight": ("params", "scale"), "bias": ("params", "bias"),
        "running_mean": ("batch_stats", "mean"),
        "running_var": ("batch_stats", "var")}
@@ -110,6 +126,43 @@ def _convblock_any(sub: str, leaf: str, base: str):
     slot 1 (flax ``NormAct_0``), conv-act-norm at slot 2 (``NormAct_1``)."""
     bn = f"{base}/NormAct_{1 if sub == '2' else 0}/BatchNorm_0"
     return _pair(sub, leaf, f"{base}/Dense_0", bn)
+
+
+def _translate_vit(key: str, keys) -> Tuple[str, str, bool]:
+    """The rules of PointViT."""
+    m = _VIT_TOKEN.match(key)
+    if m:
+        return "params", f"encoder/{m.group(1)}", False
+    m = _VIT_POS.match(key)
+    if m:
+        dst = "pos1" if m.group(1) == "0.0" else "pos2"
+        return _pair("0", m.group(2), f"encoder/{dst}", "")
+    m = _VIT_EMBED.match(key)
+    if m:
+        half, j, sub, leaf = m.groups()
+        j = int(j)
+        # conv2's Dense and norm numbers continue after conv1's
+        n_conv1 = len({k.split(".")[3] for k in keys
+                       if k.startswith("encoder.patch_embed.conv1.")})
+        base = "encoder/patch_embed"
+        if sub == "0":
+            slot = j if half == "1" else n_conv1 + j
+            return _pair("0", leaf, f"{base}/Dense_{slot}", "")
+        norm = j if half == "1" else n_conv1 - 1 + j  # each half's last: none
+        prefix = key.rsplit(".", 1)[0]
+        if f"{prefix}.running_mean" in keys:
+            return _pair("1", leaf, "", f"{base}/BatchNorm_{norm}")
+        return "params", f"{base}/LayerNorm_{norm}/{_LN[leaf]}", False
+    m = _VIT_BLOCK.match(key)
+    if m:
+        base = f"encoder/block{m.group(1)}/{_VIT_BLOCK_DST[m.group(2)]}"
+        if m.group(2).startswith("norm"):
+            return "params", f"{base}/{_LN[m.group(3)]}", False
+        return _pair("0", m.group(3), base, "")
+    m = _VIT_NORM.match(key)
+    if m:
+        return "params", f"encoder/norm/{_LN[m.group(1)]}", False
+    raise KeyError(key)
 
 
 def _translate_baselines(key: str) -> Tuple[str, str, bool]:
@@ -168,6 +221,10 @@ def _translate_baselines(key: str) -> Tuple[str, str, bool]:
 
 
 def _translate(key: str, keys) -> Tuple[str, str, bool]:
+    if key.startswith(("encoder.cls_", "encoder.dist_", "encoder.pos_embed.",
+                       "encoder.patch_embed.", "encoder.blocks.",
+                       "encoder.norm.")):
+        return _translate_vit(key, keys)
     m = _SA_CONV.match(key)
     if m:
         stage, j, sub, leaf = m.groups()

@@ -51,7 +51,13 @@ Phases, one JSON object a line:
    this part alone); the flash
    attention forward and backward, directly and through autograd, for bf16 and
    f32 inputs, at (128, 2048, 16) and at every head dim across the tiles' edges
-   (N = 1, 40, 127, 128, 129, 2047), two backward runs bit for bit equal, timed
+   (N = 1, 40, 127, 128, 129, 2047), dq and dk within TOL_MHA of the dS
+   formed from the forward's saved statistics plus what the bf16 roundings
+   of dS may move them by (``mha_stats_reference``, the flips it allowed
+   reported), the saved statistics held to the function, on the shared
+   generator's draws, on a fresh draw of every shape from each of
+   MHA_FRESH_SEEDS and on ROADMAP C.11's draw replayed, two backward runs
+   bit for bit equal, timed
    at (128, 2048, 16) for both input types beside
    ``scaled_dot_product_attention`` (``--phases attention`` runs this part
    alone); the 3-NN weighted gather forward and backward at the four
@@ -240,14 +246,34 @@ Phases, one JSON object a line:
    shared, each graph's rows that the plain run would have chosen alike
    reported), the launches of each against BASELINES, ms, device-busy ms,
    idle share and peak memory of each; then rows 14 and 15 at DGCNN's edges
-   (its xyz graph, C = 4, 64, 128). Prints its seconds.
+   (its xyz graph, C = 4, 64, 128).
 20. ``baselines_cli``: ``python -m adaptpoint_tpu_torch.main --cfg
    cfgs/scanobjectnn/dgcnn.yaml`` in a child on SyntheticCls for one epoch,
    then ``cfgs/modelnetc/dgcnn.yaml`` (``mode: modelnetc``) in this process
    for one epoch and its ModelNet-C sweep (1 clean + 7 x 5 splits, mCE);
-   the launch counts of both. Prints its seconds.
+   the launch counts of both.
+21. ``pointvit``: PointViT at the full width of
+   ``cfgs/scanobjectnn/pointvit.yaml`` (embed 384, depth 12, 6 heads, 256
+   groups of 32; 22.9 M parameters), seeded weights, on a seeded (32, 2048)
+   blob batch: one train step (2048 -> 1200 -> 1024, SmoothCE, AdamW, clip
+   at 10) and a B = 64 eval forward, each against the same through the
+   plain versions on the card (loss, logits, equal predictions, gradients
+   by relative 2-norm), the launches of each against VIT_LAUNCHES, ms, host
+   enqueue, busy ms, idle share, launches, peak memory and top device ops;
+   rows 1, 11 and 14 at its shapes (FPS 1024 -> 256 and the k = 32 graph at
+   C = 3 at B = 32 and 64, exact; the centers' and the (B, 256, 32, 4)
+   features' gathers); the decoders (both samplers, and under the bf16
+   policy, rows 12 and 13), P3Embed, KMeansEmbed and ViTGraph, one forward
+   and backward each at VIT_SMALL against their plain versions, their
+   launches in ``pointvit_modules`` and not in the path's.
+22. ``pointvit_cli``: ``python -m adaptpoint_tpu_torch.main --cfg
+   cfgs/scanobjectnn/pointvit.yaml`` in a child on SyntheticCls at full
+   width for two epochs, then in this process ``mode=test`` (the run's OA),
+   ``mode=resume`` to a third epoch, ``mode: scanobjectnnc`` and
+   ``resume=True``; the launch counts of each.
 
-Then the card's name and power limit as nvidia-smi prints them, the
+Each phase prints its seconds as it ends (``phase_seconds``). Then the
+card's name and power limit as nvidia-smi prints them, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` as the
 last line. Any failed phase raises and the exit code is not 0. Without a
 CUDA device the script exits 2 and prints no result.
@@ -450,7 +476,9 @@ PATH_KERNELS = {
     "baselines": ("fps", "ball_group", "ball_group_bwd", "knn", "knn_tiled",
                   "gather_rows", "gather_rows_bwd"),
     "baselines_cli": ("fps", "knn", "knn_tiled", "gather_rows",
-                      "gather_rows_bwd")}
+                      "gather_rows_bwd"),
+    "pointvit": ("fps", "knn", "gather_rows"),
+    "pointvit_cli": ("fps", "knn", "gather_rows")}
 # names of the hand-written kernels as the profiler prints them
 OWN_KERNELS = ("fps_kernel", "ball_group_kernel", "ball_group_bwd_kernel",
                "ball_group_max_kernel", "ball_group_max_bwd_kernel",
@@ -1271,6 +1299,31 @@ KNN_TILED_PLAN_EDGES = [
     ("k = 32, N = 31, C = 3 (direct)", 2, 31, 65, 3, 32, "direct")]
 
 
+def knn_tiled_edge_inputs(g, b, n_, m_, c, kind):
+    """(support, query) of one tiled-kNN edge, drawn from ``g``."""
+    import torch
+    from adaptpoint_tpu_torch.ops import knn
+    if kind in ("at", "past"):
+        n_ = knn.knn_max_points(c) + (kind == "past")
+    if kind == "twice":
+        half = torch.randn((b, n_ // 2, c), generator=g, device=DEV)
+        support = half.repeat(1, 2, 1).contiguous()
+        support[:, ::7] = 0.0
+    elif kind == "runs":  # points 3i, 3i + 1, 3i + 2 equal (63-65 too)
+        third = torch.randn((b, -(-n_ // 3), c), generator=g, device=DEV)
+        support = third.repeat_interleave(3, 1)[:, :n_].contiguous()
+    else:
+        support = torch.randn((b, n_, c), generator=g, device=DEV)
+    h = min(m_ // 2, n_)  # queries equal to support points
+    query = torch.cat([support[:, :h], torch.randn(
+        (b, m_ - h, c), generator=g, device=DEV)], 1).contiguous()
+    if kind == "bad":  # never selected; the NaN query gets index 0
+        support[:, [3, 64, 500]] = float("nan")
+        support[:, [10, 700], 5] = float("inf")
+        query[:, -1] = float("nan")
+    return support, query
+
+
 def check_knn_tiled(gen, rows) -> None:
     """The tiled kNN instance (row 11 past knn_max_points(C)) against the
     plain version, index for index: the host's copy of its plan against
@@ -1352,25 +1405,7 @@ def check_knn_tiled(gen, rows) -> None:
     for (tag, b, n_, m_, c, k_, kind), g in (
             [(e, gen) for e in KNN_TILED_EDGES]
             + [(e, own) for e in KNN_TILED_PLAN_EDGES]):
-        if kind in ("at", "past"):
-            n_ = knn.knn_max_points(c) + (kind == "past")
-        if kind == "twice":
-            half = torch.randn((b, n_ // 2, c), generator=g, device=DEV)
-            support = half.repeat(1, 2, 1).contiguous()
-            support[:, ::7] = 0.0
-        elif kind == "runs":  # points 3i, 3i + 1, 3i + 2 equal (63-65 too)
-            third = torch.randn((b, -(-n_ // 3), c), generator=g,
-                                device=DEV)
-            support = third.repeat_interleave(3, 1)[:, :n_].contiguous()
-        else:
-            support = torch.randn((b, n_, c), generator=g, device=DEV)
-        h = min(m_ // 2, n_)  # queries equal to support points
-        query = torch.cat([support[:, :h], torch.randn(
-            (b, m_ - h, c), generator=g, device=DEV)], 1).contiguous()
-        if kind == "bad":  # never selected; the NaN query gets index 0
-            support[:, [3, 64, 500]] = float("nan")
-            support[:, [10, 700], 5] = float("inf")
-            query[:, -1] = float("nan")
+        support, query = knn_tiled_edge_inputs(g, b, n_, m_, c, kind)
         case(tag, k_, support, query, is_direct=kind == "direct")
     acc.update(bound_row(acc.pop("t_b"), acc.pop("t_o")))
     acc.update(max_abs_err=0.0, library_ms=None, dgcnn_shapes=shapes,
@@ -2222,11 +2257,181 @@ def check_sa_forward_shapes(gen) -> None:
                 f"winners {mismatched} decisive mismatched, {far} far")
 
 
-def check_mha_shape(gen, shape, scale, dtype=None) -> dict:
+_U = 2.0 ** -24  # the f32 unit roundoff
+LOG2E_F32 = 1.4426950408889634  # the kernels' kLog2e (an f32)
+
+
+def _gamma(n: int) -> float:
+    """Bound on the relative error of an f32 sum of ``n`` terms, any order."""
+    return n * _U / (1.0 - n * _U)
+
+
+def mha_kernel_scale(scale):
+    """``(scale32, c, pow2)``: the scale as the attention kernels take it (an
+    f32), their c = log2(e) / scale (an f32) and whether the scale is a
+    power of two (the backward then folds the division into V and the row
+    term)."""
+    import numpy as np
+    s32 = np.float32(scale)
+    return (float(s32), float(np.float32(LOG2E_F32) / s32),
+            abs(float(np.frexp(s32)[0])) == 0.5)
+
+
+def _b64(x):
+    """f64 rounded to f32 (monotone), then to bf16, held in f64."""
+    import torch
+    return x.float().to(torch.bfloat16).double()
+
+
+def _mma_bound(x, y):
+    """Bound on |f32 tensor-core chain - exact| for sum_d x_d y_d over the
+    last dims of x (h, N, d) and y (h, M, d), bf16 values held in f64: the
+    kernels' chain of m16n8k16 steps, 16 products each, added to the
+    accumulator in d order. A step's 16 exact products and the accumulator
+    are aligned to the largest of them and each kept to 24 bits (under
+    2^-23 of that largest lost a term, 34 u max for 17 terms), and the sum
+    is truncated to an f32 (2 u |sum|): the tensor cores' accumulation as
+    Fasi et al. (2021) measured it. (h, N, M) f64."""
+    import torch
+    bound = torch.zeros((*x.shape[:-1], y.shape[-2]), dtype=torch.float64,
+                        device=x.device)
+    acc = torch.zeros_like(bound)  # bounds |accumulator| before the step
+    xa, ya = x.abs(), y.abs()
+    for t in range(0, x.shape[-1], 16):
+        top = acc.clone()
+        for i in range(t, min(t + 16, x.shape[-1])):
+            top = torch.maximum(top, xa[..., i, None] * ya[..., None, :, i])
+        acc = acc + torch.matmul(xa[..., t:t + 16],
+                                 ya[..., t:t + 16].transpose(-1, -2))
+        bound += 34 * _U * top + 2 * _U * acc
+    return bound
+
+
+def _mha_ref_chunks(q, k, v, scale, do, saved, heads=8):
+    """dS as the attention backward forms it from the forward's saved
+    statistics, in f64, ``heads`` heads at a time: yields ``(sl, ds, delta,
+    row_sum, o32)``. ``saved`` is ``(o32, row_off, row_inv)`` of
+    ``attention.mha_cuda(..., for_backward=True)``.
+
+    The kernel (``csrc/attention.cu``) forms P = ex2(fma(s, c, row_off)) *
+    row_inv and dS = P (dP - z) / scale with z = bf16(do) . o32, from the
+    forward's row_off, row_inv and o32; the N-term sums of the softmax's
+    row sum and of the row term live in those three, so the dS here, formed
+    from them in f64, differs from the kernel's only by the kernel's
+    roundings of d-term sums and of a few operations an entry. ``delta`` is
+    that f32 gap's first-order worst case (u = 2^-24, gamma_n = n u / (1 -
+    n u)): the scores s and dP as the tensor cores' chains (``_mma_bound``,
+    e_s and e_dP); z's d products and sum, gamma_{d+1} sum_d |bdo o32|;
+    P's relative gap rp = ln2 (c e_s + u |x|) + 2^-22 + u (the fma's
+    rounding of x = s c + row_off, ex2.approx's 2^-22, the multiply by
+    row_inv), and 2^-126 row_inv absolute (ex2.approx flushes subnormals);
+    the subtraction, the multiply and the division, 3 u |dS|.
+
+    The saved statistics are held to the function here, each against its
+    own worst case (the kernels' N-term sums, gamma_N any order): ``row_sum``
+    is max_i |sum_j P_ij - 1| over 2 (gamma_N + max_j rp_ij + ln2 u
+    (|row_off| + 2^8) + 2^-21 + 2 u) (the sum of N exps, the rescaling
+    exps and their arguments, the reciprocal); ``o32`` is max |o32 - P
+    bf16(v)| over 2 ((2^-18 + 4 gamma_{2N}) (|P| |bf16(v)|) + (rp P)
+    |bf16(v)| + u |o32|) (P carried to 16 bits as bf16(P) + bf16(P -
+    bf16(P)), two chains of N products). Each must be <= 1."""
+    import torch
+    s32, c, pow2 = mha_kernel_scale(scale)
+    o32, row_off, row_inv = (t.double() for t in saved)
+    bh, n, d = q.shape
+    gd1 = _gamma(d + 1)
+    ln2 = 0.6931471805599453
+    div = 1.0 if pow2 else s32
+    vmul = 1.0 / s32 if pow2 else 1.0
+    for h0 in range(0, bh, heads):
+        sl = slice(h0, h0 + heads)
+        bq, bk, bv, bdo = (_b64(t[sl].double()) for t in (q, k, v, do))
+        bv = bv * vmul  # exact: a power of two
+        off, inv = row_off[sl, :, None], row_inv[sl, :, None]
+        o = o32[sl]
+        s = torch.matmul(bq, bk.transpose(1, 2))
+        x = s * c + off
+        p = torch.exp2(x) * inv
+        rp = ln2 * (c * _mma_bound(bq, bk) + _U * x.abs()) + 2.0 ** -22 + _U
+        dp = torch.matmul(bdo, bv.transpose(1, 2))
+        z = (bdo * o).sum(-1, keepdim=True) * vmul
+        hz = (bdo.abs() * o.abs()).sum(-1, keepdim=True) * vmul
+        e = dp - z
+        ds = p * e / div
+        delta = ((p * (_mma_bound(bdo, bv) + gd1 * hz)
+                  + 2.0 ** -126 * inv * e.abs())
+                 / div + (rp + 3 * _U) * ds.abs())
+        eps_row = 2 * (_gamma(n) + rp.amax(-1, keepdim=True)
+                       + ln2 * _U * (off.abs() + 2.0 ** 8) + 2.0 ** -21
+                       + 2 * _U)
+        row_sum = float(((p.sum(-1, keepdim=True) - 1).abs()
+                         / eps_row).max())
+        bvu = _b64(v[sl].double())  # o32 is P v, unscaled
+        o_ref = torch.matmul(p, bvu)
+        o_bound = 2 * ((2.0 ** -18 + 4 * _gamma(2 * n))
+                       * torch.matmul(p, bvu.abs())
+                       + torch.matmul(rp * p, bvu.abs()) + _U * o.abs())
+        yield sl, ds, delta, row_sum, float(((o - o_ref).abs()
+                                             / o_bound).max())
+
+
+def mha_stats_reference(q, k, v, scale, do, saved) -> dict:
+    """What row 10's dq and dk are held to: ``dq`` = bf16(dS) bf16(k) and
+    ``dk`` = bf16(dS)^T bf16(q) (f64) from the dS of ``_mha_ref_chunks``,
+    and ``allow_dq``, ``allow_dk``: what the bf16 roundings of dS can move
+    the kernel's by, where its f32 dS, within ``delta`` of this one, may
+    round the other way. An entry counts (``flips``) where bf16(dS - delta)
+    != bf16(dS + delta); its weight is the larger distance from bf16(dS) to
+    either, ``allow_dq[i, c] = sum_j w_ij |bf16(k_jc)|``, ``allow_dk[j, c]
+    = sum_i w_ij |bf16(q_ic)|``; entries no flip reaches get 0. Also the
+    saved statistics' two ratios (``row_sum``, ``o32``; each <= 1 when
+    they are the function's)."""
+    import torch
+    dq = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    dk, allow_dq, allow_dk = (torch.empty_like(dq) for _ in range(3))
+    flips, row_sum, o32 = 0, 0.0, 0.0
+    for sl, ds, delta, rs, oe in _mha_ref_chunks(q, k, v, scale, do,
+                                                  saved):
+        bq, bk = _b64(q[sl].double()), _b64(k[sl].double())
+        r, lo, hi = _b64(ds), _b64(ds - delta), _b64(ds + delta)
+        w = torch.maximum(hi - r, r - lo)
+        flips += int((hi != lo).sum())
+        dq[sl] = torch.matmul(r, bk)
+        dk[sl] = torch.matmul(r.transpose(1, 2), bq)
+        allow_dq[sl] = torch.matmul(w, bk.abs())
+        allow_dk[sl] = torch.matmul(w.transpose(1, 2), bq.abs())
+        row_sum, o32 = max(row_sum, rs), max(o32, oe)
+    return dict(dq=dq, dk=dk, allow_dq=allow_dq, allow_dk=allow_dk,
+                flips=flips, row_sum=row_sum, o32=o32)
+
+
+def mha_scaled(a, b_, allow=None):
+    """``(scaled, raw)``: the largest ``|a - b| / (1 + |b|)`` once each
+    entry's flip allowance is taken off (what the check holds to its
+    tolerance), and without it."""
+    d = (a.float() - b_.float()).abs()
+    den = 1.0 + b_.float().abs()
+    raw = float((d / den).max())
+    if allow is None:
+        return raw, raw
+    return float(((d - allow).clamp(min=0.0) / den).max()), raw
+
+
+def check_mha_shape(gen, shape, scale, dtype=None, case=None,
+                    quiet=False) -> dict:
     """The flash attention kernels (rows 9, 10) at one shape and input type
-    (default f32) against their plain versions within TOL_MHA, directly and
-    through autograd, two backward runs bit for bit equal; returns the
-    errors."""
+    (default f32), directly and through autograd, two backward runs bit for
+    bit equal. out and dv against their plain versions within TOL_MHA * (1 +
+    |plain|); dq and dk within that of bf16(dS) bf16(k) and bf16(dS)^T
+    bf16(q) from the dS the kernel forms from its forward's saved
+    statistics, plus what the bf16 roundings of dS may move them by
+    (``mha_stats_reference``: each dS entry within the derived f32 gap of a
+    rounding midpoint, one bf16 ulp of it times |bf16(k)| for dq,
+    |bf16(q)| for dk), the saved statistics held to the function
+    (``row_sum`` and ``o32`` <= 1). Gradients stored as bf16 add 2^-8 for
+    their storage. dq and dk against the plain version are reported, not
+    held. Returns the errors, the flips the bound allowed and the entries
+    that needed them; raises where any is outside."""
     import torch
     from adaptpoint_tpu_torch import ops
     from adaptpoint_tpu_torch.ops import attention
@@ -2243,70 +2448,187 @@ def check_mha_shape(gen, shape, scale, dtype=None) -> dict:
                                do)
     ref = attention.mha_plain(q, k, v, scale)
     ref_grads = attention.mha_bwd_plain(q, k, v, scale, do)
+    held = mha_stats_reference(q, k, v, scale, do, saved)
     torch.cuda.synchronize()
-    errs, worst, ok = {}, 0.0, True
-    pairs = [("out", out, ref)]
-    for name, a, b_, c in zip(("dq", "dk", "dv"), grads, ref_grads, auto):
-        pairs += [(name, a, b_), ("autograd_" + name, c, b_)]
-    for name, a, b_ in pairs:
-        if a.dtype != b_.dtype or a.shape != b_.shape:
+    against = {"out": ref, "dv": ref_grads[2], "dq": held["dq"],
+               "dk": held["dk"]}
+    allow = {"dq": held["allow_dq"], "dk": held["allow_dk"]}
+    errs, scaled_errs, raw_errs, used, over, ok = {}, {}, {}, {}, {}, True
+    pairs = [("out", out)]
+    for name, a, c in zip(("dq", "dk", "dv"), grads, auto):
+        pairs += [(name, a), ("autograd_" + name, c)]
+    for name, a in pairs:
+        key = name.replace("autograd_", "")
+        b_ = against[key]
+        if a.dtype != (torch.float32 if name == "out" else dtype) \
+                or a.shape != b_.shape:
             ok = False
-        a, b_ = a.float(), b_.float()
-        d = (a - b_).abs()
-        errs[name] = float(d.max())
-        scaled = float((d / (1.0 + b_.abs())).max())
-        worst = max(worst, scaled)
         tol = TOL_MHA if dtype == torch.float32 or name == "out" \
             else TOL_MHA + 2.0 ** -8  # a bf16 gradient: one more ulp
-        ok = ok and scaled <= tol and bool(torch.isfinite(a).all())
+        errs[name] = float((a.float() - b_.float()).abs().max())
+        scaled_errs[name], raw_errs[name] = mha_scaled(a, b_, allow.get(key))
+        if key in allow:  # entries only the flips' allowance holds
+            den = 1.0 + b_.abs()
+            d = (a.double() - b_).abs() / den
+            used[name] = int((d > tol).sum())
+            over[name] = float((allow[key] / (tol * den)).max())
+        ok = (ok and scaled_errs[name] <= tol
+              and bool(torch.isfinite(a).all()))
+    stats = {"row_sum": held["row_sum"], "o32": held["o32"]}
+    ok = ok and max(stats.values()) <= 1.0
+    vs_plain = {name: mha_scaled(a, b_)[0] for name, a, b_ in
+                zip(("dq", "dk"), grads, ref_grads)}
     repeat = all(torch.equal(a, b_) for a, b_ in zip(grads, again))
-    emit("kernel", name="mha", shape=list(shape), scale=scale,
-         dtype=str(dtype), max_abs_err=errs, max_scaled_err=worst,
-         out_absmax=float(ref.abs().max()), backward_repeats=repeat,
-         tolerance=f"|kernel - plain| <= {TOL_MHA} * (1 + |plain|) "
-                   f"(+ 2^-8 for gradients stored as bf16); two "
-                   f"backward runs bit for bit equal")
+    rec = dict(name="mha", case=case, shape=list(shape), scale=scale,
+               dtype=str(dtype), max_abs_err=errs,
+               max_scaled_err=max(scaled_errs.values()),
+               scaled_err=scaled_errs, scaled_err_without_flips=raw_errs,
+               dq_dk_vs_plain_scaled=vs_plain, saved_statistics=stats,
+               flips_allowed=held["flips"], entries_needing_flips=used,
+               max_allowance={"dq": float(allow["dq"].max()),
+                              "dk": float(allow["dk"].max())},
+               allowance_over_tolerance=over,
+               out_absmax=float(ref.abs().max()), backward_repeats=repeat)
+    if not quiet or not ok or not repeat:
+        emit("kernel", **rec,
+             tolerance=f"out, dv: |kernel - plain| <= {TOL_MHA} * (1 + "
+                       f"|plain|); dq, dk: |kernel - ref| <= that + the "
+                       f"flips' allowance, ref from the saved statistics "
+                       f"(mha_stats_reference), row_sum and o32 <= 1; + "
+                       f"2^-8 for gradients stored as bf16; two backward "
+                       f"runs bit for bit equal")
     if not ok or not repeat:
         raise AssertionError(f"attention kernels disagree at {shape} "
-                             f"{dtype}: {errs}, backward repeats: "
+                             f"{dtype} ({case}): {scaled_errs}, saved "
+                             f"statistics {stats}, backward repeats: "
                              f"{repeat}")
-    return errs
+    return rec
 
 
-def check_attention(gen, rows) -> None:
-    """The flash attention kernels (rows 9, 10) against their plain versions
-    within TOL_MHA, directly and through autograd, at both input types:
-    every head dim at N = 1, below a tile (40), at the tiles' edges (127,
-    128, 129) and at 2047, the earlier ragged shapes, and the mask head's
-    (128, 2048, 16); two backward runs bit for bit equal (dq is summed over
-    the key blocks in a fixed order, no atomics). Times at the mask head's
-    shape for bf16 inputs, what the bf16 policy's ``AnchorSelfAttention``
-    passes and the row's ``ms``, and for f32 beside them, with
-    ``scaled_dot_product_attention`` on the same bf16 inputs in the same run.
-    Adds rows "mha" and "mha_bwd" to ``rows``."""
+# the shapes the attention check holds, in its order: every head dim at
+# N = 1, below a tile (40), at the tiles' edges (127, 128, 129) and at 2047,
+# then the earlier ragged shapes; a power-of-two scale folds the backward's
+# division into the product, sqrt(32) takes the division
+MHA_SHAPES = ([((2, n, d), scale) for d, scale in ((16, 4.0),
+                                                    (32, 32 ** 0.5),
+                                                    (64, 8.0))
+               for n in (1, 40, 127, 128, 129, 2047)]
+              + [((3, 100, 32), 32 ** 0.5), ((2, 65, 64), 8.0),
+                 ((2, 520, 16), 4.0), ((4, 1024, 16), 3.0)])
+# fresh draws of every shape and input type, a generator of its own each
+# (ROADMAP C.11)
+MHA_FRESH_SEEDS = (2101, 2102, 2103, 2104, 2105, 2106, 2107, 2108)
+# the draw of ROADMAP C.11: a whole run whose tiled-kNN check drew seven more
+# edges from the kernel phase's shared generator before this check (the
+# C = 2100 edge came later, from the edges' own generator) failed this
+# check's (3, 100, 32) f32 case before it counted the flips
+C11_PLAN_EDGES = [e for e in KNN_TILED_PLAN_EDGES if e[4] != 2100]
+
+
+def c11_generator(entry_state):
+    """The kernel phase's shared generator as C.11's run handed it to
+    the attention check's (3, 100, 32) f32 case: ``entry_state`` (this
+    check's entry), advanced by the seven edges' draws and by the draws of
+    the f32 cases before that one."""
+    import torch
+    g = torch.Generator(device=DEV)
+    g.set_state(entry_state)
+    for _, b, n_, m_, c, _, kind in C11_PLAN_EDGES:
+        knn_tiled_edge_inputs(g, b, n_, m_, c, kind)
+    for shape, _ in MHA_SHAPES[:MHA_SHAPES.index(((3, 100, 32),
+                                                 32 ** 0.5))]:
+        for _ in range(4):
+            torch.randn(shape, generator=g, device=DEV)
+    return g
+
+
+def check_attention(gen, rows, replay_c11: bool = False) -> None:
+    """The flash attention kernels (rows 9, 10) as ``check_mha_shape`` holds
+    them, directly and through autograd, at both input
+    types: MHA_SHAPES and the mask head's (128, 2048, 16), first on the
+    shared generator's draws, then on a fresh draw of every shape and type
+    from each of MHA_FRESH_SEEDS; with ``replay_c11`` (the whole kernel
+    phase's generator) also C.11's draw, the case that failed
+    before the bound counted the flips. Two backward runs bit for bit
+    equal (dq is summed over the key blocks in a fixed order, no atomics).
+    Times at the mask head's shape for bf16 inputs, what the bf16 policy's
+    ``AnchorSelfAttention`` passes and the row's ``ms``, and for f32 beside
+    them, with ``scaled_dot_product_attention`` on the same bf16 inputs in
+    the same run. Adds rows "mha" and "mha_bwd" to ``rows``."""
     import torch
     import torch.nn.functional as F
     from adaptpoint_tpu_torch.ops import attention
+
+    entry = gen.get_state()
 
     def mha_inputs(shape, dtype=torch.float32):
         return [torch.randn(shape, generator=gen, device=DEV).to(dtype)
                 for _ in range(4)]
 
     def mha_check(shape, scale, dtype=torch.float32):
-        return check_mha_shape(gen, shape, scale, dtype)
+        return check_mha_shape(gen, shape, scale, dtype)["max_abs_err"]
 
-    # a power-of-two scale folds the backward's division into the product;
-    # sqrt(32) takes the division
     for dtype in (torch.float32, torch.bfloat16):
-        for d, scale in ((16, 4.0), (32, 32 ** 0.5), (64, 8.0)):
-            for n in (1, 40, 127, 128, 129, 2047):
-                mha_check((2, n, d), scale, dtype)
-        for shape, scale in (((3, 100, 32), 32 ** 0.5), ((2, 65, 64), 8.0),
-                             ((2, 520, 16), 4.0), ((4, 1024, 16), 3.0)):
+        for shape, scale in MHA_SHAPES:
             mha_check(shape, scale, dtype)
     errs = {dt: mha_check(MHA_SHAPE, MHA_SCALE, dt)
             for dt in (torch.float32, torch.bfloat16)}
     torch.cuda.empty_cache()  # the plain version's (BH, N, N) tensors
+    c11 = None
+    if replay_c11:
+        c11 = check_mha_shape(c11_generator(entry), (3, 100, 32),
+                               32 ** 0.5, torch.float32,
+                               case="ROADMAP C.11's draw")
+    cases = {}
+    for seed in MHA_FRESH_SEEDS:
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape, scale in MHA_SHAPES + [(MHA_SHAPE, MHA_SCALE)]:
+                r = check_mha_shape(g, shape, scale, dtype,
+                                    case=f"fresh draw, seed {seed}",
+                                    quiet=True)
+                c = cases.setdefault((tuple(shape), str(dtype)), dict(
+                    shape=list(shape), dtype=str(dtype), draws=0,
+                    max_scaled_err=0.0, max_scaled_err_without_flips=0.0,
+                    flips_allowed=0, entries_needing_flips=0,
+                    max_allowance=0.0, allowance_over_tolerance=0.0,
+                    dq_dk_vs_plain_scaled=0.0, saved_statistics=0.0))
+                c["draws"] += 1
+                for key, got in (
+                        ("max_scaled_err", r["max_scaled_err"]),
+                        ("max_scaled_err_without_flips",
+                         max(r["scaled_err_without_flips"].values())),
+                        ("max_allowance", max(r["max_allowance"].values())),
+                        ("allowance_over_tolerance",
+                         max(r["allowance_over_tolerance"].values())),
+                        ("dq_dk_vs_plain_scaled",
+                         max(r["dq_dk_vs_plain_scaled"].values())),
+                        ("saved_statistics",
+                         max(r["saved_statistics"].values()))):
+                    c[key] = max(c[key], got)
+                c["flips_allowed"] += r["flips_allowed"]
+                c["entries_needing_flips"] += sum(
+                    r["entries_needing_flips"].values())
+        torch.cuda.empty_cache()
+    fresh = dict(seeds=list(MHA_FRESH_SEEDS), cases=list(cases.values()))
+    for dt in ("torch.float32", "torch.bfloat16"):
+        sub = [c for c in cases.values() if c["dtype"] == dt]
+        fresh[dt.split(".")[1]] = dict(
+            {key: max(c[key] for c in sub) for key in (
+                "max_scaled_err", "max_scaled_err_without_flips",
+                "max_allowance", "allowance_over_tolerance",
+                "dq_dk_vs_plain_scaled", "saved_statistics")},
+            flips_allowed=sum(c["flips_allowed"] for c in sub),
+            entries_needing_flips=sum(c["entries_needing_flips"]
+                                      for c in sub))
+    emit("attention_fresh_draws", **fresh,
+         c11_replay=None if c11 is None else {
+             k: c11[k] for k in ("scaled_err", "scaled_err_without_flips",
+                                  "max_abs_err", "flips_allowed",
+                                  "entries_needing_flips", "max_allowance",
+                                  "allowance_over_tolerance",
+                                  "dq_dk_vs_plain_scaled",
+                                  "saved_statistics")})
 
     bh, n, d = MHA_SHAPE
     q, k, v, do = mha_inputs(MHA_SHAPE)
@@ -2362,7 +2684,11 @@ def check_attention(gen, rows) -> None:
             lib_out, (ql, kl, vl), dob, retain_graph=True)),
         **bound_row(t_bytes, max(10 * bh * n * n * d / PEAK_BF16, t_exp)),
         bound_parts_ms={"bytes": 1e3 * t_bytes, "exp": 1e3 * t_exp,
-                        "tensor_core": 1e3 * 10 * bh * n * n * d / PEAK_BF16})
+                        "tensor_core": 1e3 * 10 * bh * n * n * d / PEAK_BF16},
+        fresh_draws={k: fresh[k] for k in ("seeds", "float32", "bfloat16")},
+        c11_replay=None if c11 is None else {
+            k: c11[k] for k in ("scaled_err", "scaled_err_without_flips",
+                                 "flips_allowed")})
     emit("attention_times", mha=rows["mha"], mha_bwd=rows["mha_bwd"])
     del q, k, v, do, qb, kb, vb, ql, kl, vl, dob, lib_out, saved, saved32
     torch.cuda.empty_cache()
@@ -2458,7 +2784,7 @@ def phase_adapt_kernels(gen, rows) -> None:
     acc.update(bound_row(acc.pop("t_b"), acc.pop("t_o")))
     rows["knn"] = acc
 
-    check_attention(gen, rows)
+    check_attention(gen, rows, replay_c11=True)
 
     # ---- the max-pooled ball group, forward and backward, at the four
     # grouper shapes with f32 and with bf16 features (the bf16 policy's, as
@@ -5917,7 +6243,8 @@ def phase_modelnet_kernels(gen) -> dict:
     out["knn"] = row
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
-        errs[str(dt)] = check_mha_shape(gen, MHA_SHAPE_1024, MHA_SCALE, dt)
+        errs[str(dt)] = check_mha_shape(gen, MHA_SHAPE_1024, MHA_SCALE,
+                                        dt)["max_abs_err"]
     # times for the bf16 inputs the policy passes
     from adaptpoint_tpu_torch.ops import attention
     q, k_, v, do = [torch.randn(MHA_SHAPE_1024, generator=gen, device=DEV)
@@ -7284,6 +7611,53 @@ def phase_seg(gen, rows):
     return launches
 
 
+def step_record(net, loss, seen) -> dict:
+    """A first train step's loss, logits (``seen``, a forward hook's), and
+    the net's gradients, parameters and buffers after it, float64 on the
+    host, for ``step_disagreement``."""
+    return {"loss": float(loss),
+            "logits": seen["logits"].double().cpu(),
+            "grads": {k: p.grad.double().cpu()
+                      for k, p in net.named_parameters()},
+            "params": {k: p.detach().double().cpu()
+                       for k, p in net.named_parameters()},
+            "buffers": {k: b_.double().cpu()
+                        for k, b_ in net.named_buffers()}}
+
+
+def head_dropout_masks(model) -> list:
+    """Seeded keep-masks (B rows) for the ClsHead's dropout layers."""
+    import torch
+    from adaptpoint_tpu_torch.models.layers.blocks import Dropout
+    head = list(model.prediction.head)
+    return [(torch.rand((B, head[i - 1].conv.out_features),
+                        generator=torch.Generator().manual_seed(5 + i))
+             >= head[i].p).to(DEV)
+            for i in range(1, len(head)) if isinstance(head[i], Dropout)]
+
+
+def cls_step_of(net, cfg, batch, cols, lr, masks):
+    """``(one, seen)``: ``one()`` runs one classifier train step of ``net``
+    (``make_train_step``) on ``batch`` with the resampling columns ``cols``
+    and the head's dropout ``masks`` and returns its loss; ``seen["logits"]``
+    holds the step's logits."""
+    from adaptpoint_tpu_torch.engine import (TrainState, build_train_tools,
+                                             make_train_step)
+    crit, opt, _ = build_train_tools(cfg, net)
+    step = make_train_step(net, opt, crit, cfg)
+    st = TrainState(net, opt)
+    seen = {}
+
+    def one():
+        hook = net.register_forward_hook(
+            lambda _m, _i, out: seen.__setitem__("logits", out.detach()))
+        _, loss_, _ = step(st, batch, cols, lr, dropout_mask=masks)
+        hook.remove()
+        return loss_
+
+    return one, seen
+
+
 def seg_big_model(name, batch, eval_batch, lr) -> None:
     """``cfgs/s3dis/<name>`` (PointNeXt-L or -XL) at full width with seeded
     weights on the seg phase's first train batch and eval batch: one train
@@ -7324,15 +7698,6 @@ def seg_big_model(name, batch, eval_batch, lr) -> None:
 
         return one, seen
 
-    def record(net, loss_, seen):
-        return {"loss": float(loss_),
-                "logits": seen["logits"].double().cpu(),
-                "grads": {k: p.grad.double().cpu()
-                          for k, p in net.named_parameters()},
-                "params": {k: p.detach().double().cpu()
-                           for k, p in net.named_parameters()},
-                "buffers": {k: b_.double().cpu()
-                            for k, b_ in net.named_buffers()}}
 
     one, seen = step_of(model)
     torch.cuda.synchronize()
@@ -7343,10 +7708,10 @@ def seg_big_model(name, batch, eval_batch, lr) -> None:
     peak_train = torch.cuda.max_memory_allocated() / 1e9
     launches = {k: v - before[k] for k, v in ops.launch_counts().items()
                 if v - before[k]}
-    got = record(model, loss, seen)
+    got = step_record(model, loss, seen)
     plain_one, plain_seen = step_of(twin)
     with plain_ops():
-        ref = record(twin, plain_one(), plain_seen)
+        ref = step_record(twin, plain_one(), plain_seen)
     w, ok = step_disagreement(got, ref, TOL_STEP_PLAIN, lr)
     del ref, got
     model.eval()
@@ -7433,12 +7798,9 @@ def phase_baselines(gen, rows):
     import numpy as np
     import torch
     from adaptpoint_tpu_torch import ops
-    from adaptpoint_tpu_torch.engine import (TrainState, build_train_tools,
-                                             make_train_step)
     from adaptpoint_tpu_torch.models import build_model_from_cfg
     from adaptpoint_tpu_torch.models.backbone.dgcnn import (DGCNN, GraphTape,
                                                             graph_tape)
-    from adaptpoint_tpu_torch.models.layers.blocks import Dropout
     from adaptpoint_tpu_torch.utils import EasyConfig
 
     class Agreeing(GraphTape):
@@ -7477,37 +7839,11 @@ def phase_baselines(gen, rows):
         model = build_model_from_cfg(cfg.model, seed=4)
         twin = build_model_from_cfg(cfg.model)
         twin.load_state_dict(model.state_dict())
-        head = list(model.prediction.head)
-        masks = [(torch.rand((B, head[i - 1].conv.out_features),
-                             generator=torch.Generator().manual_seed(5 + i))
-                  >= head[i].p).to(DEV)
-                 for i in range(1, len(head)) if isinstance(head[i], Dropout)]
+        masks = head_dropout_masks(model)
 
         def step_of(net):
-            crit, opt, _ = build_train_tools(cfg, net)
-            step = make_train_step(net, opt, crit, cfg)
-            st = TrainState(net, opt)
-            seen = {}
+            return cls_step_of(net, cfg, batch, cols, lr, masks)
 
-            def one():
-                hook = net.register_forward_hook(
-                    lambda _m, _i, out: seen.__setitem__("logits",
-                                                         out.detach()))
-                _, loss_, _ = step(st, batch, cols, lr, dropout_mask=masks)
-                hook.remove()
-                return loss_
-
-            return one, seen
-
-        def record(net, loss_, seen):
-            return {"loss": float(loss_),
-                    "logits": seen["logits"].double().cpu(),
-                    "grads": {k: p.grad.double().cpu()
-                              for k, p in net.named_parameters()},
-                    "params": {k: p.detach().double().cpu()
-                               for k, p in net.named_parameters()},
-                    "buffers": {k: b_.double().cpu()
-                                for k, b_ in net.named_buffers()}}
 
         in_ch = int(cfg.model.encoder_args.in_channels)
         pts = batch["x"][:, :N0]
@@ -7533,13 +7869,13 @@ def phase_baselines(gen, rows):
         if name == "scanobjectnn/dgcnn.yaml":
             xyz_graph = tape.graphs[0]
         model.train()
-        got = record(model, loss, seen)
+        got = step_record(model, loss, seen)
         # ---- the same through the plain versions on the card
         plain_one, plain_seen = step_of(twin)
         shared = Agreeing(tape.graphs)
         tape_on(twin, shared)
         with plain_ops():
-            ref = record(twin, plain_one(), plain_seen)
+            ref = step_record(twin, plain_one(), plain_seen)
         w, ok = step_disagreement(got, ref, TOL_STEP_PLAIN, lr)
         del ref, got
         twin.load_state_dict(model.state_dict())
@@ -7602,6 +7938,29 @@ def phase_baselines(gen, rows):
     return total
 
 
+def in_process_cli(argv):
+    """``adaptpoint_tpu_torch.main.main(argv)`` in this process, its stdout
+    swallowed and the root logger's handlers put back after; returns its
+    result and the kernel launches it made."""
+    import logging
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.main import main as cli_main
+    root_log = logging.getLogger()
+    saved = (root_log.level, list(root_log.handlers))
+    ops.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            result = cli_main(argv)
+    finally:
+        for handler in list(root_log.handlers):
+            root_log.removeHandler(handler)
+            handler.close()
+        root_log.setLevel(saved[0])
+        for handler in saved[1]:
+            root_log.addHandler(handler)
+    return result, nonzero_counts(ops.launch_counts())
+
+
 def phase_baselines_cli():
     """The baselines through the CLI: ``python -m adaptpoint_tpu_torch.main
     --cfg cfgs/scanobjectnn/dgcnn.yaml`` in a child process on SyntheticCls
@@ -7613,12 +7972,9 @@ def phase_baselines_cli():
     5 splits and its mCE. Returns the launch counts of both runs."""
     import glob
     import importlib.util
-    import logging
     import re
     import numpy as np
-    from adaptpoint_tpu_torch import ops
     from adaptpoint_tpu_torch.datasets import modelnet
-    from adaptpoint_tpu_torch.main import main as cli_main
     root = os.path.join(ROOT, "build", "chip_smoke", "baselines_cli")
     t0 = time.perf_counter()
     out = subprocess.run(
@@ -7652,31 +8008,19 @@ def phase_baselines_cli():
     if not has_h5py:
         modelnet.load_h5_cached = lambda path: arrays[
             os.path.splitext(os.path.basename(path))[0]]
-    root_log = logging.getLogger()
-    saved = (root_log.level, list(root_log.handlers))
-    ops.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            mn_best = cli_main([
-                "--cfg", os.path.join(ROOT, "cfgs", "modelnetc",
-                                      "dgcnn.yaml"),
-                "dataset.common.NAME=SyntheticCls",
-                f"dataset.common.num_points={N0}",
-                "dataset.common.num_classes=40",
-                f"dataset.common.size={BL_MN_SIZE}", "epochs=1", "seed=1",
-                "val_batch_size=64", f"modelnet_c_dir={tree}",
-                f"root_dir={root}"])
+        mn_best, mn_counts = in_process_cli([
+            "--cfg", os.path.join(ROOT, "cfgs", "modelnetc", "dgcnn.yaml"),
+            "dataset.common.NAME=SyntheticCls",
+            f"dataset.common.num_points={N0}",
+            "dataset.common.num_classes=40",
+            f"dataset.common.size={BL_MN_SIZE}", "epochs=1", "seed=1",
+            "val_batch_size=64", f"modelnet_c_dir={tree}",
+            f"root_dir={root}"])
     finally:
         modelnet.load_h5_cached = read
-        for handler in list(root_log.handlers):
-            root_log.removeHandler(handler)
-            handler.close()
-        root_log.setLevel(saved[0])
-        for handler in saved[1]:
-            root_log.addHandler(handler)
     mn_seconds = time.perf_counter() - t0
-    mn_counts = ops.launch_counts()
     run_dir = sorted(glob.glob(os.path.join(root, "modelnetc", "*")),
                      key=os.path.getmtime)[-1]
     report = open(os.path.join(run_dir, "outcorruption.txt")).read()
@@ -7687,8 +8031,7 @@ def phase_baselines_cli():
                                           launches=sonn_counts),
          modelnetc_dgcnn=dict(seconds=mn_seconds, best_val=mn_best,
                               sweep_splits=len(split_lines),
-                              aggregate=agg, launches=nonzero_counts(
-                                  mn_counts),
+                              aggregate=agg, launches=mn_counts,
                               h5_read="h5py" if has_h5py else
                               "replaced: arrays made by chip_smoke.py"),
          run_dir=os.path.relpath(run_dir, ROOT))
@@ -7703,6 +8046,391 @@ def phase_baselines_cli():
                              f"splits, aggregate {agg}, best {mn_best}")
     return {k: sonn_counts.get(k, 0) + mn_counts.get(k, 0)
             for k in set(sonn_counts) | set(mn_counts)}
+
+
+# PointViT (cfgs/scanobjectnn/pointvit.yaml): the kernel launches of one
+# train step (B = 32, 2048 -> 1200 -> 1024: FPS and the gather of the
+# resampling, then the patch embed's FPS 1024 -> 256, the centers' and the
+# neighbours' gathers and the k = 32 graph) and of one eval forward
+VIT_CFG = "scanobjectnn/pointvit.yaml"
+VIT_LAUNCHES = ({"fps": 2, "gather_rows": 3, "knn": 1},
+                {"fps": 1, "gather_rows": 2, "knn": 1})
+VIT_EVAL_B = 64
+# the decoders, P3Embed, KMeansEmbed and ViTGraph at a small shape (B, N,
+# width), against their plain versions: outputs (rtol, atol), gradients'
+# relative 2-norm (f32; under the bf16 policy a bf16 rounding may flip)
+VIT_SMALL = (4, 512, 64)
+TOL_VIT_SMALL = {"out": (1e-5, 1e-5), "grad_l2": 1e-4, "grad_l2_bf16": 1e-2}
+# pointvit_cli: SyntheticCls clouds a split (8 steps at B = 32)
+VIT_CLI_SIZE = 256
+
+
+def vit_kernel_rows(gen, pos32, pos64):
+    """Rows 1, 11 and 14 at PointViT's shapes against their plain versions:
+    FPS 1024 -> 256 and the k = 32 graph of the 1024 points around the 256
+    centers (C = 3, the warp variant) on the step's resampled clouds (B =
+    32) and the eval batch (B = 64), exact, timed beside their plain
+    versions and bounds; the gathers of the centers (B, 256, 3) and of the
+    neighbours' features (B, 256, 32, 4) on the step's indices
+    (``check_gather``). Returns ``{kernel: [rows]}``."""
+    import torch
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.ops import fpsample as fps, knn
+    out = {"fps": [], "knn": [], "gather_rows": []}
+    g, k = 256, 32
+    idx32 = nidx32 = None
+    for pos in (pos32, pos64):
+        b_, n = pos.shape[:2]
+        idx = fps.furthest_point_sample_cuda(pos, g)
+        ref = fps.furthest_point_sample_plain(pos, g)
+        centers = ops.index_points(pos, idx).contiguous()
+        nidx = knn.knn_idx_cuda(k, pos, centers)
+        nref = knn.knn_idx_plain(k, pos, centers)
+        torch.cuda.synchronize()
+        mism = (int((idx != ref).sum()), int((nidx != nref).sum()))
+        emit("kernel", name="pointvit_fps_knn", shape=[b_, n, g, 3, k],
+             knn_variant=list(knn.knn_variant(k, n, 3)),
+             mismatches={"fps": mism[0], "knn": mism[1]}, tolerance="exact")
+        if any(mism):
+            raise AssertionError(f"PointViT's FPS / kNN disagree at B={b_}:"
+                                 f" {mism}")
+        out["fps"].append(dict(
+            shape=[b_, n, g], max_abs_err=0.0,
+            ms=cuda_ms(lambda: fps.furthest_point_sample_cuda(pos, g)),
+            plain_ms=cuda_ms(lambda: fps.furthest_point_sample_plain(pos, g),
+                             50.0),
+            **device_host(lambda: fps.furthest_point_sample_cuda(pos, g)),
+            **bound_row((b_ * n * 12 + b_ * g * 4) / PEAK_BYTES,
+                        (g - 1) * b_ * n * 10 / PEAK_F32)))
+        row = dict(
+            shape=[b_, n, g, 3, k], max_abs_err=0.0,
+            variant=list(knn.knn_variant(k, n, 3)),
+            ms=cuda_ms(lambda: knn.knn_idx_cuda(k, pos, centers)),
+            plain_ms=cuda_ms(lambda: knn.knn_idx_plain(k, pos, centers),
+                             50.0),
+            **device_host(lambda: knn.knn_idx_cuda(k, pos, centers)),
+            **bound_row((b_ * (n + g) * 12 + b_ * g * k * 4) / PEAK_BYTES,
+                        b_ * g * n * 9 / PEAK_F32))
+        # a stand-in, not a library call for the same function: other
+        # arithmetic (cdist) and its own tie rule
+        row["stand_in_ms"] = cuda_ms(lambda: torch.topk(
+            torch.cdist(centers, pos), k, dim=-1, largest=False))
+        out["knn"].append(row)
+        if idx32 is None:
+            idx32, nidx32 = idx, nidx
+    for tag, c, ix in (("PointViT centers", 3, idx32),
+                       ("PointViT neighbours' features", 4, nidx32)):
+        f_row, _ = check_gather(gen, tag, pos32.shape[1], c, ix,
+                                dtypes=("float32",), min_total_ms=100.0)
+        out["gather_rows"].append(f_row)
+    emit("pointvit_kernels", **out)
+    return out
+
+
+def vit_module_checks(gen) -> dict:
+    """PointViTDecoder (both samplers; and under the bf16 policy, whose
+    bf16 FP features take the 3-NN weighted gather, rows 12 and 13),
+    PointViTPartDecoder, P3Embed, KMeansEmbed and ViTGraph (k-means
+    embedding, 6 feature channels) at VIT_SMALL, seeded: one train-mode
+    forward and backward on the card against the same through the plain
+    versions on the card, within TOL_VIT_SMALL; the launches of each and
+    their sum in the record ``pointvit_modules``, apart from the path's."""
+    import copy
+    import torch
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.models.backbone import pointvit as pv
+    from adaptpoint_tpu_torch.models.build import init_weights_
+    from adaptpoint_tpu_torch.utils.precision import dtype_override
+    b_, n, e = VIT_SMALL
+    g = n // 16
+    pos = (torch.randn((b_, n, 3), generator=gen, device=DEV) * 0.4)
+    x = torch.cat([pos, pos[..., 1:2].abs()], -1).contiguous()
+    x6 = torch.cat([pos, torch.randn((b_, n, 3), generator=gen, device=DEV)],
+                   -1).contiguous()
+    centers = pos[:, ::16].contiguous()
+    tokens = torch.randn((b_, g + 1, e), generator=gen, device=DEV)
+    label = torch.randint(0, 4, (b_,), generator=gen, device=DEV)
+    kmeans_args = {"NAME": "kmeans", "num_groups": 32, "group_size": 16,
+                   "embed_dim": 32}
+    cases = [
+        ("PointViTDecoder fps", None,
+         lambda: pv.PointViTDecoder([4, e], global_feat="cls,max"),
+         lambda m, t: [m([pos, centers], [x, t])], tokens),
+        ("PointViTDecoder random", None,
+         lambda: pv.PointViTDecoder([4, e], sampler="random"),
+         lambda m, t: [m([pos, centers], [x, t])], tokens),
+        ("PointViTDecoder fps, bf16 policy", "bf16",
+         lambda: pv.PointViTDecoder([4, e]),
+         lambda m, t: [m([pos, centers], [x, t])], tokens),
+        ("PointViTPartDecoder", None,
+         lambda: pv.PointViTPartDecoder([4, e], num_classes=4,
+                                        global_feat="cls,max"),
+         lambda m, t: [m([pos, centers], [x, t], label)], tokens),
+        ("P3Embed", None,
+         lambda: pv.P3Embed(group_size=16, embed_dim=e, radius=0.3,
+                            in_channels=4),
+         lambda m, t: [f for f in m(pos, t)[1][1:]], x),
+        ("KMeansEmbed", None,
+         lambda: pv.KMeansEmbed(32, 16, e, in_channels=4),
+         lambda m, t: list(m(pos, t)), x),
+        ("ViTGraph", None,
+         lambda: pv.ViTGraph(in_channels=6, encoder_dim=e, depth=2,
+                             num_heads=4, embed_args=kmeans_args),
+         lambda m, t: list(m(pos, t)), x6)]
+    total, readings = {}, []
+    for i, (tag, policy, make, run, inp) in enumerate(cases):
+        torch.manual_seed(100 + i)
+        net = init_weights_(make(), torch.Generator().manual_seed(100 + i)
+                            ).to(DEV).train()
+        twin = copy.deepcopy(net)
+
+        def once(m):
+            t = inp.clone().requires_grad_()
+            with dtype_override(policy):
+                outs = run(m, t)
+            loss = sum((o.float() * torch.cos(torch.arange(
+                o.numel(), device=DEV, dtype=torch.float32).reshape(
+                    o.shape))).sum() for o in outs)
+            loss.backward()
+            return ([o.detach().float() for o in outs],
+                    {"input": t.grad.float(),
+                     **{k: p.grad.float() for k, p in m.named_parameters()
+                        if p.grad is not None}})
+
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        outs, grads = once(net)
+        torch.cuda.synchronize()
+        launches = nonzero_counts(ops.launch_counts())
+        with plain_ops():
+            ref_outs, ref_grads = once(twin)
+        out_err = max(float((a - r).abs().max())
+                      for a, r in zip(outs, ref_outs))
+        close = all(torch.allclose(a, r, rtol=TOL_VIT_SMALL["out"][0],
+                                   atol=TOL_VIT_SMALL["out"][1])
+                    for a, r in zip(outs, ref_outs))
+        grad_l2 = max(float((grads[k] - r).norm()
+                            / max(float(r.norm()), 1e-12))
+                      for k, r in ref_grads.items())
+        tol_g = TOL_VIT_SMALL["grad_l2_bf16" if policy else "grad_l2"]
+        # FPS but for the strided sampler; a ball query (plain) in P3Embed;
+        # the bf16 FP features' weighted gather under the policy
+        want = ({"gather_rows"} | ({"knn"} if tag != "P3Embed" else set())
+                | ({"fps"} if "random" not in tag else set())
+                | ({"fpinterp", "fpinterp_bwd"} if policy else set()))
+        readings.append(dict(module=tag, launches=launches,
+                             out_max_abs=out_err, grad_rel_l2=grad_l2))
+        if not (close and grad_l2 <= tol_g and set(launches) >= want
+                and all(bool(torch.isfinite(o).all()) for o in outs)):
+            raise AssertionError(f"{tag}: outputs {out_err}, gradients "
+                                 f"{grad_l2}, launches {launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    emit("pointvit_modules", shape=list(VIT_SMALL), cases=readings,
+         launches_total=total, tolerance=TOL_VIT_SMALL)
+
+
+def phase_pointvit(gen, rows):
+    """PointViT at the full width of ``cfgs/scanobjectnn/pointvit.yaml``
+    (embed 384, depth 12, 6 heads, 256 groups of 32, ``in_channels`` 4, the
+    ClsHead 512-256), seeded weights, on a seeded (32, 2048) blob batch: one
+    train step through ``make_train_step`` (the 2048 -> 1200 -> 1024
+    resampling, the forward, SmoothCE, AdamW, the clip at 10) on the card
+    against the same step through the plain versions on the card (the
+    resampling columns and the head's dropout masks shared; loss, logits,
+    gradients by relative 2-norm, parameters, BatchNorm buffers, equal
+    predictions), one eval forward at B = 64 the same way, the launches of
+    each against VIT_LAUNCHES, ms, host enqueue, busy ms, idle share,
+    launches, peak memory and top device ops of each (``step_readings``);
+    rows 1, 11, 14 at its shapes (``vit_kernel_rows``); the decoders,
+    P3Embed, KMeansEmbed and ViTGraph (``vit_module_checks``). Returns the
+    kernel launches of the step and the forward."""
+    import numpy as np
+    import torch
+    from adaptpoint_tpu_torch import ops
+    from adaptpoint_tpu_torch.engine.cls_trainer import resample_points
+    from adaptpoint_tpu_torch.models import build_model_from_cfg
+    from adaptpoint_tpu_torch.utils import EasyConfig
+    cfg = EasyConfig()
+    cfg.load(os.path.join(ROOT, "cfgs", VIT_CFG), recursive=True)
+    lr = float(cfg.lr)
+    rng = np.random.default_rng(21)
+    train_np = blob_batches(rng, 1, B, N_TRAIN)[0]
+    eval_np = blob_batches(rng, 1, VIT_EVAL_B, N_TRAIN)[0]
+    batch = {"x": torch.from_numpy(train_np["x"]).to(DEV),
+             "y": torch.from_numpy(train_np["y"]).to(DEV)}
+    cols = torch.randperm(N_FPS, generator=torch.Generator().manual_seed(
+        22))[:N0].to(DEV)
+    model = build_model_from_cfg(cfg.model, seed=4)
+    twin = build_model_from_cfg(cfg.model)
+    twin.load_state_dict(model.state_dict())
+    masks = head_dropout_masks(model)
+
+    def step_of(net):
+        return cls_step_of(net, cfg, batch, cols, lr, masks)
+
+
+    in_ch = int(cfg.model.encoder_args.in_channels)
+    ev = torch.from_numpy(eval_np["x"][:, :N0]).to(DEV)
+    pos_e, x_e = ev[..., :3].contiguous(), ev[..., :in_ch].contiguous()
+    # ---- the main path: one train step, one eval forward
+    one, seen = step_of(model)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    loss = one()
+    torch.cuda.synchronize()
+    launches_train = nonzero_counts(ops.launch_counts())
+    model.eval()
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits = model(pos_e, x_e).double()
+    torch.cuda.synchronize()
+    launches_eval = nonzero_counts(ops.launch_counts())
+    model.train()
+    got = step_record(model, loss, seen)
+    # ---- the same through the plain versions on the card
+    plain_one, plain_seen = step_of(twin)
+    with plain_ops():
+        ref = step_record(twin, plain_one(), plain_seen)
+    w, ok = step_disagreement(got, ref, TOL_STEP_PLAIN, lr)
+    preds_equal = bool(torch.equal(got["logits"].argmax(-1),
+                                   ref["logits"].argmax(-1)))
+    del ref, got
+    twin.load_state_dict(model.state_dict())
+    twin.eval()
+    model.eval()
+    with torch.no_grad(), plain_ops():
+        plain = twin(pos_e, x_e).double()
+    e_plain = float((logits - plain).abs().max())
+    close = bool(torch.allclose(logits, plain, rtol=TOL_UNFUSED[0],
+                                atol=TOL_UNFUSED[1]))
+    eval_preds_equal = bool(torch.equal(logits.argmax(-1),
+                                        plain.argmax(-1)))
+    del twin, plain
+    torch.cuda.empty_cache()
+    # ---- times (launch counts are read above)
+    model.train()
+    train_r = step_readings(one, reps=5)
+
+    def forward():
+        with torch.no_grad():
+            return model(pos_e, x_e)
+    model.eval()
+    eval_r = step_readings(forward, reps=5)
+    emit("pointvit", cfg=VIT_CFG,
+         params=sum(p.numel() for p in model.parameters()),
+         loss=float(loss), against_plain_versions_on_the_card=w,
+         preds_equal={"train_step": preds_equal, "eval": eval_preds_equal},
+         eval_vs_plain_max_abs=e_plain,
+         launches={"train_step": launches_train,
+                   "eval_forward": launches_eval},
+         expected={"train_step": VIT_LAUNCHES[0],
+                   "eval_forward": VIT_LAUNCHES[1]},
+         train_step=train_r, eval_forward=eval_r, batch=B,
+         eval_batch=VIT_EVAL_B, points=N0,
+         tolerance={"train_step": TOL_STEP_PLAIN,
+                    "eval_vs_plain": list(TOL_UNFUSED)})
+    if not (ok and close and preds_equal and eval_preds_equal
+            and np.isfinite(float(loss))
+            and launches_train == VIT_LAUNCHES[0]
+            and launches_eval == VIT_LAUNCHES[1]):
+        raise AssertionError(f"PointViT: step {w}, eval {e_plain}, preds "
+                             f"{preds_equal} / {eval_preds_equal}, launches "
+                             f"{launches_train} / {launches_eval}")
+    del model, one, seen, loss, logits
+    torch.cuda.empty_cache()
+    # ---- rows 1, 11, 14 at its shapes; the other modules of pointvit.py
+    pos32 = resample_points(cols, batch["x"], N0)[..., :3].contiguous()
+    kernel_rows = vit_kernel_rows(gen, pos32, pos_e)
+    if rows is not None:
+        for name, r in kernel_rows.items():
+            rows[name]["pointvit_shapes"] = r
+    vit_module_checks(gen)
+    total = dict(launches_train)
+    for k, v in launches_eval.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_pointvit_cli():
+    """PointViT through the CLI at the cfg's full width on SyntheticCls
+    (2048 points, 15 classes, VIT_CLI_SIZE clouds a split): ``python -m
+    adaptpoint_tpu_torch.main --cfg cfgs/scanobjectnn/pointvit.yaml`` in a
+    child process for two epochs, then in this process ``mode=test`` on its
+    best checkpoint (the OA its final test printed), ``mode=resume`` on its
+    latest to a third epoch, ``mode: scanobjectnnc`` for one epoch (its
+    sweep logged and skipped without a tree) and ``resume=True`` for one
+    more. Finite OAs, the epochs each run took; returns the launch counts
+    of all of them."""
+    import glob
+    import re
+    import numpy as np
+    import torch
+    root = os.path.join(ROOT, "build", "chip_smoke", "pointvit_cli")
+    data = ["dataset.common.NAME=SyntheticCls",
+            "dataset.common.num_points=2048", "dataset.common.num_classes=15",
+            f"dataset.common.size={VIT_CLI_SIZE}"]
+    cfg = os.path.join("cfgs", VIT_CFG)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "adaptpoint_tpu_torch.main", "--cfg", cfg]
+        + data + ["epochs=2", "seed=1", f"root_dir={root}"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    seconds = {"train": time.perf_counter() - t0}
+    if out.returncode != 0:
+        raise AssertionError(f"the CLI exited {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    counts = {"train": json.loads(out.stdout.strip().splitlines()[-1])[
+        "launch_counts"]}
+    run_dir = sorted(glob.glob(os.path.join(root, "scanobjectnn", "*")),
+                     key=os.path.getmtime)[-1]
+    ckpt = os.path.join(run_dir, "checkpoint", os.path.basename(run_dir))
+    log = open(os.path.join(run_dir, "log.txt")).read()
+    oas = [float(v) for v in re.findall(r"OA: ([0-9.]+)", log)]
+    common = ["--cfg", os.path.join(ROOT, cfg)] + data + ["seed=1",
+                                                          f"root_dir={root}"]
+    t0 = time.perf_counter()
+    test_oa, counts["test"] = in_process_cli(
+        common + ["mode=test", f"pretrained_path={ckpt}_ckpt_best.pth"])
+    seconds["test"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resumed_best, counts["resume"] = in_process_cli(
+        common + ["mode=resume", "epochs=3",
+                  f"pretrained_path={ckpt}_ckpt_latest.pth"])
+    seconds["resume"] = time.perf_counter() - t0
+    resumed_epoch = torch.load(ckpt + "_ckpt_latest.pth",
+                               weights_only=True)["epoch"]
+    c_root = os.path.join(root, "c")
+    c_common = common[:-1] + [f"root_dir={c_root}", "mode=scanobjectnnc",
+                              f"scanobjectnn_c_dir={root}/no_tree"]
+    t0 = time.perf_counter()
+    c_best, counts["scanobjectnnc"] = in_process_cli(c_common + ["epochs=1"])
+    c_dir = glob.glob(os.path.join(c_root, "scanobjectnn", "*"))[0]
+    c_ckpt = os.path.join(c_dir, "checkpoint", os.path.basename(c_dir))
+    c_best2, counts["scanobjectnnc_resume"] = in_process_cli(
+        c_common + ["epochs=2", "resume=True",
+                    f"pretrained_path={c_ckpt}_ckpt_latest.pth"])
+    seconds["scanobjectnnc"] = time.perf_counter() - t0
+    c_log = open(os.path.join(c_dir, "log.txt")).read()
+    c_epochs = [int(e) for e in re.findall(r"Epoch (\d+) LR", c_log)]
+    emit("pointvit_cli", seconds=seconds, train_oas=oas, test_oa=test_oa,
+         resumed_best=resumed_best, resumed_epoch=resumed_epoch,
+         scanobjectnnc_best=[c_best, c_best2], scanobjectnnc_epochs=c_epochs,
+         sweep_skipped="skipping corruption eval" in c_log,
+         launches={k: nonzero_counts(v) for k, v in counts.items()},
+         run_dir=os.path.relpath(run_dir, ROOT))
+    if not (oas and all(np.isfinite(v) and 0 <= v <= 100 for v in oas)
+            and f"{test_oa:3.2f}" == f"{oas[-1]:3.2f}"
+            and resumed_epoch == 3 and c_epochs == [1, 2]
+            and "skipping corruption eval" in c_log):
+        raise AssertionError(f"the PointViT CLI runs: OAs {oas}, test "
+                             f"{test_oa}, resumed to {resumed_epoch}, "
+                             f"scanobjectnnc epochs {c_epochs}")
+    total = {}
+    for c in counts.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def nonzero_counts(counts: dict) -> dict:
@@ -8329,11 +9057,12 @@ def main(argv=None) -> int:
                     default="kernels,serve,train,train_fused,cli,adapt,"
                             "adapt_bf16,window,adapt_cli,modelnet_cli,"
                             "partseg,partseg_cli,seg,sphere,seg_cli,"
-                            "baselines,baselines_cli",
+                            "baselines,baselines_cli,pointvit,pointvit_cli",
                     help="comma-separated subset of kernels,serve,train,"
                          "train_fused,cli,adapt,adapt_bf16,window,adapt_cli,"
                          "modelnet_cli,partseg,partseg_cli,seg,sphere,"
-                         "seg_cli,baselines,baselines_cli for a "
+                         "seg_cli,baselines,baselines_cli,pointvit,"
+                         "pointvit_cli for a "
                          "partial run, which prints no "
                          "final result (default: all); attention alone runs "
                          "the kernel phase's attention checks and times, "
@@ -8379,11 +9108,12 @@ def main(argv=None) -> int:
 
     phase_seconds, last = {}, [time.perf_counter()]
 
-    def lap():
-        """Seconds since the previous lap (a phase's time)."""
+    def lap(phase):
+        """The seconds since the previous lap: ``phase``'s time, printed as
+        it ends."""
         now = time.perf_counter()
-        seconds, last[0] = now - last[0], now
-        return seconds
+        phase_seconds[phase], last[0] = now - last[0], now
+        emit("phase_seconds", of=phase, seconds=phase_seconds[phase])
 
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows = phase_kernels(gen) if "kernels" in phases else None
@@ -8393,25 +9123,25 @@ def main(argv=None) -> int:
         check_knn_tiled(gen, {})
     mn_rows = (phase_modelnet_kernels(gen)
                if phases & {"kernels", "modelnet_kernels"} else {})
-    phase_seconds["kernels"] = lap()
+    lap("kernels")
     by_path = {}
     if "serve" in phases:
         out_dir = os.path.join(ROOT, "build", "chip_smoke")
         models, by_path["serve"] = phase_serve(gen, out_dir)
         phase_throughput(models, gen)
         del models
-        phase_seconds["serve"] = lap()
+        lap("serve")
     if "train" in phases:
         by_path["train"] = phase_train(gen)
-        phase_seconds["train"] = lap()
+        lap("train")
     if "train_fused" in phases:
         torch.cuda.empty_cache()
         by_path["train_fused"] = phase_train_fused(gen, rows)
-        phase_seconds["train_fused"] = lap()
+        lap("train_fused")
     if "cli" in phases:
         torch.cuda.empty_cache()
         by_path["cli"] = phase_cli()
-        phase_seconds["cli"] = lap()
+        lap("cli")
     f32_run = None
     if phases & {"adapt", "adapt_bf16"}:
         torch.cuda.empty_cache()
@@ -8422,51 +9152,57 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             by_path["adapt_bf16"], _ = phase_adapt(gen, ctx, "bf16", f32_run)
         del ctx
-        phase_seconds["adapt"] = lap()
+        lap("adapt")
     if "window" in phases:
         torch.cuda.empty_cache()
         by_path["window"], window_rows, _ = phase_window(gen)
         if rows is not None:
             rows.update(window_rows)
-        phase_seconds["window"] = lap()
+        lap("window")
     if "adapt_cli" in phases:
         torch.cuda.empty_cache()
         by_path["adapt_cli"] = phase_adapt_cli()
-        phase_seconds["adapt_cli"] = lap()
+        lap("adapt_cli")
     if "modelnet_cli" in phases:
         torch.cuda.empty_cache()
         by_path["modelnet_cli"] = phase_modelnet_cli()
-        phase_seconds["modelnet_cli"] = lap()
+        lap("modelnet_cli")
     if "partseg" in phases:
         torch.cuda.empty_cache()
         by_path["partseg"] = phase_partseg(gen, rows)
-        phase_seconds["partseg"] = lap()
+        lap("partseg")
     if "partseg_cli" in phases:
         torch.cuda.empty_cache()
         by_path["partseg_cli"] = phase_partseg_cli()
-        phase_seconds["partseg_cli"] = lap()
+        lap("partseg_cli")
     if "seg" in phases:
         torch.cuda.empty_cache()
         by_path["seg"] = phase_seg(gen, rows)
-        phase_seconds["seg"] = lap()
+        lap("seg")
     if "sphere" in phases:
         torch.cuda.empty_cache()
         by_path["sphere"] = phase_sphere(gen, rows)
-        phase_seconds["sphere"] = lap()
+        lap("sphere")
     if "seg_cli" in phases:
         torch.cuda.empty_cache()
         by_path["seg_cli"] = phase_seg_cli()
-        phase_seconds["seg_cli"] = lap()
+        lap("seg_cli")
     if "baselines" in phases:
         torch.cuda.empty_cache()
         by_path["baselines"] = phase_baselines(gen, rows)
-        phase_seconds["baselines"] = lap()
-        emit("baselines_seconds", seconds=phase_seconds["baselines"])
+        lap("baselines")
     if "baselines_cli" in phases:
         torch.cuda.empty_cache()
         by_path["baselines_cli"] = phase_baselines_cli()
-        phase_seconds["baselines_cli"] = lap()
-        emit("baselines_cli_seconds", seconds=phase_seconds["baselines_cli"])
+        lap("baselines_cli")
+    if "pointvit" in phases:
+        torch.cuda.empty_cache()
+        by_path["pointvit"] = phase_pointvit(gen, rows)
+        lap("pointvit")
+    if "pointvit_cli" in phases:
+        torch.cuda.empty_cache()
+        by_path["pointvit_cli"] = phase_pointvit_cli()
+        lap("pointvit_cli")
     emit("done", seconds=time.perf_counter() - t_start,
          phase_seconds=phase_seconds)
     if rows is None or set(by_path) != set(PATH_KERNELS):
@@ -8536,7 +9272,8 @@ def main(argv=None) -> int:
                       "ms_with_d_w", "bound_ms_with_d_w", "full_n_op_ms",
                       "bound_ms_f32_cores",
                       "ns_a_step", "gan_step_shape", "stand_in_ms", "bf16",
-                      "op_launches_bf16", "op_launches", "dgcnn_shapes"):
+                      "op_launches_bf16", "op_launches", "dgcnn_shapes",
+                      "fresh_draws", "c11_replay", "pointvit_shapes"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(smi, flush=True)

@@ -245,6 +245,41 @@ def test_port_tests_leave_the_environment_as_they_found_it():
     assert not bad, bad
 
 
+VIT_MODULES = ["models.backbone.pointvit", "models.layers.kmeans",
+               "models.classification.cls_base", "models.build",
+               "utils.convert", "ops.attention"]
+
+
+def test_pointvit_modules_are_covered_and_run_on_the_card_by_default(
+        monkeypatch):
+    """PointViT's modules (and the k-means, the converter's rules, the
+    attention check's allowance) are among the scanned files and import
+    nothing forbidden; building ``cfgs/scanobjectnn/pointvit.yaml``'s model
+    with the default device raises without a GPU, and its CPU forward needs
+    neither ``triton`` nor ``nvcc``."""
+    from adaptpoint_tpu_torch.utils import EasyConfig
+    scanned = {os.path.relpath(p, os.path.join(REPO, "adaptpoint_tpu_torch"))
+               for p in _port_files()[1:]}
+    for name in VIT_MODULES:
+        assert name.replace(".", os.sep) + ".py" in scanned, name
+        for imported in _imported_modules(importlib.import_module(
+                "adaptpoint_tpu_torch." + name).__file__):
+            assert imported.split(".")[0] not in FORBIDDEN, (name, imported)
+    cfg = EasyConfig()
+    cfg.load(os.path.join(REPO, "cfgs", "scanobjectnn", "pointvit.yaml"),
+             recursive=True)
+    cfg.model.encoder_args.update({"embed_dim": 24, "depth": 1,
+                                   "num_heads": 2, "num_groups": 8,
+                                   "group_size": 4})
+    model = build_model_from_cfg(cfg.model, device="cpu").eval()
+    with torch.no_grad():
+        out = model(torch.rand(2, 64, 3), torch.rand(2, 64, 4))
+    assert out.shape == (2, 15) and "triton" not in sys.modules
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        build_model_from_cfg(cfg.model)
+
+
 def _tiny_cfg():
     return {"NAME": "BaseCls",
             "encoder_args": {"NAME": "PointNextEncoder", "blocks": [1, 1],
